@@ -8,7 +8,9 @@ for Hopper (``kernels/csrc``), built with ``nvcc`` at first use.
 
 Covered so far: the serving path — ``serving.Engine`` over
 ``models.llama.LlamaForCausalLM`` with the paged KV cache, and
-``LlamaForCausalLM.generate``.  Training comes in a later slice.
+``LlamaForCausalLM.generate`` — and the pretraining path: ``jit.TrainStep``
+over ``compute_loss`` with ``optimizer.AdamW`` and the presets of
+``models.presets``.
 
 Device policy: entry points take an explicit ``device``; when none is given
 it is ``"cuda"``, and a missing card raises instead of running on the CPU.

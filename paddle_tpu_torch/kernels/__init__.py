@@ -2,6 +2,9 @@
 (``csrc/``) on CUDA tensors and runs its plain PyTorch version on CPU
 tensors.  Nothing here builds or loads CUDA code at import time.
 
+RMSNorm and decode attention serve (PR 1's slice); flash attention forward
+and backward and the fused AdamW train.
+
 Every wrapper carries a plain integer ``launches`` attribute, raised by one
 exactly where its kernel is launched; :func:`launch_counts` and
 :func:`reset_launch_counts` read and clear them all.
@@ -11,16 +14,19 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import decode_attention, rms_norm, rope
+from . import adamw, decode_attention, flash_attention, rms_norm, rope
 
-__all__ = ["decode_attention", "rms_norm", "rope", "launch_counts",
-           "reset_launch_counts", "WRAPPERS"]
+__all__ = ["adamw", "decode_attention", "flash_attention", "rms_norm", "rope",
+           "launch_counts", "reset_launch_counts", "WRAPPERS"]
 
 # kernel name -> wrapper with a ``launches`` counter
 WRAPPERS = {
     "rms_norm": rms_norm.rms_norm,
     "decode_attention_dense": decode_attention.masked_multihead_attention,
     "decode_attention_paged": decode_attention.paged_decode_attention,
+    "flash_attention_fwd": flash_attention.flash_attention_fwd,
+    "flash_attention_bwd": flash_attention.flash_attention_bwd,   # one per backward: both passes
+    "adamw": adamw.adamw_update,                                  # one per leaf
 }
 
 

@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 # ctypes signatures of the C entry points, per source
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "rms_norm": {
         # x, w, y, rows, d, eps, x_dtype, w_dtype, stream
@@ -41,6 +41,19 @@ SIGNATURES = {
         "decode_attention_launch": (P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                                     I, F, I, P),
         "decode_attention_split_keys": (),
+    },
+    "flash_attention": {
+        # q, k, v, o, lse, strides, B, H, Hk, Sq, Sk, D, causal, scale, dtype, stream
+        "flash_attention_fwd_launch": (P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P),
+        # q, k, v, dout, lse, delta, dq, dk, dv, strides, B, H, Hk, Sq, Sk, D,
+        # causal, scale, dtype, stream
+        "flash_attention_bwd_launch": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                       I, F, I, P),
+    },
+    "adamw": {
+        # p, g, m, v, out, n, lr, c1, c2, decay, beta1, 1-beta1, beta2, 1-beta2,
+        # eps, wd, coupled, out_dtype, vec, stream
+        "adamw_launch": (P, P, P, P, P, L, F, F, F, F, F, F, F, F, F, F, I, I, I, P),
     },
 }
 

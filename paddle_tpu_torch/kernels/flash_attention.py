@@ -1,0 +1,252 @@
+"""Flash attention, forward and backward (port of
+``paddle_tpu/kernels/flash_attention.py``).
+
+Layout ``[batch, seq, heads, head_dim]`` as in the JAX package; K/V may have
+fewer heads than Q (grouped-query attention), indexed natively: query head
+``h`` reads kv-head ``h // (H // Hk)``, as ``jnp.repeat`` lays them out.
+
+- :func:`flash_attention` is the public entry, differentiable through
+  :class:`_FlashAttention` (a ``torch.autograd.Function``): the forward
+  keeps ``(q, k, v, o, lse)`` and the backward computes ``delta = sum(do *
+  o)`` and runs the dK/dV and dQ passes.
+- :func:`flash_attention_fwd` and :func:`flash_attention_bwd` are the kernel
+  wrappers.  On a CUDA tensor each launches the hand-written kernels of
+  ``csrc/flash_attention.cu`` (the counterparts of ``_flash_fwd_impl`` /
+  ``_flash_fwd_stream`` and ``_flash_bwd_impl`` / ``_flash_bwd_stream``) or
+  raises; on a CPU tensor each runs its plain version,
+  :func:`_flash_fwd_reference` or :func:`_flash_bwd_reference`, the same
+  recompute-from-lse math in fp32.  ``flash_attention_bwd.launches`` counts
+  one per backward call, which launches both passes.
+- :func:`_attention_reference` is the numerics oracle (one-shot softmax over
+  KV heads already repeated), as in the JAX package.
+
+``lse`` is fp32 ``[B, H, Sq]``; the JAX kernels carry it as ``[B*H, 1, Sq]``
+for TPU tiling, the same values.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+
+__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd"]
+
+NEG_INF = -1e30
+_DTYPES = (torch.float32, torch.bfloat16)
+_HEAD_DIMS = (32, 64, 128, 256)
+
+
+def _attention_reference(q, k, v, causal: bool, mask, sm_scale: float):
+    """Plain attention over ``[B, S, H, D]`` (KV heads already repeated),
+    causal diagonal offset by ``Sk - Sq``; fp32 scores; ``mask`` boolean
+    (keep) or additive."""
+    qt = q.transpose(1, 2).to(torch.float32)
+    kt = k.transpose(1, 2).to(torch.float32)
+    vt = v.transpose(1, 2).to(torch.float32)
+    scores = torch.einsum("bhqd,bhkd->bhqk", qt, kt) * sm_scale
+    sq, sk = scores.shape[-2], scores.shape[-1]
+    if causal:
+        keep = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril(sk - sq)
+        scores = torch.where(keep, scores, NEG_INF)
+    if mask is not None:
+        if mask.dtype == torch.bool:
+            scores = torch.where(mask, scores, NEG_INF)
+        else:
+            scores = scores + mask.to(torch.float32)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, vt)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# plain versions of the two kernels
+# ---------------------------------------------------------------------------
+
+def _scores(q, k, causal: bool, sm_scale: float):
+    """fp32 ``[B, H, Sq, Sk]`` scaled scores with the -1e30 causal mask; KV
+    heads repeated to the query heads."""
+    rep = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).to(torch.float32)
+    kt = k.repeat_interleave(rep, dim=2).transpose(1, 2).to(torch.float32)
+    s = torch.matmul(qt, kt.transpose(-1, -2)) * sm_scale
+    if causal:
+        sq, sk = s.shape[-2], s.shape[-1]
+        keep = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril(sk - sq)
+        s = torch.where(keep, s, NEG_INF)
+    return s
+
+
+def _flash_fwd_reference(q, k, v, causal: bool, sm_scale: float):
+    """``(o, lse)``: ``lse = logsumexp(s)`` fp32 ``[B, H, Sq]``, ``o =
+    exp(s - lse) @ v`` in q's dtype."""
+    rep = q.shape[2] // k.shape[2]
+    s = _scores(q, k, causal, sm_scale)
+    lse = torch.logsumexp(s, dim=-1)
+    vt = v.repeat_interleave(rep, dim=2).transpose(1, 2).to(torch.float32)
+    o = torch.matmul(torch.exp(s - lse[..., None]), vt)
+    return o.transpose(1, 2).to(q.dtype), lse
+
+
+def _flash_bwd_reference(q, k, v, o, lse, do, causal: bool, sm_scale: float):
+    """``(dq, dk, dv)`` from the saved ``lse``, as ``_flash_bwd_impl``:
+    ``p = exp(s - lse)``, ``delta = sum(do * o)``, ``ds = p (dp - delta)
+    scale``, all fp32; dK/dV summed over each kv-head's query heads."""
+    B, Sq, H, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    rep = H // Hk
+    p = torch.exp(_scores(q, k, causal, sm_scale) - lse[..., None])
+    qt = q.transpose(1, 2).to(torch.float32)
+    kt = k.repeat_interleave(rep, dim=2).transpose(1, 2).to(torch.float32)
+    vt = v.repeat_interleave(rep, dim=2).transpose(1, 2).to(torch.float32)
+    dot = do.transpose(1, 2).to(torch.float32)
+    delta = (dot * o.transpose(1, 2).to(torch.float32)).sum(-1)
+    dv = torch.matmul(p.transpose(-1, -2), dot)
+    dp = torch.matmul(dot, vt.transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * sm_scale
+    dq = torch.matmul(ds, kt)
+    dk = torch.matmul(ds.transpose(-1, -2), qt)
+
+    def group_sum(x):    # [B, H, Sk, D] -> [B, Sk, Hk, D]
+        return x.reshape(B, Hk, rep, Sk, D).sum(2).transpose(1, 2)
+
+    return (dq.transpose(1, 2).to(q.dtype), group_sum(dk).to(k.dtype),
+            group_sum(dv).to(v.dtype))
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
+
+def _aligned_rows(x):
+    """``x`` itself when every ``[..., D]`` row starts 16-byte aligned (the
+    kernels load rows with 16-byte vectors), else a contiguous copy."""
+    size = x.element_size()
+    if (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(st * size % 16 == 0 for st in x.stride()[:3])):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention takes q [B, Sq, H, D] and k, v [B, Sk, Hk, D]; "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, _, H, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention kernel takes one dtype of {_DTYPES}; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim in {_HEAD_DIMS}, got {D}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k, v on different devices")
+
+
+def _strides(*xs):
+    vals = [s for x in xs for s in (x.stride(0), x.stride(1), x.stride(2))]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def flash_attention_fwd(q, k, v, causal: bool, sm_scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(o [B, Sq, H, D] in q's dtype, lse [B, H, Sq] fp32)``: the CUDA
+    kernel for CUDA tensors, :func:`_flash_fwd_reference` for CPU ones."""
+    if q.device.type == "cpu":
+        return _flash_fwd_reference(q, k, v, causal, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check(q, k, v)
+    q, k, v = (_aligned_rows(x) for x in (q, k, v))
+    B, Sq, H, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    strides = _strides(q, k, v)
+    lib = _build.load("flash_attention")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            ctypes.addressof(strides), B, H, Hk, Sq, Sk, D, int(bool(causal)),
+            float(sm_scale), _build.dtype_code(q.dtype), stream)
+    _build.check(lib, err, "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float):
+    """``(dq, dk, dv)`` in the dtypes of q, k, v: the CUDA dK/dV and dQ
+    passes for CUDA tensors (``delta = sum(do * o)`` is a torch op ahead of
+    them), :func:`_flash_bwd_reference` for CPU ones."""
+    if q.device.type == "cpu":
+        return _flash_bwd_reference(q, k, v, o, lse, do, causal, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check(q, k, v)
+    B, Sq, H, D = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    if do.shape != q.shape or do.dtype != q.dtype or o.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: do {tuple(do.shape)} {do.dtype} and o "
+                         f"{tuple(o.shape)} must match q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse must be fp32 [{B}, {H}, {Sq}]")
+    q, k, v, do = (_aligned_rows(x) for x in (q, k, v, do))
+    lse = lse.contiguous()
+    delta = (do.to(torch.float32) * o.to(torch.float32)).sum(-1).transpose(1, 2).contiguous()
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, Hk, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Sk, Hk, D), dtype=q.dtype, device=q.device)
+    strides = _strides(q, k, v, do)
+    lib = _build.load("flash_attention")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            ctypes.addressof(strides), B, H, Hk, Sq, Sk, D, int(bool(causal)),
+            float(sm_scale), _build.dtype_code(q.dtype), stream)
+    _build.check(lib, err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_fwd.launches = 0
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        o, lse = flash_attention_fwd(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal: bool = False, mask=None,
+                    sm_scale: Optional[float] = None):
+    """Memory-efficient attention over ``[B, S, H, D]`` (K/V with ``Hk``
+    heads, ``H % Hk == 0``), differentiable.  A ``mask`` is taken only on
+    the CPU, through the plain :func:`_attention_reference`; the CUDA
+    kernels raise for one."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if mask is not None:
+        if q.device.type != "cpu":
+            raise ValueError("flash_attention: the CUDA kernel takes no mask")
+        rep = q.shape[2] // k.shape[2]
+        return _attention_reference(q, k.repeat_interleave(rep, dim=2),
+                                    v.repeat_interleave(rep, dim=2), causal, mask, sm_scale)
+    return _FlashAttention.apply(q, k, v, bool(causal), float(sm_scale))

@@ -1,10 +1,14 @@
-"""RMSNorm forward (port of ``paddle_tpu/kernels/rms_norm.py``).
+"""RMSNorm (port of ``paddle_tpu/kernels/rms_norm.py``).
 
-On a CUDA tensor :func:`rms_norm` launches the hand-written kernel
+:func:`rms_norm` is differentiable through :class:`_RMSNorm`, a
+``torch.autograd.Function``.  Its forward launches the hand-written kernel
 ``csrc/rms_norm.cu`` (the counterpart of the Pallas
-``_rms_norm_fwd_kernel_call``); on a CPU tensor it runs
+``_rms_norm_fwd_kernel_call``) on a CUDA tensor and runs
 :func:`rms_norm_reference`, the plain version with the same fp32-statistics
-expression as ``_rms_norm_ref``.  The backward waits for the training slice.
+expression as ``_rms_norm_ref``, on a CPU tensor.  Its backward is
+:func:`rms_norm_backward`, the port of ``_rms_bwd_rule``: the same fp32
+expression on both devices, as the JAX package computes it in XLA outside
+any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import torch
 
 from . import _build
 
-__all__ = ["rms_norm", "rms_norm_reference"]
+__all__ = ["rms_norm", "rms_norm_reference", "rms_norm_backward"]
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 _W_DTYPES = (torch.float32, torch.bfloat16, torch.float16)   # fp32 params, bf16 compute
@@ -29,6 +33,23 @@ def rms_norm_reference(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
     if weight is not None:
         out = out * weight.to(torch.float32)
     return out.to(x.dtype)
+
+
+def rms_norm_backward(x, weight, dy, epsilon: float = 1e-6):
+    """``(dx, dw)`` of ``y = rms_norm(x, weight)``: with ``r = rsqrt(mean(x^2)
+    + eps)``, ``x_hat = x r`` and ``g = dy w``, ``dx = r (g - x_hat mean(g
+    x_hat))`` and ``dw = sum(dy x_hat)`` over all rows, in fp32; ``dx`` in
+    x's dtype, ``dw`` in the weight's."""
+    x32 = x.to(torch.float32)
+    dy32 = dy.to(torch.float32)
+    w32 = weight.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    r = torch.rsqrt(var + epsilon)
+    x_hat = x32 * r
+    g = dy32 * w32
+    dx = r * (g - x_hat * torch.mean(g * x_hat, dim=-1, keepdim=True))
+    dw = torch.sum(dy32 * x_hat, dim=tuple(range(x.dim() - 1)))
+    return dx.to(x.dtype), dw.to(weight.dtype)
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, epsilon: float) -> torch.Tensor:
@@ -60,17 +81,31 @@ def _launch(x: torch.Tensor, w: torch.Tensor, epsilon: float) -> torch.Tensor:
     return y
 
 
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, epsilon):
+        ctx.save_for_backward(x, weight)
+        ctx.epsilon = epsilon
+        if x.device.type == "cpu":
+            return rms_norm_reference(x, weight, epsilon)
+        return _launch(x, weight, epsilon)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dx, dw = rms_norm_backward(x, weight, dy, ctx.epsilon)
+        return dx, dw, None
+
+
 def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
              epsilon: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last dim: the CUDA kernel for a CUDA ``x``, the plain
-    version for a CPU ``x``."""
-    if x.device.type == "cpu":
-        return rms_norm_reference(x, weight, epsilon)
-    if x.device.type != "cuda":
+    """RMSNorm over the last dim, differentiable in ``x`` and ``weight``: the
+    CUDA kernel for a CUDA ``x``, the plain version for a CPU ``x``."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rms_norm: unsupported device {x.device}")
     if weight is None:
         weight = torch.ones(x.shape[-1], dtype=x.dtype, device=x.device)
-    return _launch(x, weight, epsilon)
+    return _RMSNorm.apply(x, weight, float(epsilon))
 
 
 rms_norm.launches = 0

@@ -4,6 +4,11 @@
 ``lm_head``, ...) are exactly the port's ``named_parameters()`` names, and
 both keep weights as ``[in, out]``, so the exchange is a checked copy.  Rope
 tables are buffers recomputed from the config, never copied.
+
+The optimizer state of a training step goes the same way: ``{"step": n,
+"slots": {param name: {"m": array, "v": array, ...}}}``, the layout of the
+JAX ``TrainStep``'s ``_step`` and ``_opt_state`` as numpy, so two trainers
+can start from one mid-run state.
 """
 
 from __future__ import annotations
@@ -14,7 +19,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_paddle_tpu_params", "to_paddle_tpu_params"]
+__all__ = ["load_paddle_tpu_params", "to_paddle_tpu_params",
+           "load_paddle_tpu_opt_state", "to_paddle_tpu_opt_state"]
 
 
 @torch.no_grad()
@@ -39,3 +45,32 @@ def to_paddle_tpu_params(model: nn.Module) -> Dict[str, np.ndarray]:
     """The inverse: name -> float32 numpy array (bf16 widened exactly)."""
     return {name: p.detach().to(device="cpu", dtype=torch.float32).numpy()
             for name, p in model.named_parameters()}
+
+
+@torch.no_grad()
+def load_paddle_tpu_opt_state(train_step, state: Dict) -> None:
+    """Copy ``state`` (``{"step": n, "slots": {name: {slot: array}}}``) into a
+    ``jit.TrainStep``'s optimizer state and step counter.  Names and slots
+    must match exactly; each array keeps the slot's dtype and device."""
+    own = train_step._opt_state
+    slots = state["slots"]
+    if sorted(own) != sorted(slots):
+        raise KeyError(f"parameter names differ: {sorted(set(own) ^ set(slots))}")
+    for name, s in own.items():
+        if sorted(s) != sorted(slots[name]):
+            raise KeyError(f"{name}: slots {sorted(slots[name])} != {sorted(s)}")
+        for k, t in s.items():
+            src = np.asarray(slots[name][k])
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"{name}.{k}: shape {tuple(src.shape)} != {tuple(t.shape)}")
+            t.copy_(torch.tensor(src, dtype=torch.float32).to(t.dtype))
+    train_step._step = int(state["step"])
+
+
+@torch.no_grad()
+def to_paddle_tpu_opt_state(train_step) -> Dict:
+    """The inverse: the step counter and every slot as a float32 numpy array."""
+    return {"step": int(train_step._step),
+            "slots": {name: {k: t.detach().to(device="cpu", dtype=torch.float32).numpy()
+                             for k, t in s.items()}
+                      for name, s in train_step._opt_state.items()}}

@@ -13,10 +13,15 @@ names, e.g. ``llama.layers.0.self_attn.qkv_proj``), same weight layout
 Caches are updated in place (the JAX versions return updated arrays that XLA
 writes in place under donation); the updated tensors are also returned.
 
+The no-cache forward (training) runs flash attention (the kernels of
+``kernels/flash_attention.py``) when ``use_flash_attention`` is set, the
+plain reference otherwise; ``recompute`` / ``recompute_layers`` checkpoint
+decoder layers with ``torch.utils.checkpoint``.  ``compute_loss`` is the
+shifted next-token cross-entropy in fp32.
+
 Left to later slices, and refused with ``NotImplementedError`` when a config
-asks for them: MoE, sharding (sequence / context parallel), recompute, and
-the fusion transformer's emitted sites.  The no-cache forward always runs
-the plain attention path; the flash kernel comes with the training slice.
+asks for them: MoE, sharding (sequence / context parallel), and the fusion
+transformer's emitted sites.
 """
 
 from __future__ import annotations
@@ -29,10 +34,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import default_device, make_generator, to_dtype
+from ..distributed.parallel.mp_layers import _ce_no_gather
 from ..kernels import decode_attention as da
 from ..kernels import rope as rope_mod
+from ..kernels.flash_attention import _attention_reference, flash_attention
 from ..kernels.rms_norm import rms_norm
 
 __all__ = [
@@ -114,9 +122,6 @@ def _check_supported(cfg: LlamaConfig) -> None:
         raise NotImplementedError(
             "paddle_tpu_torch: sequence / context parallelism comes with the "
             "distributed slice")
-    if cfg.recompute or cfg.recompute_layers:
-        raise NotImplementedError(
-            "paddle_tpu_torch: recompute comes with the training slice")
 
 
 def _param(shape, cfg: LlamaConfig, device, gen, std: Optional[float] = None):
@@ -141,31 +146,20 @@ def _qkv(hidden, w_qkv, cfg: LlamaConfig):
     return q.reshape(B, S, h, d), k.reshape(B, S, hk, d), v.reshape(B, S, hk, d)
 
 
-def _attention_reference(q, k, v, causal: bool, sm_scale: float):
-    """Plain attention over ``[B, S, H, D]`` (KV heads already repeated),
-    causal diagonal offset by ``Sk - Sq``; fp32 scores."""
-    qt = q.transpose(1, 2).to(torch.float32)
-    kt = k.transpose(1, 2).to(torch.float32)
-    vt = v.transpose(1, 2).to(torch.float32)
-    scores = torch.einsum("bhqd,bhkd->bhqk", qt, kt) * sm_scale
-    if causal:
-        sq, sk = scores.shape[-2], scores.shape[-1]
-        keep = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril(sk - sq)
-        scores = torch.where(keep, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", probs, vt)
-    return out.transpose(1, 2).to(q.dtype)
-
-
 def attention_fn(hidden, w_qkv, w_o, cos, sin, cfg: LlamaConfig, position_ids=None):
-    """GQA attention without a cache: fused qkv, rope, causal attention."""
+    """GQA attention without a cache: fused qkv, rope, causal attention —
+    the flash kernels (native GQA) or the plain reference."""
     B, S, _ = hidden.shape
     h, hk, d = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
     q, k, v = _qkv(hidden, w_qkv, cfg)
     q, k = rope_mod.apply_rope(q, k, cos, sin, position_ids)
-    rep = h // hk
-    o = _attention_reference(q, k.repeat_interleave(rep, dim=2),
-                             v.repeat_interleave(rep, dim=2), True, 1.0 / math.sqrt(d))
+    if cfg.use_flash_attention:
+        o = flash_attention(q, k, v, causal=True)
+    else:
+        rep = h // hk
+        o = _attention_reference(q, k.repeat_interleave(rep, dim=2),
+                                 v.repeat_interleave(rep, dim=2), True, None,
+                                 1.0 / math.sqrt(d))
     return o.reshape(B, S, h * d) @ w_o.to(hidden.dtype)
 
 
@@ -364,8 +358,12 @@ class LlamaModel(nn.Module):
             for layer, (k_c, v_c) in zip(self.layers, cache["kv"]):
                 x, _ = layer(x, cos, sin, cache=(k_c, v_c, offset))
             return self.norm(x), {"kv": cache["kv"], "offset": offset + seq}
-        for layer in self.layers:
-            x = layer(x, cos, sin, position_ids)
+        rl = cfg.recompute_layers
+        for i, layer in enumerate(self.layers):
+            if cfg.recompute or (rl is not None and i < rl):
+                x = checkpoint(layer, x, cos, sin, position_ids, use_reentrant=False)
+            else:
+                x = layer(x, cos, sin, position_ids)
         return self.norm(x)
 
 
@@ -410,6 +408,17 @@ class LlamaForCausalLM(nn.Module):
             hidden, new_cache = out
             return self.head(hidden), new_cache
         return self.head(out)
+
+    def compute_loss(self, logits, labels, ignore_index: int = -100):
+        """Next-token cross-entropy in fp32: logits at position t against
+        label t + 1, averaged over the labels that are not
+        ``ignore_index``."""
+        if isinstance(labels, np.ndarray):
+            labels = torch.from_numpy(labels)
+        lb = labels.to(logits.device)[:, 1:].long()
+        nll = _ce_no_gather(logits[:, :-1, :], lb)
+        mask = (lb != ignore_index).to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
 
     # ------------------------------------------------------------------
     # generation

@@ -2,8 +2,10 @@
 
 Marked ``gpu``: each test skips without CUDA (the decision is made inside
 the fixture, never at import).  On a machine with a card run
-``python -m pytest tests/test_torch_gpu.py -q``; ``python3 chip_smoke.py``
-covers the same ground at the serving path's full shapes.
+``python -m pytest --noconftest tests/test_torch_gpu.py -q`` (the shared
+``conftest.py`` imports JAX, which this file does not need);
+``python3 chip_smoke.py`` covers the same ground at the serving and
+training paths' full shapes.
 """
 
 import pytest
@@ -71,3 +73,139 @@ def test_decode_kernels_match_plain_under_nan_trash(cuda, d, dtype):
     out_d = da.masked_multihead_attention(q, kd, vd, lengths)
     ref_d = da._decode_reference(q, kd, vd, lengths, sm)
     torch.testing.assert_close(out_d[1:], ref_d[1:], **tol)
+
+
+# fp32: sums in another order than the plain version; bf16: both compute in
+# fp32 from the same bf16 inputs and round once, so two bf16 ulps of the
+# plain value plus an atol a little above an ulp of the O(1) outputs' small
+# entries
+FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=1.6e-2, atol=1e-3)}
+# gradients also tile by tile: |kernel - plain| / |plain| (Frobenius) in
+# every (batch, head, 64-row tile) block, so a tile whose gradients are
+# small (late keys under the causal mask) is held to its own scale: the
+# elementwise rtol for fp32, one bf16 ulp (2^-8) for bf16
+FLASH_TILE_RTOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -8}
+
+
+def _tile_rel_err(a, b, tile=64):
+    B, S, H, D = b.shape
+    pad = -S % tile
+    a, b = (torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad)).reshape(B, -1, tile, H, D)
+            for x in (a, b))
+    num = (a - b).square().sum((2, 4)).sqrt()
+    return float((num / b.square().sum((2, 4)).sqrt().clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("causal,sq,sk", [(True, 200, 200), (False, 200, 200),
+                                          (True, 77, 200)])
+def test_flash_kernels_match_plain(cuda, dtype, d, causal, sq, sk):
+    """Forward and both backward passes against the plain versions, with
+    4 query heads over 2 kv-heads (a missing group sum in dK/dV shows) and
+    ragged tiles on both sides."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    B, H, Hk = 2, 4, 2
+    q = torch.randn(B, sq, H, d, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, sk, Hk, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, sk, Hk, d, generator=g, device=cuda).to(dtype)
+    do = torch.randn(B, sq, H, d, generator=g, device=cuda).to(dtype)
+    sm = d ** -0.5
+    f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, sm)
+    o_ref, lse_ref = fa._flash_fwd_reference(q, k, v, causal, sm)
+    torch.testing.assert_close(o, o_ref, **FLASH_TOL[dtype])
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
+    grads = fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal, sm)
+    refs = fa._flash_bwd_reference(q, k, v, o_ref, lse_ref, do, causal, sm)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, refs):
+        scale = float(b.float().abs().max())
+        tol = dict(FLASH_TOL[dtype])
+        tol["atol"] *= max(scale, 1.0)
+        torch.testing.assert_close(a, b, **tol, msg=lambda m: f"{name}: {m}")
+        assert _tile_rel_err(a, b) <= FLASH_TILE_RTOL[dtype], name
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches) == (f0 + 1, b0 + 1)
+
+
+def test_flash_attention_autograd_on_strided_qkv(cuda):
+    """q, k, v as views of one fused projection (the model's layout) go
+    through autograd with no copies, and agree with the oracle's grads."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, S, H, Hk, D = 2, 130, 4, 2, 64
+    qkv = torch.randn(B, S, (H + 2 * Hk) * D, generator=g, device=cuda, requires_grad=True)
+    q, k, v = torch.split(qkv, [H * D, Hk * D, Hk * D], dim=-1)
+    q, k, v = q.reshape(B, S, H, D), k.reshape(B, S, Hk, D), v.reshape(B, S, Hk, D)
+    o = fa.flash_attention(q, k, v, causal=True)
+    ref = fa._attention_reference(q, k.repeat_interleave(2, dim=2),
+                                  v.repeat_interleave(2, dim=2), True, None, D ** -0.5)
+    torch.testing.assert_close(o, ref, rtol=2e-5, atol=2e-5)
+    do = torch.randn(o.shape, generator=g, device=cuda)
+    (ga,) = torch.autograd.grad(o, qkv, do)
+    (gb,) = torch.autograd.grad(ref, qkv, do)
+    torch.testing.assert_close(ga, gb, rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v, mask=torch.ones(S, S, dtype=torch.bool, device=cuda))
+
+
+@pytest.mark.parametrize("n,offset", [(4096 * 3 + 5, 0), (1000, 1)])
+@pytest.mark.parametrize("kw", [dict(weight_decay=0.1, decoupled=True, out_dtype=None),
+                                dict(weight_decay=0.1, decoupled=True, apply_decay=False,
+                                     out_dtype=torch.bfloat16),
+                                dict(weight_decay=0.01, decoupled=False, out_dtype=None)])
+@pytest.mark.parametrize("step", [1, 1000])
+def test_adamw_kernel_matches_reference_bitwise(cuda, n, offset, kw, step):
+    """The kernel rounds each operation on its own, as the plain version's
+    separate kernels do: bit-equal p, m, v and cast copy, vectorised or
+    (misaligned by one element) scalar."""
+    from paddle_tpu_torch.kernels.adamw import adamw_reference, adamw_update
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+
+    def leaf():
+        return torch.randn(n + offset, generator=g, device=cuda)[offset:]
+
+    p, grad, m = leaf(), leaf(), leaf() * 0.1
+    v = leaf().abs() * 0.01
+    hyper = dict(beta1=0.9, beta2=0.95, epsilon=1e-8)
+    ref = adamw_reference(p, grad, m, v, 3e-4, step, **hyper,
+                          **{k: x for k, x in kw.items() if k != "out_dtype"})
+    before = adamw_update.launches
+    p2, m2, v2, p_out = adamw_update(p, grad, m, v, 3e-4, step, **hyper, **kw)
+    assert adamw_update.launches == before + 1
+    assert p2 is p and m2 is m and v2 is v                 # in place
+    for a, b in zip((p, m, v), ref):
+        assert torch.equal(a, b)
+    if kw["out_dtype"] is not None:
+        assert torch.equal(p_out, ref[0].to(torch.bfloat16))
+    else:
+        assert p_out is p
+
+
+def test_rms_norm_gradients_on_the_card(cuda):
+    """The kernel's output is part of the autograd graph, and its gradients
+    equal the plain version's (the same backward expression on both)."""
+    from paddle_tpu_torch.kernels.rms_norm import rms_norm, rms_norm_reference
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(6, 33, 256, generator=g, device=cuda, requires_grad=True)
+    w = (1 + 0.1 * torch.randn(256, generator=g, device=cuda)).requires_grad_()
+    dy = torch.randn(6, 33, 256, generator=g, device=cuda)
+    y = rms_norm(x, w, 1e-6)
+    assert y.grad_fn is not None
+    dx, dw = torch.autograd.grad(y, (x, w), dy)
+    xc, wc = x.detach().cpu().requires_grad_(), w.detach().cpu().requires_grad_()
+    dxc, dwc = torch.autograd.grad(rms_norm(xc, wc, 1e-6), (xc, wc), dy.cpu())
+    dxr, dwr = torch.autograd.grad(rms_norm_reference(x, w, 1e-6), (x, w), dy)
+    torch.testing.assert_close(dx.cpu(), dxc, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dw.cpu(), dwc, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(dx, dxr, rtol=1e-5, atol=1e-5)   # autograd of the plain forward
+    torch.testing.assert_close(dw, dwr, rtol=1e-5, atol=1e-4)
+    xb = x.detach().to(torch.bfloat16).requires_grad_()
+    yb = rms_norm(xb, w, 1e-6)
+    dxb, dwb = torch.autograd.grad(yb, (xb, w), dy.to(torch.bfloat16))
+    assert dxb.dtype == torch.bfloat16 and dwb.dtype == torch.float32

@@ -13,7 +13,9 @@ import torch
 from paddle_tpu.kernels import decode_attention as jda
 from paddle_tpu.kernels import rms_norm as jrms
 from paddle_tpu.kernels import rope as jrope
+from paddle_tpu_torch.kernels import adamw as tadamw
 from paddle_tpu_torch.kernels import decode_attention as tda
+from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
 from paddle_tpu_torch.kernels import rms_norm as trms
 from paddle_tpu_torch.kernels import rope as trope
@@ -154,8 +156,14 @@ def test_cpu_wrappers_run_plain_versions_without_launching():
     trms.rms_norm(torch.ones(2, 64), torch.ones(64))
     tda.masked_multihead_attention(torch.ones(1, 1, 4, 64), torch.ones(1, 128, 2, 64),
                                    torch.ones(1, 128, 2, 64), 3)
+    x = torch.ones(1, 128, 2, 64, requires_grad=True)
+    tfa.flash_attention(x, x[:, :, :1], x[:, :, :1], causal=True).sum().backward()
+    one = torch.ones(8)
+    tadamw.adamw_update(one.clone(), one, one.clone(), one.clone(), 1e-3, 1,
+                        beta1=0.9, beta2=0.999, epsilon=1e-8)
     assert launch_counts() == {"rms_norm": 0, "decode_attention_dense": 0,
-                               "decode_attention_paged": 0}
+                               "decode_attention_paged": 0, "flash_attention_fwd": 0,
+                               "flash_attention_bwd": 0, "adamw": 0}
 
 
 def test_cached_attention_reference_matches_jax():
