@@ -1,25 +1,31 @@
 #!/usr/bin/env python3
 """Smoke run of paddle_tpu_torch on one NVIDIA GPU: build the CUDA kernels,
 hold each against its plain PyTorch version, check the card against the CPU,
-pretrain the `base` preset for a few steps through TrainStep, and serve
-Llama-3-8B-shaped requests through the port's Engine.
+pretrain the `base` preset and the SSD family at `ssd_8b` widths for a few
+steps through TrainStep, and serve Llama-3-8B-shaped and SSD-8B requests
+through the port's Engine.
 
     python3 chip_smoke.py                  # every phase, full depth
-    python3 chip_smoke.py --layers 8       # cut serving depth (never width)
+    python3 chip_smoke.py --layers 8       # cut Llama serving depth (never width)
     python3 chip_smoke.py --phases card,build,kernels,train
+    python3 chip_smoke.py --phases card,build,kernels,parity,ssd_train,ssd_serve
 
 Phases:
   1 card     name and power limit (nvidia-smi), torch device name
   2 build    nvcc of kernels/csrc/*.cu for sm_90a, all in parallel
   3 kernels  each kernel against its plain version at its path's shapes
              (flash attention forward and backward at `base` and at
-             `longctx`, AdamW on base's largest leaf and on all 75):
-             max error, kernel / plain / library time, bound; flash
-             gradients also tile by tile, and planted faults in them must
-             be rejected
+             `longctx`, AdamW on base's largest leaf and on all 75, the
+             SSD scan at `ssd_8b` and tiny widths): max error, kernel /
+             plain / library time, bound; flash gradients also tile by
+             tile, and planted faults in them must be rejected; the SSD
+             scan also by norm per recurrence, with zero rows bitwise
+             no-ops, under a log-decay near -20 a token, and against three
+             planted faults
   4 parity   card (kernels) against CPU (plain versions) in fp32 on a
-             narrow config: Engine and generate tokens must be equal;
-             three TrainStep steps must agree in losses, step-1 gradients,
+             narrow Llama config and on the tiny pure and hybrid SSD
+             stacks: Engine and generate tokens must be equal; three
+             TrainStep steps must agree in losses, step-1 gradients,
              parameters and the optimizer's m and v slots
   5 train    the `base` preset (12 layers, batch 3, seq 2048, bf16 compute,
              fp32 params) for 5 steps on one batch with the
@@ -38,10 +44,24 @@ Phases:
              RMSNorm twice a layer plus once; generate's and the Engine's
              first-token logits must agree within a bf16 limit
 
-  7 profile  (a diagnostic: it prints and checks nothing) one
-             decode-dominated Engine drain at 8B widths and one `base`
-             training step under torch.profiler: device time by kernel,
-             and the device's busy share of the wall time
+  7 ssd_train  ssd_8b_config cut to 8 layers, fp32 params, bf16 compute,
+             batch 2 x seq 4096, 5 steps on one batch, counters zeroed just
+             before and read just after: every step must launch the SSD
+             scan once a layer (forward only), RMSNorm once a layer plus
+             once, AdamW once a leaf (inside the update) and no attention
+             kernel; losses finite and falling; step 1's loss within a
+             limit of the fp32-activation loss
+  8 ssd_serve  ssd_8b_config at 32 layers, bf16, random weights from
+             --seed: 16 requests through the Engine's recurrent path and
+             generate on two prompts, counters per path: every decode step
+             and prefill must launch RMSNorm once a layer plus once and no
+             other kernel; the Engine's first-token logits within a bf16
+             limit of generate's
+  9 profile  (a diagnostic: it prints and checks nothing) one
+             decode-dominated Engine drain at 8B widths, one `base`
+             training step and one `ssd_train` step under torch.profiler:
+             device time by kernel, and the device's busy share of the
+             wall time
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero before that
@@ -109,7 +129,19 @@ DECODE_TOL = (1e-3, 1.6e-2)
 # over the vocabulary may be at most this multiple of generate's own bf16
 # error, its max |difference| from the same prefill with fp32 activations
 LOGIT_TOL = 2.0
-ALL_PHASES = ("card", "build", "kernels", "parity", "train", "serve", "profile")
+# the SSD scan kernel against its plain version, both fp32 (sums and the
+# log-decay prefix sum in another order): elementwise |kernel - plain| at most
+# SSD_ATOL x max |plain|, and in every g row (one recurrence) |kernel - plain|
+# / |plain| (Frobenius norms of y, and of the final state) at most
+# SSD_NORM_RTOL.  Read at `ssd_8b` widths on an H100: 1.25e-6 and 1.38e-6
+# (fp32 rounding is 6e-8; the sums run over up to L + N = 256 terms), so
+# each limit is about 8x its reading; the planted faults read 0.056 and up
+SSD_ATOL = 1e-5
+SSD_NORM_RTOL = 1e-5
+SSD_TRAIN_LAYERS = 8         # depth of `ssd_train` (32 would need 77 GB for params and AdamW)
+SSD_TRAIN_BATCH, SSD_TRAIN_SEQ = 2, 4096
+ALL_PHASES = ("card", "build", "kernels", "parity", "train", "ssd_train", "serve", "ssd_serve",
+              "profile")
 REPO = Path(__file__).resolve().parent
 
 
@@ -564,6 +596,132 @@ def _adamw_case(gen, shapes, label):
     return rec
 
 
+def _ssd_inputs(gen, G, T, P, N, decay=None):
+    """fp32 scan operands: standard normal x, B, C; log-decay -0.1 |n| (a
+    per-token decay of ~0.92), or near ``decay`` a token."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    x, b, c = rnd(G, T, P), rnd(G, T, N), rnd(G, T, N)
+    la = -0.1 * rnd(G, T).abs() if decay is None else (decay + 0.1 * rnd(G, T)).clamp(max=0.0)
+    return x, b, c, la
+
+
+def _ssd_errors(y, s, y_ref, s_ref):
+    """(largest |a - plain| / max |plain| of y and of s, largest per-g
+    |a - plain| / |plain| in Frobenius norm of y and of s)."""
+    def elem(a, r):
+        return max_err(a, r) / max(float(r.abs().max()), 1e-30)
+
+    def norm(a, r):
+        d = (a.float() - r.float()).flatten(1).norm(dim=1)
+        return float((d / r.float().flatten(1).norm(dim=1).clamp_min(1e-30)).max())
+
+    return max(elem(y, y_ref), elem(s, s_ref)), max(norm(y, y_ref), norm(s, s_ref))
+
+
+def _ssd_rejects(errs):
+    return errs[0] > SSD_ATOL or errs[1] > SSD_NORM_RTOL
+
+
+def _ssd_planted_faults(x, b, c, la, L, y, s, y_ref, s_ref):
+    """Faults planted in the kernel's own outputs, each of which the checks
+    must reject: the state not carried across chunks (S reset each chunk),
+    the mask off by one (s < t: the diagonal term left out), and the
+    inter-chunk term C.S dropped on the last chunk.  The removed parts come
+    from the plain scan's states entering each chunk."""
+    import torch
+    from paddle_tpu_torch.kernels.ssd_scan import ssd_scan_states
+
+    G, T, P = x.shape
+    N, nc = b.shape[-1], T // L
+    _, states = ssd_scan_states(x, b, c, la, L)
+    s_in = torch.stack(states[:-1], dim=1)                                    # [G, nc, N, P]
+    cum = la.reshape(G, nc, L).cumsum(-1)
+    inter = torch.exp(cum)[..., None] * (c.reshape(G, nc, L, N) @ s_in)      # [G, nc, L, P]
+    last = torch.zeros_like(inter)
+    last[:, -1] = inter[:, -1]
+    faulted = {
+        "state not carried across chunks": (
+            y - inter.reshape(G, T, P),
+            s - torch.exp(cum[:, -1, -1])[:, None, None] * s_in[:, -1]),
+        "mask off by one (s < t)": (y - (c * b).sum(-1, keepdim=True) * x, s),
+        "C.S dropped on the last chunk": (y - last.reshape(G, T, P), s)}
+    out = {}
+    for fault, (yf, sf) in faulted.items():
+        errs = _ssd_errors(yf, sf, y_ref, s_ref)
+        out[fault] = {"max_abs_err_over_max": errs[0], "g_norm_err": errs[1]}
+        check(_ssd_rejects(errs), f"ssd_scan: the checks pass the planted fault '{fault}': "
+              f"{out[fault]}")
+    log(f"ssd_scan planted faults: {json.dumps(out)}")
+    return out
+
+
+def _ssd_case(gen, G, T, P, N, L, full):
+    """The SSD scan kernel against its plain version (fp32) at one shape:
+    errors within ``SSD_ATOL`` / ``SSD_NORM_RTOL``; zero rows (inside the
+    last chunk and a whole extra chunk) bitwise no-ops; a log-decay near -20
+    a token finite and within the limits; with ``full`` the planted
+    faults."""
+    import torch
+    from paddle_tpu_torch.kernels.ssd_scan import ssd_scan, ssd_scan_reference
+
+    x, b, c, la = _ssd_inputs(gen, G, T, P, N)
+    y, s = ssd_scan(x, b, c, la, chunk=L)
+    y_ref, s_ref = ssd_scan_reference(x, b, c, la, L)
+    torch.cuda.synchronize()
+    shape = {"G": G, "T": T, "P": P, "N": N, "L": L}
+    errs = _ssd_errors(y, s, y_ref, s_ref)
+    check(bool(torch.isfinite(y).all() and torch.isfinite(s).all()), f"ssd_scan {shape}: not finite")
+    check(not _ssd_rejects(errs), f"ssd_scan {shape}: disagrees with the plain scan: max err "
+          f"{errs[0]} of max |plain| (limit {SSD_ATOL}), g-row norm err {errs[1]} "
+          f"(limit {SSD_NORM_RTOL})")
+    zeros = [t.clone() for t in (x, b, c, la)]
+    for t in zeros:
+        t[:, T - 5:] = 0
+    y0, s0 = ssd_scan(*zeros, chunk=L)
+    y1, s1 = ssd_scan(*[torch.cat([t, torch.zeros_like(t[:, :L])], dim=1) for t in zeros],
+                      chunk=L)
+    check(torch.equal(y0, y1[:, :T]) and torch.equal(s0, s1),
+          f"ssd_scan {shape}: zero rows are not exact no-ops")
+    x20, b20, c20, la20 = _ssd_inputs(gen, min(G, 16), T, P, N, decay=-20.0)
+    y20, s20 = ssd_scan(x20, b20, c20, la20, chunk=L)
+    errs20 = _ssd_errors(y20, s20, *ssd_scan_reference(x20, b20, c20, la20, L))
+    check(bool(torch.isfinite(y20).all() and torch.isfinite(s20).all()),
+          f"ssd_scan {shape}: log-decay near -20 gives non-finite values")
+    check(not _ssd_rejects(errs20), f"ssd_scan {shape}: log-decay near -20 disagrees: {errs20}")
+    faults = _ssd_planted_faults(x, b, c, la, L, y, s, y_ref, s_ref) if full else None
+    # the scan's backward (a plain recompute and its autograd VJP, no kernel)
+    args = [t.detach().requires_grad_() for t in (x, b, c, la)]
+    dy, ds = torch.randn_like(y), torch.randn_like(s)
+
+    def backward():
+        with torch.enable_grad():
+            yy, ss = ssd_scan_reference(*args, L)
+        torch.autograd.grad((yy, ss), args, (dy, ds))
+    nbytes = 4 * (2 * G * T * P + 2 * G * T * N + G * T + G * N * P)
+    # a chunk: C.B^T and M.x over the L(L+1)/2 entries with s <= t (the
+    # causal mask needs no others), C.S and the state update in full
+    flops = G * (T // L) * (L * (L + 1) * (N + P) + 4 * L * N * P)
+    b_ms, b_by = bound(nbytes, flops)
+    rec = {"shape": shape, "dtype": "float32", "max_abs_err": max_err(y, y_ref),
+           "max_abs_err_state": max_err(s, s_ref), "max_err_over_max_abs": errs[0],
+           "g_norm_err": errs[1], "zero_rows_bitwise": True,
+           "decay_near_minus_20": {"max_err_over_max_abs": errs20[0], "g_norm_err": errs20[1]},
+           "planted_faults": faults,
+           "tol": {"atol_over_max_abs": SSD_ATOL, "g_norm_rtol": SSD_NORM_RTOL},
+           "ms": time_ms(lambda: ssd_scan(x, b, c, la, chunk=L)),
+           "plain_ms": time_ms(lambda: ssd_scan_reference(x, b, c, la, L)),
+           "library_ms": None,
+           "library": "none: no single PyTorch call computes the chunked scan",
+           "plain_backward_ms": time_ms(backward, 5),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops}
+    log(f"ssd_scan {shape}: {json.dumps(rec)}")
+    return rec
+
+
 def phase_kernels():
     import torch
 
@@ -580,6 +738,10 @@ def phase_kernels():
     shapes = _base_leaf_shapes()
     cases["adamw"] = [_adamw_case(gen, shapes, "base, all 75 leaves"),
                       _adamw_case(gen, [shapes[5]], "base, gate_up_proj")]
+    # `ssd_train`'s shape: G = batch 2 x 64 heads, T 4096, P 64, N 128, L 128;
+    # and ssd_tiny_config's widths
+    cases["ssd_scan"] = [_ssd_case(gen, 128, 4096, 64, 128, 128, full=True),
+                         _ssd_case(gen, 8, 256, 32, 16, 16, full=True)]
     torch.cuda.empty_cache()
     return cases
 
@@ -651,15 +813,61 @@ def phase_parity(seed):
     check(results["cpu"][1] == results["cuda"][1], "parity: generate tokens differ")
     for key in ("prefills", "prefill_tokens", "prefix_hit_blocks"):
         check(results["cpu"][2][key] == results["cuda"][2][key], f"parity: stats {key}")
-    _train_parity(cfg, cpu, gpu, seed)
+    _train_parity("llama", cfg, cpu, gpu, seed, {"flash_attention_fwd": cfg.num_hidden_layers})
+    _ssd_parity(seed)
 
 
-def _train_parity(cfg, cpu, gpu, seed, steps=3, lr=3e-4):
-    """Training on the card (flash, RMSNorm and AdamW kernels) against the
-    CPU (plain versions) in fp32 from the same weights: step-1 gradients
-    within ``PARITY_GRAD_TOL`` (sums in another order); after ``steps``
-    TrainStep steps the losses within rtol 1e-5, the m and v slots within
-    ``PARITY_SLOT_TOL`` and the parameters within ``PARITY_PARAM_ATOL``."""
+def _ssd_parity(seed):
+    """The card against the CPU in fp32 on the tiny pure and hybrid SSD
+    stacks: Engine (recurrent and hybrid paths) and generate tokens equal,
+    logits within 1e-4, three TrainStep steps as ``_train_parity``."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import (SSDForCausalLM, load_paddle_tpu_params,
+                                         ssd_tiny_config, ssd_tiny_hybrid_config,
+                                         to_paddle_tpu_params)
+
+    lens, news = (17, 40, 100, 70, 5, 128), (24, 16, 20, 12, 16, 8)
+    kw = dict(max_batch=4, num_blocks=64, block_size=16, prefill_buckets=(64, 128),
+              decode_chunk=8)
+    for label, cfg in (("ssd", ssd_tiny_config()), ("hybrid", ssd_tiny_hybrid_config())):
+        cpu = SSDForCausalLM(cfg, device="cpu", seed=seed)
+        gpu = SSDForCausalLM(cfg, device="cuda", seed=seed)
+        load_paddle_tpu_params(gpu, to_paddle_tpu_params(cpu))
+        results = {}
+        for name, model, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
+            reqs = _requests(np.random.default_rng(seed + 1), cfg.vocab_size, lens, news)
+            eng, outs = _serve(model, reqs, dev, **kw)
+            check(eng.backend.kind == ("recurrent" if label == "ssd" else "hybrid"),
+                  f"parity {label}: backend {eng.backend.kind}")
+            gen = model.generate(reqs[0].prompt_ids[None], max_new_tokens=16)
+            gen_tokens = gen[0, len(reqs[0].prompt_ids):].cpu().tolist()
+            check(gen_tokens == outs[0].output_ids[:16],
+                  f"parity {label}: {name} generate and Engine disagree")
+            results[name] = ([o.output_ids for o in outs], gen_tokens)
+        with torch.no_grad():
+            ids = torch.from_numpy(np.random.default_rng(seed + 2).integers(
+                1, cfg.vocab_size, (2, 200)).astype(np.int64))
+            lg_cpu = cpu(ids)
+            lg_gpu = gpu(ids.cuda()).cpu()
+        lerr = max_err(lg_gpu, lg_cpu)
+        log(f"parity {label}: logits max err card vs cpu {lerr:.3e}")
+        check(lerr < 1e-4, f"parity {label}: fp32 logits differ by {lerr}")
+        check(results["cpu"] == results["cuda"], f"parity {label}: Engine or generate tokens "
+              f"differ")
+        kinds = cfg.types
+        _train_parity(label, cfg, cpu, gpu, seed, {"ssd_scan": kinds.count("ssd"),
+                                                   "flash_attention_fwd": kinds.count("attention")})
+
+
+def _train_parity(label, cfg, cpu, gpu, seed, per_step, steps=3, lr=3e-4):
+    """Training on the card (kernels) against the CPU (plain versions) in
+    fp32 from the same weights: step-1 gradients within ``PARITY_GRAD_TOL``
+    (sums in another order); after ``steps`` TrainStep steps the losses
+    within rtol 1e-5, the m and v slots within ``PARITY_SLOT_TOL`` and the
+    parameters within ``PARITY_PARAM_ATOL``.  The card's steps must launch
+    each kernel of ``per_step`` that many times a step, and AdamW once a
+    leaf."""
     import numpy as np
     import torch
     from paddle_tpu_torch.jit import TrainStep
@@ -684,7 +892,7 @@ def _train_parity(cfg, cpu, gpu, seed, steps=3, lr=3e-4):
         ref = grads["cpu"][n]
         gerr = max(gerr, max_err(g.cpu(), ref))
         check(within(g.cpu(), ref, rel_tol(ref, PARITY_GRAD_TOL)),
-              f"parity: step-1 gradient of {n} differs by {max_err(g.cpu(), ref)}")
+              f"parity {label}: step-1 gradient of {n} differs by {max_err(g.cpu(), ref)}")
 
     def loss_fn(m, x):
         return m.compute_loss(m(x), x)
@@ -705,17 +913,19 @@ def _train_parity(cfg, cpu, gpu, seed, steps=3, lr=3e-4):
             a, b = torch.from_numpy(slots["cuda"][n][s]), torch.from_numpy(ref_slots[s])
             serr[s] = max(serr[s], max_err(a, b) / max(float(b.abs().max()), 1e-30))
             check(within(a, b, rel_tol(b, PARITY_SLOT_TOL)),
-                  f"parity: slot {s} of {n} differs by {max_err(a, b)} after {steps} steps")
-    log(f"parity: training {steps} steps, losses cpu {losses['cpu']} card {losses['cuda']}; "
+                  f"parity {label}: slot {s} of {n} differs by {max_err(a, b)} after {steps} "
+                  f"steps")
+    log(f"parity {label}: training {steps} steps, losses cpu {losses['cpu']} card {losses['cuda']}; "
         f"step-1 gradient max err {gerr:.3e}; parameter max err {perr:.3e} (limit "
         f"{PARITY_PARAM_ATOL:.1e}); step-{steps} slot max err / max |slot| m {serr['m']:.3e} "
         f"v {serr['v']:.3e}; card launches {counts}")
     for a, b in zip(losses["cuda"], losses["cpu"]):
-        check(abs(a - b) <= 1e-5 * abs(b), f"parity: training losses differ: {losses}")
-    check(perr <= PARITY_PARAM_ATOL, f"parity: parameters differ by {perr} after {steps} steps")
-    check(counts["flash_attention_fwd"] == steps * cfg.num_hidden_layers
-          and counts["adamw"] == steps * len(list(gpu.parameters())),
-          f"parity: the card's training steps did not run the kernels: {counts}")
+        check(abs(a - b) <= 1e-5 * abs(b), f"parity {label}: training losses differ: {losses}")
+    check(perr <= PARITY_PARAM_ATOL,
+          f"parity {label}: parameters differ by {perr} after {steps} steps")
+    want = dict(per_step, adamw=len(list(gpu.parameters())))
+    check(all(counts[k] == steps * n for k, n in want.items()),
+          f"parity {label}: the card's training steps launched {counts}, expected {want} a step")
 
 
 def _drive_train(step_fn, ids, steps):
@@ -820,9 +1030,11 @@ def phase_train(profile):
     return rec
 
 
-def _profile(fn, label):
-    """torch.profiler over one call of ``fn``: device kernel time by name
-    and the device's busy share of the wall time (prints, checks nothing)."""
+def _profile(fn, label, ranges=()):
+    """torch.profiler over one call of ``fn``: device kernel time by name,
+    the device's busy share of the wall time, and the device time of the
+    kernels launched inside each ``record_function`` range named in
+    ``ranges`` (prints, checks nothing)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -833,20 +1045,29 @@ def _profile(fn, label):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # a record_function range also shows as a device row spanning its
+    # kernels: it is read apart below, never summed with them
     rows = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
             for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+            and ev.key not in ranges]
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
     log(f"profile: {label}: wall {wall_ms:.3f} ms, kernels {busy_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.1f}% of wall)")
     groups = {"flash": ("flash_",), "gemm (cuBLAS)": ("nvjet", "gemm", "cutlass"),
-              "adamw": ("adamw_",), "rms_norm": ("rms_norm_",), "decode": ("decode_",)}
+              "adamw": ("adamw_",), "rms_norm": ("rms_norm_",), "decode": ("decode_",),
+              "ssd_scan": ("ssd_scan",)}
     by_group = dict.fromkeys([*groups, "other"], 0.0)
     for ms, _, key in rows:
         name = next((g for g, marks in groups.items() if any(m in key for m in marks)), "other")
         by_group[name] += ms
     log(f"profile: {label}: device ms by group {json.dumps(by_group)}")
+    if ranges:
+        span = {ev.key: ev.self_device_time_total / 1e3
+                for ev in prof.key_averages() if ev.key in ranges}
+        log(f"profile: {label}: device span of each range (first kernel to last, gaps "
+            f"included) ms {json.dumps(span)}")
     for ms, count, key in rows[:15]:
         log(f"profile:   {ms:10.3f} ms {count:7d}x  {key[:100]}")
     return wall_ms, rows
@@ -854,7 +1075,7 @@ def _profile(fn, label):
 
 def _drive_path(model, drive):
     """Set every launch count to 0, run ``drive()``, and read the counts just
-    after it.  Each forward of ``model.llama`` is also tallied by its role:
+    after it.  Each forward of ``model.decoder`` is also tallied by its role:
     one token a row is a decode step, more is a prefill.  Returns
     ``(drive's result, record)``; the record holds the path's counts, its
     decode steps and prefill forwards, and the launches each of them made."""
@@ -863,7 +1084,7 @@ def _drive_path(model, drive):
 
     roles = {r: {"forwards": 0, "launches": dict.fromkeys(launch_counts(), 0)}
              for r in ("decode", "prefill")}
-    fwd = model.llama.forward
+    fwd = model.decoder.forward
 
     def counted(input_ids, *a, **kw):
         before = launch_counts()
@@ -874,7 +1095,7 @@ def _drive_path(model, drive):
             role["launches"][name] += n - before[name]
         return out
 
-    model.llama.forward = counted
+    model.decoder.forward = counted
     try:
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -882,7 +1103,7 @@ def _drive_path(model, drive):
         torch.cuda.synchronize()
         counts = launch_counts()
     finally:
-        del model.llama.forward
+        del model.decoder.forward
     rec = {"launches": counts}
     for r, v in roles.items():
         rec[f"{r}_forwards"] = v["forwards"]
@@ -895,21 +1116,22 @@ def _drive_path(model, drive):
     return result, rec
 
 
-def _check_path(name, rec, n_layers, decode_kernel):
-    """Every decode step of the path launches ``decode_kernel`` once a layer
-    and no other decode kernel, RMSNorm twice a layer plus the final norm;
-    every prefill forward launches RMSNorm alike and no decode kernel."""
+def _check_path(name, rec, norms, decode_kernel=None, n_decode=0):
+    """Every decode step of the path launches RMSNorm ``norms`` times and
+    ``decode_kernel`` ``n_decode`` times, and no other kernel; every prefill
+    forward launches RMSNorm alike and no other kernel."""
     from paddle_tpu_torch.kernels import launch_counts
 
-    norms = 2 * n_layers + 1
     check(rec["decode_forwards"] > 0, f"serve: {name} ran no decode step")
     want = dict.fromkeys(launch_counts(), 0)
     want["rms_norm"] = norms
-    want[decode_kernel] = n_layers
+    if decode_kernel is not None:
+        want[decode_kernel] = n_decode
     got = rec["launches_per_decode_forward"]
     check(got == want, f"serve: {name} launches a decode step {got}, expected {want}")
     if rec["prefill_forwards"]:
-        want = dict(want, **{decode_kernel: 0})
+        if decode_kernel is not None:
+            want[decode_kernel] = 0
         got = rec["launches_per_prefill_forward"]
         check(got == want, f"serve: {name} launches a prefill forward {got}, expected {want}")
 
@@ -927,20 +1149,7 @@ def phase_serve(seed, layers):
     torch.cuda.synchronize()
     log(f"serve: random bf16 weights ({sum(p.numel() for p in model.parameters()) / 1e9:.2f} "
         f"B params) in {time.perf_counter() - t0:.1f} s")
-    # NaN watch on every vocab projection (device-side flag, no sync); while
-    # ``head_sink`` is a list, each projection is also kept there
-    nan_seen = torch.zeros((), dtype=torch.bool, device="cuda")
-    head = model.head
-    head_sink = None
-
-    def watched_head(hidden):
-        out = head(hidden)
-        nan_seen.logical_or_(torch.isnan(out).any())
-        if head_sink is not None:
-            head_sink.append(out)
-        return out
-
-    model.head = watched_head
+    watch = _HeadWatch(model)
     rng = np.random.default_rng(seed)
     prefix = rng.integers(1, cfg.vocab_size, size=(256,)).astype(np.int32)
     lens = [int(x) for x in rng.integers(128, 513, size=14)] + [-100, -150]
@@ -953,29 +1162,12 @@ def phase_serve(seed, layers):
 
     Engine(model, device="cuda", num_blocks=16, **kw).warmup()
 
-    # the Engine's first-token logits of gen_reqs, from its batched prefill
-    # (one projected row per request of the group, in group order)
     eng_first = {}
-
-    def keep_first_logits(eng):
-        run = eng._run_prefill
-
-        def run_prefill(group, Pb, fidx0):
-            nonlocal head_sink
-            head_sink = []
-            run(group, Pb, fidx0)
-            (lg,), head_sink = head_sink, None
-            for j, e in enumerate(group):
-                for i, r in enumerate(gen_reqs):
-                    if e[1] is r:
-                        eng_first[i] = lg[j].float()
-
-        eng._run_prefill = run_prefill
-
     paths = {}
     t0 = time.perf_counter()
     (eng, outs), paths["engine"] = _drive_path(model, lambda: _serve(
-        model, reqs, "cuda", hook=keep_first_logits, num_blocks=512, **kw))
+        model, reqs, "cuda", hook=_keep_first_logits(watch, gen_reqs, eng_first),
+        num_blocks=512, **kw))
     wall = time.perf_counter() - t0
     (ceng, couts), paths["engine_chunked"] = _drive_path(model, lambda: _serve(
         model, chunk_req, "cuda", num_blocks=64, prefill_chunk=128, **kw))
@@ -997,22 +1189,81 @@ def phase_serve(seed, layers):
           "serve: Engine decode steps and decode forwards differ")
     for r, g in zip(gen_reqs, gens):
         check(tuple(g.shape) == (1, len(r.prompt_ids) + 16), "serve: generate shape")
-    check(not bool(nan_seen), "serve: NaN logits")
-    _check_path("engine", paths["engine"], layers, "decode_attention_paged")
-    _check_path("engine_chunked", paths["engine_chunked"], layers, "decode_attention_paged")
-    _check_path("generate", paths["generate"], layers, "decode_attention_dense")
+    check(not bool(watch.nan), "serve: NaN logits")
+    norms = 2 * layers + 1
+    _check_path("engine", paths["engine"], norms, "decode_attention_paged", layers)
+    _check_path("engine_chunked", paths["engine_chunked"], norms, "decode_attention_paged", layers)
+    _check_path("generate", paths["generate"], norms, "decode_attention_dense", layers)
+    _first_token_check("serve", model, watch.head, gen_reqs, gens, outs, eng_first)
+    watch.restore()
+    return paths, model
 
-    # generate against the Engine on the first token: generate's prefill
-    # (B=1, exact length) rebuilt as it runs, in bf16 and with fp32
-    # activations (the config's own mixed-precision mode: bf16 params, fp32
-    # compute), against the Engine's captured row
-    check(sorted(eng_first) == [0, 1], "serve: Engine first-token logits not captured")
+
+class _HeadWatch:
+    """Stands in for ``model.head``: a device-side NaN flag over every vocab
+    projection (no sync) and, while ``sink`` is a list, each projection kept
+    there."""
+
+    def __init__(self, model):
+        import torch
+
+        self.model, self.head = model, model.head
+        self.nan = torch.zeros((), dtype=torch.bool, device="cuda")
+        self.sink = None
+        model.head = self
+
+    def __call__(self, hidden):
+        import torch
+
+        out = self.head(hidden)
+        self.nan.logical_or_(torch.isnan(out).any())
+        if self.sink is not None:
+            self.sink.append(out)
+        return out
+
+    def restore(self):
+        del self.model.head
+
+
+def _keep_first_logits(watch, gen_reqs, eng_first):
+    """An Engine hook that keeps the first-token logits of ``gen_reqs`` from
+    the Engine's prefill (one projected row per request of the group, in
+    group order) in ``eng_first``."""
+    def hook(eng):
+        name = "_run_ssd_prefill" if eng._recurrent else "_run_prefill"
+        run = getattr(eng, name)
+
+        def run_prefill(group, Pb, fidx0):
+            watch.sink = []
+            run(group, Pb, fidx0)
+            (lg,), watch.sink = watch.sink, None
+            for j, e in enumerate(group):
+                for i, r in enumerate(gen_reqs):
+                    if e[1] is r:
+                        eng_first[i] = lg[j].float()
+
+        setattr(eng, name, run_prefill)
+
+    return hook
+
+
+def _first_token_check(label, model, head, gen_reqs, gens, outs, eng_first):
+    """generate against the Engine on the first token: generate's prefill
+    (B=1, exact length) rebuilt as it runs, in bf16 and with fp32
+    activations (the config's own mixed-precision mode: bf16 params, fp32
+    compute), against the Engine's captured row (bucket-padded prefill).
+    Both must lie within ``LOGIT_TOL`` x generate's own bf16 error."""
+    import torch
+
+    cfg = model.config
+    check(sorted(eng_first) == list(range(len(gen_reqs))),
+          f"{label}: Engine first-token logits not captured")
     torch.backends.cuda.matmul.allow_tf32 = False
 
     def first_logits(prompt, dtype):
         ids = torch.from_numpy(prompt[None]).to("cuda", torch.int32)
         cache = model.init_cache(1, len(prompt) + 16, dtype=dtype)
-        hidden, _ = model.llama(ids, cache=cache)
+        hidden, _ = model.decoder(ids, cache=cache)
         return head(hidden[:, -1]).float()[0]
 
     diverge = []
@@ -1031,27 +1282,206 @@ def phase_serve(seed, layers):
             err_gen = float((ref - exact).abs().max())
             err_eng = float((lg - exact).abs().max())
             gap = ref.topk(2).values
-            log(f"serve: prompt {i} (P={P}) first-token logits: max |generate - Engine| "
+            log(f"{label}: prompt {i} (P={P}) first-token logits: max |generate - Engine| "
                 f"{diff:.6g}; max |bf16 - fp32 activations| generate {err_gen:.6g}, "
                 f"Engine {err_eng:.6g} (limit {LOGIT_TOL} x generate's); max |logit| "
                 f"{float(ref.abs().max()):.6g}; generate's top-1 - top-2 gap "
                 f"{float(gap[0] - gap[1]):.6g}; first token generate {int(ref.argmax())} "
                 f"Engine {int(lg.argmax())} fp32 {int(exact.argmax())}")
-            check(int(ref.argmax()) == int(g[0, P]), f"serve: prompt {i}: rebuilt "
+            check(int(ref.argmax()) == int(g[0, P]), f"{label}: prompt {i}: rebuilt "
                   "prefill disagrees with generate's first token")
-            check(int(lg.argmax()) == o.output_ids[0], f"serve: prompt {i}: captured "
+            check(int(lg.argmax()) == o.output_ids[0], f"{label}: prompt {i}: captured "
                   "logits disagree with the Engine's first token")
             check(diff <= LOGIT_TOL * err_gen and err_eng <= LOGIT_TOL * err_gen,
-                  f"serve: prompt {i}: the Engine's first-token logits are {diff} from "
+                  f"{label}: prompt {i}: the Engine's first-token logits are {diff} from "
                   f"generate's and {err_eng} from fp32, past {LOGIT_TOL} x generate's "
                   f"own bf16 error {err_gen}")
             toks = g[0, P:].tolist()
             diverge.append(next((j for j, (a, b) in enumerate(zip(toks, o.output_ids))
                                  if a != b), None))
-    log(f"serve: first position where generate's and the Engine's 16 tokens differ, "
+    log(f"{label}: first position where generate's and the Engine's 16 tokens differ, "
         f"per prompt: {diverge} (None = all equal)")
-    model.head = head
-    return paths, model
+
+
+def phase_ssd_serve(seed, profile):
+    """ssd_8b_config at full depth through the Engine's recurrent path and
+    generate; see the module docstring."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import SSDForCausalLM, ssd_8b_config
+    from paddle_tpu_torch.serving import Engine, RecurrentState
+
+    cfg = ssd_8b_config()
+    t0 = time.perf_counter()
+    model = SSDForCausalLM(cfg, device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    log(f"ssd_serve: {cfg.num_hidden_layers} layers, random bf16 weights "
+        f"({sum(p.numel() for p in model.parameters())} params) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    watch = _HeadWatch(model)
+    rng = np.random.default_rng(seed + 5)
+    lens = [int(x) for x in rng.integers(128, 513, size=16)]
+    news = [int(x) for x in rng.integers(32, 129, size=16)]
+    reqs = _requests(rng, cfg.vocab_size, lens, news)
+    gen_reqs = reqs[:2]
+    kw = dict(max_batch=8, block_size=128, prefill_buckets=(128, 256, 512))
+    Engine(model, device="cuda", num_blocks=16, **kw).warmup()
+    eng_first = {}
+    paths = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (eng, outs), paths["ssd_engine"] = _drive_path(model, lambda: _serve(
+        model, reqs, "cuda", hook=_keep_first_logits(watch, gen_reqs, eng_first),
+        num_blocks=16, **kw))
+    wall = time.perf_counter() - t0
+    gens, paths["ssd_generate"] = _drive_path(model, lambda: [
+        model.generate(r.prompt_ids[None], max_new_tokens=16) for r in gen_reqs])
+    gen_tokens = sum(len(o.output_ids) for o in outs)
+    plan = eng.memory_plan()
+    log(f"ssd_serve: {len(outs)} requests, {gen_tokens} tokens in {wall:.3f} s = "
+        f"{gen_tokens / wall:.1f} generated tok/s (prefill included); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; slot state "
+        f"{plan['state_bytes'] / 1e9:.3f} GB for {eng.max_batch} slots")
+    log(f"ssd_serve: stats {json.dumps(eng.stats)}")
+    for name, rec in paths.items():
+        log(f"ssd_serve: path {name}: {json.dumps(rec)}")
+    check(isinstance(eng.backend, RecurrentState) and not eng.prefix_cache,
+          f"ssd_serve: backend {eng.backend.kind}, prefix cache {eng.prefix_cache}")
+    check(eng._rstate._live == {} and eng._pages._ref == {}, "ssd_serve: ledgers not clean")
+    for r, o in zip(reqs, outs):
+        check(len(o.output_ids) == r.max_new_tokens,
+              f"ssd_serve: {o.request_id} gave {len(o.output_ids)} of {r.max_new_tokens} tokens")
+    check(paths["ssd_engine"]["decode_forwards"] == eng.stats["decode_steps"],
+          "ssd_serve: Engine decode steps and decode forwards differ")
+    for r, g in zip(gen_reqs, gens):
+        check(tuple(g.shape) == (1, len(r.prompt_ids) + 16), "ssd_serve: generate shape")
+    check(not bool(watch.nan), "ssd_serve: NaN logits")
+    norms = cfg.num_hidden_layers + 1
+    _check_path("ssd_engine", paths["ssd_engine"], norms)
+    _check_path("ssd_generate", paths["ssd_generate"], norms)
+    _first_token_check("ssd_serve", model, watch.head, gen_reqs, gens, outs, eng_first)
+    watch.restore()
+    if profile:
+        small = _requests(rng, cfg.vocab_size, [128] * 8, [16] * 8)
+        engines = []
+        wall_ms, _ = _profile(lambda: engines.append(_serve(model, small, "cuda",
+                                                            num_blocks=16, **kw)[0]),
+                              "ssd_serve: one Engine drain")
+        log(f"profile: ssd_serve: {engines[0].stats['decode_steps']} decode steps, "
+            f"{wall_ms / engines[0].stats['decode_steps']:.3f} ms wall a step incl. prefill")
+    del model, eng
+    torch.cuda.empty_cache()
+    return paths
+
+
+def ssd_flops_per_token(cfg, seq_len):
+    """Training FLOPs a token of an SSD stack: 6 x matmul params (in_proj,
+    out_proj, lm_head) plus the chunked scan, 3 x its forward (a chunk of L
+    tokens costs 2 L^2 N + 2 L^2 P + 4 L N P a head)."""
+    nh, P, N, L = cfg.num_heads, cfg.head_dim, cfg.state_size, cfg.chunk_size
+    H, V, n = cfg.hidden_size, cfg.vocab_size, cfg.num_hidden_layers
+    per_layer = H * (2 * nh * P + 2 * nh * N + nh) + nh * P * H
+    scan = nh * (2 * L * N + 2 * L * P + 4 * N * P)
+    return 6.0 * (n * per_layer + H * V) + 3.0 * n * scan
+
+
+def phase_ssd_train(profile):
+    """ssd_8b widths at SSD_TRAIN_LAYERS layers through the port's
+    TrainStep, ``TRAIN_STEPS`` steps; see the module docstring."""
+    import math
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import launch_counts
+    from paddle_tpu_torch.models import SSDForCausalLM, ssd_8b_config
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t0 = time.perf_counter()
+    cfg = ssd_8b_config(num_hidden_layers=SSD_TRAIN_LAYERS, param_dtype="float32")
+    B, S = SSD_TRAIN_BATCH, SSD_TRAIN_SEQ
+    model = SSDForCausalLM(cfg, device="cuda", seed=0)
+    opt = AdamW(learning_rate=3e-4, weight_decay=0.1, parameters=model.parameters())
+    step_fn = TrainStep(model, lambda m, ids: m.compute_loss(m(ids), ids), opt)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(B, S)).astype(np.int32)).cuda()
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    log(f"ssd_train: ssd_8b widths, {cfg.num_hidden_layers} of 32 layers, {n_params} params "
+        f"(dtype {cfg.dtype}, params {cfg.pdtype}), batch {B} x seq {S}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        cfg.dtype = "float32"
+        try:
+            loss32 = float(model.compute_loss(model(ids), ids))
+        finally:
+            cfg.dtype = "bfloat16"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, rec = _drive_train(step_fn, ids, TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_hidden_layers
+    n_leaves = len(list(model.parameters()))
+    want = dict.fromkeys(launch_counts(), 0)
+    want.update(rms_norm=L + 1, ssd_scan=L, adamw=n_leaves)
+    want_update = dict.fromkeys(launch_counts(), 0)
+    want_update["adamw"] = TRAIN_STEPS * n_leaves
+    step_ms = [w * 1e3 for w in walls]
+    steady = sum(step_ms[1:]) / (TRAIN_STEPS - 1)
+    flops = ssd_flops_per_token(cfg, S) * B * S
+    log(f"ssd_train: losses {losses}; fp32-activation loss at step 1's weights {loss32} "
+        f"(|bf16 - fp32| {abs(losses[0] - loss32):.6g}, limit {TRAIN_LOSS_TOL})")
+    log(f"ssd_train: step ms {step_ms}; steady {steady:.3f} ms = {B * S / steady * 1e3:.1f} "
+        f"tokens/s, MFU {flops / (steady / 1e3) / BF16_FLOPS_PER_S:.4f} "
+        f"({flops / 1e12:.2f} TFLOP a step at {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s); "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    log(f"ssd_train: launches {json.dumps(rec)}")
+    check(all(math.isfinite(x) for x in losses), f"ssd_train: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"ssd_train: loss did not fall: {losses}")
+    for i, got in enumerate(rec["launches_per_step"]):
+        check(got == want, f"ssd_train: step {i + 1} launched {got}, expected {want}")
+    check(rec["launches_in_update"] == want_update,
+          f"ssd_train: launches inside the optimizer update {rec['launches_in_update']}, "
+          f"expected {want_update}")
+    check(abs(losses[0] - loss32) <= TRAIN_LOSS_TOL,
+          f"ssd_train: step 1's bf16 loss {losses[0]} is {abs(losses[0] - loss32)} from the "
+          f"fp32-activation loss {loss32}, past {TRAIN_LOSS_TOL}")
+    rec.update(losses=losses, step_ms=step_ms, steady_step_ms=steady, loss_fp32=loss32,
+               peak_bytes=peak)
+    if profile:
+        _profile_ssd_step(model, lambda: step_fn(ids))
+    del step_fn, model, opt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _profile_ssd_step(model, step):
+    """One ssd_train step under torch.profiler, with the device time of two
+    ranges read apart: the scan's plain backward recompute and the
+    128256-wide cross-entropy's forward (prints, checks nothing)."""
+    import torch
+    from paddle_tpu_torch.kernels import ssd_scan as ts
+
+    backward = ts._SSDScan.backward
+    loss = model.compute_loss
+
+    def timed_backward(ctx, dy, ds):
+        with torch.profiler.record_function("ssd_scan backward (plain recompute)"):
+            return backward(ctx, dy, ds)
+
+    def timed_loss(*a, **kw):
+        with torch.profiler.record_function("compute_loss forward"):
+            return loss(*a, **kw)
+
+    ts._SSDScan.backward = staticmethod(timed_backward)
+    model.compute_loss = timed_loss
+    try:
+        _profile(step, "ssd_train: one step",
+                 ranges=("ssd_scan backward (plain recompute)", "compute_loss forward"))
+    finally:
+        ts._SSDScan.backward = staticmethod(backward)
+        del model.compute_loss
 
 
 def phase_profile(model, seed):
@@ -1085,6 +1515,8 @@ SOURCES = {
     "flash_attention_bwd": ("paddle_tpu_torch/kernels/csrc/flash_attention.cu",
                             "paddle_tpu/kernels/flash_attention.py:447"),
     "adamw": ("paddle_tpu_torch/kernels/csrc/adamw.cu", "paddle_tpu/kernels/adamw.py:79"),
+    "ssd_scan": ("paddle_tpu_torch/kernels/csrc/ssd_scan.cu",
+                 "paddle_tpu/kernels/ssd_scan.py:159"),
 }
 ALSO_REPLACES = {
     "decode_attention_dense": "paddle_tpu/kernels/decode_attention.py:87",
@@ -1097,7 +1529,7 @@ ALSO_REPLACES = {
 # the path whose run ``launches`` reports for each kernel
 MAIN_PATH = {"rms_norm": "engine", "decode_attention_dense": "generate",
              "decode_attention_paged": "engine", "flash_attention_fwd": "train",
-             "flash_attention_bwd": "train", "adamw": "train"}
+             "flash_attention_bwd": "train", "adamw": "train", "ssd_scan": "ssd_train"}
 
 
 def kernel_table(cases, paths):
@@ -1109,11 +1541,13 @@ def kernel_table(cases, paths):
         entry = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                  "launches": by_path.get(MAIN_PATH[name]),
                  "launches_by_path": by_path,
+                 # decode paths carry per-forward counts, training paths per-step ones
                  "launches_per_decode_step": {
                      p: rec["launches_per_decode_forward"][name]
-                     for p, rec in paths.items() if p != "train"},
-                 "launches_per_train_step": (paths["train"]["launches_per_step"][0][name]
-                                             if "train" in paths else None),
+                     for p, rec in paths.items() if "launches_per_decode_forward" in rec},
+                 "launches_per_train_step": {
+                     p: rec["launches_per_step"][0][name]
+                     for p, rec in paths.items() if "launches_per_step" in rec},
                  "max_abs_err": main["max_abs_err"],
                  "ms": main["ms"], "plain_ms": main["plain_ms"],
                  "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1128,7 +1562,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=32,
-                    help="decoder depth of the 8B serving phase (width is never cut)")
+                    help="decoder depth of the Llama 8B serving phase (width is never cut)")
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -1160,11 +1594,17 @@ def main(argv=None) -> int:
             phase_parity(args.seed)
         if "train" in phases:
             paths["train"] = phase_train("profile" in phases)
+        if "ssd_train" in phases:
+            paths["ssd_train"] = phase_ssd_train("profile" in phases)
         if "serve" in phases:
             serve_paths, model = phase_serve(args.seed, args.layers)
             paths.update(serve_paths)
             if "profile" in phases:
                 phase_profile(model, args.seed)
+            del model
+            torch.cuda.empty_cache()
+        if "ssd_serve" in phases:
+            paths.update(phase_ssd_serve(args.seed, "profile" in phases))
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -10,7 +10,8 @@ Covered so far: the serving path — ``serving.Engine`` over
 ``models.llama.LlamaForCausalLM`` with the paged KV cache, and
 ``LlamaForCausalLM.generate`` — and the pretraining path: ``jit.TrainStep``
 over ``compute_loss`` with ``optimizer.AdamW`` and the presets of
-``models.presets``.
+``models.presets``; and the SSD family, ``models.ssd.SSDForCausalLM``, in
+training and through the Engine's recurrent and hybrid paths.
 
 Device policy: entry points take an explicit ``device``; when none is given
 it is ``"cuda"``, and a missing card raises instead of running on the CPU.

@@ -2,8 +2,9 @@
 (``csrc/``) on CUDA tensors and runs its plain PyTorch version on CPU
 tensors.  Nothing here builds or loads CUDA code at import time.
 
-RMSNorm and decode attention serve (PR 1's slice); flash attention forward
-and backward and the fused AdamW train.
+RMSNorm and decode attention serve; flash attention forward and backward
+and the fused AdamW train; the SSD chunked scan runs the SSD family's
+training forward.
 
 Every wrapper carries a plain integer ``launches`` attribute, raised by one
 exactly where its kernel is launched; :func:`launch_counts` and
@@ -14,10 +15,10 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import adamw, decode_attention, flash_attention, rms_norm, rope
+from . import adamw, decode_attention, flash_attention, rms_norm, rope, ssd_scan
 
 __all__ = ["adamw", "decode_attention", "flash_attention", "rms_norm", "rope",
-           "launch_counts", "reset_launch_counts", "WRAPPERS"]
+           "ssd_scan", "launch_counts", "reset_launch_counts", "WRAPPERS"]
 
 # kernel name -> wrapper with a ``launches`` counter
 WRAPPERS = {
@@ -27,6 +28,7 @@ WRAPPERS = {
     "flash_attention_fwd": flash_attention.flash_attention_fwd,
     "flash_attention_bwd": flash_attention.flash_attention_bwd,   # one per backward: both passes
     "adamw": adamw.adamw_update,                                  # one per leaf
+    "ssd_scan": ssd_scan.ssd_scan,                                # one per forward
 }
 
 

@@ -55,6 +55,10 @@ SIGNATURES = {
         # eps, wd, coupled, out_dtype, vec, stream
         "adamw_launch": (P, P, P, P, P, L, F, F, F, F, F, F, F, F, F, F, I, I, I, P),
     },
+    "ssd_scan": {
+        # x, b, c, la, y, s, G, T, P, N, L, stream
+        "ssd_scan_launch": (P, P, P, P, P, P, I, I, I, I, I, P),
+    },
 }
 
 # dtype codes shared with the C side (csrc/common.cuh)

@@ -307,6 +307,9 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
                        int D, int cap, int maxb, int paged, int nsplit, float sm_scale,
                        cudaStream_t stream) {
   switch (D) {
+    case 32:   // the tiny hybrid SSD stack's attention layers
+      return dispatch_paged<T, 32>(q, k, v, lengths, table, ws, out, B, H, Hk, cap,
+                                   maxb, paged, nsplit, sm_scale, stream);
     case 64:
       return dispatch_paged<T, 64>(q, k, v, lengths, table, ws, out, B, H, Hk, cap,
                                    maxb, paged, nsplit, sm_scale, stream);

@@ -32,7 +32,7 @@ __all__ = ["cached_attention_reference", "masked_multihead_attention",
 
 NEG_INF = -1e30
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-_KERNEL_HEAD_DIMS = (64, 128, 256)
+_KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 _KERNEL_MAX_REP = 8
 
 

@@ -1,0 +1,174 @@
+"""SSD (state-space duality) chunked scan (port of
+``paddle_tpu/kernels/ssd_scan.py``).
+
+The training-time form of the Mamba-2-style selective state-space layer
+(``models/ssd.py``): the linear recurrence
+
+    S_t = a_t * S_{t-1} + B_t x_t^T        (state [N, P], decay a_t in (0,1])
+    y_t = C_t^T S_t
+
+computed in chunks of ``L`` tokens: within a chunk a masked ``[L, L]``
+"attention" form, across chunks the ``[N, P]`` state carried in order.  The
+caller flattens (batch, heads) into one leading ``G`` axis of independent
+recurrences.
+
+:func:`ssd_chunk_outputs` and :func:`ssd_chunk_state` are the JAX helpers
+batched over ``G``; :func:`ssd_scan_reference` (a loop over chunks, through
+:func:`ssd_scan_states`, which also keeps the boundary states the prefill
+reads) is the plain version and :func:`ssd_recurrence_reference` the
+token-by-token oracle.  :func:`ssd_scan` is differentiable through :class:`_SSDScan`: its
+forward launches the hand-written kernel ``csrc/ssd_scan.cu`` (the
+counterpart of the Pallas ``_ssd_scan_call``) on CUDA tensors and runs the
+plain version on CPU tensors; its backward recomputes the plain version
+under autograd and returns its VJP, as ``_ssd_scan_diff_bwd`` does (the JAX
+package has no backward kernel for the scan).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+__all__ = ["ssd_chunk_outputs", "ssd_chunk_state", "ssd_scan_states", "ssd_scan_reference",
+           "ssd_recurrence_reference", "ssd_scan", "KERNEL_SHAPES"]
+
+# (P, N, L) the kernel is built for: ssd_8b_config and ssd_tiny_config
+KERNEL_SHAPES = ((64, 128, 128), (32, 16, 16))
+
+
+def ssd_chunk_outputs(s, x, b, c, la):
+    """Outputs of one chunk per ``g`` given the inbound state ``s``.
+
+    ``s`` [G, N, P]; ``x`` [G, L, P]; ``b``/``c`` [G, L, N]; ``la`` [G, L]
+    (log-decay, <= 0).  Returns y [G, L, P] where
+
+        y_t = sum_{s<=t} (prod_{u=s+1..t} a_u) (C_t . B_s) x_s
+              + (prod_{u<=t} a_u) C_t^T S_in
+
+    The masked entries are cleared BEFORE exp, so the upper triangle's
+    positive log-sums never overflow.  Rows with ``x = b = c = 0, la = 0``
+    are exact no-ops on every other row's output."""
+    L = x.shape[1]
+    cum = torch.cumsum(la, dim=-1)                                  # [G, L], inclusive
+    idx = torch.arange(L, device=x.device)
+    mask = idx[None, :] <= idx[:, None]                             # [t, s]: s <= t
+    seg = torch.where(mask, cum[:, :, None] - cum[:, None, :], 0.0)
+    cb = torch.bmm(c, b.transpose(1, 2))                            # [G, L, L]
+    m = torch.where(mask, cb * torch.exp(seg), 0.0)
+    y = torch.bmm(m, x)
+    inter = torch.bmm(c, s)
+    return y + torch.exp(cum)[:, :, None] * inter
+
+
+def ssd_chunk_state(s, x, b, la):
+    """State after one chunk: ``S' = (prod a) S + sum_s (prod_{u>s} a_u)
+    B_s x_s^T``, per ``g``."""
+    cum = torch.cumsum(la, dim=-1)
+    total = cum[:, -1:]                                             # [G, 1]
+    w = torch.exp(total - cum)                                      # [G, L]
+    bw = b * w[:, :, None]
+    ds = torch.bmm(bw.transpose(1, 2), x)                           # [G, N, P]
+    return torch.exp(total)[:, :, None] * s + ds
+
+
+def ssd_scan_states(x, b, c, la, chunk: int):
+    """The plain chunked scan with its boundary states: ``x`` [G, T, P],
+    ``b``/``c`` [G, T, N], ``la`` [G, T], ``T % chunk == 0`` (callers
+    zero-pad, which is exact).  Returns ``(y [G, T, P], states)`` where
+    ``states[i]`` [G, N, P] is the state after the first ``i`` chunks
+    (``states[0]`` zero, ``states[-1]`` the final one).  The chunks are taken
+    by ``unbind``, whose backward is one stack: a per-chunk index would give
+    every chunk a full-size zero gradient to add up."""
+    G, T, P = x.shape
+    N = b.shape[-1]
+    nc = T // chunk
+    chunks = zip(x.reshape(G, nc, chunk, P).unbind(1), b.reshape(G, nc, chunk, N).unbind(1),
+                 c.reshape(G, nc, chunk, N).unbind(1), la.reshape(G, nc, chunk).unbind(1))
+    states = [torch.zeros((G, N, P), dtype=torch.float32, device=x.device)]
+    ys = []
+    for xc, bc, cc, lc in chunks:
+        ys.append(ssd_chunk_outputs(states[-1], xc, bc, cc, lc))
+        states.append(ssd_chunk_state(states[-1], xc, bc, lc))
+    return torch.cat(ys, dim=1), states
+
+
+def ssd_scan_reference(x, b, c, la, chunk: int):
+    """The plain chunked scan (the kernel's plain version): ``(y [G, T, P],
+    s_final [G, N, P])``, as :func:`ssd_scan_states`."""
+    y, states = ssd_scan_states(x, b, c, la, chunk)
+    return y, states[-1]
+
+
+def ssd_recurrence_reference(x, b, c, la):
+    """Token-by-token recurrence: the semantic oracle the chunked form is
+    dual to (equal up to float reassociation, not bitwise)."""
+    G, T, P = x.shape
+    N = b.shape[-1]
+    s = torch.zeros((G, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(T):
+        s = torch.exp(la[:, t])[:, None, None] * s + b[:, t, :, None] * x[:, t, None, :]
+        ys.append(torch.bmm(c[:, t, None, :], s)[:, 0])
+    return torch.stack(ys, dim=1), s
+
+
+def _launch(x, b, c, la, chunk: int):
+    G, T, P = x.shape
+    N = b.shape[-1]
+    if (P, N, chunk) not in KERNEL_SHAPES:
+        raise ValueError(f"ssd_scan kernel is built for (P, N, chunk) in {KERNEL_SHAPES}; "
+                         f"got ({P}, {N}, {chunk})")
+    for name, t in (("x", x), ("b", b), ("c", c), ("la", la)):
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"ssd_scan kernel: {name} must be contiguous, 16-byte aligned "
+                             f"and on {x.device}")
+    y = torch.empty((G, T, P), dtype=torch.float32, device=x.device)
+    s = torch.empty((G, N, P), dtype=torch.float32, device=x.device)
+    lib = _build.load("ssd_scan")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ssd_scan_launch(x.data_ptr(), b.data_ptr(), c.data_ptr(), la.data_ptr(),
+                                  y.data_ptr(), s.data_ptr(), G, T, P, N, int(chunk), stream)
+    _build.check(lib, err, "ssd_scan")
+    ssd_scan.launches += 1
+    return y, s
+
+
+class _SSDScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, b, c, la, chunk):
+        ctx.save_for_backward(x, b, c, la)
+        ctx.chunk = chunk
+        if x.device.type == "cpu":
+            return ssd_scan_reference(x, b, c, la, chunk)
+        return _launch(x, b, c, la, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        # the plain version's VJP at the same inputs (the kernel computes the
+        # same function), as the JAX package's custom_vjp does
+        args = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y, s = ssd_scan_reference(*args, ctx.chunk)
+        grads = torch.autograd.grad((y, s), args, (dy, ds))
+        return (*grads, None)
+
+
+def ssd_scan(x, b, c, la, *, chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan over ``G`` independent recurrences, differentiable in
+    all four inputs: ``x`` [G, T, P], ``b``/``c`` [G, T, N], ``la`` [G, T],
+    taken as fp32; ``T`` must be a multiple of ``chunk``.  Returns ``(y [G,
+    T, P], s_final [G, N, P])`` in fp32: the CUDA kernel for CUDA inputs,
+    the plain version for CPU inputs."""
+    if x.shape[1] % chunk:
+        raise ValueError(f"T={x.shape[1]} not a multiple of chunk={chunk}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd_scan: unsupported device {x.device}")
+    args = [t.to(torch.float32).contiguous() for t in (x, b, c, la)]
+    return _SSDScan.apply(*args, int(chunk))
+
+
+ssd_scan.launches = 0

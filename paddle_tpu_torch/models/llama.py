@@ -386,6 +386,12 @@ class LlamaForCausalLM(nn.Module):
                                   device, self.generator, config.initializer_range)
 
     @property
+    def decoder(self) -> LlamaModel:
+        """The decoder body, the one name the head, ``forward``, ``generate``
+        and the serving Engine reach it by (``self.ssd`` in the SSD family)."""
+        return self.llama
+
+    @property
     def device(self) -> torch.device:
         return self.llama.device
 
@@ -398,12 +404,12 @@ class LlamaForCausalLM(nn.Module):
     def head(self, hidden):
         """Vocab projection of final hidden states."""
         if self.lm_head is None:
-            return hidden @ self.llama.embed_tokens.to(hidden.dtype).T
+            return hidden @ self.decoder.embed_tokens.to(hidden.dtype).T
         return hidden @ self.lm_head.to(hidden.dtype)
 
     def forward(self, input_ids, position_ids=None, cache=None):
         """Logits; with ``cache`` returns ``(logits, new_cache)``."""
-        out = self.llama(input_ids, position_ids, cache=cache)
+        out = self.decoder(input_ids, position_ids, cache=cache)
         if cache is not None:
             hidden, new_cache = out
             return self.head(hidden), new_cache
@@ -454,7 +460,7 @@ class LlamaForCausalLM(nn.Module):
                  generator: Optional[torch.Generator] = None):
         """Autoregressive generation (greedy or temperature/top-k/top-p
         sampling): prefill with a dense cache, then single-token steps
-        through the dense decode kernel.  Returns ``[B, P + max_new_tokens]``
+        through the dense decode kernel (attention layers).  Returns ``[B, P + max_new_tokens]``
         int32 ids; sequences that hit ``eos_token_id`` are padded with it."""
         if isinstance(input_ids, np.ndarray):
             input_ids = torch.from_numpy(input_ids)
@@ -464,14 +470,14 @@ class LlamaForCausalLM(nn.Module):
         sample = dict(do_sample=do_sample, temperature=temperature, top_k=top_k,
                       top_p=top_p, eos=eos_token_id, generator=gen)
         cache = self.init_cache(B, P + max_new_tokens)
-        hidden, cache = self.llama(ids, cache=cache)
+        hidden, cache = self.decoder(ids, cache=cache)
         done = torch.zeros(B, dtype=torch.bool, device=self.device)
         tok = self._sample_next(self.head(hidden[:, -1]).float(), done, **sample)
         toks = [tok]
         for _ in range(max_new_tokens - 1):
             if eos_token_id is not None:
                 done = done | (tok == eos_token_id)
-            hidden, cache = self.llama(tok[:, None], cache=cache)
+            hidden, cache = self.decoder(tok[:, None], cache=cache)
             tok = self._sample_next(self.head(hidden[:, -1]).float(), done, **sample)
             toks.append(tok)
         return torch.cat([ids, torch.stack(toks, dim=1)], dim=1)

@@ -1,5 +1,6 @@
-"""Continuous-batching LLM serving engine over the paged KV cache (port of
-``paddle_tpu/serving/__init__.py``, attention family).
+"""Continuous-batching LLM serving engine (port of
+``paddle_tpu/serving/__init__.py``): the attention family over the paged KV
+cache, and the SSD family over constant-size recurrent state.
 
 The host scheduler is the original's, unchanged: admission, same-bucket
 batched prefill on a 4/2/1 size ladder, block growth, recompute-style
@@ -17,8 +18,16 @@ and the pools are updated in place.  Every decode sub-step runs the paged
 decode kernel once per layer and the RMSNorm kernel twice per layer plus
 once at the end (on CUDA tensors; their plain versions on CPU tensors).
 
-The recurrent (SSD) and hybrid cache families wait for the SSD slice and
-raise ``NotImplementedError``.
+Recurrent (SSD) and hybrid stacks: the model's ``cache_spec`` selects the
+backend (``RecurrentState`` for a pure SSD stack, ``HybridCache`` for a
+mixed one).  Such an engine keeps one decode-state row per slot for every
+SSD layer (``model.init_recurrent_slots``), prefills one request at a time
+at its bucket with the padded tail masked (``n_valid``), scatters the
+prefill's states into the slot's rows and, for hybrid attention layers, its
+K/V into the paged pools, and threads the states through every decode
+sub-step beside the pools.  Prefix caching and chunked prefill are off for
+them: a pure SSD stack has no block chain to hash, and a hit would restore
+only the attention half of a hybrid one.
 """
 
 from __future__ import annotations
@@ -34,10 +43,10 @@ import torch
 
 from .. import default_device, make_generator, obs, to_dtype
 from ..kernels.decode_attention import write_paged_prefill
-from .cache_backend import CacheBackend, PagedKV, make_backend
+from .cache_backend import CacheBackend, HybridCache, PagedKV, RecurrentState, make_backend
 
 __all__ = ["Engine", "GenRequest", "RequestOutput", "prefix_block_hashes",
-           "CacheBackend", "PagedKV", "make_backend"]
+           "CacheBackend", "HybridCache", "PagedKV", "RecurrentState", "make_backend"]
 
 NEG_INF = -1e30
 
@@ -141,10 +150,15 @@ class Engine:
 
             spec = llama_cache_spec(model)
         self._spec = spec
-        if any(k != "attention" for k in spec["kinds"]):
-            raise NotImplementedError(
-                "paddle_tpu_torch Engine: recurrent / hybrid cache families "
-                "come with the SSD slice")
+        self._recurrent = "ssd" in spec["kinds"]
+        self._uses_pages = "attention" in spec["kinds"]
+        if self._recurrent:
+            # no block chain to hash (pure SSD), or a hit would restore only
+            # the attention half (hybrid); chunked prefill rides the
+            # block-aligned context offset, which the recurrent prefill
+            # does not model
+            prefix_cache = False
+            prefill_chunk = None
         self.max_batch = max_batch
         self.block_size = block_size
         self.num_blocks = num_blocks
@@ -173,7 +187,16 @@ class Engine:
         self.backend = make_backend(spec, num_blocks, block_size, max_batch,
                                     prefix_cache=prefix_cache)
         self.prefix_cache = self.backend.supports_prefix_cache
-        self._pages = self.backend
+        # block verbs go to the paged side (a zero-block pool for a pure SSD
+        # stack, so the _free/_ref/... surface stays uniform); slot state to
+        # the recurrent ledger
+        if isinstance(self.backend, PagedKV):
+            self._pages, self._rstate = self.backend, None
+        elif isinstance(self.backend, HybridCache):
+            self._pages, self._rstate = self.backend.pages, self.backend.state
+        else:
+            self._pages = PagedKV(1, block_size, 0, prefix_cache=False)
+            self._rstate = self.backend
         self._slots = [_Slot(idx=i) for i in range(max_batch)]
         self._tbl = np.zeros((max_batch, self.max_blocks_per_seq), np.int32)
         self._waiting: collections.deque = collections.deque()
@@ -206,6 +229,9 @@ class Engine:
                     f" ({detail}); reduce num_blocks (kv_pool_bytes scales "
                     f"linearly with it) or max_batch")
         self.k_pools, self.v_pools = model.init_paged_pools(num_blocks, block_size)
+        # one decode-state dict per SSD layer, max_batch rows wide: written
+        # by each prefill at its slot's row, advanced by every decode step
+        self._ssd_state = model.init_recurrent_slots(max_batch) if self._recurrent else ()
         # dispatch staging: device copies of the decode inputs, reused while
         # the scheduler state they snapshot is unchanged (steady-state decode
         # uploads nothing; the lengths vector advances on the device)
@@ -302,12 +328,15 @@ class Engine:
             self._req_counter += 1
             req.request_id = f"req-{self._req_counter}"
         P = len(req.prompt_ids)
-        if (P + req.max_new_tokens) > self.max_blocks_per_seq * self.block_size:
+        # block capacity binds only where the cache pages (a pure SSD
+        # sequence has no block chain)
+        if self._uses_pages and (P + req.max_new_tokens) > \
+                self.max_blocks_per_seq * self.block_size:
             raise ValueError(
                 f"prompt ({P}) + max_new_tokens ({req.max_new_tokens}) "
                 f"exceeds the per-slot capacity "
                 f"{self.max_blocks_per_seq * self.block_size}")
-        if self._bucket(P) // self.block_size > self.num_blocks - 1:
+        if self._uses_pages and self._bucket(P) // self.block_size > self.num_blocks - 1:
             raise ValueError(
                 f"prompt needs {self._bucket(P) // self.block_size} "
                 f"blocks but the pool only has {self.num_blocks - 1} "
@@ -437,7 +466,7 @@ class Engine:
             if n_hit == 0 and not chunked:
                 # -- path A: dense batched prefill of the whole prompt
                 Pb = self._bucket(P)
-                n_blocks = Pb // bs
+                n_blocks = Pb // bs if self._uses_pages else 0
                 if n_blocks > self.num_blocks - 1:
                     raise RuntimeError(
                         f"request {req.request_id} needs {n_blocks} blocks "
@@ -447,6 +476,8 @@ class Engine:
                 self._waiting.popleft()
                 blocks = [self._alloc_block() for _ in range(n_blocks)]
                 self._admit_counter += 1
+                if self._rstate is not None:
+                    self._rstate.acquire_slot(slot.idx)
                 slot.req = req
                 slot.length = P
                 slot.blocks = blocks
@@ -495,6 +526,11 @@ class Engine:
         for entry in admitted:
             by_bucket.setdefault(entry[2], []).append(entry)
         for Pb, group in by_bucket.items():
+            if self._recurrent:
+                # one request a prefill: it scatters one slot's state rows
+                for entry in group:
+                    self._prefill_batch([entry], Pb)
+                continue
             while group:
                 n = 4 if len(group) >= 4 else (2 if len(group) >= 2 else 1)
                 self._prefill_batch(group[:n], Pb)
@@ -577,6 +613,8 @@ class Engine:
         """Allocate every block the next ``k`` decode steps write, per slot
         clipped to its remaining budget (evicting the youngest sequence on
         pressure)."""
+        if not self._uses_pages:
+            return                 # recurrent state never grows: no blocks
         for slot in sorted((s for s in self._slots if s.req is not None),
                            key=lambda s: s.admit_seq):
             if slot.req is None:
@@ -632,6 +670,8 @@ class Engine:
     def _release(self, slot: _Slot):
         for b in slot.blocks:
             self._free_block(b)      # shared blocks just drop a ref
+        if self._rstate is not None and slot.req is not None:
+            self._rstate.release_slot(slot.idx)
         self._sched_version += 1
         slot.req = None
         slot.length = 0
@@ -653,7 +693,7 @@ class Engine:
         cache = {"k": self.k_pools, "v": self.v_pools,
                  "block_table": self._dev(tbl_row[None, :]),
                  "lengths": self._dev([ctx], torch.int32)}
-        hidden, _ = self.model.llama(self._dev(ids_row[None, :]), cache=cache)
+        hidden, _ = self.model.decoder(self._dev(ids_row[None, :]), cache=cache)
         if fidx0 is None:
             return
         lg = self.model.head(hidden[:, n_valid - 1])
@@ -672,8 +712,9 @@ class Engine:
         n = len(group)
         fidx0 = self._next_first_idx(n)
         t0 = time.perf_counter()
+        run = self._run_ssd_prefill if self._recurrent else self._run_prefill
         with obs.span("serve.prefill", cat="serve", args={"bucket": Pb, "n": n}):
-            self._run_prefill(group, Pb, fidx0)
+            run(group, Pb, fidx0)
         dt = time.perf_counter() - t0
         reg = obs.registry()
         lbl = self._obs_labels()
@@ -700,7 +741,7 @@ class Engine:
         sidx = self._dev([e[0].idx for e in group], torch.long)
         temps = np.array([e[1].temperature for e in group], np.float32)
         cache = self.model.init_cache(n, Pb)
-        hidden, new_cache = self.model.llama(ids, cache=cache)
+        hidden, new_cache = self.model.decoder(ids, cache=cache)
         for li, (k_c, v_c) in enumerate(new_cache["kv"]):
             hk, d = k_c.shape[2], k_c.shape[3]
             write_paged_prefill(self.k_pools[li], self.v_pools[li], blocks,
@@ -716,6 +757,35 @@ class Engine:
             bool((temps > 0).any()))
         self._last_dev[sidx] = nxt
         self._first_buf[fidx0:fidx0 + n] = nxt
+
+    @torch.no_grad()
+    def _run_ssd_prefill(self, group, Pb: int, fidx0: int):
+        """B=1 prefill of a model with SSD layers (``group`` holds one
+        admission): dense forward over the bucket-padded prompt with the
+        tail masked (``n_valid``: zeroed projections are exact no-ops on the
+        scan), then the per-layer decode state into the slot's rows and, for
+        hybrid attention layers, K/V into the paged pools."""
+        (slot, req, _, ids_row, blocks_row, n_valid), = group
+        sidx = slot.idx
+        cache = self.model.init_cache(1, Pb)
+        cache["n_valid"] = n_valid
+        hidden, new_cache = self.model.decoder(self._dev(ids_row[None, :]), cache=cache)
+        for slots, st in zip(self._ssd_state, new_cache["ssd"]):
+            for key, rows in slots.items():
+                rows[sidx] = st[key][0]
+        if new_cache["kv"]:
+            blocks = self._dev(blocks_row)
+            for ai, (k_c, v_c) in enumerate(new_cache["kv"]):
+                write_paged_prefill(self.k_pools[ai], self.v_pools[ai], blocks,
+                                    k_c[0, :Pb], v_c[0, :Pb])
+        lg = self.model.head(hidden[:, n_valid - 1])
+        nxt = _sample_batch(lg, self.generator,
+                            self._dev([req.temperature], torch.float32),
+                            self._dev([req.top_k], torch.int32),
+                            self._dev([req.top_p], torch.float32),
+                            req.temperature > 0)
+        self._last_dev[sidx] = nxt[0]
+        self._first_buf[fidx0] = nxt[0]
 
     def _dispatch_chunk(self, k: int):
         """Run one k-sub-step decode chunk and account for it: ownership
@@ -795,13 +865,18 @@ class Engine:
     def _run_decode(self, k: int, tbl, lengths, temps, top_ks, top_ps,
                     any_sample: bool, row0: int) -> torch.Tensor:
         """``k`` decode sub-steps over all ``max_batch`` slots; inactive
-        slots (length 0) hold their last token and write only to the trash
-        block.  Returns the advanced lengths vector."""
+        slots (length 0) hold their last token and their SSD state, and
+        write only to the trash block.  Returns the advanced lengths
+        vector."""
         lst = self._last_dev
         for i in range(k):
             cache = {"k": self.k_pools, "v": self.v_pools,
                      "block_table": tbl, "lengths": lengths}
-            hidden, new_cache = self.model.llama(lst[:, None], cache=cache)
+            if self._recurrent:
+                cache["ssd"] = self._ssd_state
+            hidden, new_cache = self.model.decoder(lst[:, None], cache=cache)
+            if self._recurrent:
+                self._ssd_state = new_cache["ssd"]
             nxt = _sample_batch(self.model.head(hidden[:, 0]), self.generator,
                                 temps, top_ks, top_ps, any_sample)
             lst = torch.where(lengths > 0, nxt, lst)
@@ -813,8 +888,8 @@ class Engine:
     def warmup(self):
         """Build the kernels and run one decode step and one prefill per
         bucket on throwaway inputs (all slots inactive, writes to the trash
-        block), so neither the kernel build nor first-call library setup
-        lands inside a serving window."""
+        block, SSD slot states unchanged), so neither the kernel build nor
+        first-call library setup lands inside a serving window."""
         if self.device.type == "cuda":
             from ..kernels import _build
 
@@ -824,12 +899,14 @@ class Engine:
         with torch.no_grad():
             for Pb in self.prefill_buckets:
                 cache = self.model.init_cache(1, Pb)
-                self.model.llama(torch.zeros((1, Pb), dtype=torch.int32,
-                                             device=self.device), cache=cache)
+                self.model.decoder(torch.zeros((1, Pb), dtype=torch.int32,
+                                               device=self.device), cache=cache)
             cache = {"k": self.k_pools, "v": self.v_pools,
                      "block_table": self._dev(np.zeros_like(self._tbl)),
                      "lengths": zeros}
-            hidden, _ = self.model.llama(zeros[:, None], cache=cache)
+            if self._recurrent:
+                cache["ssd"] = self._ssd_state
+            hidden, _ = self.model.decoder(zeros[:, None], cache=cache)
             self.model.head(hidden[:, 0])
         self._last_dev = saved_last
         if self.device.type == "cuda":

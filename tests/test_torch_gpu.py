@@ -36,7 +36,7 @@ def test_rms_norm_kernel_matches_plain(cuda, dtype):
     torch.testing.assert_close(y, rms_norm_reference(x, w), **tol)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernels_match_plain_under_nan_trash(cuda, d, dtype):
     from paddle_tpu_torch.kernels import decode_attention as da
@@ -209,3 +209,74 @@ def test_rms_norm_gradients_on_the_card(cuda):
     yb = rms_norm(xb, w, 1e-6)
     dxb, dwb = torch.autograd.grad(yb, (xb, w), dy.to(torch.bfloat16))
     assert dxb.dtype == torch.bfloat16 and dwb.dtype == torch.float32
+
+
+def _ssd_operands(dev, G, T, P, N, seed, decay=0.1):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(G, T, P, generator=g, device=dev)
+    b = torch.randn(G, T, N, generator=g, device=dev)
+    c = torch.randn(G, T, N, generator=g, device=dev)
+    la = -torch.randn(G, T, generator=g, device=dev).abs() * decay
+    return x, b, c, la
+
+
+# (P, N, L) of ssd_tiny_config and ssd_8b_config
+SSD_SHAPES = [(32, 16, 16), (64, 128, 128)]
+
+
+@pytest.mark.parametrize("P,N,L", SSD_SHAPES)
+def test_ssd_scan_kernel_matches_plain(cuda, P, N, L):
+    from paddle_tpu_torch.kernels import ssd_scan as ts
+
+    x, b, c, la = _ssd_operands(cuda, 6, 4 * L, P, N, seed=6)
+    before = ts.ssd_scan.launches
+    y, s = ts.ssd_scan(x, b, c, la, chunk=L)
+    assert ts.ssd_scan.launches == before + 1
+    y_ref, s_ref = ts.ssd_scan_reference(x, b, c, la, L)
+    # fp32 sums of up to L + N products a term in another order, and the
+    # log-decay prefix sum in another order: chip_smoke.py's SSD_ATOL, 1e-5
+    # of the output's scale (read 1.25e-6 at the 8B shape)
+    for a, r in ((y, y_ref), (s, s_ref)):
+        torch.testing.assert_close(a, r, rtol=0, atol=1e-5 * float(r.abs().max()))
+    with pytest.raises(ValueError):
+        ts.ssd_scan(x[..., :16], b, c, la, chunk=L)     # a (P, N, L) it is not built for
+
+
+@pytest.mark.parametrize("P,N,L", SSD_SHAPES)
+def test_ssd_scan_zero_rows_are_exact_noops_on_the_card(cuda, P, N, L):
+    """Zero rows (x = b = c = 0, la = 0) after the valid ones, inside a chunk
+    and as a whole chunk, leave every valid output and the state
+    bit-identical."""
+    from paddle_tpu_torch.kernels import ssd_scan as ts
+
+    ops = _ssd_operands(cuda, 4, 2 * L, P, N, seed=7)
+    ops = [t.clone() for t in ops]
+    cut = 2 * L - 5
+    for t in ops:
+        t[:, cut:] = 0
+    y0, s0 = ts.ssd_scan(*ops, chunk=L)
+    pad = [torch.cat([t, torch.zeros_like(t[:, :L])], dim=1) for t in ops]
+    y1, s1 = ts.ssd_scan(*pad, chunk=L)
+    assert torch.equal(y0, y1[:, :2 * L]) and torch.equal(s0, s1)
+    assert bool((y1[:, 2 * L:] == 0).all())
+
+
+def test_ssd_scan_gradients_on_the_card(cuda):
+    """The kernel's outputs are in the autograd graph, and its gradients
+    (the plain version's VJP) equal autograd through the plain scan."""
+    from paddle_tpu_torch.kernels import ssd_scan as ts
+
+    ops = [t.requires_grad_() for t in _ssd_operands(cuda, 4, 64, 32, 16, seed=8)]
+    y, s = ts.ssd_scan(*ops, chunk=16)
+    assert y.grad_fn is not None and s.grad_fn is not None
+    g = torch.Generator(device=cuda).manual_seed(9)
+    dy, ds = torch.randn(y.shape, generator=g, device=cuda), torch.randn(s.shape, generator=g,
+                                                                          device=cuda)
+    got = torch.autograd.grad((y, s), ops, (dy, ds))
+    y_r, s_r = ts.ssd_scan_reference(*ops, 16)
+    want = torch.autograd.grad((y_r, s_r), ops, (dy, ds))
+    for name, a, r in zip(("x", "b", "c", "la"), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        # the same plain backward at the same inputs: only the kernel's
+        # forward differs, and the backward does not read it
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5 * float(r.abs().max()))

@@ -19,6 +19,7 @@ from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
 from paddle_tpu_torch.kernels import rms_norm as trms
 from paddle_tpu_torch.kernels import rope as trope
+from paddle_tpu_torch.kernels.ssd_scan import ssd_scan
 
 # fp32 against fp32 with sums taken in another order by XLA and torch
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -161,9 +162,13 @@ def test_cpu_wrappers_run_plain_versions_without_launching():
     one = torch.ones(8)
     tadamw.adamw_update(one.clone(), one, one.clone(), one.clone(), 1e-3, 1,
                         beta1=0.9, beta2=0.999, epsilon=1e-8)
+    xs = torch.ones(2, 32, 32, requires_grad=True)
+    y, s = ssd_scan(xs, torch.ones(2, 32, 16), torch.ones(2, 32, 16), torch.zeros(2, 32),
+                    chunk=16)
+    (y.sum() + s.sum()).backward()
     assert launch_counts() == {"rms_norm": 0, "decode_attention_dense": 0,
                                "decode_attention_paged": 0, "flash_attention_fwd": 0,
-                               "flash_attention_bwd": 0, "adamw": 0}
+                               "flash_attention_bwd": 0, "adamw": 0, "ssd_scan": 0}
 
 
 def test_cached_attention_reference_matches_jax():

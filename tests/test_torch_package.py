@@ -54,7 +54,8 @@ def test_source_imports_no_jax_or_paddle_tpu(path):
 
 def test_entry_points_refuse_cpu_without_being_asked(monkeypatch):
     import paddle_tpu_torch as pt
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    from paddle_tpu_torch.models import (LlamaForCausalLM, SSDForCausalLM, llama_tiny_config,
+                                         ssd_tiny_config)
     from paddle_tpu_torch.serving import Engine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -62,18 +63,26 @@ def test_entry_points_refuse_cpu_without_being_asked(monkeypatch):
         pt.default_device()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LlamaForCausalLM(llama_tiny_config())
-    model = LlamaForCausalLM(llama_tiny_config(), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Engine(model)
+        SSDForCausalLM(ssd_tiny_config())
+    for model in (LlamaForCausalLM(llama_tiny_config(), device="cpu"),
+                  SSDForCausalLM(ssd_tiny_config(), device="cpu")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Engine(model)
     assert pt.default_device("cpu") == torch.device("cpu")
 
 
 def test_kernel_wrappers_reject_other_devices():
     from paddle_tpu_torch.kernels.decode_attention import paged_decode_attention
     from paddle_tpu_torch.kernels.rms_norm import rms_norm
+    from paddle_tpu_torch.kernels.ssd_scan import ssd_scan
 
     with pytest.raises(ValueError):
         rms_norm(torch.ones(2, 64, device="meta"), torch.ones(64, device="meta"))
+    x = torch.ones(1, 16, 32, device="meta")
+    with pytest.raises(ValueError):
+        ssd_scan(x, torch.ones(1, 16, 16, device="meta"), torch.ones(1, 16, 16, device="meta"),
+                 torch.ones(1, 16, device="meta"), chunk=16)
     q = torch.ones(1, 1, 4, 64, device="meta")
     pool = torch.ones(2, 2, 128, 64, device="meta")
     tbl = torch.zeros(1, 1, dtype=torch.int32, device="meta")

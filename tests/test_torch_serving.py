@@ -146,15 +146,28 @@ def test_memory_plan_and_hashes_match_jax(pair):
 
 
 def test_engine_refuses_recurrent_models(pair):
-    _, tm = pair
+    """Recurrent and hybrid stacks are no longer refused: as the JAX Engine,
+    the port's picks ``RecurrentState`` for a pure ``ssd`` cache spec and
+    ``HybridCache`` for a mixed one, with prefix caching and chunked prefill
+    forced off, and keeps the attention family on ``PagedKV``."""
+    from paddle_tpu.models import SSDForCausalLM as JaxSSD
+    from paddle_tpu.models import ssd_tiny_config as jax_ssd_tiny
+    from paddle_tpu.models import ssd_tiny_hybrid_config as jax_ssd_hybrid
+    from paddle_tpu_torch.models import (SSDForCausalLM, ssd_tiny_config,
+                                         ssd_tiny_hybrid_config)
+    from paddle_tpu_torch.serving import HybridCache, PagedKV, RecurrentState
 
-    class Hybrid(torch.nn.Module):
-        config = tm.config
-        device = tm.device
-
-        def cache_spec(self):
-            return {"kinds": ("attention", "ssd"), "state_bytes_per_slot": 8,
-                    "kv_layers": 1, "kv_bytes_per_token_layer": 8}
-
-    with pytest.raises(NotImplementedError):
-        Engine(Hybrid(), device="cpu")
+    kw = dict(max_batch=2, num_blocks=8, block_size=16, prefill_buckets=(32,),
+              prefill_chunk=16)
+    for tcfg, jcfg, backend in ((ssd_tiny_config, jax_ssd_tiny, RecurrentState),
+                                (ssd_tiny_hybrid_config, jax_ssd_hybrid, HybridCache)):
+        eng = Engine(SSDForCausalLM(tcfg(), device="cpu"), device="cpu", **kw)
+        j_eng = JaxEngine(JaxSSD(jcfg()), **kw)
+        assert isinstance(eng.backend, backend)
+        assert type(j_eng.backend).__name__ == backend.__name__
+        assert not eng.prefix_cache and eng.prefill_chunk is None
+        # one slot-state dict per SSD layer, max_batch rows
+        assert len(eng._ssd_state) == eng.cfg.types.count("ssd")
+        assert all(st["s"].shape[0] == 2 for st in eng._ssd_state)
+    assert isinstance(Engine(pair[1], device="cpu", max_batch=2, num_blocks=8).backend,
+                      PagedKV)
