@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of paddle_tpu_torch on one NVIDIA GPU: build the CUDA kernels,
 hold each against its plain PyTorch version, check the card against the CPU,
-pretrain the `base` preset and the SSD family at `ssd_8b` widths for a few
-steps through TrainStep, and serve Llama-3-8B-shaped and SSD-8B requests
-through the port's Engine.
+pretrain the `base` preset (stock, and with the fusion sites substituted)
+and the SSD family at `ssd_8b` widths for a few steps through TrainStep,
+and serve Llama-3-8B-shaped and SSD-8B requests through the port's Engine.
 
     python3 chip_smoke.py                  # every phase, full depth
     python3 chip_smoke.py --layers 8       # cut Llama serving depth (never width)
     python3 chip_smoke.py --phases card,build,kernels,train
+    python3 chip_smoke.py --phases card,build,kernels,parity,fuse_train
     python3 chip_smoke.py --phases card,build,kernels,parity,ssd_train,ssd_serve
 
 Phases:
@@ -21,12 +22,18 @@ Phases:
              tile, and planted faults in them must be rejected; the SSD
              scan also by norm per recurrence, with zero rows bitwise
              no-ops, under a log-decay near -20 a token, and against three
-             planted faults
+             planted faults; each fusion site's forward and backward at
+             `base` (bf16 rows, fp32 weights; also 1000 ragged rows, the
+             tied head, fp32 at 520 rows) against the plain reference and
+             its autograd, elementwise and per 64-row tile, with the seam's
+             stock chain timed beside it, and three planted faults (gate
+             and up swapped, the last K tile dropped, a row's RMS skipped)
   4 parity   card (kernels) against CPU (plain versions) in fp32 on a
              narrow Llama config and on the tiny pure and hybrid SSD
              stacks: Engine and generate tokens must be equal; three
              TrainStep steps must agree in losses, step-1 gradients,
-             parameters and the optimizer's m and v slots
+             parameters and the optimizer's m and v slots; the Llama steps
+             again with every fusion site verified and activated
   5 train    the `base` preset (12 layers, batch 3, seq 2048, bf16 compute,
              fp32 params) for 5 steps on one batch with the
              launch counters zeroed just before and read just after: every
@@ -35,6 +42,16 @@ Phases:
              optimizer update) and no decode kernel; losses finite and
              falling; step 1's loss within a limit of the same batch run
              with fp32 activations.  Step time, tokens/s and MFU are printed
+  5b fuse_train  `base` in three legs, stock -> fused -> stock, each a fresh
+             build_pretrain_step("base", "cuda") with the same seed, 5
+             steps, counters read per step (the first stock leg is the
+             `train` phase's run when that phase ran); the fused leg runs inside
+             emit.activate(emit.verified_activation("cuda")) and each of its
+             steps must launch every site forward and backward once a layer
+             (the head's once), RMSNorm once a layer, flash as before and
+             AdamW once a leaf in the update; the stock legs no site.
+             Losses finite and falling; the fused step-1 loss within a
+             limit of the stock one; the stock legs equal
   6 serve    llama3_8b_config, bf16, random weights from --seed, three
              paths each with the launch counters zeroed just before it and
              read just after it: 16 requests (two share a 256-token prefix)
@@ -59,7 +76,8 @@ Phases:
              limit of generate's
   9 profile  (a diagnostic: it prints and checks nothing) one
              decode-dominated Engine drain at 8B widths, one `base`
-             training step and one `ssd_train` step under torch.profiler:
+             training step (stock and fused) and one `ssd_train` step under
+             torch.profiler:
              device time by kernel, and the device's busy share of the
              wall time
 
@@ -72,6 +90,7 @@ once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -120,6 +139,16 @@ TRAIN_STEPS = 5              # steps of the `base` training phase, on one batch
 # step 1's loss at `base` in bf16 against the same weights and batch with
 # fp32 activations: at most this far apart (prediction in PERF.md)
 TRAIN_LOSS_TOL = 1e-2
+# `fuse_train`: the fused leg's step-1 loss against the stock leg's.  Both
+# are bf16 steps on the same weights and batch that differ only in where
+# bf16 rounding lands (sums in another order), so they are held to the same
+# TRAIN_LOSS_TOL that bounds bf16 against fp32 activations; the run prints
+# stock's own bf16-vs-fp32 gap beside the reading.  The two stock legs run
+# the same code on the same inputs: step 1's losses (a forward of
+# deterministic kernels) must be equal to the bit, later ones within
+# STOCK_LEGS_RTOL (room for any order-dependent sum in a backward); a table
+# leaking out of the fused leg's scope moves step 1 already
+STOCK_LEGS_RTOL = 1e-4
 # (atol, rtol): the same bf16 rounding limit.  Decode outputs are O(sqrt(1/L))
 # (0.04-0.05 at L = 1024-2048), so one dropped or double-counted key, or a
 # misweighted split in the combine pass, moves them far past it
@@ -138,10 +167,28 @@ LOGIT_TOL = 2.0
 # each limit is about 8x its reading; the planted faults read 0.056 and up
 SSD_ATOL = 1e-5
 SSD_NORM_RTOL = 1e-5
+# the fusion sites' kernels against their plain versions (the site
+# references and torch's autograd of them, over cuBLAS products) in bf16:
+# both sum in fp32 and round once, but in another order, so an output lands
+# on the other side of a bf16 rounding at times, and one flipped ulp of gate
+# or up moves everything after it: (atol, rtol) = (1e-3 x max(1, max
+# |plain|), two bf16 ulps), as for flash.  Every output is also held per
+# 64-row tile by |kernel - plain| / |plain| (Frobenius norms) at most one
+# bf16 ulp, 2^-8; the planted faults below show both checks at work
+FUSE_TOL = (1e-3, 1.6e-2)
+FUSE_TILE = 64
+FUSE_TILE_RTOL = 2.0 ** -8
+# fp32 (CUDA cores, no TF32 on either side): sums of up to 32000 terms in
+# another order, ~1e-6 of the scale; elementwise atol as a share of max
+# |plain|, rtol, and the tile norm limit
+FUSE_TOL_FP32 = (1e-5, 1e-5)
+FUSE_TILE_RTOL_FP32 = 1e-5
+# `base`'s site shapes: batch 3 x seq 2048 rows, hidden, intermediate, vocab
+FUSE_M, FUSE_H, FUSE_I, FUSE_V = 3 * 2048, 2048, 5632, 32000
 SSD_TRAIN_LAYERS = 8         # depth of `ssd_train` (32 would need 77 GB for params and AdamW)
 SSD_TRAIN_BATCH, SSD_TRAIN_SEQ = 2, 4096
-ALL_PHASES = ("card", "build", "kernels", "parity", "train", "ssd_train", "serve", "ssd_serve",
-              "profile")
+ALL_PHASES = ("card", "build", "kernels", "parity", "train", "fuse_train", "ssd_train", "serve",
+              "ssd_serve", "profile")
 REPO = Path(__file__).resolve().parent
 
 
@@ -722,6 +769,216 @@ def _ssd_case(gen, G, T, P, N, L, full):
     return rec
 
 
+def rows_tile_err(a, b, tile=FUSE_TILE):
+    """Largest |a - b| / |b| (Frobenius norms) over the ``tile``-row blocks
+    of 2-D tensors (a vector is one row); a ragged last tile is padded with
+    zero rows, which add to neither norm."""
+    import torch.nn.functional as F
+
+    a, b = (x.float().reshape(-1, x.shape[-1]) for x in (a, b))
+    pad = -b.shape[0] % tile
+    a, b = (F.pad(x, (0, 0, 0, pad)).reshape(-1, tile, x.shape[-1]) for x in (a, b))
+    num = (a - b).square().sum((1, 2)).sqrt()
+    return float((num / b.square().sum((1, 2)).sqrt().clamp_min(1e-30)).max())
+
+
+def _fuse_rejects(got, ref, fp32):
+    """The fusion checks: True when ``got`` fails them against ``ref``."""
+    tol, tile = (FUSE_TOL_FP32, FUSE_TILE_RTOL_FP32) if fp32 else (FUSE_TOL, FUSE_TILE_RTOL)
+    if fp32:
+        tol = (tol[0] * max(float(ref.float().abs().max()), 1e-30), tol[1])
+    return not within(got, ref, tol, scaled=not fp32) or rows_tile_err(got, ref) > tile
+
+
+def _site_args(gen, name, M, dtype, transpose=False):
+    """A site's operands at `base` widths, ``M`` rows of ``dtype``
+    activations, fp32 weights at the model's init scale: hidden rows N(0, 1)
+    (N(0, 4) before the final norm, whose inverse RMS is then ~0.5), norm
+    weights 1 + N(0, 0.01), projections N(0, 0.02^2)."""
+    import torch
+
+    def rnd(*shape, std=1.0, dt=torch.float32):
+        return (std * torch.randn(*shape, generator=gen, device="cuda")).to(dt)
+
+    H, I, V = FUSE_H, FUSE_I, FUSE_V
+    if name == "fuse_swiglu_mlp":
+        return (rnd(M, H, dt=dtype), rnd(H, 2 * I, std=0.02), rnd(I, H, std=0.02)), \
+            {"intermediate_size": I}
+    if name == "fuse_add_rms_norm":
+        return (rnd(M, H, dt=dtype), rnd(M, H, dt=dtype), 1 + rnd(H, std=0.1)), {"epsilon": 1e-6}
+    w_head = rnd(V, H, std=0.02) if transpose else rnd(H, V, std=0.02)
+    return (rnd(M, H, std=2.0, dt=dtype), 1 + rnd(H, std=0.1), w_head), \
+        {"epsilon": 1e-6, "transpose": transpose}
+
+
+def _stock_chain(name, args, static):
+    """The seam's stock path, which the site replaces: cuBLAS products and
+    torch elementwise ops, with the RMSNorm kernel where the model has it."""
+    from paddle_tpu_torch.kernels.rms_norm import rms_norm
+    from paddle_tpu_torch.models.llama import mlp_fn
+
+    if name == "fuse_swiglu_mlp":
+        return mlp_fn(*args, static["intermediate_size"])
+    if name == "fuse_add_rms_norm":
+        s = args[0] + args[1]
+        return s, rms_norm(s, args[2], static["epsilon"])
+    hidden, w_norm, w_head = args
+    normed = rms_norm(hidden, w_norm, static["epsilon"])
+    wh = w_head.to(normed.dtype)
+    return normed @ (wh.T if static["transpose"] else wh)
+
+
+def _site_bounds(name, M, itemsize):
+    """(forward, backward) bounds of a site at `base` widths: bytes with
+    each input read once and each output written once (fp32 weights and
+    weight gradients), operations at the bf16 tensor-core rate (fp32 rate
+    for fp32 activations, and for the add + norm's few flops an element)."""
+    H, I, V = FUSE_H, FUSE_I, FUSE_V
+    rate = BF16_FLOPS_PER_S if itemsize == 2 else FP32_FLOPS_PER_S
+    act = M * H * itemsize
+    if name == "fuse_swiglu_mlp":
+        w = 3 * H * I * 4
+        mm = 2 * M * H * I                     # one [M, H] x [H, I] product
+        # forward: gate_up (2 mm) + down (1 mm); backward: gate_up again,
+        # d_act, dW_down, d_hidden (2 mm), dW_gate_up (2 mm)
+        return (bound(2 * act + w, 3 * mm, rate), bound(3 * act + 2 * w, 8 * mm, rate))
+    if name == "fuse_add_rms_norm":
+        # backward: x, h, d_s, d_normed read; ds written once (it is dx and dh)
+        return (bound(4 * act + H * 4, 5 * M * H), bound(5 * act + 2 * H * 4, 14 * M * H))
+    logits = M * V * itemsize
+    mm = 2 * M * H * V
+    return (bound(act + H * 4 + H * V * 4 + logits, mm, rate),
+            bound(2 * act + 2 * H * 4 + 2 * H * V * 4 + logits, 2 * mm, rate))
+
+
+def _fuse_planted_faults(gen):
+    """Faults planted in the sites' outputs at `base`, each of which the
+    fusion checks must reject: the gate and up halves swapped, the down
+    product's last K tile (32 of 5632) dropped, and one row's RMS scale
+    skipped in the head's prologue.  Each is built from the plain pieces on
+    the same inputs and held against the plain output."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import emit
+
+    (x, w_gu, w_d), st = _site_args(gen, "fuse_swiglu_mlp", FUSE_M, torch.bfloat16)
+    I = st["intermediate_size"]
+    ref = emit._swiglu_ref(x, w_gu, w_d, intermediate_size=I)
+    gate, up = torch.split(x @ w_gu.to(x.dtype), [I, I], dim=-1)
+    act = F.silu(gate) * up
+    wd = w_d.to(x.dtype)
+    faults = {"gate and up halves swapped": (F.silu(up) * gate) @ wd,
+              "down product's last K tile dropped": act[:, :-32] @ wd[:-32]}
+    refs = {k: ref for k in faults}
+    (hid, w_n, w_h), st = _site_args(gen, "fuse_rms_norm_head", FUSE_M, torch.bfloat16)
+    logits = emit._rms_norm_head_ref(hid, w_n, w_h, **st)
+    bad = logits.clone()
+    unscaled = (hid[5].float() * w_n).to(hid.dtype)           # row 5 without its 1/RMS
+    bad[5] = unscaled @ w_h.to(hid.dtype)
+    faults["one row's RMS scale skipped"] = bad
+    refs["one row's RMS scale skipped"] = logits
+    out = {}
+    for fault, got in faults.items():
+        r = refs[fault]
+        out[fault] = {"tile_norm_err": rows_tile_err(got, r),
+                      "elementwise_check_passes": within(got, r, FUSE_TOL, scaled=True)}
+        check(_fuse_rejects(got, r, False),
+              f"fusion sites: the checks pass the planted fault '{fault}': {out[fault]}")
+    log(f"fusion planted faults: {json.dumps(out)}")
+    return out
+
+
+def _site_case(gen, name, M, dtype, transpose=False, timed=False):
+    """A site's forward and backward kernels (``emit._FORWARD`` /
+    ``emit._BACKWARD``, the launches ``make_fused`` makes) against the plain
+    reference and torch's autograd of it, on the same inputs and
+    cotangents.  ``timed``: kernel, plain and stock-chain times, bounds."""
+    import torch
+    from paddle_tpu_torch.kernels import emit
+
+    site = emit.SITES[name]
+    args, st = _site_args(gen, name, M, dtype, transpose)
+    fp32 = dtype == torch.float32
+    outs = emit._as_tuple(emit._FORWARD[name](*args, **st))
+    refs = emit._as_tuple(site.ref(*args, **st))
+    cts = tuple(torch.randn(r.shape, generator=gen, device="cuda").to(r.dtype) for r in refs)
+    grads = emit._BACKWARD[name](args, cts, **st)
+    want = emit._vjp_reference(site, args, cts, st)
+    torch.cuda.synchronize()
+    shape = {"M": M, "H": FUSE_H, "dtype": str(dtype)[6:], "weights": "float32"}
+    shape.update({"I": FUSE_I} if name == "fuse_swiglu_mlp" else
+                 {"V": FUSE_V, "tied": transpose} if name == "fuse_rms_norm_head" else {})
+    recs = []
+    for direction, got, ref in (("forward", outs, refs), ("backward", grads, want)):
+        errs = [max_err(g, r) for g, r in zip(got, ref)]
+        tiles = [rows_tile_err(g, r) for g, r in zip(got, ref)]
+        for i, (g, r) in enumerate(zip(got, ref)):
+            check(g.dtype == r.dtype and g.shape == r.shape,
+                  f"{name} {direction} {shape}: output {i} is {g.dtype} {tuple(g.shape)}, plain "
+                  f"{r.dtype} {tuple(r.shape)}")
+            check(not _fuse_rejects(g, r, fp32),
+                  f"{name} {direction} {shape}: output {i} disagrees: max err {errs[i]} (max "
+                  f"|plain| {float(r.float().abs().max())}), {FUSE_TILE}-row tile norm err "
+                  f"{tiles[i]}")
+        recs.append({"shape": shape, "dtype": shape["dtype"], "max_abs_err": max(errs),
+                     "max_abs_err_by_output": errs, "tile_norm_err_by_output": tiles,
+                     "tol": {"atol": (FUSE_TOL_FP32 if fp32 else FUSE_TOL)[0],
+                             "rtol": (FUSE_TOL_FP32 if fp32 else FUSE_TOL)[1],
+                             "atol_scaled_by_max_abs": True, "tile_rows": FUSE_TILE,
+                             "tile_norm_rtol": FUSE_TILE_RTOL_FP32 if fp32 else FUSE_TILE_RTOL},
+                     "ms": None, "plain_ms": None, "stock_chain_ms": None,
+                     "library_ms": None,
+                     "library": "none: no single PyTorch call computes the site; stock_chain_ms "
+                                "is the seam's stock path (cuBLAS products + elementwise ops), "
+                                "not one call",
+                     "bound_ms": None, "bound_by": None})
+    if timed:
+        (f_ms, f_by), (b_ms, b_by) = _site_bounds(name, M, 2 if dtype == torch.bfloat16 else 4)
+        p = [a.detach().requires_grad_() for a in args]
+        with torch.enable_grad():
+            stock_outs = emit._as_tuple(_stock_chain(name, p, st))
+        recs[0].update(
+            ms=time_ms(lambda: emit._FORWARD[name](*args, **st)),
+            plain_ms=time_ms(lambda: site.ref(*args, **st)),
+            stock_chain_ms=time_ms(lambda: _stock_chain(name, args, st)),
+            bound_ms=f_ms, bound_by=f_by)
+        recs[1].update(
+            ms=time_ms(lambda: emit._BACKWARD[name](args, cts, **st)),
+            plain_ms=time_ms(lambda: emit._vjp_reference(site, args, cts, st)),
+            stock_chain_ms=time_ms(lambda: torch.autograd.grad(stock_outs, p, cts,
+                                                               retain_graph=True)),
+            bound_ms=b_ms, bound_by=b_by)
+        recs[1]["stock_chain_note"] = "autograd backward of the stock forward's saved graph"
+        del stock_outs, p
+    for direction, rec in zip(("forward", "backward"), recs):
+        log(f"{name} {direction} {shape}: {json.dumps(rec)}")
+    return recs
+
+
+def phase_fuse_kernels(gen):
+    """Every fusion site's kernels at `base` (timed), at a ragged row count
+    (1000 rows, not a multiple of the 128-row tile), the tied head, and in
+    fp32 at 520 rows; then the planted faults."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = {}
+    for name in ("fuse_swiglu_mlp", "fuse_add_rms_norm", "fuse_rms_norm_head"):
+        runs = [_site_case(gen, name, FUSE_M, torch.bfloat16, timed=True),
+                _site_case(gen, name, 1000, torch.bfloat16),
+                _site_case(gen, name, 520, torch.float32)]
+        if name == "fuse_rms_norm_head":
+            runs.append(_site_case(gen, name, FUSE_M, torch.bfloat16, transpose=True))
+        cases[name] = [r[0] for r in runs]
+        cases[name + "_bwd"] = [r[1] for r in runs]
+        torch.cuda.empty_cache()
+    faults = _fuse_planted_faults(gen)
+    for name in ("fuse_swiglu_mlp", "fuse_rms_norm_head"):
+        cases[name][0]["planted_faults"] = faults
+    torch.cuda.empty_cache()
+    return cases
+
+
 def phase_kernels():
     import torch
 
@@ -743,6 +1000,7 @@ def phase_kernels():
     cases["ssd_scan"] = [_ssd_case(gen, 128, 4096, 64, 128, 128, full=True),
                          _ssd_case(gen, 8, 256, 32, 16, 16, full=True)]
     torch.cuda.empty_cache()
+    cases.update(phase_fuse_kernels(gen))
     return cases
 
 
@@ -814,7 +1072,29 @@ def phase_parity(seed):
     for key in ("prefills", "prefill_tokens", "prefix_hit_blocks"):
         check(results["cpu"][2][key] == results["cuda"][2][key], f"parity: stats {key}")
     _train_parity("llama", cfg, cpu, gpu, seed, {"flash_attention_fwd": cfg.num_hidden_layers})
+    with _fusion_scope("parity") as table:
+        L = cfg.num_hidden_layers
+        check(sorted(table) == sorted(("fuse_swiglu_mlp", "fuse_add_rms_norm",
+                                       "fuse_rms_norm_head")),
+              f"parity: sites verified on the card: {sorted(table)}")
+        _train_parity("llama fused", cfg, cpu, gpu, seed, {
+            "flash_attention_fwd": L, "rms_norm": L, "fuse_swiglu_mlp": L,
+            "fuse_swiglu_mlp_bwd": L, "fuse_add_rms_norm": L, "fuse_add_rms_norm_bwd": L,
+            "fuse_rms_norm_head": 1, "fuse_rms_norm_head_bwd": 1})
     _ssd_parity(seed)
+
+
+@contextlib.contextmanager
+def _fusion_scope(label):
+    """Every fusion site that passes ``emit.verify_site`` on the card,
+    activated for the scope's CPU and card models alike (each device runs
+    its own path: the kernels here, the plain reference on the CPU)."""
+    from paddle_tpu_torch.kernels import emit
+
+    verified = emit.verified_activation("cuda")
+    log(f"{label}: sites verified on the card: {sorted(verified)}")
+    with emit.activate({name: emit.make_fused(name) for name in verified}):
+        yield verified
 
 
 def _ssd_parity(seed):
@@ -966,67 +1246,132 @@ def _drive_train(step_fn, ids, steps):
                            "launches_per_step": per_step}
 
 
-def phase_train(profile):
-    """`base` pretraining at full width and depth through the port's
-    entry points, ``TRAIN_STEPS`` steps; see the module docstring."""
+def _train_leg(label, fused, fp32_loss=False):
+    """One fresh `base` pretrain step (seed 0: the same weights and batch
+    every time), ``TRAIN_STEPS`` steps through ``_drive_train``; with
+    ``fused`` inside ``emit.activate(emit.verified_activation("cuda"))``,
+    where every seam reads the table at each call.  Checks every step's
+    launches (inside and outside the optimizer update) and that losses are
+    finite and falling.  With ``fp32_loss`` the record also holds step 1's
+    loss with fp32 activations (stock, before any update).  Returns the
+    record and ``(step_fn, ids)``."""
     import math
 
     import torch
-    from paddle_tpu_torch.kernels import launch_counts
+    from paddle_tpu_torch.kernels import emit, launch_counts
     from paddle_tpu_torch.models.presets import build_pretrain_step, model_flops_per_token
 
     t0 = time.perf_counter()
     step_fn, ids, model, cfg, (B, S, _) = build_pretrain_step("base", "cuda")
-    n_params = sum(p.numel() for p in model.parameters())
     torch.cuda.synchronize()
-    log(f"train: base preset, {cfg.num_hidden_layers} layers, {n_params} params "
-        f"(dtype {cfg.dtype}, params {cfg.pdtype}), batch {B} x seq {S}, built in "
-        f"{time.perf_counter() - t0:.1f} s")
-    # step 1's weights and batch with fp32 activations, before any update
-    torch.backends.cuda.matmul.allow_tf32 = False
-    with torch.no_grad():
-        saved = cfg.dtype
-        cfg.dtype = "float32"
-        try:
-            loss32 = float(model.compute_loss(model(ids), ids))
-        finally:
-            cfg.dtype = saved
-    torch.cuda.reset_peak_memory_stats()
-    losses, walls, rec = _drive_train(step_fn, ids, TRAIN_STEPS)
-    peak = torch.cuda.max_memory_allocated()
-    L = cfg.num_hidden_layers
-    n_leaves = len(list(model.parameters()))
+    log(f"{label}: base preset, {cfg.num_hidden_layers} layers, "
+        f"{sum(p.numel() for p in model.parameters())} params (dtype {cfg.dtype}, params "
+        f"{cfg.pdtype}), batch {B} x seq {S}, built in {time.perf_counter() - t0:.1f} s")
+    L, n_leaves = cfg.num_hidden_layers, len(list(model.parameters()))
     want = dict.fromkeys(launch_counts(), 0)
-    want.update(rms_norm=2 * L + 1, flash_attention_fwd=L, flash_attention_bwd=L,
-                adamw=n_leaves)
+    want.update(flash_attention_fwd=L, flash_attention_bwd=L, adamw=n_leaves)
+    scope = contextlib.nullcontext({})
+    if fused:
+        table = emit.verified_activation("cuda")
+        check(sorted(table) == sorted(emit.SITES),
+              f"{label}: sites verified on the card: {sorted(table)}")
+        scope = emit.activate(table)
+        want.update(rms_norm=L, fuse_swiglu_mlp=L, fuse_swiglu_mlp_bwd=L, fuse_add_rms_norm=L,
+                    fuse_add_rms_norm_bwd=L, fuse_rms_norm_head=1, fuse_rms_norm_head_bwd=1)
+    else:
+        want.update(rms_norm=2 * L + 1)
     want_update = dict.fromkeys(launch_counts(), 0)
     want_update["adamw"] = TRAIN_STEPS * n_leaves
+    loss32 = None
+    if fp32_loss:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with torch.no_grad():
+            saved, cfg.dtype = cfg.dtype, "float32"
+            try:
+                loss32 = float(model.compute_loss(model(ids), ids))
+            finally:
+                cfg.dtype = saved
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with scope:
+        losses, walls, rec = _drive_train(step_fn, ids, TRAIN_STEPS)
+    check(all(emit.active(n) is None for n in emit.SITES), f"{label}: the scope leaked")
     step_ms = [w * 1e3 for w in walls]
     steady = sum(step_ms[1:]) / (TRAIN_STEPS - 1)      # step 1 includes the warm-up
     flops = model_flops_per_token(cfg, S) * B * S
-    log(f"train: losses {losses}; fp32-activation loss at step 1's weights {loss32} "
-        f"(|bf16 - fp32| {abs(losses[0] - loss32):.6g}, limit {TRAIN_LOSS_TOL})")
-    log(f"train: step ms {step_ms}; steady {steady:.3f} ms = {B * S / steady * 1e3:.1f} "
-        f"tokens/s, MFU {flops / (steady / 1e3) / BF16_FLOPS_PER_S:.4f} "
-        f"({flops / 1e12:.2f} TFLOP a step at {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s); "
-        f"peak memory {peak / 2**30:.2f} GiB")
-    log(f"train: launches {json.dumps(rec)}")
-    check(all(math.isfinite(x) for x in losses), f"train: non-finite loss {losses}")
-    check(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
+    rec.update(losses=losses, step_ms=step_ms, steady_step_ms=steady, loss_fp32=loss32,
+               tokens_per_s=B * S / steady * 1e3,
+               mfu=flops / (steady / 1e3) / BF16_FLOPS_PER_S,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"{label}: losses {losses}; step ms {step_ms}; steady {steady:.3f} ms = "
+        f"{rec['tokens_per_s']:.1f} tokens/s, MFU {rec['mfu']:.4f} ({flops / 1e12:.2f} TFLOP a "
+        f"step at {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s); peak memory "
+        f"{rec['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"{label}: launches {json.dumps(rec)}")
+    check(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
     for i, got in enumerate(rec["launches_per_step"]):
-        check(got == want, f"train: step {i + 1} launched {got}, expected {want}")
+        check(got == want, f"{label}: step {i + 1} launched {got}, expected {want}")
     check(rec["launches_in_update"] == want_update,
-          f"train: launches inside the optimizer update {rec['launches_in_update']}, "
+          f"{label}: launches inside the optimizer update {rec['launches_in_update']}, "
           f"expected {want_update}")
+    return rec, (step_fn, ids)
+
+
+def phase_train(profile):
+    """`base` pretraining at full width and depth through the port's
+    entry points, ``TRAIN_STEPS`` steps (the stock leg); see the module
+    docstring."""
+    import torch
+
+    rec, (step_fn, ids) = _train_leg("train", False, fp32_loss=True)
+    losses, loss32 = rec["losses"], rec["loss_fp32"]
+    log(f"train: fp32-activation loss at step 1's weights {loss32} "
+        f"(|bf16 - fp32| {abs(losses[0] - loss32):.6g}, limit {TRAIN_LOSS_TOL})")
     check(abs(losses[0] - loss32) <= TRAIN_LOSS_TOL,
           f"train: step 1's bf16 loss {losses[0]} is {abs(losses[0] - loss32)} from the "
           f"fp32-activation loss {loss32}, past {TRAIN_LOSS_TOL}")
-    rec.update(losses=losses, step_ms=step_ms, steady_step_ms=steady, loss_fp32=loss32,
-               peak_bytes=peak)
     if profile:
         _profile(lambda: step_fn(ids), "train: one base step")
-    del step_fn, model
+    del step_fn
     torch.cuda.empty_cache()
+    return rec
+
+
+def phase_fuse_train(profile, stock=None):
+    """`base` through TrainStep in three legs, stock -> fused -> stock (the
+    port's counterpart of bench.py's ``_bench_fuse``); ``stock``, the record
+    of the `train` phase run just before, is the first stock leg when
+    given.  See the module docstring."""
+    import torch
+    from paddle_tpu_torch.kernels import emit
+
+    legs = {} if stock is None else {"stock": stock}
+    for label, fused in (("stock", False), ("fused", True), ("stock again", False)):
+        if label in legs:
+            continue
+        legs[label], (step_fn, ids) = _train_leg(f"fuse_train {label} leg", fused,
+                                                 fp32_loss=label == "stock")
+        if fused and profile:
+            with emit.activate(emit.verified_activation("cuda")):
+                _profile(lambda: step_fn(ids), "fuse_train: one fused base step")
+        del step_fn
+        torch.cuda.empty_cache()
+    stock, fused, again = (legs[k]["losses"] for k in ("stock", "fused", "stock again"))
+    loss32 = legs["stock"]["loss_fp32"]
+    d_fused, d_fp32 = abs(fused[0] - stock[0]), abs(stock[0] - loss32)
+    log(f"fuse_train: step-1 loss fused {fused[0]} stock {stock[0]}: |fused - stock| "
+        f"{d_fused:.6g} (limit {TRAIN_LOSS_TOL}); stock's own |bf16 - fp32 activations| "
+        f"{d_fp32:.6g} (fp32 loss {loss32}); stock legs' losses {stock} and {again}")
+    check(d_fused <= TRAIN_LOSS_TOL,
+          f"fuse_train: step 1's fused loss {fused[0]} is {d_fused} from the stock {stock[0]}, "
+          f"past {TRAIN_LOSS_TOL}")
+    check(again[0] == stock[0] and all(abs(a - b) <= STOCK_LEGS_RTOL * abs(b)
+                                       for a, b in zip(again, stock)),
+          f"fuse_train: the stock legs disagree: {stock} and {again}")
+    rec = dict(legs["fused"])
+    rec.update(stock=legs["stock"], stock_again=legs["stock again"], loss_fp32=loss32,
+               step1_fused_minus_stock=fused[0] - stock[0])
     return rec
 
 
@@ -1055,7 +1400,10 @@ def _profile(fn, label, ranges=()):
     busy_ms = sum(r[0] for r in rows)
     log(f"profile: {label}: wall {wall_ms:.3f} ms, kernels {busy_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.1f}% of wall)")
-    groups = {"flash": ("flash_",), "gemm (cuBLAS)": ("nvjet", "gemm", "cutlass"),
+    # first match wins: the fusion sites' kernels before cuBLAS and RMSNorm
+    groups = {"fusion sites": ("gemm_kernel<", "row_rms_kernel", "add_rms_norm_",
+                               "dw_reduce_kernel"),
+              "flash": ("flash_",), "gemm (cuBLAS)": ("nvjet", "gemm", "cutlass"),
               "adamw": ("adamw_",), "rms_norm": ("rms_norm_",), "decode": ("decode_",),
               "ssd_scan": ("ssd_scan",)}
     by_group = dict.fromkeys([*groups, "other"], 0.0)
@@ -1517,7 +1865,21 @@ SOURCES = {
     "adamw": ("paddle_tpu_torch/kernels/csrc/adamw.cu", "paddle_tpu/kernels/adamw.py:79"),
     "ssd_scan": ("paddle_tpu_torch/kernels/csrc/ssd_scan.cu",
                  "paddle_tpu/kernels/ssd_scan.py:159"),
+    "fuse_swiglu_mlp": ("paddle_tpu_torch/kernels/csrc/fused_gemm.cu",
+                        "paddle_tpu/kernels/emit.py:111"),
+    "fuse_swiglu_mlp_bwd": ("paddle_tpu_torch/kernels/csrc/fused_gemm.cu",
+                            "paddle_tpu/kernels/emit.py:165"),
+    "fuse_add_rms_norm": ("paddle_tpu_torch/kernels/csrc/add_rms_norm.cu",
+                          "paddle_tpu/kernels/emit.py:111"),
+    "fuse_add_rms_norm_bwd": ("paddle_tpu_torch/kernels/csrc/add_rms_norm.cu",
+                              "paddle_tpu/kernels/emit.py:165"),
+    "fuse_rms_norm_head": ("paddle_tpu_torch/kernels/csrc/fused_gemm.cu",
+                           "paddle_tpu/kernels/emit.py:111"),
+    "fuse_rms_norm_head_bwd": ("paddle_tpu_torch/kernels/csrc/fused_gemm.cu",
+                               "paddle_tpu/kernels/emit.py:165"),
 }
+# a site's launches that live in a second source
+ALSO_SOURCE = {"fuse_rms_norm_head_bwd": "paddle_tpu_torch/kernels/csrc/add_rms_norm.cu"}
 ALSO_REPLACES = {
     "decode_attention_dense": "paddle_tpu/kernels/decode_attention.py:87",
     "decode_attention_paged": "paddle_tpu/kernels/decode_attention.py:389",
@@ -1529,7 +1891,10 @@ ALSO_REPLACES = {
 # the path whose run ``launches`` reports for each kernel
 MAIN_PATH = {"rms_norm": "engine", "decode_attention_dense": "generate",
              "decode_attention_paged": "engine", "flash_attention_fwd": "train",
-             "flash_attention_bwd": "train", "adamw": "train", "ssd_scan": "ssd_train"}
+             "flash_attention_bwd": "train", "adamw": "train", "ssd_scan": "ssd_train",
+             **{name: "fuse_train" for name in ("fuse_swiglu_mlp", "fuse_swiglu_mlp_bwd",
+                                                "fuse_add_rms_norm", "fuse_add_rms_norm_bwd",
+                                                "fuse_rms_norm_head", "fuse_rms_norm_head_bwd")}}
 
 
 def kernel_table(cases, paths):
@@ -1554,6 +1919,8 @@ def kernel_table(cases, paths):
                  "library_ms": main["library_ms"], "cases": recs}
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
+        if name in ALSO_SOURCE:
+            entry["also_source"] = ALSO_SOURCE[name]
         out.append(entry)
     return out
 
@@ -1594,6 +1961,8 @@ def main(argv=None) -> int:
             phase_parity(args.seed)
         if "train" in phases:
             paths["train"] = phase_train("profile" in phases)
+        if "fuse_train" in phases:
+            paths["fuse_train"] = phase_fuse_train("profile" in phases, paths.get("train"))
         if "ssd_train" in phases:
             paths["ssd_train"] = phase_ssd_train("profile" in phases)
         if "serve" in phases:

@@ -4,7 +4,9 @@ tensors.  Nothing here builds or loads CUDA code at import time.
 
 RMSNorm and decode attention serve; flash attention forward and backward
 and the fused AdamW train; the SSD chunked scan runs the SSD family's
-training forward.
+training forward; the fusion sites of :mod:`.emit` (a tiled GEMM with the
+sites' prologues and epilogues, and the residual add + RMSNorm) train when
+a table of sites is activated.
 
 Every wrapper carries a plain integer ``launches`` attribute, raised by one
 exactly where its kernel is launched; :func:`launch_counts` and
@@ -15,10 +17,12 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import adamw, decode_attention, flash_attention, rms_norm, rope, ssd_scan
+from . import (adamw, add_rms_norm, decode_attention, emit, flash_attention, fused_gemm,
+               rms_norm, rope, ssd_scan)
 
-__all__ = ["adamw", "decode_attention", "flash_attention", "rms_norm", "rope",
-           "ssd_scan", "launch_counts", "reset_launch_counts", "WRAPPERS"]
+__all__ = ["adamw", "add_rms_norm", "decode_attention", "emit", "flash_attention",
+           "fused_gemm", "rms_norm", "rope", "ssd_scan", "launch_counts",
+           "reset_launch_counts", "WRAPPERS"]
 
 # kernel name -> wrapper with a ``launches`` counter
 WRAPPERS = {
@@ -29,6 +33,13 @@ WRAPPERS = {
     "flash_attention_bwd": flash_attention.flash_attention_bwd,   # one per backward: both passes
     "adamw": adamw.adamw_update,                                  # one per leaf
     "ssd_scan": ssd_scan.ssd_scan,                                # one per forward
+    # the fusion sites: one per site forward or backward, whatever it launches
+    "fuse_swiglu_mlp": emit.fuse_swiglu_mlp_fwd,
+    "fuse_swiglu_mlp_bwd": emit.fuse_swiglu_mlp_bwd,
+    "fuse_add_rms_norm": emit.fuse_add_rms_norm_fwd,
+    "fuse_add_rms_norm_bwd": emit.fuse_add_rms_norm_bwd,
+    "fuse_rms_norm_head": emit.fuse_rms_norm_head_fwd,
+    "fuse_rms_norm_head_bwd": emit.fuse_rms_norm_head_bwd,
 }
 
 

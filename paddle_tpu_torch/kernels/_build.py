@@ -59,6 +59,19 @@ SIGNATURES = {
         # x, b, c, la, y, s, G, T, P, N, L, stream
         "ssd_scan_launch": (P, P, P, P, P, P, I, I, I, I, I, P),
     },
+    "fused_gemm": {
+        # a, b, c, c2, aux, rs, cs, M, N, K, lda, ldb, ldc, a_kcontig, b_ncontig,
+        # pro_on_b, epi, dtype, b_dtype, c_dtype, stream
+        "fused_gemm_launch": (P, P, P, P, P, P, P, I, I, I, L, L, L, I, I, I, I, I, I, I, P),
+        # x, r, rows, d, eps, dtype, stream
+        "row_rms_launch": (P, P, I, I, F, I, P),
+    },
+    "add_rms_norm": {
+        # x, h, w, s, y, rows, d, eps, dtype, w_dtype, stream
+        "add_rms_norm_fwd_launch": (P, P, P, P, P, I, I, F, I, I, P),
+        # x, h, w, d_s, d_normed, dx, partial, dw, rows, d, eps, dtype, w_dtype, stream
+        "add_rms_norm_bwd_launch": (P, P, P, P, P, P, P, P, I, I, F, I, I, P),
+    },
 }
 
 # dtype codes shared with the C side (csrc/common.cuh)

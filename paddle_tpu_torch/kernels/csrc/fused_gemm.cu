@@ -1,0 +1,559 @@
+// Tiled GEMM with the fusion sites' prologues and epilogues, for Hopper.
+//
+// Replaces the matrix products inside the emitted Pallas kernels of
+// paddle_tpu/kernels/emit.py: _row_block_call (a site's forward, the jnp
+// reference traced on row blocks with the weights resident) and
+// _single_block_call (its backward, jax.vjp of the reference recomputed from
+// the primals).  kernels/emit.py composes the sites from the launches here
+// and in add_rms_norm.cu:
+//   fuse_swiglu_mlp    fwd  gate_up (SwiGLU epilogue) -> down
+//                      bwd  d_act = dY Wd^T; gate_up again (SwiGLU-backward
+//                           epilogue: d_gu and act); dWd = act^T dY;
+//                           dX = d_gu Wgu^T; dWgu = X^T d_gu
+//   fuse_rms_norm_head fwd  row_rms pre-pass; logits = (RMS prologue X) W
+//                      bwd  d_normed = dL W^T; row_rms; dW = normed^T dL
+//                           (RMS prologue on the transposed operand); the
+//                           norm's backward in add_rms_norm.cu
+//
+// C[M, N] = A[M, K] B[K, N] over strided operands: A is K-contiguous (row
+// major) or M-contiguous (a transposed view), B is N-contiguous or
+// K-contiguous, so one template covers NN (X W), NT (dY W^T, the tied head
+// X E^T) and TN (X^T dY, the weight gradients).  Every operand is read as
+// rows ("outer") of a contiguous dimension ("inner", a feature width that is
+// a multiple of 8); the row count of the model (batch x sequence) is always
+// an outer dimension, so it may be ragged.
+//
+// Rounding follows torch's autograd of the plain site references exactly:
+// an fp32 weight is rounded to the compute dtype as it is loaded (the
+// reference's .to(hidden.dtype)); every product is summed in fp32 and
+// rounded once to the compute dtype; a weight gradient is that bf16 product
+// widened to fp32 (the gradient of the cast); SwiGLU rounds gate, up,
+// silu(gate) and the product each to the compute dtype, as the separate
+// torch ops do; the RMS prologue scales a row by its fp32 inverse RMS and
+// then by the norm weight, and rounds, as _rms_rows does.
+//
+// Bound: operations.  At `base` (6144 rows, hidden 2048, intermediate 5632,
+// vocab 32000) every product is far above the card's ~295 flop/byte balance
+// point: the MLP forward does 425 GFLOP against ~135 MB.
+// Design (a first kernel, right before fast): CTA tile 128 x 128, K step 32,
+// 256 threads; the next K tile is loaded into registers (16-byte vector
+// loads, converted to the compute dtype, scaled by the prologue and packed
+// there) while the current one is multiplied out of shared memory, double
+// buffered, one barrier a step; two bf16 CTAs share an SM (a K step of 64
+// needs more registers than that leaves, and spilled).
+//   bf16: 8 warps as 2 x 4, each a 64 x 32 block of mma.sync m16n8k16 tiles
+//     with fp32 accumulators; shared tiles keep the source orientation and
+//     ldmatrix reads the fragments, transposed where the orientation is the
+//     other one (wmma's fragment loads compiled to plain shared loads here,
+//     and ran at an eighth of the rate).
+//   fp32: 16 x 16 threads each own an 8 x 8 block, fp32 FMAs on CUDA cores
+//     (true fp32, no TF32).
+// The accumulators then pass through shared memory to an epilogue that
+// writes 8 consecutive outputs a thread.  SwiGLU CTAs hold the gate and the
+// up columns of the same 64 outputs in the two halves of the tile, so gu
+// [M, 2I] is never written in the forward.  The down product reads act back
+// from device memory: one 128-row block of act at I = 5632 is 1.4 MB, far
+// more than a CTA's 227 KB of shared memory.  TMA, wgmma and warp
+// specialisation are work for later.
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int BM = 128, BN = 128, BK = 32, NT = 256;
+constexpr int LDC = BN + 4;   // fp32 staging tile of the epilogue
+
+enum Epilogue { kStore = 0, kSwiglu = 1, kSwigluBwd = 2 };
+
+struct Params {
+  const void* a;
+  const void* b;
+  void* c;           // kStore: C [M, N]; kSwiglu / kSwigluBwd: act [M, N]
+  void* c2;          // kSwigluBwd: d_gu [M, 2N]
+  const void* aux;   // kSwigluBwd: d_act [M, N]
+  const float* rs;   // RMS prologue: inverse RMS of each source row (or null)
+  const float* cs;   // RMS prologue: norm weight of each source column
+  int M, N, K;       // dual epilogues: N = I, and B has 2I columns
+  long long lda, ldb, ldc;
+  int pro_on_b;      // the prologue scales B instead of A
+  int epi;
+  int c_dtype;       // kStore: dtype of C
+  int m_fast;        // blockIdx.x walks the M tiles (B is the larger operand)
+};
+
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_float(from_float<T>(v));
+}
+
+__device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
+
+template <typename TS>
+__device__ __forceinline__ void load8(const TS* p, float (&f)[8]);
+template <>
+__device__ __forceinline__ void load8<float>(const float* p, float (&f)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+template <>
+__device__ __forceinline__ void load8<__nv_bfloat16>(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) f[j] = __bfloat162float(v[j]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store8(T* p, const float (&f)[8]);
+template <>
+__device__ __forceinline__ void store8<float>(float* p, const float (&f)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
+}
+template <>
+__device__ __forceinline__ void store8<__nv_bfloat16>(__nv_bfloat16* p, const float (&f)[8]) {
+  uint4 u;
+  __nv_bfloat16* v = reinterpret_cast<__nv_bfloat16*>(&u);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = __float2bfloat16(f[j]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);   // round to nearest even
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// 8 consecutive values of T held in registers, packed
+template <typename T> struct Chunk;
+template <> struct Chunk<__nv_bfloat16> {
+  uint4 u;
+  __device__ __forceinline__ void set(const float (&f)[8]) {
+    u = make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]), pack2(f[6], f[7]));
+  }
+  __device__ __forceinline__ void copy(const __nv_bfloat16* src) {
+    u = *reinterpret_cast<const uint4*>(src);
+  }
+  __device__ __forceinline__ void zero() { u = make_uint4(0u, 0u, 0u, 0u); }
+  __device__ __forceinline__ void put(__nv_bfloat16* dst) const {
+    *reinterpret_cast<uint4*>(dst) = u;
+  }
+};
+template <> struct Chunk<float> {
+  float4 a, b;
+  __device__ __forceinline__ void set(const float (&f)[8]) {
+    a = make_float4(f[0], f[1], f[2], f[3]);
+    b = make_float4(f[4], f[5], f[6], f[7]);
+  }
+  __device__ __forceinline__ void copy(const float* src) {
+    a = reinterpret_cast<const float4*>(src)[0];
+    b = reinterpret_cast<const float4*>(src)[1];
+  }
+  __device__ __forceinline__ void zero() { a = b = make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ __forceinline__ void put(float* dst) const {
+    reinterpret_cast<float4*>(dst)[0] = a;
+    reinterpret_cast<float4*>(dst)[1] = b;
+  }
+};
+
+// One operand tile [OUTER][INNER] in the source's orientation, held in
+// shared memory with rows padded by 16 bytes.  Each thread moves chunks of
+// 8 inner elements: global -> registers (converted to T and packed, the
+// prologue applied) -> shared.  DUAL splits the inner range in two halves
+// read from columns i0 .. and n_inner + i0 .. (the gate and up halves of
+// gate_up).
+template <typename T, typename TS, int OUTER, int INNER, bool DUAL>
+struct Stage {
+  static constexpr int LD = INNER + 16 / sizeof(T);
+  static constexpr int SIZE = OUTER * LD;
+  static constexpr int PER = OUTER * INNER / 8 / NT;
+  static_assert(PER * NT * 8 == OUTER * INNER, "tile not covered");
+  Chunk<T> v[PER];
+
+  __device__ __forceinline__ void load(const TS* src, long long ld, int o0, int i0, int n_outer,
+                                       int n_inner, const float* rs, const float* cs) {
+#pragma unroll
+    for (int p = 0; p < PER; ++p) {
+      const int c = threadIdx.x + p * NT;
+      const int o = c / (INNER / 8);
+      const int t = (c % (INNER / 8)) * 8;
+      const int go = o0 + o;
+      int gi, col;
+      if (DUAL) {
+        const int half = t >= INNER / 2;
+        col = i0 + t - half * (INNER / 2);
+        gi = col + half * n_inner;
+      } else {
+        col = gi = i0 + t;
+      }
+      if (go >= n_outer || col >= n_inner) {
+        v[p].zero();
+        continue;
+      }
+      const TS* at = src + static_cast<long long>(go) * ld + gi;
+      if (std::is_same<TS, T>::value && rs == nullptr) {
+        v[p].copy(reinterpret_cast<const T*>(at));
+        continue;
+      }
+      float f[8];
+      load8<TS>(at, f);
+      if (rs != nullptr) {
+        const float r = rs[go];
+        float w[8];
+        load8<float>(cs + gi, w);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) f[j] = f[j] * r * w[j];
+      }
+      v[p].set(f);
+    }
+  }
+
+  __device__ __forceinline__ void store(T* dst) const {
+#pragma unroll
+    for (int p = 0; p < PER; ++p) {
+      const int c = threadIdx.x + p * NT;
+      v[p].put(dst + (c / (INNER / 8)) * LD + (c % (INNER / 8)) * 8);
+    }
+  }
+};
+
+template <bool AK> struct ATile {   // A(m, k): K-contiguous [BM][BK] or M-contiguous [BK][BM]
+  static constexpr int OUTER = AK ? BM : BK, INNER = AK ? BK : BM;
+};
+template <bool BNC> struct BTile {  // B(k, n): N-contiguous [BK][BN] or K-contiguous [BN][BK]
+  static constexpr int OUTER = BNC ? BK : BN, INNER = BNC ? BN : BK;
+};
+
+template <typename T, typename TB, bool AK, bool BNC, bool DUAL>
+struct Gemm {
+  using SA = Stage<T, T, ATile<AK>::OUTER, ATile<AK>::INNER, false>;
+  using SB = Stage<T, TB, BTile<BNC>::OUTER, BTile<BNC>::INNER, DUAL>;
+  static constexpr int STAGE_BYTES = 2 * (SA::SIZE + SB::SIZE) * static_cast<int>(sizeof(T));
+  static constexpr int C_BYTES = BM * LDC * 4;
+  static constexpr int SMEM = STAGE_BYTES > C_BYTES ? STAGE_BYTES : C_BYTES;
+  static_assert(SA::SIZE * sizeof(T) % 128 == 0 && SB::SIZE * sizeof(T) % 128 == 0,
+                "stage buffers must keep 128-byte alignment");
+};
+
+// k-tile kt of each operand: outer/inner origin and extents
+template <bool AK>
+__device__ __forceinline__ void a_coords(int m0, int kt, int M, int K, int& o0, int& i0,
+                                         int& no, int& ni) {
+  if (AK) { o0 = m0; i0 = kt * BK; no = M; ni = K; }
+  else    { o0 = kt * BK; i0 = m0; no = K; ni = M; }
+}
+template <bool BNC>
+__device__ __forceinline__ void b_coords(int n0, int kt, int N, int K, int& o0, int& i0,
+                                         int& no, int& ni) {
+  if (BNC) { o0 = kt * BK; i0 = n0; no = K; ni = N; }
+  else     { o0 = n0; i0 = kt * BK; no = N; ni = K; }
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  if (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                          unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// bf16 tile product: warp (wm, wn) accumulates rows wm*64 + 16 i and cols
+// wn*32 + 8 j in m16n8k16 tensor-core tiles, fragments read by ldmatrix
+// (transposed where the shared tile keeps the other orientation)
+template <bool AK, bool BNC>
+__device__ __forceinline__ void mma_tile(const __nv_bfloat16* As, const __nv_bfloat16* Bs,
+                                         int LDA, int LDB, int wm, int wn,
+                                         float (&acc)[4][4][4]) {
+  const int l = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 16) {
+    unsigned b[2][4];   // b[h]: n8 tiles 2h and 2h + 1, k halves 0 and 1
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = wn * 32 + 16 * h;
+      if (BNC)   // [k][n]: rows k, transposed
+        ldmatrix_x4<true>(b[h], Bs + (kk + (l & 7) + 8 * ((l >> 3) & 1)) * LDB + n + 8 * (l >> 4));
+      else       // [n][k]
+        ldmatrix_x4<false>(b[h], Bs + (n + (l & 7) + 8 * (l >> 4)) * LDB + kk + 8 * ((l >> 3) & 1));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = wm * 64 + 16 * i;
+      unsigned a[4];
+      if (AK)    // [m][k]
+        ldmatrix_x4<false>(a, As + (m + (l & 7) + 8 * ((l >> 3) & 1)) * LDA + kk + 8 * (l >> 4));
+      else       // [k][m]: transposed
+        ldmatrix_x4<true>(a, As + (kk + (l & 7) + 8 * (l >> 4)) * LDA + m + 8 * ((l >> 3) & 1));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_16816(acc[i][j], a, b[j >> 1][2 * (j & 1)],
+                                            b[j >> 1][2 * (j & 1) + 1]);
+    }
+  }
+}
+
+// fp32 tile product: thread (ty, tx) owns rows ty + 16 i, cols tx + 16 j
+template <bool AK, bool BNC>
+__device__ __forceinline__ void fma_tile(const float* As, const float* Bs, int LDA, int LDB,
+                                         int ty, int tx, float (&acc)[8][8][1]) {
+#pragma unroll 4
+  for (int kk = 0; kk < BK; ++kk) {
+    float a[8], b[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = ty + 16 * i;
+      a[i] = AK ? As[m * LDA + kk] : As[kk * LDA + m];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = tx + 16 * j;
+      b[j] = BNC ? Bs[kk * LDB + n] : Bs[n * LDB + kk];
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j][0] = fmaf(a[i], b[j], acc[i][j][0]);
+  }
+}
+
+// The epilogue over the fp32 tile Cs [BM][LDC]; 8 consecutive outputs a thread.
+template <typename T, bool DUAL>
+__device__ __forceinline__ void epilogue(const float* Cs, const Params& p, int m0, int n0) {
+  constexpr int COLS = DUAL ? BN / 2 : BN;
+  for (int idx = threadIdx.x; idx < BM * COLS / 8; idx += NT) {
+    const int r = idx / (COLS / 8);
+    const int c = (idx % (COLS / 8)) * 8;
+    const int gm = m0 + r, gn = n0 + c;
+    if (gm >= p.M || gn >= p.N) continue;
+    const float* cr = Cs + r * LDC + c;
+    const long long off = static_cast<long long>(gm) * p.ldc + gn;
+    float v[8];
+    if (!DUAL) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = round_to<T>(cr[j]);
+      if (p.c_dtype == kFloat32) store8<float>(static_cast<float*>(p.c) + off, v);
+      else store8<__nv_bfloat16>(static_cast<__nv_bfloat16*>(p.c) + off, v);
+      continue;
+    }
+    float g[8], u[8], s[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      g[j] = round_to<T>(cr[j]);
+      u[j] = round_to<T>(cr[j + BN / 2]);
+      s[j] = round_to<T>(silu(g[j]));
+      v[j] = round_to<T>(s[j] * u[j]);
+    }
+    store8<T>(static_cast<T*>(p.c) + off, v);
+    if (p.epi == kSwigluBwd) {
+      float da[8], dg[8], du[8];
+      load8<T>(static_cast<const T*>(p.aux) + off, da);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float ds = round_to<T>(da[j] * u[j]);
+        du[j] = round_to<T>(da[j] * s[j]);
+        const float sig = 1.f / (1.f + expf(-g[j]));
+        dg[j] = round_to<T>(ds * sig * (1.f + g[j] * (1.f - sig)));
+      }
+      T* dgu = static_cast<T*>(p.c2) + static_cast<long long>(gm) * 2 * p.N + gn;
+      store8<T>(dgu, dg);
+      store8<T>(dgu + p.N, du);
+    }
+  }
+}
+
+template <typename T, typename TB, bool AK, bool BNC, bool DUAL>
+__global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1) gemm_kernel(Params p) {
+  using G = Gemm<T, TB, AK, BNC, DUAL>;
+  using SA = typename G::SA;
+  using SB = typename G::SB;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* As[2] = {reinterpret_cast<T*>(smem), reinterpret_cast<T*>(smem) + SA::SIZE};
+  T* Bs[2] = {As[1] + SA::SIZE, As[1] + SA::SIZE + SB::SIZE};
+
+  const int m0 = (p.m_fast ? blockIdx.x : blockIdx.y) * BM;
+  const int n0 = (p.m_fast ? blockIdx.y : blockIdx.x) * (DUAL ? BN / 2 : BN);
+  const float* ars = p.pro_on_b ? nullptr : p.rs;
+  const float* brs = p.pro_on_b ? p.rs : nullptr;
+  const T* A = static_cast<const T*>(p.a);
+  const TB* B = static_cast<const TB*>(p.b);
+  SA sa;
+  SB sb;
+  int o0, i0, no, ni;
+  auto load = [&](int kt) {
+    a_coords<AK>(m0, kt, p.M, p.K, o0, i0, no, ni);
+    sa.load(A, p.lda, o0, i0, no, ni, ars, p.cs);
+    b_coords<BNC>(n0, kt, p.N, p.K, o0, i0, no, ni);
+    sb.load(B, p.ldb, o0, i0, no, ni, brs, p.cs);
+  };
+  const int nk = (p.K + BK - 1) / BK;
+  load(0);
+  sa.store(As[0]);
+  sb.store(Bs[0]);
+  __syncthreads();
+
+  constexpr bool TC = sizeof(T) == 2;
+  const int warp = threadIdx.x >> 5;
+  // bf16: [m16 tile][n8 tile][4] mma accumulators; fp32: an 8 x 8 block
+  float acc[TC ? 4 : 8][TC ? 4 : 8][TC ? 4 : 1] = {};
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < nk) load(kt + 1);
+    if constexpr (TC) {
+      mma_tile<AK, BNC>(reinterpret_cast<const __nv_bfloat16*>(As[cur]),
+                        reinterpret_cast<const __nv_bfloat16*>(Bs[cur]), SA::LD, SB::LD,
+                        warp >> 2, warp & 3, acc);
+    } else {
+      fma_tile<AK, BNC>(reinterpret_cast<const float*>(As[cur]),
+                        reinterpret_cast<const float*>(Bs[cur]), SA::LD, SB::LD,
+                        threadIdx.x >> 4, threadIdx.x & 15, acc);
+    }
+    if (kt + 1 < nk) {
+      sa.store(As[cur ^ 1]);
+      sb.store(Bs[cur ^ 1]);
+    }
+    __syncthreads();
+  }
+
+  float* Cs = reinterpret_cast<float*>(smem);
+  if constexpr (TC) {   // accumulator (g, 2t..2t+1) and (g + 8, ...), g = lane / 4, t = lane % 4
+    const int r0 = (warp >> 2) * 64 + ((threadIdx.x & 31) >> 2);
+    const int c0 = (warp & 3) * 32 + 2 * (threadIdx.x & 3);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float* c = Cs + (r0 + 16 * i) * LDC + c0 + 8 * j;
+        *reinterpret_cast<float2*>(c) = make_float2(acc[i][j][0], acc[i][j][1]);
+        *reinterpret_cast<float2*>(c + 8 * LDC) = make_float2(acc[i][j][2], acc[i][j][3]);
+      }
+  } else {
+    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) Cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j][0];
+  }
+  __syncthreads();
+  epilogue<T, DUAL>(Cs, p, m0, n0);
+}
+
+// Consecutive CTAs share the tile of the operand they walk along: with the
+// M tiles fastest, a column tile of B serves every row tile while it is in
+// L2 and A stays there whole, so the larger operand (an fp32 weight of 92 or
+// 262 MB at `base`, against 25 MB of rows) streams from HBM once.
+template <typename T, typename TB, bool AK, bool BNC, bool DUAL>
+cudaError_t launch(Params p, cudaStream_t stream) {
+  constexpr int smem = Gemm<T, TB, AK, BNC, DUAL>::SMEM;
+  auto kernel = gemm_kernel<T, TB, AK, BNC, DUAL>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return err;
+  const int cols = DUAL ? BN / 2 : BN;
+  const int mt = (p.M + BM - 1) / BM, nt = (p.N + cols - 1) / cols;
+  const double a_bytes = static_cast<double>(p.M) * p.K * sizeof(T);
+  const double b_bytes = static_cast<double>(p.N) * (DUAL ? 2 : 1) * p.K * sizeof(TB);
+  p.m_fast = b_bytes > a_bytes;
+  const dim3 grid = p.m_fast ? dim3(mt, nt) : dim3(nt, mt);
+  if (p.M > 0 && p.N > 0) kernel<<<grid, NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TB>
+cudaError_t dispatch_layout(const Params& p, int a_kcontig, int b_ncontig, cudaStream_t s) {
+  if (p.epi != kStore) {   // the SwiGLU epilogues: X [M, H] times gate_up [H, 2I]
+    if (!a_kcontig || !b_ncontig) return cudaErrorInvalidValue;
+    return launch<T, TB, true, true, true>(p, s);
+  }
+  if (a_kcontig) {
+    return b_ncontig ? launch<T, TB, true, true, false>(p, s)
+                     : launch<T, TB, true, false, false>(p, s);
+  }
+  return b_ncontig ? launch<T, TB, false, true, false>(p, s)
+                   : launch<T, TB, false, false, false>(p, s);
+}
+
+// inverse RMS of each row: one warp a row, 16-byte loads
+template <typename T>
+__global__ void row_rms_kernel(const T* __restrict__ x, float* __restrict__ r, int rows, int d,
+                               float eps) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* xr = x + static_cast<long long>(row) * d;
+  float ss = 0.f;
+  for (int i = lane * 8; i < d; i += 256) {
+    float f[8];
+    load8<T>(xr + i, f);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ss += f[j] * f[j];
+  }
+  ss = warp_sum(ss);
+  if (lane == 0) r[row] = rsqrtf(ss / static_cast<float>(d) + eps);
+}
+
+}  // namespace
+
+// C = A B with the selected prologue and epilogue; see Params.  Dtypes:
+// A and the compute dtype are `dtype` (fp32 or bf16), B is `b_dtype` (an
+// fp32 or bf16 weight, or an activation), C is `c_dtype` for kStore (the
+// product is rounded to the compute dtype first) and the compute dtype
+// otherwise.  Every pointer 16-byte aligned, every leading dimension and the
+// inner extent of each operand a multiple of 8 (checked by the wrapper).
+extern "C" int fused_gemm_launch(const void* a, const void* b, void* c, void* c2,
+                                 const void* aux, const void* rs, const void* cs, int M, int N,
+                                 int K, long long lda, long long ldb, long long ldc,
+                                 int a_kcontig, int b_ncontig, int pro_on_b, int epi,
+                                 int dtype, int b_dtype, int c_dtype, void* stream) {
+  Params p{a, b, c, c2, aux, static_cast<const float*>(rs), static_cast<const float*>(cs),
+           M, N, K, lda, ldb, ldc, pro_on_b, epi, c_dtype, 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (epi == kStore && c_dtype != kFloat32 && c_dtype != kBFloat16) return cudaErrorInvalidValue;
+  if (dtype == kFloat32) {
+    if (b_dtype == kFloat32) return dispatch_layout<float, float>(p, a_kcontig, b_ncontig, s);
+    if (b_dtype == kBFloat16)
+      return dispatch_layout<float, __nv_bfloat16>(p, a_kcontig, b_ncontig, s);
+  } else if (dtype == kBFloat16) {
+    if (b_dtype == kFloat32)
+      return dispatch_layout<__nv_bfloat16, float>(p, a_kcontig, b_ncontig, s);
+    if (b_dtype == kBFloat16)
+      return dispatch_layout<__nv_bfloat16, __nv_bfloat16>(p, a_kcontig, b_ncontig, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// r[row] = rsqrt(mean(x[row]^2) + eps) in fp32: the RMS prologue's row
+// statistic (d a multiple of 8, rows 16-byte aligned)
+extern "C" int row_rms_launch(const void* x, void* r, int rows, int d, float eps, int dtype,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (rows + 7) / 8;
+  if (rows <= 0) return cudaGetLastError();
+  if (dtype == kFloat32)
+    row_rms_kernel<float><<<blocks, 256, 0, s>>>(static_cast<const float*>(x),
+                                                 static_cast<float*>(r), rows, d, eps);
+  else if (dtype == kBFloat16)
+    row_rms_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<float*>(r), rows, d, eps);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+DEFINE_ERROR_STRING

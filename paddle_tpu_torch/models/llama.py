@@ -19,9 +19,16 @@ plain reference otherwise; ``recompute`` / ``recompute_layers`` checkpoint
 decoder layers with ``torch.utils.checkpoint``.  ``compute_loss`` is the
 shifted next-token cross-entropy in fp32.
 
+Three seams take the fusion sites of ``kernels/emit.py`` while a table of
+them is activated (``emit.activate``), read at every call: the SwiGLU MLP
+(``mlp_fn``), the residual add + post-attention RMSNorm of each decoder
+layer, and the final RMSNorm + vocab projection of
+``LlamaForCausalLM.forward``.  As in the JAX model, the add-norm and head
+seams are off with a cache, so ``generate`` and the Engine keep their stock
+norms and head; ``mlp_fn`` reads the table whatever the cache.
+
 Left to later slices, and refused with ``NotImplementedError`` when a config
-asks for them: MoE, sharding (sequence / context parallel), and the fusion
-transformer's emitted sites.
+asks for them: MoE and sharding (sequence / context parallel).
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import default_device, make_generator, to_dtype
 from ..distributed.parallel.mp_layers import _ce_no_gather
 from ..kernels import decode_attention as da
+from ..kernels import emit
 from ..kernels import rope as rope_mod
 from ..kernels.flash_attention import _attention_reference, flash_attention
 from ..kernels.rms_norm import rms_norm
@@ -214,6 +222,16 @@ def paged_chunk_attention_fn(hidden, w_qkv, w_o, k_pool, v_pool, block_table,
     return o.reshape(B, S, h * d) @ w_o.to(hidden.dtype), k_pool, v_pool
 
 
+def mlp_fn(hidden, w_gate_up, w_down, intermediate_size: int):
+    """SwiGLU MLP over raw tensors with the fused gate_up product."""
+    fused = emit.active("fuse_swiglu_mlp")
+    if fused is not None:
+        return fused(hidden, w_gate_up, w_down, intermediate_size=intermediate_size)
+    gu = hidden @ w_gate_up.to(hidden.dtype)
+    gate, up = torch.split(gu, [intermediate_size, intermediate_size], dim=-1)
+    return (F.silu(gate) * up) @ w_down.to(hidden.dtype)
+
+
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
@@ -268,9 +286,7 @@ class LlamaMLP(nn.Module):
         self.intermediate_size = config.intermediate_size
 
     def forward(self, x):
-        gu = x @ self.gate_up_proj.to(x.dtype)
-        gate, up = torch.split(gu, [self.intermediate_size, self.intermediate_size], dim=-1)
-        return (F.silu(gate) * up) @ self.down_proj.to(x.dtype)
+        return mlp_fn(x, self.gate_up_proj, self.down_proj, self.intermediate_size)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -286,8 +302,15 @@ class LlamaDecoderLayer(nn.Module):
         h = self.self_attn(self.input_layernorm(x), cos, sin, position_ids, cache=cache)
         if cache is not None:
             h, new_kv = h
-        x = x + h
-        x = x + self.mlp(self.post_attention_layernorm(x))
+        fused_arn = None if cache is not None else emit.active("fuse_add_rms_norm")
+        if fused_arn is not None:
+            # residual add + post-attention RMSNorm in one site
+            ln = self.post_attention_layernorm
+            x, normed = fused_arn(x, h, ln.weight, epsilon=ln.epsilon)
+        else:
+            x = x + h
+            normed = self.post_attention_layernorm(x)
+        x = x + self.mlp(normed)
         return x if cache is None else (x, new_kv)
 
 
@@ -334,8 +357,11 @@ class LlamaModel(nn.Module):
 
         return pools(), pools()
 
-    def forward(self, input_ids, position_ids=None, cache=None):
-        """Final hidden states; with ``cache`` also the updated cache."""
+    def forward(self, input_ids, position_ids=None, cache=None, skip_final_norm: bool = False):
+        """Final hidden states; with ``cache`` also the updated cache.
+        ``skip_final_norm`` (no cache) returns the hidden states before the
+        final norm, for a caller that applies ``self.norm``'s weight itself
+        (the fused RMSNorm + vocab projection)."""
         cfg = self.config
         x = F.embedding(input_ids.long(), self.embed_tokens)
         if cfg.pdtype != cfg.dtype:
@@ -364,7 +390,7 @@ class LlamaModel(nn.Module):
                 x = checkpoint(layer, x, cos, sin, position_ids, use_reentrant=False)
             else:
                 x = layer(x, cos, sin, position_ids)
-        return self.norm(x)
+        return x if skip_final_norm else self.norm(x)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -408,7 +434,20 @@ class LlamaForCausalLM(nn.Module):
         return hidden @ self.lm_head.to(hidden.dtype)
 
     def forward(self, input_ids, position_ids=None, cache=None):
-        """Logits; with ``cache`` returns ``(logits, new_cache)``."""
+        """Logits; with ``cache`` returns ``(logits, new_cache)``.  The SSD
+        family borrows this method and keeps its stock head, as its JAX
+        forward does: only a Llama decoder takes the fused head."""
+        fused_head = (None if cache is not None or not isinstance(self.decoder, LlamaModel)
+                      else emit.active("fuse_rms_norm_head"))
+        if fused_head is not None:
+            # final RMSNorm + vocab projection in one site, on pre-norm rows
+            hidden = self.decoder(input_ids, position_ids, skip_final_norm=True)
+            norm = self.decoder.norm
+            if self.lm_head is None:
+                return fused_head(hidden, norm.weight, self.decoder.embed_tokens,
+                                  epsilon=norm.epsilon, transpose=True)
+            return fused_head(hidden, norm.weight, self.lm_head, epsilon=norm.epsilon,
+                              transpose=False)
         out = self.decoder(input_ids, position_ids, cache=cache)
         if cache is not None:
             hidden, new_cache = out

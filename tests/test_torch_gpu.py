@@ -280,3 +280,157 @@ def test_ssd_scan_gradients_on_the_card(cuda):
         # the same plain backward at the same inputs: only the kernel's
         # forward differs, and the backward does not read it
         torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5 * float(r.abs().max()))
+
+
+# the fusion sites' kernels (csrc/fused_gemm.cu, csrc/add_rms_norm.cu).
+# fp32: true fp32 sums in another order than cuBLAS's; bf16: both sum in
+# fp32 and round once, so two bf16 ulps of the plain value plus an atol of
+# 1e-3 of the output's largest |value|
+FUSE_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-3, 1.6e-2)}
+
+
+def _fuse_close(got, ref, dtype):
+    atol, rtol = FUSE_TOL[dtype]
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                               atol=atol * max(float(ref.float().abs().max()), 1e-30))
+
+
+# (a_t, b_t): NN X W, NT dY Wᵀ (and the tied head X Eᵀ), TN Xᵀ dY (the
+# weight gradients), TT; 77 rows (ragged against the 128-row tile) on an
+# outer dimension, feature widths multiples of 8 but not of the tile
+GEMM_LAYOUTS = [(False, False), (False, True), (True, False), (True, True)]
+
+
+def _gemm_operands(dev, dtype, w_dtype, a_t, b_t, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    R, F1, F2 = 77, 136, 200
+    if a_t and b_t:                     # Aᵀ [F1, 80] from [80, F1], Bᵀ from [F2, 80]
+        a_shape, b_shape = (80, F1), (F2, 80)
+    elif a_t:                           # Aᵀ [F1, R] from [R, F1], B [R, F2]
+        a_shape, b_shape = (R, F1), (R, F2)
+    else:                               # A [R, F1], B [F1, F2] or from [F2, F1]
+        a_shape, b_shape = (R, F1), ((F2, F1) if b_t else (F1, F2))
+    a = torch.randn(a_shape, generator=g, device=dev).to(dtype)
+    b = (0.1 * torch.randn(b_shape, generator=g, device=dev)).to(w_dtype)
+    return a, b
+
+
+@pytest.mark.parametrize("a_t,b_t", GEMM_LAYOUTS, ids=["NN", "NT", "TN", "TT"])
+@pytest.mark.parametrize("dtype,w_dtype", [(torch.float32, torch.float32),
+                                           (torch.bfloat16, torch.float32),
+                                           (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("out", ["compute", "float32"])
+def test_fused_gemm_matches_plain(cuda, a_t, b_t, dtype, w_dtype, out):
+    from paddle_tpu_torch.kernels import fused_gemm as fg
+
+    a, b = _gemm_operands(cuda, dtype, w_dtype, a_t, b_t, 7)
+    out_dtype = None if out == "compute" else torch.float32
+    got = fg.matmul(a, b, a_t=a_t, b_t=b_t, out_dtype=out_dtype)
+    _fuse_close(got, fg.matmul_reference(a, b, a_t=a_t, b_t=b_t, out_dtype=out_dtype), dtype)
+    if out_dtype is not None and dtype == torch.bfloat16:
+        # a weight gradient: the bf16 product widened to fp32
+        assert torch.equal(got, got.to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("side", ["a", "b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_gemm_rms_prologue_matches_plain(cuda, side, dtype):
+    """The head's products: X normed (prologue on A), normedᵀ dL (A
+    transposed) and dLᵀ normed (prologue on B), with fp32 row statistics
+    from ``row_rms``."""
+    from paddle_tpu_torch.kernels import fused_gemm as fg
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = (2.0 * torch.randn(77, 136, generator=g, device=cuda)).to(dtype)
+    w_norm = 1 + 0.1 * torch.randn(136, generator=g, device=cuda)
+    r = fg.row_rms(x, 1e-6)
+    torch.testing.assert_close(r, fg.row_rms_reference(x, 1e-6), rtol=1e-6, atol=0)
+    other = torch.randn(77, 200, generator=g, device=cuda).to(dtype)
+    w = (0.1 * torch.randn(136, 200, generator=g, device=cuda))
+    rms = (r, w_norm, side)
+    cases = ([dict(a=x, b=w), dict(a=x, b=other, a_t=True, out_dtype=torch.float32)]
+             if side == "a" else [dict(a=other, b=x, a_t=True, out_dtype=torch.float32)])
+    for kw in cases:
+        got = fg.matmul(rms=rms, **kw)
+        _fuse_close(got, fg.matmul_reference(rms=rms, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype,w_dtype", [(torch.float32, torch.float32),
+                                           (torch.bfloat16, torch.float32)])
+def test_swiglu_epilogues_match_plain(cuda, dtype, w_dtype):
+    from paddle_tpu_torch.kernels import fused_gemm as fg
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    M, H, I = 77, 136, 200
+    x = torch.randn(M, H, generator=g, device=cuda).to(dtype)
+    w_gu = (0.1 * torch.randn(H, 2 * I, generator=g, device=cuda)).to(w_dtype)
+    d_act = torch.randn(M, I, generator=g, device=cuda).to(dtype)
+    _fuse_close(fg.swiglu_gate_up(x, w_gu, I), fg.swiglu_gate_up_reference(x, w_gu, I), dtype)
+    for got, ref in zip(fg.swiglu_gate_up_bwd(x, w_gu, d_act, I),
+                        fg.swiglu_gate_up_bwd_reference(x, w_gu, d_act, I)):
+        _fuse_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("with_h", [True, False], ids=["add_norm", "norm_only"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add_rms_norm_kernels_match_plain(cuda, with_h, dtype):
+    from paddle_tpu_torch.kernels import add_rms_norm as arn
+
+    g = torch.Generator(device=cuda).manual_seed(10)
+    M, H = 1037, 264          # more rows than the 512 dw groups: 3 rows a group
+    x, h, d_s, dn = (torch.randn(M, H, generator=g, device=cuda).to(dtype) for _ in range(4))
+    w = 1 + 0.1 * torch.randn(H, generator=g, device=cuda)
+    if with_h:
+        for got, ref in zip(arn.add_rms_norm_fwd(x, h, w, 1e-6),
+                            arn.add_rms_norm_fwd_reference(x, h, w, 1e-6)):
+            _fuse_close(got, ref, dtype)
+    args = (x, h if with_h else None, w, d_s if with_h else None, dn, 1e-6)
+    got = arn.add_rms_norm_bwd(*args)
+    ref = arn.add_rms_norm_bwd_reference(*args)
+    if with_h:
+        assert got[1] is got[0]                 # dx = dh, stored once
+    for a, b in zip(got, ref):
+        if b is None:
+            assert a is None
+        else:
+            _fuse_close(a, b, dtype)
+    again = arn.add_rms_norm_bwd(*args)
+    assert torch.equal(again[2], got[2])       # dw in a fixed order: deterministic
+
+
+@pytest.mark.parametrize("name,transpose", [("fuse_swiglu_mlp", None),
+                                            ("fuse_add_rms_norm", None),
+                                            ("fuse_rms_norm_head", False),
+                                            ("fuse_rms_norm_head", True)])
+def test_fused_sites_on_the_card(cuda, name, transpose):
+    """Every site verifies on the card (fp32 at its example shapes), and in
+    bf16 with fp32 weights over 77 ragged rows the Function's forward and
+    gradients agree with the plain reference and its autograd; each site
+    forward and backward counts one launch."""
+    from paddle_tpu_torch.kernels import emit
+
+    assert emit.verify_site(name, cuda) == []
+    site = emit.SITES[name]
+    static = dict(site.example_static)
+    shapes = [s for s, _ in site.example_shapes]
+    if transpose is not None:
+        static["transpose"] = transpose
+        if transpose:
+            shapes[2] = shapes[2][::-1]
+    shapes = [((77,) + s[1:]) if i < site.n_row_args else s for i, s in enumerate(shapes)]
+    g = torch.Generator(device=cuda).manual_seed(11)
+    args = [(0.1 * torch.randn(s, generator=g, device=cuda)).to(
+        torch.bfloat16 if i < site.n_row_args else torch.float32) for i, s in enumerate(shapes)]
+    fwd, bwd = emit._FORWARD[name], emit._BACKWARD[name]
+    f0, b0 = fwd.launches, bwd.launches
+    p = [a.clone().requires_grad_() for a in args]
+    outs = emit._as_tuple(emit.make_fused(name, cuda)(*p, **static))
+    refs = emit._as_tuple(site.ref(*args, **static))
+    cts = [torch.randn(r.shape, generator=g, device=cuda).to(r.dtype) for r in refs]
+    grads = torch.autograd.grad(outs, p, cts)
+    assert (fwd.launches, bwd.launches) == (f0 + 1, b0 + 1)
+    for o, r in zip(outs, refs):
+        _fuse_close(o.detach(), r, torch.bfloat16)
+    for gr, w in zip(grads, emit._vjp_reference(site, args, cts, static)):
+        _fuse_close(gr, w, torch.bfloat16)

@@ -166,9 +166,21 @@ def test_cpu_wrappers_run_plain_versions_without_launching():
     y, s = ssd_scan(xs, torch.ones(2, 32, 16), torch.ones(2, 32, 16), torch.zeros(2, 32),
                     chunk=16)
     (y.sum() + s.sum()).backward()
+    from paddle_tpu_torch.kernels import emit
+
+    h = torch.ones(2, 3, 64, requires_grad=True)
+    w = torch.ones(64, requires_grad=True)
+    s_, n_ = emit.make_fused("fuse_add_rms_norm")(h, h, w, epsilon=1e-6)
+    out = emit.make_fused("fuse_swiglu_mlp")(n_, torch.ones(64, 32), torch.ones(16, 64),
+                                             intermediate_size=16)
+    emit.make_fused("fuse_rms_norm_head")(s_ + out, w, torch.ones(64, 8), epsilon=1e-6,
+                                          transpose=False).sum().backward()
     assert launch_counts() == {"rms_norm": 0, "decode_attention_dense": 0,
                                "decode_attention_paged": 0, "flash_attention_fwd": 0,
-                               "flash_attention_bwd": 0, "adamw": 0, "ssd_scan": 0}
+                               "flash_attention_bwd": 0, "adamw": 0, "ssd_scan": 0,
+                               "fuse_swiglu_mlp": 0, "fuse_swiglu_mlp_bwd": 0,
+                               "fuse_add_rms_norm": 0, "fuse_add_rms_norm_bwd": 0,
+                               "fuse_rms_norm_head": 0, "fuse_rms_norm_head_bwd": 0}
 
 
 def test_cached_attention_reference_matches_jax():
