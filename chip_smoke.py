@@ -10,6 +10,7 @@ and serve Llama-3-8B-shaped and SSD-8B requests through the port's Engine.
     python3 chip_smoke.py --phases card,build,kernels,train
     python3 chip_smoke.py --phases card,build,kernels,parity,fuse_train
     python3 chip_smoke.py --phases card,build,kernels,parity,ssd_train,ssd_serve
+    python3 chip_smoke.py --phases card,build,kernels,kernel_gate
 
 Phases:
   1 card     name and power limit (nvidia-smi), torch device name
@@ -27,7 +28,22 @@ Phases:
              tied head, fp32 at 520 rows) against the plain reference and
              its autograd, elementwise and per 64-row tile, with the seam's
              stock chain timed beside it, and three planted faults (gate
-             and up swapped, the last K tile dropped, a row's RMS skipped)
+             and up swapped, the last K tile dropped, a row's RMS skipped);
+             the gate's two seeded-defect kernels, exact on the part their
+             defect leaves defined
+  3b kernel_gate  the kernel gate (kernels/registry.py, analysis/
+             kernel_lint.py): its CLI on the card, clean (18 entries, each
+             at every dtype it has an example of, both legs, no finding,
+             every kernel's shared memory as the card reports it) and under
+             each KERNEL_GATE_INJECT (write-race, parallel-carry, emit-race:
+             each refused with its codes, the other entries clean), four
+             processes together; `parity`'s narrow Llama through the
+             Engine, generate, one TrainStep step and one fused step, then
+             one stock and one fused step in bf16 over fp32 params, with
+             FLAGS_kernel_admission off and on: each kernel on those paths
+             admitted once at the dtype it ran, tokens and losses equal,
+             launch counts equal; sabotaged ssd_scan and rms_norm refused
+             before their first launch
   4 parity   card (kernels) against CPU (plain versions) in fp32 on a
              narrow Llama config and on the tiny pure and hybrid SSD
              stacks: Engine and generate tokens must be equal; three
@@ -187,8 +203,8 @@ FUSE_TILE_RTOL_FP32 = 1e-5
 FUSE_M, FUSE_H, FUSE_I, FUSE_V = 3 * 2048, 2048, 5632, 32000
 SSD_TRAIN_LAYERS = 8         # depth of `ssd_train` (32 would need 77 GB for params and AdamW)
 SSD_TRAIN_BATCH, SSD_TRAIN_SEQ = 2, 4096
-ALL_PHASES = ("card", "build", "kernels", "parity", "train", "fuse_train", "ssd_train", "serve",
-              "ssd_serve", "profile")
+ALL_PHASES = ("card", "build", "kernels", "kernel_gate", "parity", "train", "fuse_train",
+              "ssd_train", "serve", "ssd_serve", "profile")
 REPO = Path(__file__).resolve().parent
 
 
@@ -1001,7 +1017,314 @@ def phase_kernels():
                          _ssd_case(gen, 8, 256, 32, 16, 16, full=True)]
     torch.cuda.empty_cache()
     cases.update(phase_fuse_kernels(gen))
+    cases["injected_write_race"] = [_injected_case(gen, "write_race")]
+    cases["injected_parallel_carry"] = [_injected_case(gen, "parallel_carry")]
     return cases
+
+
+def _injected_case(gen, kind):
+    """A seeded-defect kernel of the gate at the gate's shapes, against its
+    plain version (what a correct kernel gives) on the part the defect
+    leaves defined, which must be exact (tolerance 0: 2 x and x are exact
+    in fp32): every element of write-race's tile 0 is one CTA's doubled
+    value (the CTAs race element by element), and its other tiles must keep
+    the NaN sentinel; parallel-carry's first tile of each row reads no
+    carried state.  The rest is undefined by design."""
+    import torch
+    from paddle_tpu_torch.analysis.kernel_lint import sentinel_outputs
+    from paddle_tpu_torch.kernels import injected
+
+    if kind == "write_race":
+        x = torch.randn(32, 128, generator=gen, device="cuda")
+        fn, plain = injected.write_race, injected.write_race_reference
+    else:
+        x = torch.randn(2, 32, 128, generator=gen, device="cuda")
+        fn, plain = injected.parallel_carry, injected.parallel_carry_reference
+    with sentinel_outputs():
+        y = fn(x)
+    ref = plain(x)
+    torch.cuda.synchronize()
+    rec = {"shape": list(x.shape), "tolerance": 0.0}
+    if kind == "write_race":
+        # each element of tile 0 against the nearest of the four CTAs' values
+        errs = (y[:8][None] - ref.reshape(4, 8, 128)).abs().amin(0)
+        won = (y[:8][None] == ref.reshape(4, 8, 128)).float().argmax(0)
+        rec.update(max_abs_err=float(errs.max()),
+                   elements_stored_by_cta=[int((won == t).sum()) for t in range(4)],
+                   unwritten_elements=int(torch.isnan(y).sum()),
+                   defined="each element of tile 0 is one CTA's 2x; tiles 1-3 keep the "
+                           "sentinel")
+        check(rec["unwritten_elements"] == y[8:].numel() and not torch.isnan(y[:8]).any(),
+              f"injected write_race: {rec['unwritten_elements']} unwritten elements, "
+              f"expected {y[8:].numel()}")
+    else:
+        rec.update(max_abs_err=max_err(y[:, :8], ref[:, :8]),
+                   elements_off_the_running_sum=int((y != ref).sum()),
+                   defined="the first tile of each row (reads no carried state)")
+    check(rec["max_abs_err"] == 0.0,
+          f"injected {kind}: the defined part is {rec['max_abs_err']} from the plain version")
+    rec["ms"] = time_ms(lambda: fn(x))
+    rec["plain_ms"] = time_ms(lambda: plain(x))
+    rec["bound_ms"], rec["bound_by"] = bound(2 * x.numel() * 4, x.numel())
+    # the plain version is one PyTorch call (2 x; a cumsum over a view of
+    # x), so it is also the library call: timed again here as such
+    rec["library_ms"] = time_ms(lambda: plain(x))
+    log(f"kernels: injected_{kind} {rec}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# the kernel gate
+# ---------------------------------------------------------------------------
+
+# what the card's gate must report for each seeded defect (more may be
+# observed: the defective kernels also disagree with their plain versions)
+GATE_INJECTIONS = {"write-race": {"krn-write-race", "krn-coverage-hole"},
+                   "parallel-carry": {"krn-parallel-carry"},
+                   "emit-race": {"krn-coverage-hole"}}
+
+
+def _gate_runs():
+    """The gate's CLI on the card, clean and under each KERNEL_GATE_INJECT,
+    four processes started together: ``{inject: (rc, json, stderr)}``."""
+    import os
+
+    procs = {}
+    for inject in ("", *GATE_INJECTIONS):
+        env = dict(os.environ, KERNEL_GATE_INJECT=inject)
+        env.pop("FLAGS_kernel_admission", None)
+        procs[inject] = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.kernels.registry", "--device", "cuda"],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    out = {}
+    for inject, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        lines = stdout.strip().splitlines()
+        check(lines, f"kernel_gate: the CLI (KERNEL_GATE_INJECT={inject!r}) printed nothing; "
+                     f"rc {proc.returncode}:\n{stderr[-3000:]}")
+        out[inject] = (proc.returncode, json.loads(lines[-1]), stderr)
+    return out
+
+
+def _check_gate(runs):
+    """The clean gate and the three seeded defects, as the CLI reported
+    them; returns the kernel_gate path's launches of the seeded kernels."""
+    from paddle_tpu_torch.kernels import registry
+
+    registry.load_all()
+    rc, clean, err = runs[""]
+    check(rc == 0 and clean["kernel_count"] == 18 and clean["total_findings"] == 0,
+          f"kernel_gate: clean gate rc {rc}, {clean['kernel_count']} entries, "
+          f"{clean['total_findings']} findings:\n{err[-3000:]}")
+    for name, k in clean["kernels"].items():
+        check(k["legs"] == ["static", "dynamic"], f"kernel_gate: {name} ran legs {k['legs']}")
+        check(k["dtypes"] == list(registry.entries()[name].dtypes),
+              f"kernel_gate: {name} checked at {k['dtypes']}")
+        check(k["smem_bytes_by_kernel"] == k["smem_bytes_card_by_kernel"],
+              f"kernel_gate: {name} declares {k['smem_bytes_by_kernel']} B of shared memory, "
+              f"the card reports {k['smem_bytes_card_by_kernel']}")
+    dyn = {n: round(k["dynamic_ms"], 3) for n, k in clean["kernels"].items()}
+    pairs = sum(max(1, len(k["dtypes"])) for k in clean["kernels"].values())
+    log(f"kernel_gate: clean, 18 entries at {pairs} (entry, dtype) pairs, both legs; dynamic "
+        f"leg ms by entry {dyn} (sum {sum(dyn.values()):.1f} ms)")
+    log(f"kernel_gate: compiled attributes "
+        f"{ {n: k['attributes_by_kernel'] for n, k in clean['kernels'].items()} }")
+    launches = {}
+    for inject, want in GATE_INJECTIONS.items():
+        rc, rep, err = runs[inject]
+        name = "injected_" + inject.replace("-", "_")
+        k = rep["kernels"].get(name, {})
+        codes = set(k.get("codes", {}))
+        check(rc == 1 and want <= codes,
+              f"kernel_gate: KERNEL_GATE_INJECT={inject} rc {rc}, codes {k.get('codes')}, "
+              f"expected {sorted(want)}:\n{err[-3000:]}")
+        others = {n: v["findings"] for n, v in rep["kernels"].items() if n != name}
+        check(len(others) == 18 and not any(others.values()),
+              f"kernel_gate: KERNEL_GATE_INJECT={inject}: other entries {others}")
+        log(f"kernel_gate: {inject} refused with {k['codes']} (static leg alone: "
+            f"{'clean' if inject == 'emit-race' else 'refused'}); gate launches "
+            f"{k.get('gate_launches')}")
+        launches.update({n: c for n, c in k.get("gate_launches", {}).items()
+                         if n.startswith("injected_")})
+    return launches
+
+
+def _admission_drive(cfg, cfg16, seed, device):
+    """The narrow Llama of `parity` through the Engine, `generate`, one
+    TrainStep step and one step with every fusion site verified and
+    activated; then ``cfg16`` (the same widths, bf16 compute over fp32
+    params, as `base` trains) through one TrainStep step and one fused
+    step.  Each path's launches are counted from 0.  Returns the tokens,
+    losses and counts."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import emit, launch_counts, reset_launch_counts
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = LlamaForCausalLM(cfg, device=device, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    prefix = rng.integers(1, cfg.vocab_size, size=(128,)).astype(np.int32)
+    reqs = _requests(rng, cfg.vocab_size, (17, 100, 130, -40), (24, 16, 20, 16), prefix)
+    out = {"launches": {}}
+    reset_launch_counts()
+    _, outs = _serve(model, reqs, device, max_batch=4, num_blocks=32, block_size=128,
+                     prefill_buckets=(128, 256), decode_chunk=8)
+    out["launches"]["engine"] = launch_counts()
+    out["engine"] = [o.output_ids for o in outs]
+    reset_launch_counts()
+    gen = model.generate(reqs[0].prompt_ids[None], max_new_tokens=16)
+    out["launches"]["generate"] = launch_counts()
+    out["generate"] = gen[0].cpu().tolist()
+    ids = np.random.default_rng(seed + 3).integers(0, cfg.vocab_size, (2, 256)).astype(np.int32)
+    step = TrainStep(model, lambda m, x: m.compute_loss(m(x), x),
+                     AdamW(learning_rate=3e-4, weight_decay=0.1, parameters=model.parameters()))
+    reset_launch_counts()
+    out["loss"] = float(step(ids))
+    out["launches"]["train"] = launch_counts()
+    table = emit.verified_activation(device)
+    check(sorted(table) == sorted(emit.SITES), f"kernel_gate: sites verified {sorted(table)}")
+    with emit.activate(table):
+        reset_launch_counts()
+        out["fused_loss"] = float(step(ids))
+        out["launches"]["fused_train"] = launch_counts()
+    model16 = LlamaForCausalLM(cfg16, device=device, seed=seed)
+    step16 = TrainStep(model16, lambda m, x: m.compute_loss(m(x), x),
+                       AdamW(learning_rate=3e-4, weight_decay=0.1,
+                             parameters=model16.parameters()))
+    reset_launch_counts()
+    out["loss_bf16"] = float(step16(ids))
+    out["launches"]["train_bf16"] = launch_counts()
+    with emit.activate(table):
+        reset_launch_counts()
+        out["fused_loss_bf16"] = float(step16(ids))
+        out["launches"]["fused_train_bf16"] = launch_counts()
+    return out
+
+
+# the (entry, dtype) pairs each admission path must admit (once each, on the
+# card): the fp32 narrow Llama's, then the bf16 legs' tensor-core flash and
+# bf16-rows RMSNorm; verified_activation admits every site at all its dtypes
+_FLASH_ENTRIES = ("flash_fwd_resident", "flash_fwd_stream", "flash_bwd_stream")
+_SITE_ENTRIES = ("fuse_swiglu_mlp", "fuse_swiglu_mlp_bwd", "fuse_add_rms_norm",
+                 "fuse_add_rms_norm_bwd", "fuse_rms_norm_head", "fuse_rms_norm_head_bwd")
+ADMITTED_BY_PATH = {
+    "engine": {("rms_norm", "float32"), ("paged_decode", "float32"),
+               ("paged_decode_fused", "float32")},
+    "generate": {("decode_mmha", "float32"), ("decode_mmha_fused", "float32")},
+    "train": {(n, "float32") for n in (*_FLASH_ENTRIES, "adamw_fused")},
+    "fused_train": {(n, dt) for n in _SITE_ENTRIES
+                    for dt in ("float32", "bfloat16+float32", "bfloat16")},
+    "train_bf16": {(n, "bfloat16") for n in _FLASH_ENTRIES} | {("rms_norm", "bfloat16+float32")},
+}
+
+
+def _admission_paths(seed, device="cuda"):
+    """`parity`'s narrow Llama driven with FLAGS_kernel_admission off and
+    then on (fresh weights from one seed each time): every registered
+    kernel on the paths admitted exactly once at the dtype it ran, the
+    same tokens, the same losses to the bit, and the same launch counts
+    (the dynamic leg's own launches land in no path).  With the flag off
+    only verified_activation admits (the sites, as the JAX one does)."""
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.kernels import registry
+    from paddle_tpu_torch.models import llama_tiny_config
+
+    widths = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                  num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                  max_position_embeddings=512)
+    cfg = llama_tiny_config(**widths)
+    cfg16 = llama_tiny_config(**widths, dtype="bfloat16", param_dtype="float32")
+    flags.set_flags({"kernel_admission": False})
+    registry.reset_admission_cache()
+    off = _admission_drive(cfg, cfg16, seed, device)
+    sites = {(n, device, dt) for n, dt in ADMITTED_BY_PATH["fused_train"]}
+    check(set(registry.admissions()) == sites,
+          f"kernel_gate: with the flag off admitted {registry.admissions()}, expected the "
+          f"sites verified_activation admits, {sorted(sites)}")
+    registry.reset_admission_cache()
+    t0 = time.perf_counter()
+    flags.set_flags({"kernel_admission": True})
+    try:
+        on = _admission_drive(cfg, cfg16, seed, device)
+    finally:
+        flags.set_flags({"kernel_admission": False})
+    secs = time.perf_counter() - t0
+    admitted = registry.admissions()
+    spent = registry.admission_seconds()
+    want = {(n, device, dt) for path in ADMITTED_BY_PATH.values() for n, dt in path}
+    check(set(admitted) == want and set(admitted.values()) == {1},
+          f"kernel_gate: admitted {admitted}, expected each of {sorted(want)} once")
+    for key in ("engine", "generate"):
+        check(on[key] == off[key], f"kernel_gate: {key} tokens differ under admission")
+    for key in ("loss", "fused_loss", "loss_bf16", "fused_loss_bf16"):
+        check(on[key] == off[key], f"kernel_gate: {key} {on[key]} under admission, "
+                                   f"{off[key]} without")
+    check(on["launches"] == off["launches"],
+          f"kernel_gate: launches under admission {on['launches']}, without {off['launches']}")
+    nonzero = {p: {k: n for k, n in c.items() if n} for p, c in off["launches"].items()}
+    log(f"kernel_gate: admission on the Engine, generate, TrainStep and fused-step paths "
+        f"(fp32, then bf16 steps): {len(admitted)} (entry, dtype) pairs admitted once each; "
+        f"tokens and losses ({off['loss']}, {off['fused_loss']}, {off['loss_bf16']}, "
+        f"{off['fused_loss_bf16']}) equal to the admission-off run; launches per path "
+        f"{nonzero}; admission-on drive {secs:.3f} s, of which admission (both legs) "
+        f"{sum(spent.values()) * 1e3:.1f} ms: "
+        f"{ {f'{n}@{dt}': round(s * 1e3, 1) for (n, _, dt), s in sorted(spent.items())} }")
+    registry.reset_admission_cache()
+
+
+def _refusal_before_launch():
+    """``ssd_scan`` and ``rms_norm`` re-registered with the write-race
+    builder: with admission on each wrapper raises KernelRejected naming
+    krn-write-race, and its launch counter does not move."""
+    import torch
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.kernels import registry, rms_norm, ssd_scan
+
+    calls = {
+        "ssd_scan": (ssd_scan.ssd_scan, lambda: ssd_scan.ssd_scan(
+            *(torch.randn(2, 128, w, device="cuda") for w in (32, 16, 16)),
+            -torch.ones(2, 128, device="cuda"), chunk=16)),
+        "rms_norm": (rms_norm.rms_norm, lambda: rms_norm.rms_norm(
+            torch.randn(64, 256, device="cuda"), torch.ones(256, device="cuda"))),
+    }
+    saved = registry.entries()
+    flags.set_flags({"kernel_admission": True})
+    registry.reset_admission_cache()
+    try:
+        for name, (wrapper, call) in calls.items():
+            registry.register(name, registry._build_injected_write_race)
+            before = wrapper.launches
+            try:
+                call()
+                raise PhaseError(f"kernel_gate: sabotaged {name} was not refused")
+            except registry.KernelRejected as e:
+                check("krn-write-race" in str(e), f"kernel_gate: {name} refused without "
+                                                  f"krn-write-race: {e}")
+            check(wrapper.launches == before, f"kernel_gate: {name} launched before refusal")
+    finally:
+        for name in calls:
+            e = saved[name]
+            registry.register(name, e.build, presets=e.presets, description=e.description,
+                              tol=e.tol, dtypes=e.dtypes)
+        flags.set_flags({"kernel_admission": False})
+        registry.reset_admission_cache()
+    log("kernel_gate: sabotaged ssd_scan and rms_norm refused before their first launch")
+
+
+def phase_kernel_gate(seed):
+    t0 = time.perf_counter()
+    launches = _check_gate(_gate_runs())
+    t_cli = time.perf_counter() - t0
+    _admission_paths(seed)
+    _refusal_before_launch()
+    log(f"kernel_gate: {time.perf_counter() - t0:.1f} s (the four CLI runs together "
+        f"{t_cli:.1f} s)")
+    return {"launches": launches}
 
 
 def _requests(rng, vocab, lengths, new_tokens, prefix=None):
@@ -1877,6 +2200,10 @@ SOURCES = {
                            "paddle_tpu/kernels/emit.py:111"),
     "fuse_rms_norm_head_bwd": ("paddle_tpu_torch/kernels/csrc/fused_gemm.cu",
                                "paddle_tpu/kernels/emit.py:165"),
+    "injected_write_race": ("paddle_tpu_torch/kernels/csrc/injected.cu",
+                            "paddle_tpu/kernels/registry.py:152"),
+    "injected_parallel_carry": ("paddle_tpu_torch/kernels/csrc/injected.cu",
+                                "paddle_tpu/kernels/registry.py:176"),
 }
 # a site's launches that live in a second source
 ALSO_SOURCE = {"fuse_rms_norm_head_bwd": "paddle_tpu_torch/kernels/csrc/add_rms_norm.cu"}
@@ -1894,7 +2221,8 @@ MAIN_PATH = {"rms_norm": "engine", "decode_attention_dense": "generate",
              "flash_attention_bwd": "train", "adamw": "train", "ssd_scan": "ssd_train",
              **{name: "fuse_train" for name in ("fuse_swiglu_mlp", "fuse_swiglu_mlp_bwd",
                                                 "fuse_add_rms_norm", "fuse_add_rms_norm_bwd",
-                                                "fuse_rms_norm_head", "fuse_rms_norm_head_bwd")}}
+                                                "fuse_rms_norm_head", "fuse_rms_norm_head_bwd")},
+             "injected_write_race": "kernel_gate", "injected_parallel_carry": "kernel_gate"}
 
 
 def kernel_table(cases, paths):
@@ -1902,16 +2230,16 @@ def kernel_table(cases, paths):
     for name, recs in cases.items():
         main = recs[0]
         src, rep = SOURCES[name]
-        by_path = {p: rec["launches"][name] for p, rec in paths.items()}
+        by_path = {p: rec["launches"].get(name, 0) for p, rec in paths.items()}
         entry = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                  "launches": by_path.get(MAIN_PATH[name]),
                  "launches_by_path": by_path,
                  # decode paths carry per-forward counts, training paths per-step ones
                  "launches_per_decode_step": {
-                     p: rec["launches_per_decode_forward"][name]
+                     p: rec["launches_per_decode_forward"].get(name, 0)
                      for p, rec in paths.items() if "launches_per_decode_forward" in rec},
                  "launches_per_train_step": {
-                     p: rec["launches_per_step"][0][name]
+                     p: rec["launches_per_step"][0].get(name, 0)
                      for p, rec in paths.items() if "launches_per_step" in rec},
                  "max_abs_err": main["max_abs_err"],
                  "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -1953,10 +2281,12 @@ def main(argv=None) -> int:
     cases, paths = {}, {}
     try:
         phase_card()
-        if "build" in phases or "kernels" in phases:
+        if "build" in phases or "kernels" in phases or "kernel_gate" in phases:
             phase_build()
         if "kernels" in phases:
             cases = phase_kernels()
+        if "kernel_gate" in phases:
+            paths["kernel_gate"] = phase_kernel_gate(args.seed)
         if "parity" in phases:
             phase_parity(args.seed)
         if "train" in phases:

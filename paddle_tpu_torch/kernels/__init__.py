@@ -6,7 +6,9 @@ RMSNorm and decode attention serve; flash attention forward and backward
 and the fused AdamW train; the SSD chunked scan runs the SSD family's
 training forward; the fusion sites of :mod:`.emit` (a tiled GEMM with the
 sites' prologues and epilogues, and the residual add + RMSNorm) train when
-a table of sites is activated.
+a table of sites is activated.  :mod:`.injected` holds the kernel gate's
+seeded defects, launched only by the gate.  :mod:`.registry` is the
+admission-gated registry every wrapper checks in with first.
 
 Every wrapper carries a plain integer ``launches`` attribute, raised by one
 exactly where its kernel is launched; :func:`launch_counts` and
@@ -18,11 +20,11 @@ from __future__ import annotations
 from typing import Dict
 
 from . import (adamw, add_rms_norm, decode_attention, emit, flash_attention, fused_gemm,
-               rms_norm, rope, ssd_scan)
+               injected, registry, rms_norm, rope, ssd_scan)
 
 __all__ = ["adamw", "add_rms_norm", "decode_attention", "emit", "flash_attention",
-           "fused_gemm", "rms_norm", "rope", "ssd_scan", "launch_counts",
-           "reset_launch_counts", "WRAPPERS"]
+           "fused_gemm", "injected", "registry", "rms_norm", "rope", "ssd_scan",
+           "launch_counts", "reset_launch_counts", "GATE_WRAPPERS", "WRAPPERS"]
 
 # kernel name -> wrapper with a ``launches`` counter
 WRAPPERS = {
@@ -41,6 +43,12 @@ WRAPPERS = {
     "fuse_rms_norm_head": emit.fuse_rms_norm_head_fwd,
     "fuse_rms_norm_head_bwd": emit.fuse_rms_norm_head_bwd,
 }
+# the kernel gate's seeded defects: launched by the gate only, so kept out of
+# the system's paths' counts
+GATE_WRAPPERS = {
+    "injected_write_race": injected.write_race,
+    "injected_parallel_carry": injected.parallel_carry,
+}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -48,5 +56,5 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for fn in WRAPPERS.values():
+    for fn in (*WRAPPERS.values(), *GATE_WRAPPERS.values()):
         fn.launches = 0

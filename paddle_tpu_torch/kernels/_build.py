@@ -3,13 +3,27 @@
 Each source compiles on its own with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``.  Builds happen at
 first use, never at import; the libraries land in ``build/`` beside this file
-(listed in ``.gitignore``), named by a hash of the source, its headers and
-the flags, so an edited source is rebuilt and a stale library is never
-loaded.  Several sources build in parallel (one ``nvcc`` each).  A failed
-build raises; there is no fallback.
+(listed in ``.gitignore``), named by a hash of the source, its headers, the
+flags and any extra ``-D`` defines, so an edited source is rebuilt and a
+stale library is never loaded.  A *build variant* is a source built with
+extra defines into a library of its own (the kernel gate's seeded
+``emit-race`` defect is ``fused_gemm.cu`` with ``KERNEL_GATE_EMIT_RACE``):
+its hash differs, so it can never be loaded as the real library.  Several
+sources build in parallel (one ``nvcc`` each).  A failed build raises;
+there is no fallback.
 
 C entry points take every pointer and the stream as ``void*`` and return
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
+Every library also exports ``kernel_attributes(kernel, dtype, a, b, out)``:
+the static shared memory, the dynamic shared memory its launch requests,
+the registers and the local (spill) bytes of one kernel instantiation, read
+with ``cudaFuncGetAttributes`` (:func:`kernel_attributes`).
+
+The geometry constants of a source (tile sizes, split sizes, thread and
+block counts) are defined once, in :data:`GEOMETRY`, and reach the source
+as ``-D`` defines: the kernels compile with them and the verifier's specs
+read them from here, also on a machine with no compiler (the static leg
+runs on the CPU).
 """
 
 from __future__ import annotations
@@ -21,7 +35,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -72,7 +86,32 @@ SIGNATURES = {
         # x, h, w, d_s, d_normed, dx, partial, dw, rows, d, eps, dtype, w_dtype, stream
         "add_rms_norm_bwd_launch": (P, P, P, P, P, P, P, P, I, I, F, I, I, P),
     },
+    "injected": {
+        # x, y, rows, stream
+        "injected_write_race_launch": (P, P, I, P),
+        # x, y, acc, groups, tiles, stream
+        "injected_parallel_carry_launch": (P, P, P, I, I, P),
+    },
 }
+# every library: kernel, dtype, a, b, int out[4]
+ATTRIBUTES_SIGNATURE = (I, I, I, I, P)
+# the geometry of each source, passed to nvcc as -D<name>=<value>: the one
+# definition the kernels and the verifier's specs both read
+GEOMETRY = {
+    "adamw": {"ADAMW_THREADS": 256, "ADAMW_MAX_BLOCKS": 132 * 16},  # a few waves over the SMs
+    "add_rms_norm": {"ADD_RMS_NORM_GROUPS": 512},     # most row groups of the backward's dw
+    "decode_attention": {"DECODE_TILE": 32,           # keys a step = lanes of the softmax warp
+                         "DECODE_MAX_REP": 8,         # query rows a kv-head (H / Hk)
+                         "DECODE_SPLIT_KEYS": 256},   # keys a CTA of pass 1 (DECODE_TILE x k)
+    # rows of a q-tile and of a k-tile, per head_dim
+    "flash_attention": {"FLASH_TILE_ROWS_D32": 64, "FLASH_TILE_ROWS_D64": 64,
+                        "FLASH_TILE_ROWS_D128": 64, "FLASH_TILE_ROWS_D256": 32},
+    # CTA tile and K step; the epilogue's fp32 staging tile row stride
+    "fused_gemm": {"GEMM_BM": 128, "GEMM_BN": 128, "GEMM_BK": 32, "GEMM_LDC": 128 + 4},
+    "injected": {"INJECTED_TILE_ROWS": 8, "INJECTED_TILE_COLS": 128},
+}
+# the build variants: name -> (source, extra defines)
+VARIANTS = {"fused_gemm_emit_race": ("fused_gemm", ("-DKERNEL_GATE_EMIT_RACE",))}
 
 # dtype codes shared with the C side (csrc/common.cuh)
 DTYPE_CODES = {"float32": 0, "bfloat16": 1, "float16": 2}
@@ -102,27 +141,38 @@ def _nvcc() -> str:
                        "of paddle_tpu_torch are built from source at first use")
 
 
+def _source(name: str) -> Tuple[str, Tuple[str, ...]]:
+    """(source file stem, its -D defines) of a library or build variant:
+    the source's geometry, then the variant's own."""
+    src, extra = VARIANTS.get(name, (name, ()))
+    geometry = tuple(f"-D{k}={v}" for k, v in GEOMETRY.get(src, {}).items())
+    return src, geometry + extra
+
+
 def _lib_path(name: str) -> Path:
+    src, defines = _source(name)
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
-    for f in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    h.update(" ".join(NVCC_FLAGS + defines).encode())
+    for f in [CSRC / f"{src}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, Path]:
-    """Compile every named source whose library is missing, all in
-    parallel; return ``{name: library path}``.  Raises on any failure."""
+    """Compile every named source (or build variant) whose library is
+    missing, all in parallel; return ``{name: library path}``.  Raises on
+    any failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: _lib_path(n) for n in names}
     jobs = []
     for n, out in paths.items():
         if out.exists():
             continue
+        src, defines = _source(n)
         tmp = out.with_name(out.name + f".tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{n}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{src}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((n, proc, cmd, tmp, out))
@@ -130,7 +180,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
     for n, proc, cmd, tmp, out in jobs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {n}.cu (exit {proc.returncode}):"
+            errors.append(f"nvcc failed for {n} (exit {proc.returncode}):"
                           f"\n{' '.join(cmd)}\n{log}")
             tmp.unlink(missing_ok=True)
         else:
@@ -141,7 +191,8 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library of ``csrc/<name>.cu`` (or of the build variant
+    ``name``), building it if needed."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
@@ -150,7 +201,9 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             path = build([name])[name]
             lib = ctypes.CDLL(str(path))
-            for fn, argtypes in SIGNATURES[name].items():
+            sigs = dict(SIGNATURES[_source(name)[0]])
+            sigs["kernel_attributes"] = ATTRIBUTES_SIGNATURE
+            for fn, argtypes in sigs.items():
                 f = getattr(lib, fn)
                 f.argtypes = list(argtypes)
                 f.restype = ctypes.c_int
@@ -161,9 +214,24 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def load_all() -> Dict[str, ctypes.CDLL]:
-    """Build every kernel source in parallel, then load each."""
-    build(SIGNATURES)
-    return {n: load(n) for n in SIGNATURES}
+    """Build every kernel source and build variant in parallel, then load
+    each."""
+    names = [*SIGNATURES, *VARIANTS]
+    build(names)
+    return {n: load(n) for n in names}
+
+
+def kernel_attributes(name: str, kernel: int, dtype: int = 0, a: int = 0,
+                      b: int = 0) -> Dict[str, int]:
+    """``cudaFuncGetAttributes`` of one kernel instantiation of library
+    ``name`` (which kernel and template arguments ``kernel, dtype, a, b``
+    select is documented beside each source's ``kernel_attributes``)."""
+    lib = load(name)
+    out = (ctypes.c_int * 4)()
+    check(lib, lib.kernel_attributes(kernel, dtype, a, b, ctypes.addressof(out)),
+          f"{name} kernel_attributes({kernel}, {dtype}, {a}, {b})")
+    return {"static_smem": out[0], "dynamic_smem": out[1], "registers": out[2],
+            "local_bytes": out[3]}
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

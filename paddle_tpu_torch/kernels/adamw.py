@@ -13,6 +13,9 @@ computes them (``lr`` and ``t = step`` as fp32, ``c1 = 1 - beta1 ** t``,
 double arithmetic cast to fp32 could differ by an ulp.  The kernel rounds
 every operation on its own, so on the same inputs it gives the plain
 version's bits.
+
+Registered in :mod:`.registry` as ``adamw_fused``: ``p32``, ``m`` and ``v``
+are declared in-place pairs, as the Pallas call's ``input_output_aliases``.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ from typing import Tuple
 import torch
 
 from .. import to_dtype
-from . import _build
+from ..analysis.kernel_lint import BlockUse, KernelSpec, cuda_semantics
+from . import _build, registry
 
 __all__ = ["adamw_reference", "adamw_update"]
 
@@ -78,6 +82,7 @@ def adamw_update(p32, g32, m, v, lr, step, *, beta1, beta2, epsilon,
     Python numbers or 0-d tensors."""
     out_dtype = None if out_dtype is None else to_dtype(out_dtype)
     cast = out_dtype is not None and out_dtype != torch.float32
+    registry.ensure_admitted("adamw_fused", p32.device, out_dtype if cast else torch.float32)
     with torch.no_grad():
         if p32.device.type == "cpu":
             p_new, m_new, v_new = adamw_reference(
@@ -117,3 +122,67 @@ def adamw_update(p32, g32, m, v, lr, step, *, beta1, beta2, epsilon,
 
 
 adamw_update.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel-registry entry (verified by analysis.kernel_lint; see registry.py)
+# ---------------------------------------------------------------------------
+
+def kernel_spec(n: int, cast: bool, vec: bool = True) -> KernelSpec:
+    """``adamw_kernel``'s launch: a grid-stride loop, here a grid of
+    ``blocks`` CTAs and the loop's steps as an in-CTA axis; each (CTA,
+    step) updates one block of a float4 (or one value) a thread.  p, m and
+    v are written in place through the blocks they are read through."""
+    geo = _build.GEOMETRY["adamw"]
+    per = geo["ADAMW_THREADS"] * (4 if vec else 1)
+    blocks = min(-(-n // per), geo["ADAMW_MAX_BLOCKS"])
+    steps = -(-n // (per * blocks))
+    f32 = torch.float32
+
+    def at(b, s):
+        return (s * blocks + b,)
+
+    def leaf(name, dtype=f32):
+        return BlockUse((n,), dtype, (per,), at, name=name, masked=True)
+
+    outs = [leaf("p"), leaf("m"), leaf("v")] + ([leaf("out", torch.bfloat16)] if cast else [])
+    return KernelSpec(
+        "adamw_kernel", grid=(blocks, steps),
+        inputs=[leaf("p"), leaf("g"), leaf("m"), leaf("v")], outputs=outs,
+        aliases={0: 0, 2: 1, 3: 2}, dimension_semantics=cuda_semantics(1, 1),
+        cuda=("adamw", 0, 0, int(cast), int(vec)))
+
+
+_HYPER = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, weight_decay=0.01, decoupled=True,
+              apply_decay=True)
+
+
+def _registry_example(dtype="bfloat16"):
+    """The JAX registry's 2048 fp32 leaves with the bf16 cast epilogue, or
+    without it (``dtype`` ``"float32"``: the copy out is the fp32 leaf)."""
+    n, lr, step = 2048, 3e-4, 3
+    cast = dtype == "bfloat16"
+
+    def args(device):
+        g = torch.Generator().manual_seed(0)
+        p, grad, m = (torch.randn(n, generator=g).to(device) for _ in range(3))
+        v = torch.rand(n, generator=g).to(device) * 1e-3
+        return p, grad, 0.1 * m, v
+
+    def launch(p, grad, m, v):
+        out = adamw_update(p, grad, m, v, lr, step, out_dtype=dtype, **_HYPER)
+        return out if cast else out[:3]
+
+    def plain(p, grad, m, v):
+        p_new, m_new, v_new = adamw_reference(p, grad, m, v, lr, step, **_HYPER)
+        return (p_new, m_new, v_new) + ((p_new.to(torch.bfloat16),) if cast else ())
+
+    return [kernel_spec(n, cast=cast)], launch, plain, args
+
+
+registry.register(
+    "adamw_fused", _registry_example,
+    presets=("tiny", "small", "base", "longctx", "moe", "ocr"),
+    description="single-pass fused AdamW: p/m/v aliased in place + bf16 "
+                "cast epilogue",
+    dtypes=("bfloat16", "float32"))     # bitwise: the kernel rounds as the plain version

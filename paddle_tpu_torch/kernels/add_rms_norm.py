@@ -4,6 +4,8 @@ The ``fuse_add_rms_norm`` site of ``paddle_tpu/kernels/emit.py`` and the
 norm half of the ``fuse_rms_norm_head`` site's backward; :mod:`.emit`
 composes the sites from these calls.  Each function launches the kernel on
 CUDA tensors and runs its plain PyTorch version on CPU tensors.
+:func:`fwd_spec` and :func:`bwd_specs` declare the launches for the
+verifier (:mod:`..analysis.kernel_lint`).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..analysis.kernel_lint import BlockUse, KernelSpec, ScratchUse, cuda_semantics
 from . import _build
 from .rms_norm import rms_norm_reference
 
@@ -19,7 +22,7 @@ __all__ = ["add_rms_norm_fwd", "add_rms_norm_fwd_reference", "add_rms_norm_bwd",
            "add_rms_norm_bwd_reference"]
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
-_GROUPS = 512     # csrc/add_rms_norm.cu kGroups: most row groups of dw's first stage
+_GROUPS = _build.GEOMETRY["add_rms_norm"]["ADD_RMS_NORM_GROUPS"]   # most row groups of dw's first stage
 
 
 def add_rms_norm_fwd_reference(x, h, w, epsilon):
@@ -113,3 +116,60 @@ def add_rms_norm_bwd(x: torch.Tensor, h: Optional[torch.Tensor], w: torch.Tensor
             _build.dtype_code(w.dtype), stream)
     _build.check(lib, err, "add_rms_norm backward")
     return dx, None if h is None else dx, dw
+
+
+# ---------------------------------------------------------------------------
+# the launches' specs (for kernels.registry; see analysis.kernel_lint)
+# ---------------------------------------------------------------------------
+
+# block_sum2's fp32 (a, b) partial of each warp, static shared memory
+_PARTIALS = ScratchUse((32, 2), torch.float32)
+
+
+def fwd_spec(rows: int, d: int, dtype, w_dtype) -> KernelSpec:
+    """``add_rms_norm_fwd_kernel``: one CTA a row."""
+    def row(name):
+        return BlockUse((rows, d), dtype, (1, d), lambda i: (i, 0), name=name)
+
+    return KernelSpec(
+        "add_rms_norm_fwd_kernel", grid=(rows,),
+        inputs=[row("x"), row("h"), BlockUse((d,), w_dtype, (d,), lambda i: (0,), name="w")],
+        outputs=[row("s"), row("normed")], scratch=[_PARTIALS],
+        dimension_semantics=cuda_semantics(1),
+        cuda=("add_rms_norm", 0, _build.dtype_code(dtype), _build.dtype_code(w_dtype), 0))
+
+
+def bwd_specs(rows: int, d: int, dtype, w_dtype, with_h: bool, with_ds: bool):
+    """``add_rms_norm_bwd_kernel``, grid (groups,) walking its group's rows
+    in order with the group's dw partial row in shared memory (carried
+    over that walk only), then ``dw_reduce_kernel`` adding the groups'
+    partials, 32 columns a CTA, in group order."""
+    want = min(rows, _GROUPS)
+    per = -(-rows // want)
+    groups = -(-rows // per)
+    codes = (_build.dtype_code(dtype), _build.dtype_code(w_dtype))
+
+    def row(name):
+        return BlockUse((rows, d), dtype, (1, d),
+                        lambda g, r: (min(g * per + r, rows - 1), 0), name=name)
+
+    inputs = [row("x")] + ([row("h")] if with_h else []) + [
+        BlockUse((d,), w_dtype, (d,), lambda g, r: (0,), name="w")] + (
+        [row("d_s")] if with_ds else []) + [row("d_normed")]
+    bwd = KernelSpec(
+        "add_rms_norm_bwd_kernel", grid=(groups, per), inputs=inputs,
+        outputs=[row("dx"), BlockUse((groups, d), torch.float32, (1, d),
+                                     lambda g, r: (g, 0), name="partial")],
+        scratch=[ScratchUse((d,), torch.float32), _PARTIALS],
+        dimension_semantics=cuda_semantics(1, 1),
+        carried_scratch=[(0, frozenset({1}))],      # dw of the group's rows so far
+        cuda=("add_rms_norm", 1, *codes, d))
+    reduce = KernelSpec(
+        "dw_reduce_kernel", grid=(-(-d // 32),),
+        inputs=[BlockUse((groups, d), torch.float32, (groups, 32), lambda c: (0, c),
+                         name="partial", masked=True)],
+        outputs=[BlockUse((d,), w_dtype, (32,), lambda c: (c,), name="dw", masked=True)],
+        scratch=[ScratchUse((8, 33), torch.float32)],
+        dimension_semantics=cuda_semantics(1),
+        cuda=("add_rms_norm", 2, *codes, 0))
+    return [bwd, reduce]

@@ -21,6 +21,10 @@
 
 namespace {
 
+// geometry: -D defines from _build.GEOMETRY
+constexpr int kThreads = ADAMW_THREADS;
+constexpr long long kMaxBlocks = ADAMW_MAX_BLOCKS;  // a few waves over the SMs
+
 struct Scalars {
   float lr, c1, c2, decay;
   float beta1, one_minus_beta1, beta2, one_minus_beta2, eps, wd;
@@ -43,7 +47,7 @@ struct alignas(8) Bf16x4 {
 };
 
 template <bool CAST, bool VEC>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kThreads)
 adamw_kernel(float* __restrict__ p, const float* __restrict__ g, float* __restrict__ m,
              float* __restrict__ v, __nv_bfloat16* __restrict__ out, long long n, Scalars s) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -87,8 +91,6 @@ adamw_kernel(float* __restrict__ p, const float* __restrict__ g, float* __restri
 template <bool CAST, bool VEC>
 cudaError_t launch(void* p, const void* g, void* m, void* v, void* out, long long n,
                    const Scalars& s, cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  constexpr long long kMaxBlocks = 132 * 16;  // a few waves over the SMs
   const long long work = VEC ? (n + 3) / 4 : n;
   long long blocks = (work + kThreads - 1) / kThreads;
   blocks = blocks > kMaxBlocks ? kMaxBlocks : blocks;
@@ -100,6 +102,15 @@ cudaError_t launch(void* p, const void* g, void* m, void* v, void* out, long lon
 }
 
 }  // namespace
+
+// kernel 0: adamw_kernel<a = bf16 copy, b = vectorised>
+extern "C" int kernel_attributes(int kernel, int dtype, int a, int b, int* out) {
+  if (kernel != 0) return cudaErrorInvalidValue;
+  if (a) return b ? func_attributes(adamw_kernel<true, true>, 0, out)
+                  : func_attributes(adamw_kernel<true, false>, 0, out);
+  return b ? func_attributes(adamw_kernel<false, true>, 0, out)
+           : func_attributes(adamw_kernel<false, false>, 0, out);
+}
 
 // One leaf: p, g, m, v are n contiguous fp32 values; p, m, v are written in
 // place.  out_dtype is -1 (no copy) or the bf16 code, then `out` receives n

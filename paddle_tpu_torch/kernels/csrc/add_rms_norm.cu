@@ -33,7 +33,7 @@
 
 namespace {
 
-constexpr int kGroups = 512;   // most row groups of the backward's dw
+constexpr int kGroups = ADD_RMS_NORM_GROUPS;   // most row groups of the backward's dw (-D, _build.GEOMETRY)
 
 template <typename T> struct Vec {
   static constexpr int N = 16 / sizeof(T);
@@ -224,6 +224,17 @@ cudaError_t bwd(const void* x, const void* h, const void* w, const void* d_s, co
   return cudaGetLastError();
 }
 
+template <typename T, typename W>
+int attributes(int kernel, int d, int* out) {
+  switch (kernel) {
+    case 0: return func_attributes(add_rms_norm_fwd_kernel<T, W>, 0, out);
+    case 1: return func_attributes(add_rms_norm_bwd_kernel<T, W>,
+                                   d * static_cast<int>(sizeof(float)), out);
+    case 2: return func_attributes(dw_reduce_kernel<W>, 0, out);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 #define DISPATCH(FN, ...)                                                          \
@@ -235,6 +246,14 @@ cudaError_t bwd(const void* x, const void* h, const void* w, const void* d_s, co
       return FN<__nv_bfloat16, __nv_bfloat16>(__VA_ARGS__);                        \
     return cudaErrorInvalidValue;                                                  \
   } while (0)
+
+// kernel 0: add_rms_norm_fwd_kernel, 1: add_rms_norm_bwd_kernel (its dynamic
+// shared memory is a row of b = d floats), 2: dw_reduce_kernel; <dtype,
+// a = the weight's dtype>
+extern "C" int kernel_attributes(int kernel, int dtype, int a, int b, int* out) {
+  const int w_dtype = a;
+  DISPATCH(attributes, kernel, b, out);
+}
 
 // s = x + h and normed = rms(s) * w; rows 16-byte aligned, d a multiple of 8
 extern "C" int add_rms_norm_fwd_launch(const void* x, const void* h, const void* w, void* s,

@@ -37,6 +37,22 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// kernel_attributes of every library: cudaFuncGetAttributes of one kernel
+// instantiation into out[4] = {static shared bytes, the dynamic shared bytes
+// its launch requests, registers, local (spill) bytes}; the kernel gate
+// holds a kernel's declared spec to these on the card.
+template <typename K>
+inline int func_attributes(K kernel, int dynamic_smem, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return e;
+  out[0] = static_cast<int>(a.sharedSizeBytes);
+  out[1] = dynamic_smem;
+  out[2] = a.numRegs;
+  out[3] = static_cast<int>(a.localSizeBytes);
+  return cudaSuccess;
+}
+
 // Every library exports the runtime's message for the codes its launchers
 // return, so the Python wrapper can raise with it.
 #define DEFINE_ERROR_STRING                                   \

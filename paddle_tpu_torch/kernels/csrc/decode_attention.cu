@@ -39,9 +39,10 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;          // keys per step = lanes of the softmax warp
-constexpr int kMaxRep = 8;         // query rows per kv-head (H / Hk)
-constexpr int kSplitKeys = 256;    // keys per CTA of pass 1 (multiple of kTile)
+// geometry: -D defines from _build.GEOMETRY
+constexpr int kTile = DECODE_TILE;            // keys per step = lanes of the softmax warp
+constexpr int kMaxRep = DECODE_MAX_REP;        // query rows per kv-head (H / Hk)
+constexpr int kSplitKeys = DECODE_SPLIT_KEYS;  // keys per CTA of pass 1 (multiple of kTile)
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -323,7 +324,37 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const void* 
   return cudaErrorInvalidValue;
 }
 
+template <typename T, int D, bool PAGED>
+int attributes(int kernel, int* out) {
+  if (kernel == 0)
+    return func_attributes(decode_partial_kernel<T, D, PAGED>, Smem<T, D>::kBytes, out);
+  if (kernel == 1) return func_attributes(decode_combine_kernel<T, D, PAGED>, 0, out);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+int attributes_d(int kernel, int D, int paged, int* out) {
+  switch (D) {
+    case 32: return paged ? attributes<T, 32, true>(kernel, out) : attributes<T, 32, false>(kernel, out);
+    case 64: return paged ? attributes<T, 64, true>(kernel, out) : attributes<T, 64, false>(kernel, out);
+    case 128:
+      return paged ? attributes<T, 128, true>(kernel, out) : attributes<T, 128, false>(kernel, out);
+    case 256:
+      return paged ? attributes<T, 256, true>(kernel, out) : attributes<T, 256, false>(kernel, out);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// kernel 0: decode_partial_kernel, 1: decode_combine_kernel; <dtype, a = D, b = paged>
+extern "C" int kernel_attributes(int kernel, int dtype, int a, int b, int* out) {
+  switch (dtype) {
+    case kFloat32: return attributes_d<float>(kernel, a, b, out);
+    case kBFloat16: return attributes_d<__nv_bfloat16>(kernel, a, b, out);
+  }
+  return cudaErrorInvalidValue;
+}
 
 // Keys per pass-1 CTA; the caller sizes the workspace from it:
 // ws holds B * Hk * nsplit * rep * (D + 2) floats, nsplit = ceil(capacity / this).

@@ -57,7 +57,9 @@ constexpr float kNegInf = -1e30f;   // the Pallas kernels' mask value
 
 template <int D>
 struct Tile {
-  static constexpr int BM = D <= 128 ? 64 : 32;  // rows of a q-tile and of a k-tile
+  // rows of a q-tile and of a k-tile: -D defines from _build.GEOMETRY
+  static constexpr int BM = D == 32 ? FLASH_TILE_ROWS_D32 : D == 64 ? FLASH_TILE_ROWS_D64
+                          : D == 128 ? FLASH_TILE_ROWS_D128 : FLASH_TILE_ROWS_D256;
   static constexpr int TM = BM / 16;             // score rows (cols) a thread owns
   static constexpr int TD = D / 16;              // head-dim columns a thread owns
   static constexpr int LD = D + 1;               // row stride of a [BM, D] tile (skew)
@@ -962,7 +964,46 @@ cudaError_t run(Params& p, const long long* strides, int n_strides, int D, int d
   return cudaErrorInvalidValue;
 }
 
+template <typename T, int D>
+int attributes(int kernel, int* out) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    switch (kernel) {
+      case 0: return func_attributes(flash_fwd_tc_kernel<D>, TileTC<D>::kFwdBytes, out);
+      case 1: return func_attributes(flash_bwd_dkdv_tc_kernel<D>, TileTC<D>::kDkdvBytes, out);
+      case 2: return func_attributes(flash_bwd_dq_tc_kernel<D>, TileTC<D>::kDqBytes, out);
+    }
+  } else {
+    switch (kernel) {
+      case 0: return func_attributes(flash_fwd_kernel<T, D>, Tile<D>::kFwdBytes, out);
+      case 1: return func_attributes(flash_bwd_dkdv_kernel<T, D>, Tile<D>::kDkdvBytes, out);
+      case 2: return func_attributes(flash_bwd_dq_kernel<T, D>, Tile<D>::kDqBytes, out);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+int attributes_d(int kernel, int D, int* out) {
+  switch (D) {
+    case 32: return attributes<T, 32>(kernel, out);
+    case 64: return attributes<T, 64>(kernel, out);
+    case 128: return attributes<T, 128>(kernel, out);
+    case 256: return attributes<T, 256>(kernel, out);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// kernel 0: the forward, 1: the dK/dV pass, 2: the dQ pass (the tensor-core
+// kernels for bf16, the CUDA-core ones for fp32); <dtype, a = D>
+extern "C" int kernel_attributes(int kernel, int dtype, int a, int b, int* out) {
+  switch (dtype) {
+    case kFloat32: return attributes_d<float>(kernel, a, out);
+    case kBFloat16: return attributes_d<__nv_bfloat16>(kernel, a, out);
+  }
+  return cudaErrorInvalidValue;
+}
 
 // q [B, Sq, H, D], k and v [B, Sk, Hk, D], each read through its (batch,
 // seq, head) element strides in `strides` (9 values; the last dim is

@@ -103,7 +103,27 @@ cudaError_t dispatch_w(const void* x, const void* w, void* y, int rows, int d,
   return cudaErrorInvalidValue;
 }
 
+template <typename T>
+int attributes_w(int w_dtype, int* out) {
+  switch (w_dtype) {
+    case kFloat32: return func_attributes(rms_norm_kernel<T, float>, 0, out);
+    case kBFloat16: return func_attributes(rms_norm_kernel<T, __nv_bfloat16>, 0, out);
+    case kFloat16: return func_attributes(rms_norm_kernel<T, __half>, 0, out);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// kernel 0: rms_norm_kernel<dtype, a = weight dtype>
+extern "C" int kernel_attributes(int kernel, int dtype, int a, int b, int* out) {
+  if (kernel != 0) return cudaErrorInvalidValue;
+  switch (dtype) {
+    case kFloat32: return attributes_w<float>(a, out);
+    case kBFloat16: return attributes_w<__nv_bfloat16>(a, out);
+  }
+  return cudaErrorInvalidValue;
+}
 
 extern "C" int rms_norm_launch(const void* x, const void* w, void* y, int rows,
                                int d, float eps, int x_dtype, int w_dtype,

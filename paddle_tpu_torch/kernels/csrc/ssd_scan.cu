@@ -272,6 +272,18 @@ cudaError_t launch(const void* x, const void* b, const void* c, const void* la, 
 
 }  // namespace
 
+// kernel 0: ssd_scan_kernel at <a = P, b = L> (N follows: 128 for P 64, 16 for P 32)
+extern "C" int kernel_attributes(int kernel, int dtype, int a, int b, int* out) {
+  if (kernel != 0) return cudaErrorInvalidValue;
+  if (a == 64 && b == 128)
+    return func_attributes(ssd_scan_kernel<128, 128, 64>,
+                           static_cast<int>(Shape<128, 128, 64>::kBytes), out);
+  if (a == 32 && b == 16)
+    return func_attributes(ssd_scan_kernel<16, 16, 32>,
+                           static_cast<int>(Shape<16, 16, 32>::kBytes), out);
+  return cudaErrorInvalidValue;
+}
+
 // The (P, N, L) of the port's SSD configs: ssd_8b_config (64, 128, 128) and
 // ssd_tiny_config (32, 16, 16).  Any other shape is refused.
 extern "C" int ssd_scan_launch(const void* x, const void* b, const void* c, const void* la,

@@ -15,6 +15,12 @@
 
 Pool convention (``serving.Engine``): block 0 is the trash block for
 inactive slots and bucket padding; it may hold anything, NaN included.
+
+Registered in :mod:`.registry` under the JAX registry's names: the dense
+wrapper as ``decode_mmha`` and ``decode_mmha_fused``, the paged one as
+``paged_decode`` and ``paged_decode_fused`` (one CUDA kernel pair serves
+both names of each TPU pair), and the torch ops ``paged_chunk_attention``
+and ``write_paged_chunk`` with no kernel (certified kernel-free).
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from ..analysis.kernel_lint import BlockUse, KernelSpec, ScratchUse, cuda_semantics, itemsize
+from . import _build, registry
 
 __all__ = ["cached_attention_reference", "masked_multihead_attention",
            "paged_decode_attention", "paged_chunk_attention",
@@ -33,7 +40,7 @@ __all__ = ["cached_attention_reference", "masked_multihead_attention",
 NEG_INF = -1e30
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_HEAD_DIMS = (32, 64, 128, 256)
-_KERNEL_MAX_REP = 8
+_KERNEL_MAX_REP = _build.GEOMETRY["decode_attention"]["DECODE_MAX_REP"]
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +166,8 @@ def masked_multihead_attention(q, k_cache, v_cache, lengths,
     q: ``[B, 1, H, D]``; caches ``[B, C, Hk, D]``; ``lengths`` ``[B]`` int32
     or a scalar (valid cache slots per sequence, INCLUDING the current
     token, which must already be in the cache)."""
+    registry.ensure_admitted("decode_mmha", q.device, q.dtype)
+    registry.ensure_admitted("decode_mmha_fused", q.device, q.dtype)
     B, S, h, d = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
@@ -180,6 +189,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lengths,
     q: ``[B, 1, H, D]``; pools ``[NB, Hk, bs, D]``; ``block_table``
     ``[B, MAXB]`` int32; ``lengths`` ``[B]`` int32 (0 = inactive slot, whose
     output is all-zero).  The kernel reads only live blocks."""
+    registry.ensure_admitted("paged_decode", q.device, q.dtype)
+    registry.ensure_admitted("paged_decode_fused", q.device, q.dtype)
     B, S, h, d = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
@@ -285,3 +296,150 @@ def write_paged_prefill(k_pool, v_pool, blocks, k_seq, v_seq):
     k_pool[idx] = ks.to(k_pool.dtype)
     v_pool[idx] = vs.to(v_pool.dtype)
     return k_pool, v_pool
+
+
+# ---------------------------------------------------------------------------
+# kernel-registry entries (verified by analysis.kernel_lint; see registry.py)
+# ---------------------------------------------------------------------------
+
+def kernel_specs(B: int, H: int, Hk: int, D: int, cap: int, dtype, paged: bool = False,
+                 maxb: int = 0, num_blocks: int = 0):
+    """The two launches of ``csrc/decode_attention.cu``: the split-K pass,
+    grid (Hk, B, nsplit) and its CTA's walk over key tiles, writing the
+    workspace, then the combine pass, grid (Hk, B), reading it.  Paged pools
+    are addressed through the block table by the kernel itself."""
+    geo = _build.GEOMETRY["decode_attention"]
+    split, tile, max_rep = geo["DECODE_SPLIT_KEYS"], geo["DECODE_TILE"], geo["DECODE_MAX_REP"]
+    capacity = cap * maxb if paged else cap
+    nsplit = -(-capacity // split)
+    ntile = split // tile
+    rep = H // Hk
+    width = rep * (D + 2)
+    f32, i32 = torch.float32, torch.int32
+    lengths = BlockUse((B,), i32, (1,), lambda *pt: (pt[1],), name="lengths")
+    q = BlockUse((B, H, D), dtype, (1, rep, D), lambda g, b, s, t: (b, g, 0), name="q")
+    if paged:
+        kv = [BlockUse((num_blocks, Hk, cap, D), dtype, memory_space="any", name=n)
+              for n in ("k_pool", "v_pool")]
+        kv.append(BlockUse((B, maxb), i32, (1, maxb), lambda g, b, s, t: (b, 0),
+                           name="block_table"))
+    else:
+        last = -(-cap // tile) - 1      # tiles past the capacity are never visited
+        kv = [BlockUse((B, cap, Hk, D), dtype, (1, tile, 1, D),
+                       lambda g, b, s, t: (b, min(s * ntile + t, last), g, 0),
+                       name=n, masked=True) for n in ("k_cache", "v_cache")]
+    ws = BlockUse((B, Hk, nsplit, width), f32, (1, 1, 1, width),
+                  lambda g, b, s, t: (b, g, s, 0), name="workspace")
+    row = D * itemsize(dtype) + 16      # a K or V row in shared memory, bank skew
+    partial = KernelSpec(
+        "decode_partial_kernel", grid=(Hk, B, nsplit, ntile),
+        inputs=[q, *kv, lengths], outputs=[ws],
+        scratch=[ScratchUse((2, 2, tile, row), torch.uint8),   # K, V tiles, two stages
+                 ScratchUse((max_rep, D), f32),                 # the query rows
+                 ScratchUse((max_rep, tile), f32),              # scores, then probabilities
+                 ScratchUse((max_rep,), f32),                   # running max
+                 ScratchUse((max_rep,), f32),                   # running sum
+                 ScratchUse((max_rep,), f32),                   # rescale factors
+                 ScratchUse((max_rep, D), f32, "registers")],   # the p @ V accumulators
+        dimension_semantics=cuda_semantics(3, 1),
+        # the online softmax state is carried over the CTA's own key walk only
+        carried_scratch=[(3, frozenset({3})), (4, frozenset({3})), (6, frozenset({3}))],
+        cuda=("decode_attention", 0, _build.dtype_code(dtype), D, int(paged)))
+    combine = KernelSpec(
+        "decode_combine_kernel", grid=(Hk, B),
+        inputs=[BlockUse((B, Hk, nsplit, width), f32, (1, 1, nsplit, width),
+                         lambda g, b: (b, g, 0, 0), name="workspace"), lengths],
+        outputs=[BlockUse((B, H, D), dtype, (1, rep, D), lambda g, b: (b, g, 0), name="out")],
+        dimension_semantics=cuda_semantics(2),
+        cuda=("decode_attention", 1, _build.dtype_code(dtype), D, int(paged)))
+    return [partial, combine]
+
+
+def _randn(g, shape, device, dtype=torch.float32):
+    return torch.randn(shape, generator=g).to(dtype).to(device)
+
+
+def _dense_example(dtype="float32"):
+    B, h, hk, d, C = 2, 8, 2, 128, 512
+    dt = getattr(torch, dtype)
+
+    def args(device):
+        g = torch.Generator().manual_seed(0)
+        return (_randn(g, (B, 1, h, d), device, dt), _randn(g, (B, C, hk, d), device, dt),
+                _randn(g, (B, C, hk, d), device, dt),
+                torch.tensor([300, C], dtype=torch.int32, device=device))
+
+    scale = 1.0 / math.sqrt(d)
+    return (kernel_specs(B, h, hk, d, C, dt),
+            lambda q, k, v, ln: masked_multihead_attention(q, k, v, ln, scale),
+            lambda q, k, v, ln: _decode_reference(q, k, v, ln, scale), args)
+
+
+def _paged_tables(B, maxb, device):
+    """Block tables over distinct live blocks (block 0, the trash block,
+    never referenced)."""
+    return (torch.arange(B * maxb, dtype=torch.int32) + 1).reshape(B, maxb).to(device)
+
+
+def _paged_example(dtype="float32"):
+    B, h, hk, d, nb, bs, maxb = 2, 8, 2, 128, 16, 128, 4
+    dt = getattr(torch, dtype)
+
+    def args(device):
+        g = torch.Generator().manual_seed(0)
+        return (_randn(g, (B, 1, h, d), device, dt), _randn(g, (nb, hk, bs, d), device, dt),
+                _randn(g, (nb, hk, bs, d), device, dt), _paged_tables(B, maxb, device),
+                torch.tensor([300, maxb * bs], dtype=torch.int32, device=device))
+
+    scale = 1.0 / math.sqrt(d)
+    return (kernel_specs(B, h, hk, d, bs, dt, paged=True, maxb=maxb, num_blocks=nb),
+            lambda q, k, v, bt, ln: paged_decode_attention(q, k, v, bt, ln, scale),
+            lambda q, k, v, bt, ln: _paged_pool_reference(q, k, v, bt, ln, scale), args)
+
+
+# fp32: the plain version sums in another order; bf16: two bf16 ulps
+_DECODE = dict(dtypes=("float32", "bfloat16"),
+               tol={"float32": (2e-5, 2e-5, None), "bfloat16": (1e-3, 1.6e-2, None)})
+registry.register("decode_mmha", _dense_example, presets=("decode", "serve"),
+                  description="per-(batch, kv-head) dense decode attention", **_DECODE)
+registry.register("decode_mmha_fused", _dense_example, presets=("decode", "serve"),
+                  description="fused-heads dense decode: ANY-space cache + manual "
+                              "double-buffered DMA", **_DECODE)
+registry.register("paged_decode", _paged_example, presets=("serve",),
+                  description="paged decode attention, per-(batch, kv-head) programs",
+                  **_DECODE)
+registry.register("paged_decode_fused", _paged_example, presets=("serve",),
+                  description="fused-heads paged decode: one DMA per live block", **_DECODE)
+
+
+def _chunk_example():
+    B, S, h, hk, d, nb, bs, maxb = 2, 128, 8, 2, 128, 16, 128, 4
+
+    def args(device):
+        g = torch.Generator().manual_seed(0)
+        return (_randn(g, (B, S, h, d), device), _randn(g, (nb, hk, bs, d), device),
+                _randn(g, (nb, hk, bs, d), device), _paged_tables(B, maxb, device),
+                torch.tensor([bs, 0], dtype=torch.int32, device=device))
+
+    return [], paged_chunk_attention, paged_chunk_attention, args
+
+
+def _write_chunk_example():
+    B, S, hk, d, nb, bs, maxb = 2, 128, 2, 128, 16, 128, 4
+
+    def args(device):
+        g = torch.Generator().manual_seed(0)
+        return (_randn(g, (nb, hk, bs, d), device), _randn(g, (nb, hk, bs, d), device),
+                _paged_tables(B, maxb, device),
+                torch.tensor([bs, 0], dtype=torch.int32, device=device),
+                _randn(g, (B, S, hk, d), device), _randn(g, (B, S, hk, d), device))
+
+    return [], write_paged_chunk, write_paged_chunk, args
+
+
+registry.register("paged_chunk_attention", _chunk_example, presets=("serve",),
+                  description="chunked-prefill attention over paged pools (XLA gather "
+                              "path; certified to contain no unverified pallas_call)")
+registry.register("write_paged_chunk", _write_chunk_example, presets=("serve",),
+                  description="paged-pool chunk scatter (XLA path; certified "
+                              "pallas_call-free)")

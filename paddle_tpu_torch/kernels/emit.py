@@ -26,6 +26,13 @@ model seams (``models/llama.py``) read :func:`active` at every call and run
 their stock path when a site is inactive.  :func:`verify_site` holds a
 site's kernels against the plain reference before :func:`verified_activation`
 installs it.
+
+Each site registers its forward and its backward in :mod:`.registry`
+(``fuse_*`` and ``fuse_*_bwd``) with the specs of every kernel the site
+function launches (:func:`site_specs`); :func:`make_fused` admits both
+before the first call when ``FLAGS_kernel_admission`` is on, and
+:func:`verified_activation` admits both through the registry before it
+verifies the site.
 """
 
 from __future__ import annotations
@@ -41,10 +48,11 @@ import torch.nn.functional as F
 from .. import default_device
 from . import add_rms_norm as arn
 from . import fused_gemm as fg
+from . import registry
 from .rms_norm import rms_norm_reference
 
 __all__ = [
-    "FusionSite", "SITES", "active", "activate", "make_fused", "verify_site",
+    "FusionSite", "SITES", "active", "activate", "make_fused", "site_specs", "verify_site",
     "verified_activation",
 ]
 
@@ -118,7 +126,8 @@ SITES: Dict[str, FusionSite] = {s.name: s for s in (
         example_static=dict(intermediate_size=384),
         example_shapes=(((64, 128), "float32"), ((128, 768), "float32"),
                         ((384, 128), "float32")),
-        description="SwiGLU MLP: gate_up matmul + silu*up chain + down matmul"),
+        description="SwiGLU MLP: gate_up matmul + silu*up chain + down matmul "
+                    "in one VMEM pass (elementwise chain around the dot)"),
     FusionSite(
         name="fuse_add_rms_norm",
         pattern="cast-epilogue",
@@ -128,7 +137,8 @@ SITES: Dict[str, FusionSite] = {s.name: s for s in (
         example_static=dict(epsilon=1e-6),
         example_shapes=(((64, 128), "float32"), ((64, 128), "float32"),
                         ((128,), "float32")),
-        description="residual add + RMSNorm + dtype-cast epilogue"),
+        description="residual add + RMSNorm + dtype-cast epilogue: the residual "
+                    "stream and its norm leave VMEM exactly once"),
     FusionSite(
         name="fuse_rms_norm_head",
         pattern="norm-prologue",
@@ -139,7 +149,8 @@ SITES: Dict[str, FusionSite] = {s.name: s for s in (
         example_static=dict(epsilon=1e-6, transpose=False),
         example_shapes=(((64, 128), "float32"), ((128,), "float32"),
                         ((128, 512), "float32")),
-        description="final RMSNorm feeding the vocab projection: norm+matmul prologue"),
+        description="final RMSNorm feeding the vocab projection: norm+matmul "
+                    "prologue, row statistics never round-trip HBM"),
 )}
 
 
@@ -166,11 +177,12 @@ def _count(fn, t: torch.Tensor) -> None:
         fn.launches += 1
 
 
-def fuse_swiglu_mlp_fwd(hidden, w_gate_up, w_down, *, intermediate_size):
+def fuse_swiglu_mlp_fwd(hidden, w_gate_up, w_down, *, intermediate_size, lib="fused_gemm"):
     """``(silu(gate) * up) @ w_down``: gate_up with the SwiGLU epilogue
-    (``gu`` never stored), then the down product."""
-    act = fg.swiglu_gate_up(hidden, w_gate_up, intermediate_size)
-    out = fg.matmul(act, w_down)
+    (``gu`` never stored), then the down product; ``lib`` the GEMM's
+    library (a build variant only in the kernel gate's seeded defect)."""
+    act = fg.swiglu_gate_up(hidden, w_gate_up, intermediate_size, lib=lib)
+    out = fg.matmul(act, w_down, lib=lib)
     _count(fuse_swiglu_mlp_fwd, hidden)
     return out
 
@@ -294,6 +306,9 @@ def make_fused(name: str, device=None) -> Callable:
     def call(*arrays, **static):
         if dev_type is not None and arrays[0].device.type != dev_type:
             raise ValueError(f"{name}: made for {dev_type}, called on {arrays[0].device}")
+        dtype = registry.dtype_key(arrays[0].dtype, arrays[-1].dtype)   # rows, then a weight
+        registry.ensure_admitted(name, arrays[0].device, dtype)
+        registry.ensure_admitted(name + "_bwd", arrays[0].device, dtype)
         flat, restore = _flatten_rows(arrays, site.n_row_args)
         out = _FusedSite.apply(name, static, *flat)
         if isinstance(out, tuple):
@@ -402,16 +417,25 @@ def verify_site(name: str, device=None) -> List[dict]:
 
 
 def verified_activation(device=None) -> Dict[str, Callable]:
-    """Activation table of every site whose kernels pass :func:`verify_site`
-    on ``device`` (default the card).  A site that fails is left out, so its
-    seam runs the stock path, and a ``RuntimeWarning`` names it with its
-    findings; a caller that needs every site compares the table's keys with
-    ``SITES``.  The JAX package also admits each emitted kernel through its
-    static Pallas verifier (``registry.admit``); that verifier has no port
-    yet and comes with the analysis-layer slice."""
+    """Activation table of every site whose kernels pass registry admission
+    (``registry.admit`` of the site's forward and backward entries at each
+    of their dtypes: the kernel verifier's static leg, and on a CUDA
+    ``device`` its dynamic leg; admit records them in the admission cache,
+    so :func:`make_fused`'s admission under ``FLAGS_kernel_admission``
+    finds them admitted) AND :func:`verify_site` on ``device`` (default the
+    card).  A site that fails either is left out, so its seam runs the
+    stock path, and a ``RuntimeWarning`` names it with its findings; a
+    caller that needs every site compares the table's keys with ``SITES``."""
     dev = default_device(device)
     table = {}
     for name in SITES:
+        try:
+            registry.admit(name, device=dev)
+            registry.admit(name + "_bwd", device=dev)
+        except registry.KernelRejected as e:
+            warnings.warn(f"{name} was refused by kernel admission on {dev} and stays on "
+                          f"the stock path: {e}", RuntimeWarning, stacklevel=2)
+            continue
         findings = verify_site(name, dev)
         if findings:
             warnings.warn(f"{name} failed verification on {dev} and stays on the stock path: "
@@ -419,3 +443,108 @@ def verified_activation(device=None) -> Dict[str, Callable]:
         else:
             table[name] = make_fused(name, dev)
     return table
+
+
+# ---------------------------------------------------------------------------
+# registry entries: every site's kernels pass the kernel_lint admission seam
+# ---------------------------------------------------------------------------
+
+_FUSE_PRESETS = ("tiny", "small", "base", "longctx")
+# fp32 at the example shapes, bf16 rows over fp32 weights (the `base` train
+# path's) and over bf16 weights: the kernels' tests' tolerances, the atol
+# scaled by the plain output's largest |value|
+_SITE_DTYPES = ("float32", "bfloat16+float32", "bfloat16")
+_BF16_SITE_TOL = (1e-3, 1.6e-2, 1e-30)
+_SITE_TOL = {"float32": (1e-5, 1e-5, 1e-30), "bfloat16+float32": _BF16_SITE_TOL,
+             "bfloat16": _BF16_SITE_TOL}
+
+
+def site_specs(name: str, shapes, static, backward: bool = False,
+               lib: str = "fused_gemm") -> list:
+    """The spec of every CUDA kernel a site's forward (or backward)
+    launches, for primals of ``shapes`` ``[(shape, dtype), ...]``, in the
+    order the site function launches them."""
+    (M, H), dt = shapes[0]
+    wdt = shapes[1][1]
+    if name == "fuse_swiglu_mlp":
+        I = static["intermediate_size"]
+        if not backward:
+            return [fg.gemm_spec("gate_up+swiglu", M, I, H, dt, b_dtype=wdt,
+                                 epi=fg._EPI_SWIGLU, lib=lib),
+                    fg.gemm_spec("down", M, H, I, dt, b_dtype=wdt, lib=lib)]
+        return [fg.gemm_spec("d_act", M, I, H, dt, b_dtype=wdt, b_t=True),
+                fg.gemm_spec("gate_up+swiglu_bwd", M, I, H, dt, b_dtype=wdt,
+                             epi=fg._EPI_SWIGLU_BWD),
+                fg.gemm_spec("d_w_down", I, H, M, dt, c_dtype=wdt, a_t=True),
+                fg.gemm_spec("d_hidden", M, H, 2 * I, dt, b_dtype=wdt, b_t=True),
+                fg.gemm_spec("d_w_gate_up", H, 2 * I, M, dt, c_dtype=wdt, a_t=True)]
+    if name == "fuse_add_rms_norm":
+        wdt = shapes[2][1]
+        if not backward:
+            return [arn.fwd_spec(M, H, dt, wdt)]
+        return arn.bwd_specs(M, H, dt, wdt, with_h=True, with_ds=True)
+    if name == "fuse_rms_norm_head":
+        transpose = static["transpose"]
+        w_head = shapes[2]
+        V = w_head[0][0] if transpose else w_head[0][1]
+        hdt = w_head[1]
+        if not backward:
+            return [fg.row_rms_spec(M, H, dt),
+                    fg.gemm_spec("head", M, V, H, dt, b_dtype=hdt, b_t=transpose, rms_side="a")]
+        if transpose:       # dE = dLᵀ normed: the prologue on the transposed B
+            d_w_head = fg.gemm_spec("d_w_head", V, H, M, dt, c_dtype=hdt, a_t=True, rms_side="b")
+        else:               # dW = normedᵀ dL
+            d_w_head = fg.gemm_spec("d_w_head", H, V, M, dt, c_dtype=hdt, a_t=True, rms_side="a")
+        return [fg.gemm_spec("d_normed", M, H, V, dt, b_dtype=hdt, b_t=not transpose),
+                fg.row_rms_spec(M, H, dt), d_w_head,
+                *arn.bwd_specs(M, H, dt, wdt, with_h=False, with_ds=False)]
+    raise KeyError(name)
+
+
+def _example_shapes(site: FusionSite, dtype: str = "float32"):
+    """The site's example primals: its rows in ``dtype``'s first dtype,
+    the weights in its last (``"bfloat16+float32"``: bf16 rows, fp32
+    weights)."""
+    names = dtype.split("+")
+    rows, weights = getattr(torch, names[0]), getattr(torch, names[-1])
+    return [(s, rows if i < site.n_row_args else weights)
+            for i, (s, _) in enumerate(site.example_shapes)]
+
+
+def _fwd_builder(site: FusionSite):
+    def build(dtype="float32"):
+        static = dict(site.example_static)
+        shapes = _example_shapes(site, dtype)
+        return (site_specs(site.name, shapes, static),
+                lambda *a: _FORWARD[site.name](*a, **static),
+                lambda *a: site.ref(*a, **static),
+                lambda device: _example_concrete(site, device, 0, shapes))
+    return build
+
+
+def _bwd_builder(site: FusionSite):
+    def build(dtype="float32"):
+        static = dict(site.example_static)
+        n = len(site.example_shapes)
+        shapes = _example_shapes(site, dtype)
+
+        def args(device):
+            primals = _example_concrete(site, device, 0, shapes)
+            refs = _as_tuple(site.ref(*primals, **static))
+            return primals + _example_concrete(site, device, 1,
+                                               [(r.shape, r.dtype) for r in refs])
+
+        return (site_specs(site.name, shapes, static, backward=True),
+                lambda *a: _BACKWARD[site.name](a[:n], a[n:], **static),
+                lambda *a: _vjp_reference(site, a[:n], a[n:], static), args)
+    return build
+
+
+for _site in SITES.values():
+    registry.register(_site.name, _fwd_builder(_site), presets=_FUSE_PRESETS,
+                      description=f"emitted fusion kernel: {_site.description}",
+                      tol=_SITE_TOL, dtypes=_SITE_DTYPES)
+    registry.register(_site.name + "_bwd", _bwd_builder(_site), presets=_FUSE_PRESETS,
+                      description=f"emitted vjp kernel for {_site.name} "
+                                  "(recompute-from-primals, residuals in VMEM)",
+                      tol=_SITE_TOL, dtypes=_SITE_DTYPES)

@@ -22,6 +22,10 @@ fewer heads than Q (grouped-query attention), indexed natively: query head
 
 ``lse`` is fp32 ``[B, H, Sq]``; the JAX kernels carry it as ``[B*H, 1, Sq]``
 for TPU tiling, the same values.
+
+Registered in :mod:`.registry` as ``flash_fwd_resident`` (non-causal),
+``flash_fwd_stream`` (causal: the clamped KV map) and ``flash_bwd_stream``
+(both backward passes), the JAX registry's names at its example shape.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from ..analysis.kernel_lint import BlockUse, KernelSpec, ScratchUse, cuda_semantics
+from . import _build, registry
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd"]
 
@@ -157,6 +162,8 @@ def flash_attention_fwd(q, k, v, causal: bool, sm_scale: float
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(o [B, Sq, H, D] in q's dtype, lse [B, H, Sq] fp32)``: the CUDA
     kernel for CUDA tensors, :func:`_flash_fwd_reference` for CPU ones."""
+    registry.ensure_admitted("flash_fwd_resident", q.device, q.dtype)
+    registry.ensure_admitted("flash_fwd_stream", q.device, q.dtype)
     if q.device.type == "cpu":
         return _flash_fwd_reference(q, k, v, causal, sm_scale)
     if q.device.type != "cuda":
@@ -184,6 +191,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float):
     """``(dq, dk, dv)`` in the dtypes of q, k, v: the CUDA dK/dV and dQ
     passes for CUDA tensors (``delta = sum(do * o)`` is a torch op ahead of
     them), :func:`_flash_bwd_reference` for CPU ones."""
+    registry.ensure_admitted("flash_bwd_stream", q.device, q.dtype)
     if q.device.type == "cpu":
         return _flash_bwd_reference(q, k, v, o, lse, do, causal, sm_scale)
     if q.device.type != "cuda":
@@ -250,3 +258,181 @@ def flash_attention(q, k, v, causal: bool = False, mask=None,
         return _attention_reference(q, k.repeat_interleave(rep, dim=2),
                                     v.repeat_interleave(rep, dim=2), causal, mask, sm_scale)
     return _FlashAttention.apply(q, k, v, bool(causal), float(sm_scale))
+
+
+# ---------------------------------------------------------------------------
+# kernel-registry entries (verified by analysis.kernel_lint; see registry.py)
+# ---------------------------------------------------------------------------
+
+def _tile_rows(D: int) -> int:
+    return _build.GEOMETRY["flash_attention"][f"FLASH_TILE_ROWS_D{D}"]
+
+
+def _smem_tiles(kind: str, BM: int, D: int, dtype):
+    """The shared tiles of one kernel, as csrc/flash_attention.cu lays
+    them out: fp32 tiles with a one-float skew (CUDA-core kernels), or
+    padded bf16 tiles and fp32 staging (tensor-core kernels)."""
+    f32 = torch.float32
+    if dtype == torch.float32:
+        rows, scores = ScratchUse((BM, D + 1), f32), ScratchUse((BM, BM + 1), f32)
+        n_rows, n_scores, extra = {"fwd": (3, 1, 0), "dkdv": (4, 2, 2), "dq": (4, 1, 0)}[kind]
+        return [rows] * n_rows + [scores] * n_scores + [ScratchUse((BM,), f32)] * extra
+    bf = torch.bfloat16
+    rows_h, scores_f = ScratchUse((BM, D + 8), bf), ScratchUse((BM, BM + 4), f32)
+    scores_h, out_f = ScratchUse((BM, BM + 8), bf), ScratchUse((BM, D + 4), f32)
+    n_rows, n_sf, n_sh, extra = {"fwd": (3, 1, 2, 0), "dkdv": (4, 2, 4, 2),
+                                 "dq": (4, 2, 2, 0)}[kind]
+    return ([rows_h] * n_rows + [scores_f] * n_sf + [scores_h] * n_sh + [out_f]
+            + [ScratchUse((BM,), f32)] * extra)
+
+
+def kernel_specs(B: int, Sq: int, Sk: int, H: int, Hk: int, D: int, causal: bool, dtype,
+                 backward: bool = False):
+    """The launches of ``csrc/flash_attention.cu``: the forward, grid
+    (q-tiles, B*H) and its CTA's walk over k-tiles; or the dK/dV pass, grid
+    (k-tiles, B*Hk) walking its group's heads and the q-tiles from the
+    causal lower bound, and the dQ pass, grid (q-tiles, B*H) walking
+    k-tiles.  Under the causal mask the k-tile walk ends at the diagonal:
+    the map is clamped there (a revisit reads nothing new), as the JAX
+    kernels' index map is.  Every tile load is masked past the sequence."""
+    BM = _tile_rows(D)
+    nq, nk = -(-Sq // BM), -(-Sk // BM)
+    rep, off = H // Hk, Sk - Sq
+    code = _build.dtype_code(dtype)
+    f32 = torch.float32
+
+    def hi(i):          # the last k-tile q-tile i sees (kv_tiles - 1)
+        if not causal:
+            return nk - 1
+        return max(min((min(i * BM + BM, Sq) - 1 + off) // BM, nk - 1), 0)
+
+    def lo(j):          # the first q-tile k-tile j sees
+        return max(j * BM - off, 0) // BM if causal else 0
+
+    def rows(name, S, heads, at):
+        return BlockUse((B, S, heads, D), dtype, (1, BM, 1, D), at, name=name, masked=True)
+
+    def stats(name, at):
+        return BlockUse((B, H, Sq), f32, (1, 1, BM), at, name=name, masked=True)
+
+    acc = ScratchUse((BM, D), f32, "registers")
+    if not backward:
+        def qmap(i, bh, j):
+            return (bh // H, i, bh % H, 0)
+
+        def kmap(i, bh, j):
+            return (bh // H, min(j, hi(i)), bh % H // rep, 0)
+
+        tiles = _smem_tiles("fwd", BM, D, dtype)
+        stat = ScratchUse((BM,), f32, "registers")
+        return [KernelSpec(
+            "flash_fwd_kernel" if dtype == f32 else "flash_fwd_tc_kernel", grid=(nq, B * H, nk),
+            inputs=[rows("q", Sq, H, qmap), rows("k", Sk, Hk, kmap), rows("v", Sk, Hk, kmap)],
+            outputs=[rows("o", Sq, H, qmap),
+                     stats("lse", lambda i, bh, j: (bh // H, bh % H, i))],
+            scratch=tiles + [stat, stat, acc],
+            dimension_semantics=cuda_semantics(2, 1),
+            # the online softmax (max, sum, accumulators) is carried over the k-tile walk
+            carried_scratch=[(n, frozenset({2})) for n in range(len(tiles), len(tiles) + 3)],
+            cuda=("flash_attention", 0, code, D, 0))]
+
+    def kv_at(j, bg, r, qt):
+        return (bg // Hk, j, bg % Hk, 0)
+
+    def q_at(j, bg, r, qt):
+        return (bg // Hk, max(qt, lo(j)), bg % Hk * rep + r, 0)
+
+    def s_at(j, bg, r, qt):
+        return (bg // Hk, bg % Hk * rep + r, max(qt, lo(j)))
+
+    tiles = _smem_tiles("dkdv", BM, D, dtype)
+    dkdv = KernelSpec(
+        "flash_bwd_dkdv_kernel" if dtype == f32 else "flash_bwd_dkdv_tc_kernel",
+        grid=(nk, B * Hk, rep, nq),
+        inputs=[rows("k", Sk, Hk, kv_at), rows("v", Sk, Hk, kv_at), rows("q", Sq, H, q_at),
+                rows("do", Sq, H, q_at), stats("lse", s_at), stats("delta", s_at)],
+        outputs=[rows("dk", Sk, Hk, kv_at), rows("dv", Sk, Hk, kv_at)],
+        scratch=tiles + [acc, acc],
+        dimension_semantics=cuda_semantics(2, 2),
+        # dK and dV sum over the group's heads and the q-tiles, inside the CTA
+        carried_scratch=[(len(tiles), frozenset({2, 3})), (len(tiles) + 1, frozenset({2, 3}))],
+        cuda=("flash_attention", 1, code, D, 0))
+
+    def qi_at(i, bh, j):
+        return (bh // H, i, bh % H, 0)
+
+    def ki_at(i, bh, j):
+        return (bh // H, min(j, hi(i)), bh % H // rep, 0)
+
+    tiles = _smem_tiles("dq", BM, D, dtype)
+    dq = KernelSpec(
+        "flash_bwd_dq_kernel" if dtype == f32 else "flash_bwd_dq_tc_kernel",
+        grid=(nq, B * H, nk),
+        inputs=[rows("q", Sq, H, qi_at), rows("do", Sq, H, qi_at),
+                rows("k", Sk, Hk, ki_at), rows("v", Sk, Hk, ki_at),
+                stats("lse", lambda i, bh, j: (bh // H, bh % H, i)),
+                stats("delta", lambda i, bh, j: (bh // H, bh % H, i))],
+        outputs=[rows("dq", Sq, H, qi_at)],
+        scratch=tiles + [acc],
+        dimension_semantics=cuda_semantics(2, 1),
+        carried_scratch=[(len(tiles), frozenset({2}))],
+        cuda=("flash_attention", 2, code, D, 0))
+    return [dkdv, dq]
+
+
+# the JAX registry's example: BH 2, S 256, D 128 fp32 (here B 1, H = Hk = 2);
+# also in bf16, which runs the tensor-core kernels
+_EX_B, _EX_S, _EX_H, _EX_D = 1, 256, 2, 128
+_EX_DTYPES = ("float32", "bfloat16")
+# the output against the plain version: fp32 sums in another order, bf16 two
+# bf16 ulps; lse fp32 in both; the gradients' atol scaled by their largest
+# |value| (at least 1)
+_FWD_TOL = {"float32": ((2e-5, 2e-5, None), (1e-5, 1e-5, None)),
+            "bfloat16": ((1e-3, 1.6e-2, None), (1e-5, 1e-5, None))}
+_BWD_TOL = {"float32": (2e-5, 2e-5, 1.0), "bfloat16": (1e-3, 1.6e-2, 1.0)}
+
+
+def _example_qkv(device, seed=0, dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(_EX_B, _EX_S, _EX_H, _EX_D, generator=g).to(dtype).to(device)
+                 for _ in range(3))
+
+
+def _fwd_example(causal):
+    def build(dtype="float32"):
+        scale = 1.0 / math.sqrt(_EX_D)
+        dt = getattr(torch, dtype)
+        return (kernel_specs(_EX_B, _EX_S, _EX_S, _EX_H, _EX_H, _EX_D, causal, dt),
+                lambda q, k, v: flash_attention_fwd(q, k, v, causal, scale),
+                lambda q, k, v: _flash_fwd_reference(q, k, v, causal, scale),
+                lambda device: _example_qkv(device, dtype=dt))
+    return build
+
+
+def _bwd_example(dtype="float32"):
+    scale = 1.0 / math.sqrt(_EX_D)
+    dt = getattr(torch, dtype)
+
+    def args(device):
+        q, k, v = _example_qkv(device, dtype=dt)
+        o, lse = _flash_fwd_reference(q, k, v, True, scale)
+        do = _example_qkv(device, seed=1, dtype=dt)[0]
+        return q, k, v, o, lse, do
+
+    return (kernel_specs(_EX_B, _EX_S, _EX_S, _EX_H, _EX_H, _EX_D, True, dt,
+                         backward=True),
+            lambda q, k, v, o, lse, do: flash_attention_bwd(q, k, v, o, lse, do, True, scale),
+            lambda q, k, v, o, lse, do: _flash_bwd_reference(q, k, v, o, lse, do, True, scale),
+            args)
+
+
+_FLASH_PRESETS = ("tiny", "small", "base", "longctx", "moe", "ocr")
+registry.register("flash_fwd_resident", _fwd_example(False), presets=_FLASH_PRESETS,
+                  description="flash attention forward, full-KV residency", tol=_FWD_TOL,
+                  dtypes=_EX_DTYPES)
+registry.register("flash_fwd_stream", _fwd_example(True), presets=_FLASH_PRESETS,
+                  description="streaming flash forward: causal KV paging + "
+                              "online-softmax VMEM carry", tol=_FWD_TOL, dtypes=_EX_DTYPES)
+registry.register("flash_bwd_stream", _bwd_example, presets=_FLASH_PRESETS,
+                  description="streaming flash backward (dk/dv + dq passes)", tol=_BWD_TOL,
+                  dtypes=_EX_DTYPES)

@@ -15,6 +15,12 @@ weight, rounded to the compute dtype as it is loaded.  Every product is
 summed in fp32 and rounded once to the compute dtype, then stored as
 ``out_dtype`` (a weight gradient: the bf16 product widened to fp32).  Every
 contiguous (last) dimension must be a multiple of 8; row counts are free.
+
+:func:`gemm_spec` and :func:`row_rms_spec` declare the two kernels'
+launches for the verifier (:mod:`..analysis.kernel_lint`); :mod:`.emit`
+lists them in each site's registry entry.  ``lib`` names the library to
+launch from: the source's own, or a build variant (the kernel gate's
+seeded ``fused_gemm_emit_race``).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..analysis.kernel_lint import BlockUse, KernelSpec, ScratchUse, cuda_semantics, itemsize
 from . import _build
 
 __all__ = ["matmul", "matmul_reference", "swiglu_gate_up", "swiglu_gate_up_reference",
@@ -75,14 +82,15 @@ def _check(*tensors: torch.Tensor, dtypes=_DTYPES) -> None:
                              f"rows 16-byte aligned, got {tuple(t.shape)}")
 
 
-def _launch(a, b, c, *, a_t=False, b_t=False, c2=None, aux=None, rms=None, epi=_EPI_STORE):
+def _launch(a, b, c, *, a_t=False, b_t=False, c2=None, aux=None, rms=None, epi=_EPI_STORE,
+            lib="fused_gemm"):
     M, K = _stored(a, a_t).shape
     N = c.shape[1]
     rs = cs = None
     pro_on_b = 0
     if rms is not None:
         rs, cs, pro_on_b = rms[0], rms[1], int(rms[2] == "b")
-    lib = _build.load("fused_gemm")
+    lib = _build.load(lib)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_gemm_launch(
@@ -111,7 +119,8 @@ def _rms_operand(rms, x):
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, a_t: bool = False, b_t: bool = False,
            out_dtype: Optional[torch.dtype] = None,
-           rms: Optional[Tuple[torch.Tensor, torch.Tensor, str]] = None) -> torch.Tensor:
+           rms: Optional[Tuple[torch.Tensor, torch.Tensor, str]] = None,
+           lib: str = "fused_gemm") -> torch.Tensor:
     """``op(a) @ op(b)`` with ``op`` a transpose where ``a_t`` / ``b_t``.
     ``rms = (r, w, side)`` scales the stored operand ``side`` (``"a"`` or
     ``"b"``) row by row by ``r`` and column by column by ``w`` first (the
@@ -132,7 +141,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, a_t: bool = False, b_t: bool = F
         raise TypeError(f"fused_gemm stores {_DTYPES}, got {out_dtype}")
     c = torch.empty(M, N, dtype=out_dtype, device=a.device)
     _check(c)
-    _launch(a, b, c, a_t=a_t, b_t=b_t, rms=rms)
+    _launch(a, b, c, a_t=a_t, b_t=b_t, rms=rms, lib=lib)
     return c
 
 
@@ -152,7 +161,7 @@ def _check_swiglu(x, w_gate_up, intermediate_size):
 
 
 def swiglu_gate_up(x: torch.Tensor, w_gate_up: torch.Tensor,
-                   intermediate_size: int) -> torch.Tensor:
+                   intermediate_size: int, lib: str = "fused_gemm") -> torch.Tensor:
     """``act = silu(gate) * up`` with ``[gate, up] = x @ w_gate_up``: both
     halves in one CTA, so ``gu`` is never stored."""
     if x.device.type == "cpu":
@@ -160,7 +169,7 @@ def swiglu_gate_up(x: torch.Tensor, w_gate_up: torch.Tensor,
     _check_swiglu(x, w_gate_up, intermediate_size)
     act = torch.empty(x.shape[0], intermediate_size, dtype=x.dtype, device=x.device)
     _check(act)
-    _launch(x, w_gate_up, act, epi=_EPI_SWIGLU)
+    _launch(x, w_gate_up, act, epi=_EPI_SWIGLU, lib=lib)
     return act
 
 
@@ -211,3 +220,86 @@ def row_rms(x: torch.Tensor, epsilon: float) -> torch.Tensor:
                                  float(epsilon), _build.dtype_code(x.dtype), stream)
     _build.check(lib, err, "row_rms")
     return r
+
+
+# ---------------------------------------------------------------------------
+# the launches' specs (for kernels.registry; see analysis.kernel_lint)
+# ---------------------------------------------------------------------------
+
+def gemm_spec(label: str, M: int, N: int, K: int, dtype, *, b_dtype=None, c_dtype=None,
+              a_t: bool = False, b_t: bool = False, epi: int = _EPI_STORE,
+              rms_side: Optional[str] = None, lib: str = "fused_gemm") -> KernelSpec:
+    """``gemm_kernel``'s launch for ``op(A) [M, K] @ op(B) [K, N]`` as
+    :func:`_launch` makes it: CTA tiles of BM x BN (BN / 2 output columns
+    for the SwiGLU epilogues, whose CTA reads the gate and the up columns),
+    the grid's axes swapped by ``m_fast`` exactly as the launch swaps them
+    (the larger operand streams once), and the K loop as an in-CTA axis.
+    Operand tiles are masked past every edge.  The two shared stages of A
+    and B are reused by the epilogue's fp32 tile."""
+    geo = _build.GEOMETRY["fused_gemm"]
+    BM, BN, BK, LDC = (geo[n] for n in ("GEMM_BM", "GEMM_BN", "GEMM_BK", "GEMM_LDC"))
+    b_dtype = b_dtype or dtype
+    c_dtype = c_dtype or dtype
+    dual = epi != _EPI_STORE
+    ak, bnc = not a_t, not b_t
+    cols = BN // 2 if dual else BN
+    mt, nt, nk = -(-M // BM), -(-N // cols), -(-K // BK)
+    m_fast = N * (2 if dual else 1) * K * itemsize(b_dtype) > M * K * itemsize(dtype)
+    grid = (mt, nt, nk) if m_fast else (nt, mt, nk)
+
+    def tiles(x, y):
+        return (x, y) if m_fast else (y, x)        # -> (m tile, n tile)
+
+    def blk(name, shape, dt, block, fn):
+        return BlockUse(shape, dt, block, lambda x, y, k: fn(*tiles(x, y), k), name=name,
+                        masked=True)
+
+    a_use = (blk("a", (M, K), dtype, (BM, BK), lambda m, n, k: (m, k)) if ak else
+             blk("a", (K, M), dtype, (BK, BM), lambda m, n, k: (k, m)))
+    if dual:       # gate columns [n0, n0 + cols) and up columns [N + n0, ...)
+        b_use = blk("b", (K, 2, N), b_dtype, (BK, 2, cols), lambda m, n, k: (k, 0, n))
+    elif bnc:
+        b_use = blk("b", (K, N), b_dtype, (BK, BN), lambda m, n, k: (k, n))
+    else:
+        b_use = blk("b", (N, K), b_dtype, (BN, BK), lambda m, n, k: (n, k))
+    inputs = [a_use, b_use]
+    if rms_side is not None:    # the prologue's per-row r and per-column w of the stored operand
+        stored_rows = {("a", True): (M, BM, 0), ("a", False): (K, BK, 2),
+                       ("b", True): (K, BK, 2), ("b", False): (N, BN, 1)}
+        stored_cols = {("a", True): (K, BK, 2), ("a", False): (M, BM, 0),
+                       ("b", True): (N, BN, 1), ("b", False): (K, BK, 2)}
+        side = (rms_side, ak if rms_side == "a" else bnc)
+        for name, (extent, block, which) in (("rms_r", stored_rows[side]),
+                                             ("rms_w", stored_cols[side])):
+            inputs.append(blk(name, (extent,), torch.float32, (block,),
+                              lambda m, n, k, w=which: ((m, n, k)[w],)))
+    outputs = [blk("c", (M, N), c_dtype if not dual else dtype, (BM, cols),
+                   lambda m, n, k: (m, n))]
+    if epi == _EPI_SWIGLU_BWD:
+        inputs.append(blk("d_act", (M, N), dtype, (BM, cols), lambda m, n, k: (m, n)))
+        outputs.append(blk("d_gu", (M, 2, N), dtype, (BM, 2, cols), lambda m, n, k: (m, 0, n)))
+    pad = 16 // itemsize(dtype)                         # Stage::LD: rows padded by 16 bytes
+    a_outer, a_inner = (BM, BK) if ak else (BK, BM)
+    b_outer, b_inner = (BK, BN) if bnc else (BN, BK)
+    stages = [ScratchUse((2, a_outer, a_inner + pad), dtype),
+              ScratchUse((2, b_outer, b_inner + pad), dtype)]
+    extra = BM * LDC * 4 - sum(s.nbytes() for s in stages)
+    if extra > 0:                                   # the epilogue tile outgrows the stages
+        stages.append(ScratchUse((extra,), torch.uint8))
+    return KernelSpec(
+        f"gemm_kernel[{label}]", grid=grid, inputs=inputs, outputs=outputs,
+        scratch=stages + [ScratchUse((BM, BN), torch.float32, "registers")],
+        dimension_semantics=cuda_semantics(2, 1),
+        carried_scratch=[(len(stages), frozenset({2}))],    # the accumulators, over K
+        cuda=(lib, 0, _build.dtype_code(dtype), _build.dtype_code(b_dtype),
+              int(ak) | int(bnc) << 1 | int(dual) << 2))
+
+
+def row_rms_spec(rows: int, d: int, dtype) -> KernelSpec:
+    """``row_rms_kernel``'s launch: one warp a row, 8 rows a CTA."""
+    return KernelSpec(
+        "row_rms_kernel", grid=(-(-rows // 8),),
+        inputs=[BlockUse((rows, d), dtype, (8, d), lambda i: (i, 0), name="x", masked=True)],
+        outputs=[BlockUse((rows,), torch.float32, (8,), lambda i: (i,), name="r", masked=True)],
+        dimension_semantics=cuda_semantics(1),
+        cuda=("fused_gemm", 1, _build.dtype_code(dtype), 0, 0))

@@ -9,6 +9,10 @@ expression as ``_rms_norm_ref``, on a CPU tensor.  Its backward is
 :func:`rms_norm_backward`, the port of ``_rms_bwd_rule``: the same fp32
 expression on both devices, as the JAX package computes it in XLA outside
 any Pallas kernel.
+
+Registered in :mod:`.registry` as ``rms_norm`` (the JAX registry's name,
+presets and example shape); :func:`rms_norm` is admitted there first when
+``FLAGS_kernel_admission`` is on.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from ..analysis.kernel_lint import BlockUse, KernelSpec, ScratchUse, cuda_semantics
+from . import _build, registry
 
 __all__ = ["rms_norm", "rms_norm_reference", "rms_norm_backward"]
 
@@ -101,6 +106,8 @@ def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
              epsilon: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last dim, differentiable in ``x`` and ``weight``: the
     CUDA kernel for a CUDA ``x``, the plain version for a CPU ``x``."""
+    registry.ensure_admitted("rms_norm", x.device, registry.dtype_key(
+        x.dtype, x.dtype if weight is None else weight.dtype))
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rms_norm: unsupported device {x.device}")
     if weight is None:
@@ -109,3 +116,45 @@ def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
 
 
 rms_norm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel-registry entry (verified by analysis.kernel_lint; see registry.py)
+# ---------------------------------------------------------------------------
+
+def kernel_spec(rows: int, d: int, x_dtype, w_dtype) -> KernelSpec:
+    """``rms_norm_kernel``'s launch: one CTA a row, the fp32 warp partials
+    and the row's inverse RMS in static shared memory."""
+    return KernelSpec(
+        "rms_norm_kernel", grid=(rows,),
+        inputs=[BlockUse((rows, d), x_dtype, (1, d), lambda i: (i, 0), name="x"),
+                BlockUse((d,), w_dtype, (d,), lambda i: (0,), name="w")],
+        outputs=[BlockUse((rows, d), x_dtype, (1, d), lambda i: (i, 0), name="y")],
+        scratch=[ScratchUse((32,), torch.float32), ScratchUse((1,), torch.float32)],
+        dimension_semantics=cuda_semantics(1),
+        cuda=("rms_norm", 0, _build.dtype_code(x_dtype), _build.dtype_code(w_dtype), 0))
+
+
+def _registry_example(dtype="bfloat16"):
+    """The JAX registry's [64, 256] bf16, or x and weight in ``dtype``
+    (``"x+w"``: the train path's bf16 rows over an fp32 weight)."""
+    rows, d = 64, 256
+    names = dtype.split("+")
+    x_dt, w_dt = getattr(torch, names[0]), getattr(torch, names[-1])
+
+    def args(device):
+        g = torch.Generator().manual_seed(0)
+        return (torch.randn(rows, d, generator=g).to(x_dt).to(device),
+                torch.randn(d, generator=g).to(w_dt).to(device))
+
+    return ([kernel_spec(rows, d, x_dt, w_dt)], lambda x, w: rms_norm(x, w),
+            lambda x, w: rms_norm_reference(x, w), args)
+
+
+_BF16_TOL = (1e-3, 1.6e-2, None)     # two bf16 ulps of the plain value
+registry.register(
+    "rms_norm", _registry_example,
+    presets=("tiny", "small", "base", "longctx", "moe", "ocr"),
+    description="fused RMSNorm forward: row statistics kept in VMEM",
+    dtypes=("bfloat16", "float32", "bfloat16+float32"),
+    tol={"bfloat16": _BF16_TOL, "float32": (1e-5, 1e-5, None), "bfloat16+float32": _BF16_TOL})

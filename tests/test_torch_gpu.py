@@ -434,3 +434,69 @@ def test_fused_sites_on_the_card(cuda, name, transpose):
         _fuse_close(o.detach(), r, torch.bfloat16)
     for gr, w in zip(grads, emit._vjp_reference(site, args, cts, static)):
         _fuse_close(gr, w, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# the kernel gate (kernels/registry.py, analysis/kernel_lint.py)
+# ---------------------------------------------------------------------------
+
+def test_seeded_kernels_against_their_plain_versions(cuda):
+    """The seeded defects run, and are wrong exactly where they are meant
+    to be: write-race stores to tile 0 only (each element one CTA's doubled
+    value: the CTAs race element by element) and the sentinel stays in the
+    other tiles; parallel-carry's first tile of each row (which reads no
+    carried state) is its input."""
+    from paddle_tpu_torch.analysis.kernel_lint import sentinel_outputs
+    from paddle_tpu_torch.kernels import injected
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(32, 128, generator=g, device=cuda)
+    with sentinel_outputs():
+        y = injected.write_race(x)
+    ref = injected.write_race_reference(x)
+    tiles = ref.reshape(4, 8, 128)
+    assert bool((y[:8][None] == tiles).any(0).all())
+    assert bool(torch.isnan(y[8:]).all())
+    x3 = torch.randn(2, 32, 128, generator=g, device=cuda)
+    y3 = injected.parallel_carry(x3)
+    assert torch.equal(y3[:, :8], x3[:, :8])
+
+
+@pytest.mark.parametrize("kind,codes", [
+    ("write-race", {"krn-write-race", "krn-coverage-hole"}),
+    ("parallel-carry", {"krn-parallel-carry"}),
+    ("emit-race", {"krn-coverage-hole"}),
+])
+def test_gate_refuses_each_seeded_defect_on_the_card(cuda, kind, codes):
+    from paddle_tpu_torch.kernels import registry
+
+    registry.load_all()
+    registry._apply_injection(kind)
+    name = "injected_" + kind.replace("-", "_")
+    try:
+        rep = registry.check(name, device=cuda)
+    finally:
+        registry._REGISTRY.pop(name)
+    assert codes <= set(rep.counts()), rep.report()
+    assert rep.meta["legs"] == ["static", "dynamic"]
+    if kind == "emit-race":            # the honest spec: only the card sees the defect
+        assert not registry.check("fuse_swiglu_mlp")
+
+
+def test_every_entry_is_clean_on_the_card(cuda):
+    from paddle_tpu_torch.analysis.kernel_lint import _smem_bytes
+    from paddle_tpu_torch.kernels import launch_counts, registry
+
+    registry.load_all()
+    before = launch_counts()
+    reports = registry.check_all(device=cuda)
+    assert launch_counts() == before           # the gate's launches land in no path
+    assert len(reports) == 18
+    for name, rep in reports.items():
+        assert not rep, rep.report()
+        assert rep.meta["legs"] == ["static", "dynamic"]
+        entry = registry.entries()[name]
+        for dt in entry.dtypes or (None,):       # every dtype's instantiations
+            for spec in entry.build(dt)[0] if dt else entry.build()[0]:
+                key = spec.name if dt is None else f"{spec.name}@{dt}"
+                assert rep.meta["smem_bytes_card_by_kernel"][key] == _smem_bytes(spec)

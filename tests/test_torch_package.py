@@ -25,7 +25,9 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.models, paddle_tpu_torch.kernels, paddle_tpu_torch.jit, "
             "paddle_tpu_torch.optimizer, paddle_tpu_torch.nn, "
-            "paddle_tpu_torch.models.presets\n"
+            "paddle_tpu_torch.models.presets, paddle_tpu_torch.analysis.kernel_lint, "
+            "paddle_tpu_torch.framework.flags, paddle_tpu_torch.kernels.registry, "
+            "paddle_tpu_torch.kernels.injected\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"
             "print(bad)")
