@@ -8,6 +8,7 @@ and serve Llama-3-8B-shaped and SSD-8B requests through the port's Engine.
     python3 chip_smoke.py                  # every phase, full depth
     python3 chip_smoke.py --layers 8       # cut Llama serving depth (never width)
     python3 chip_smoke.py --phases card,build,kernels,train
+    python3 chip_smoke.py --phases card,build,kernels,longctx_train
     python3 chip_smoke.py --phases card,build,kernels,parity,fuse_train
     python3 chip_smoke.py --phases card,build,kernels,parity,ssd_train,ssd_serve
     python3 chip_smoke.py --phases card,build,kernels,kernel_gate
@@ -18,8 +19,10 @@ Phases:
   3 kernels  each kernel against its plain version at its path's shapes
              (flash attention forward and backward at `base` and at
              `longctx`, AdamW on base's largest leaf and on all 75, the
-             SSD scan at `ssd_8b` and tiny widths): max error, kernel /
-             plain / library time, bound; flash gradients also tile by
+             SSD scan at `ssd_8b`, SSDConfig()'s default, bench.py's
+             on-chip and tiny widths): max error, kernel / plain / library
+             time, bound; flash also against sdpa's backward alone, with
+             each kernel's registers and spill bytes, its gradients tile by
              tile, and planted faults in them must be rejected; the SSD
              scan also by norm per recurrence, with zero rows bitwise
              no-ops, under a log-decay near -20 a token, and against three
@@ -58,6 +61,13 @@ Phases:
              optimizer update) and no decode kernel; losses finite and
              falling; step 1's loss within a limit of the same batch run
              with fp32 activations.  Step time, tokens/s and MFU are printed
+  5a longctx_train  the `longctx` preset (the `base` model at seq 16384,
+             batch 1, every decoder layer recomputed in the backward) for 3
+             steps on one batch, counters zeroed just before and read just
+             after: every step must launch flash forward twice a layer (the
+             recompute), flash backward once a layer, RMSNorm four times a
+             layer plus once, AdamW once a leaf (inside the update); losses
+             finite and falling; step time, tokens/s and MFU are printed
   5b fuse_train  `base` in three legs, stock -> fused -> stock, each a fresh
              build_pretrain_step("base", "cuda") with the same seed, 5
              steps, counters read per step (the first stock leg is the
@@ -152,6 +162,7 @@ PARITY_PARAM_ATOL = 5e-4
 PARITY_GRAD_TOL = 1e-4
 PARITY_SLOT_TOL = 1e-3
 TRAIN_STEPS = 5              # steps of the `base` training phase, on one batch
+LONGCTX_STEPS = 3            # steps of the `longctx_train` phase
 # step 1's loss at `base` in bf16 against the same weights and batch with
 # fp32 activations: at most this far apart (prediction in PERF.md)
 TRAIN_LOSS_TOL = 1e-2
@@ -203,8 +214,8 @@ FUSE_TILE_RTOL_FP32 = 1e-5
 FUSE_M, FUSE_H, FUSE_I, FUSE_V = 3 * 2048, 2048, 5632, 32000
 SSD_TRAIN_LAYERS = 8         # depth of `ssd_train` (32 would need 77 GB for params and AdamW)
 SSD_TRAIN_BATCH, SSD_TRAIN_SEQ = 2, 4096
-ALL_PHASES = ("card", "build", "kernels", "kernel_gate", "parity", "train", "fuse_train",
-              "ssd_train", "serve", "ssd_serve", "profile")
+ALL_PHASES = ("card", "build", "kernels", "kernel_gate", "parity", "train", "longctx_train",
+              "fuse_train", "ssd_train", "serve", "ssd_serve", "profile")
 REPO = Path(__file__).resolve().parent
 
 
@@ -456,24 +467,40 @@ def _flash_bounds(B, S, H, Hk, D, itemsize=2):
     return fwd, bwd
 
 
-def _sdpa_train_ms(q, k, v, do, backward, iters):
-    """One library call on the same inputs: causal GQA
-    scaled_dot_product_attention, forward only or forward + backward."""
+def _sdpa_train_ms(q, k, v, do, mode, iters):
+    """The library on the same inputs: causal GQA scaled_dot_product_attention,
+    ``mode`` "fwd" (its forward), "bwd" (its backward alone: torch.autograd.grad
+    over a kept forward) or "fwd+bwd"."""
     import torch
     import torch.nn.functional as F
 
     qt, kt, vt = (x.detach().transpose(1, 2) for x in (q, k, v))
     dot = do.transpose(1, 2)
-    if not backward:
+    if mode == "fwd":
         return time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), iters)
     qg, kg, vg = (x.requires_grad_() for x in (qt.clone(), kt.clone(), vt.clone()))
+    if mode == "bwd":
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+        return time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), dot, retain_graph=True),
+                       iters)
 
     def fwd_bwd():
         out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
         torch.autograd.grad(out, (qg, kg, vg), dot)
 
     return time_ms(fwd_bwd, iters)
+
+
+def _flash_attributes(D):
+    """Registers, spill (local) bytes and shared memory of the bf16 flash
+    kernels at head dim ``D``, as the card reports them."""
+    from paddle_tpu_torch.kernels import _build
+
+    code = _build.dtype_code("bfloat16")
+    return {name: _build.kernel_attributes("flash_attention", k, code, D)
+            for k, name in enumerate(("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
+                                      "flash_bwd_dq_tc_kernel"))}
 
 
 def _planted_faults(q, k, v, o, lse, do, sm, grads, refs):
@@ -565,6 +592,7 @@ def _flash_case(gen, B, S, H, Hk, D, heads=None):
     faults = None if heads else _planted_faults(q, k, v, o_in, lse_in, do, sm, grads, refs)
     del o_ref, lse_ref, refs
     iters = 20 if heads is None else 3
+    attrs = _flash_attributes(D)
     (f_ms, f_by), (b_ms, b_by) = _flash_bounds(B, S, H, Hk, D)
     tol = {"atol": FLASH_TOL[0], "rtol": FLASH_TOL[1], "atol_scaled_by_max_abs": True,
            "grad_tile_rows": FLASH_GRAD_TILE, "grad_tile_norm_rtol": FLASH_GRAD_RTOL}
@@ -573,8 +601,9 @@ def _flash_case(gen, B, S, H, Hk, D, heads=None):
            "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, True, sm), iters),
            "plain_ms": None if heads else time_ms(
                lambda: fa._flash_fwd_reference(q, k, v, True, sm), iters),
-           "library_ms": _sdpa_train_ms(q, k, v, do, False, iters),
+           "library_ms": _sdpa_train_ms(q, k, v, do, "fwd", iters),
            "library": "scaled_dot_product_attention(is_causal, enable_gqa) forward",
+           "attributes": {"flash_fwd_tc_kernel": attrs["flash_fwd_tc_kernel"]},
            "bound_ms": f_ms, "bound_by": f_by}
     bwd = {"shape": shape, "dtype": "bfloat16", "max_abs_err": max(errs.values()),
            "max_abs_err_by_grad": errs, "tile_norm_err_by_grad": tile_errs,
@@ -583,8 +612,12 @@ def _flash_case(gen, B, S, H, Hk, D, heads=None):
                          iters),
            "plain_ms": None if heads else time_ms(
                lambda: fa._flash_bwd_reference(q, k, v, o_in, lse_in, do, True, sm), iters),
-           "library_ms": _sdpa_train_ms(q, k, v, do, True, iters),
-           "library": "scaled_dot_product_attention forward + backward (no backward-only call)",
+           "library_ms": _sdpa_train_ms(q, k, v, do, "bwd", iters),
+           "library": "scaled_dot_product_attention's backward alone (torch.autograd.grad "
+                      "over a kept forward)",
+           "library_fwd_bwd_ms": _sdpa_train_ms(q, k, v, do, "fwd+bwd", iters),
+           "attributes": {n: attrs[n] for n in ("flash_bwd_dkdv_tc_kernel",
+                                                "flash_bwd_dq_tc_kernel")},
            "bound_ms": b_ms, "bound_by": b_by}
     log(f"flash fwd {shape}: {json.dumps(fwd)}")
     log(f"flash bwd {shape}: {json.dumps(bwd)}")
@@ -1012,8 +1045,13 @@ def phase_kernels():
     cases["adamw"] = [_adamw_case(gen, shapes, "base, all 75 leaves"),
                       _adamw_case(gen, [shapes[5]], "base, gate_up_proj")]
     # `ssd_train`'s shape: G = batch 2 x 64 heads, T 4096, P 64, N 128, L 128;
-    # and ssd_tiny_config's widths
+    # SSDConfig()'s defaults (hidden 4096 over 32 heads: P 128, N 64, L 64;
+    # G = batch 2 x 32 heads, T 4096), two column blocks a recurrence;
+    # bench.py's on-chip case (G 8, T 512, P 128, N 128, L 128); and
+    # ssd_tiny_config's widths
     cases["ssd_scan"] = [_ssd_case(gen, 128, 4096, 64, 128, 128, full=True),
+                         _ssd_case(gen, 64, 4096, 128, 64, 64, full=True),
+                         _ssd_case(gen, 8, 512, 128, 128, 128, full=True),
                          _ssd_case(gen, 8, 256, 32, 16, 16, full=True)]
     torch.cuda.empty_cache()
     cases.update(phase_fuse_kernels(gen))
@@ -1316,15 +1354,33 @@ def _refusal_before_launch():
     log("kernel_gate: sabotaged ssd_scan and rms_norm refused before their first launch")
 
 
+def _emit_race_bound():
+    """The bound of the emit-race variant's work at the gate's example: the
+    fuse_swiglu_mlp forward (gate_up, SwiGLU, down) on emit.SITES' example
+    shapes, fp32: bytes each operand read once and the output written once,
+    operations over the fp32 rate."""
+    from paddle_tpu_torch.kernels import emit
+
+    site = emit.SITES["fuse_swiglu_mlp"]
+    (x, _), (wgu, _), (wd, _) = site.example_shapes
+    (M, H), I = x, site.example_static["intermediate_size"]
+    nbytes = 4 * (M * H + wgu[0] * wgu[1] + wd[0] * wd[1] + M * H)
+    b_ms, b_by = bound(nbytes, 3 * 2 * M * H * I)
+    return {"shape": {"M": M, "H": H, "I": I, "dtype": "float32"}, "bytes": nbytes,
+            "flops": 6 * M * H * I, "bound_ms": b_ms, "bound_by": b_by}
+
+
 def phase_kernel_gate(seed):
     t0 = time.perf_counter()
+    emit_race = _emit_race_bound()
+    log(f"kernel_gate: emit-race variant's work at the gate's example: {json.dumps(emit_race)}")
     launches = _check_gate(_gate_runs())
     t_cli = time.perf_counter() - t0
     _admission_paths(seed)
     _refusal_before_launch()
     log(f"kernel_gate: {time.perf_counter() - t0:.1f} s (the four CLI runs together "
         f"{t_cli:.1f} s)")
-    return {"launches": launches}
+    return {"launches": launches, "emit_race_bound": emit_race}
 
 
 def _requests(rng, vocab, lengths, new_tokens, prefix=None):
@@ -1569,15 +1625,16 @@ def _drive_train(step_fn, ids, steps):
                            "launches_per_step": per_step}
 
 
-def _train_leg(label, fused, fp32_loss=False):
-    """One fresh `base` pretrain step (seed 0: the same weights and batch
-    every time), ``TRAIN_STEPS`` steps through ``_drive_train``; with
+def _train_leg(label, fused, fp32_loss=False, preset="base", steps=TRAIN_STEPS):
+    """One fresh pretrain step of ``preset`` (seed 0: the same weights and
+    batch every time), ``steps`` steps through ``_drive_train``; with
     ``fused`` inside ``emit.activate(emit.verified_activation("cuda"))``,
     where every seam reads the table at each call.  Checks every step's
-    launches (inside and outside the optimizer update) and that losses are
-    finite and falling.  With ``fp32_loss`` the record also holds step 1's
-    loss with fp32 activations (stock, before any update).  Returns the
-    record and ``(step_fn, ids)``."""
+    launches (inside and outside the optimizer update; a recomputed layer
+    runs its forward's kernels twice) and that losses are finite and
+    falling.  With ``fp32_loss`` the record also holds step 1's loss with
+    fp32 activations (stock, before any update).  Returns the record and
+    ``(step_fn, ids)``."""
     import math
 
     import torch
@@ -1585,14 +1642,15 @@ def _train_leg(label, fused, fp32_loss=False):
     from paddle_tpu_torch.models.presets import build_pretrain_step, model_flops_per_token
 
     t0 = time.perf_counter()
-    step_fn, ids, model, cfg, (B, S, _) = build_pretrain_step("base", "cuda")
+    step_fn, ids, model, cfg, (B, S, _) = build_pretrain_step(preset, "cuda")
     torch.cuda.synchronize()
-    log(f"{label}: base preset, {cfg.num_hidden_layers} layers, "
+    log(f"{label}: {preset} preset, {cfg.num_hidden_layers} layers, "
         f"{sum(p.numel() for p in model.parameters())} params (dtype {cfg.dtype}, params "
         f"{cfg.pdtype}), batch {B} x seq {S}, built in {time.perf_counter() - t0:.1f} s")
     L, n_leaves = cfg.num_hidden_layers, len(list(model.parameters()))
+    passes = 2 if cfg.recompute else 1       # a layer's forward, again in the backward
     want = dict.fromkeys(launch_counts(), 0)
-    want.update(flash_attention_fwd=L, flash_attention_bwd=L, adamw=n_leaves)
+    want.update(flash_attention_fwd=passes * L, flash_attention_bwd=L, adamw=n_leaves)
     scope = contextlib.nullcontext({})
     if fused:
         table = emit.verified_activation("cuda")
@@ -1602,9 +1660,9 @@ def _train_leg(label, fused, fp32_loss=False):
         want.update(rms_norm=L, fuse_swiglu_mlp=L, fuse_swiglu_mlp_bwd=L, fuse_add_rms_norm=L,
                     fuse_add_rms_norm_bwd=L, fuse_rms_norm_head=1, fuse_rms_norm_head_bwd=1)
     else:
-        want.update(rms_norm=2 * L + 1)
+        want.update(rms_norm=2 * passes * L + 1)
     want_update = dict.fromkeys(launch_counts(), 0)
-    want_update["adamw"] = TRAIN_STEPS * n_leaves
+    want_update["adamw"] = steps * n_leaves
     loss32 = None
     if fp32_loss:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -1617,10 +1675,10 @@ def _train_leg(label, fused, fp32_loss=False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with scope:
-        losses, walls, rec = _drive_train(step_fn, ids, TRAIN_STEPS)
+        losses, walls, rec = _drive_train(step_fn, ids, steps)
     check(all(emit.active(n) is None for n in emit.SITES), f"{label}: the scope leaked")
     step_ms = [w * 1e3 for w in walls]
-    steady = sum(step_ms[1:]) / (TRAIN_STEPS - 1)      # step 1 includes the warm-up
+    steady = sum(step_ms[1:]) / (steps - 1)      # step 1 includes the warm-up
     flops = model_flops_per_token(cfg, S) * B * S
     rec.update(losses=losses, step_ms=step_ms, steady_step_ms=steady, loss_fp32=loss32,
                tokens_per_s=B * S / steady * 1e3,
@@ -1656,6 +1714,21 @@ def phase_train(profile):
           f"fp32-activation loss {loss32}, past {TRAIN_LOSS_TOL}")
     if profile:
         _profile(lambda: step_fn(ids), "train: one base step")
+    del step_fn
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_longctx_train(profile):
+    """`longctx` pretraining (the `base` model at seq 16384, batch 1, every
+    layer recomputed) through the port's entry points, ``LONGCTX_STEPS``
+    steps; see the module docstring."""
+    import torch
+
+    rec, (step_fn, ids) = _train_leg("longctx_train", False, preset="longctx",
+                                     steps=LONGCTX_STEPS)
+    if profile:
+        _profile(lambda: step_fn(ids), "longctx_train: one longctx step")
     del step_fn
     torch.cuda.empty_cache()
     return rec
@@ -2291,6 +2364,8 @@ def main(argv=None) -> int:
             phase_parity(args.seed)
         if "train" in phases:
             paths["train"] = phase_train("profile" in phases)
+        if "longctx_train" in phases:
+            paths["longctx_train"] = phase_longctx_train("profile" in phases)
         if "fuse_train" in phases:
             paths["fuse_train"] = phase_fuse_train("profile" in phases, paths.get("train"))
         if "ssd_train" in phases:

@@ -165,7 +165,7 @@ class KernelSpec:
 
     ``grid`` is the CUDA grid (x, y, z as used) followed by the CTA's
     in-order loop axes.  ``cuda`` names the compiled kernel for the card's
-    read-back: ``(source, kernel index, dtype code, a, b)`` as
+    read-back: ``(source, kernel index, dtype code, a, b[, c])`` as
     ``kernel_attributes`` of that source takes them."""
     name: str
     grid: Tuple[int, ...]

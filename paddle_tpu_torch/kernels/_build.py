@@ -14,7 +14,7 @@ there is no fallback.
 
 C entry points take every pointer and the stream as ``void*`` and return
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
-Every library also exports ``kernel_attributes(kernel, dtype, a, b, out)``:
+Every library also exports ``kernel_attributes(kernel, dtype, a, b, c, out)``:
 the static shared memory, the dynamic shared memory its launch requests,
 the registers and the local (spill) bytes of one kernel instantiation, read
 with ``cudaFuncGetAttributes`` (:func:`kernel_attributes`).
@@ -93,8 +93,8 @@ SIGNATURES = {
         "injected_parallel_carry_launch": (P, P, P, I, I, P),
     },
 }
-# every library: kernel, dtype, a, b, int out[4]
-ATTRIBUTES_SIGNATURE = (I, I, I, I, P)
+# every library: kernel, dtype, a, b, c, int out[4]
+ATTRIBUTES_SIGNATURE = (I, I, I, I, I, P)
 # the geometry of each source, passed to nvcc as -D<name>=<value>: the one
 # definition the kernels and the verifier's specs both read
 GEOMETRY = {
@@ -103,9 +103,20 @@ GEOMETRY = {
     "decode_attention": {"DECODE_TILE": 32,           # keys a step = lanes of the softmax warp
                          "DECODE_MAX_REP": 8,         # query rows a kv-head (H / Hk)
                          "DECODE_SPLIT_KEYS": 256},   # keys a CTA of pass 1 (DECODE_TILE x k)
-    # rows of a q-tile and of a k-tile, per head_dim
-    "flash_attention": {"FLASH_TILE_ROWS_D32": 64, "FLASH_TILE_ROWS_D64": 64,
-                        "FLASH_TILE_ROWS_D128": 64, "FLASH_TILE_ROWS_D256": 32},
+    # per head_dim: the fp32 kernels' q- and k-tile rows; for bf16 the
+    # forward's query rows (64 a consumer warpgroup) and keys of its k-tiles,
+    # the keys of a dK/dV CTA (64 a warpgroup, or 64 shared by two at D 256)
+    # and query rows of its steps, the query rows of a dQ CTA and keys of its
+    # steps; stages of the forward's and the backward's TMA rings
+    "flash_attention": {
+        **{f"FLASH_TILE_ROWS_D{d}": 32 if d == 256 else 64 for d in (32, 64, 128, 256)},
+        **{f"FLASH_FWD_Q_ROWS_D{d}": 128 for d in (32, 64, 128, 256)},
+        **{f"FLASH_FWD_K_ROWS_D{d}": 32 if d == 256 else 64 for d in (32, 64, 128, 256)},
+        **{f"FLASH_DKDV_K_ROWS_D{d}": 64 if d == 256 else 128 for d in (32, 64, 128, 256)},
+        **{f"FLASH_DKDV_Q_ROWS_D{d}": 64 for d in (32, 64, 128, 256)},
+        **{f"FLASH_DQ_Q_ROWS_D{d}": 128 for d in (32, 64, 128, 256)},
+        **{f"FLASH_DQ_K_ROWS_D{d}": 32 if d == 256 else 64 for d in (32, 64, 128, 256)},
+        "FLASH_FWD_STAGES": 2, "FLASH_BWD_STAGES": 2},
     # CTA tile and K step; the epilogue's fp32 staging tile row stride
     "fused_gemm": {"GEMM_BM": 128, "GEMM_BN": 128, "GEMM_BK": 32, "GEMM_LDC": 128 + 4},
     "injected": {"INJECTED_TILE_ROWS": 8, "INJECTED_TILE_COLS": 128},
@@ -222,14 +233,14 @@ def load_all() -> Dict[str, ctypes.CDLL]:
 
 
 def kernel_attributes(name: str, kernel: int, dtype: int = 0, a: int = 0,
-                      b: int = 0) -> Dict[str, int]:
+                      b: int = 0, c: int = 0) -> Dict[str, int]:
     """``cudaFuncGetAttributes`` of one kernel instantiation of library
-    ``name`` (which kernel and template arguments ``kernel, dtype, a, b``
+    ``name`` (which kernel and template arguments ``kernel, dtype, a, b, c``
     select is documented beside each source's ``kernel_attributes``)."""
     lib = load(name)
     out = (ctypes.c_int * 4)()
-    check(lib, lib.kernel_attributes(kernel, dtype, a, b, ctypes.addressof(out)),
-          f"{name} kernel_attributes({kernel}, {dtype}, {a}, {b})")
+    check(lib, lib.kernel_attributes(kernel, dtype, a, b, c, ctypes.addressof(out)),
+          f"{name} kernel_attributes({kernel}, {dtype}, {a}, {b}, {c})")
     return {"static_smem": out[0], "dynamic_smem": out[1], "registers": out[2],
             "local_bytes": out[3]}
 

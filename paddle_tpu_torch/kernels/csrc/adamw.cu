@@ -104,7 +104,7 @@ cudaError_t launch(void* p, const void* g, void* m, void* v, void* out, long lon
 }  // namespace
 
 // kernel 0: adamw_kernel<a = bf16 copy, b = vectorised>
-extern "C" int kernel_attributes(int kernel, int dtype, int a, int b, int* out) {
+extern "C" int kernel_attributes(int kernel, int dtype, int a, int b, int c, int* out) {
   if (kernel != 0) return cudaErrorInvalidValue;
   if (a) return b ? func_attributes(adamw_kernel<true, true>, 0, out)
                   : func_attributes(adamw_kernel<true, false>, 0, out);

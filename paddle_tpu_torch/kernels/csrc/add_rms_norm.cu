@@ -250,7 +250,7 @@ int attributes(int kernel, int d, int* out) {
 // kernel 0: add_rms_norm_fwd_kernel, 1: add_rms_norm_bwd_kernel (its dynamic
 // shared memory is a row of b = d floats), 2: dw_reduce_kernel; <dtype,
 // a = the weight's dtype>
-extern "C" int kernel_attributes(int kernel, int dtype, int a, int b, int* out) {
+extern "C" int kernel_attributes(int kernel, int dtype, int a, int b, int c, int* out) {
   const int w_dtype = a;
   DISPATCH(attributes, kernel, b, out);
 }

@@ -348,7 +348,7 @@ int attributes_d(int kernel, int D, int paged, int* out) {
 }  // namespace
 
 // kernel 0: decode_partial_kernel, 1: decode_combine_kernel; <dtype, a = D, b = paged>
-extern "C" int kernel_attributes(int kernel, int dtype, int a, int b, int* out) {
+extern "C" int kernel_attributes(int kernel, int dtype, int a, int b, int c, int* out) {
   switch (dtype) {
     case kFloat32: return attributes_d<float>(kernel, a, b, out);
     case kBFloat16: return attributes_d<__nv_bfloat16>(kernel, a, b, out);

@@ -536,7 +536,7 @@ int gemm_attributes(int layout, int* out) {
 
 // kernel 0: gemm_kernel<dtype, a = B's dtype, b = AK | BNC << 1 | DUAL << 2>;
 // kernel 1: row_rms_kernel<dtype>
-extern "C" int kernel_attributes(int kernel, int dtype, int a, int b, int* out) {
+extern "C" int kernel_attributes(int kernel, int dtype, int a, int b, int c, int* out) {
   if (kernel == 1) {
     if (dtype == kFloat32) return func_attributes(row_rms_kernel<float>, 0, out);
     if (dtype == kBFloat16) return func_attributes(row_rms_kernel<__nv_bfloat16>, 0, out);

@@ -74,7 +74,7 @@ extern "C" int injected_parallel_carry_launch(const void* x, void* y, void* acc,
 }
 
 // kernel 0: injected_write_race_kernel, 1: injected_parallel_carry_kernel
-extern "C" int kernel_attributes(int kernel, int dtype, int a, int b, int* out) {
+extern "C" int kernel_attributes(int kernel, int dtype, int a, int b, int c, int* out) {
   if (kernel == 0) return func_attributes(injected_write_race_kernel, 0, out);
   if (kernel == 1) return func_attributes(injected_parallel_carry_kernel, 0, out);
   return cudaErrorInvalidValue;

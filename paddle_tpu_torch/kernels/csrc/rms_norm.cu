@@ -116,7 +116,7 @@ int attributes_w(int w_dtype, int* out) {
 }  // namespace
 
 // kernel 0: rms_norm_kernel<dtype, a = weight dtype>
-extern "C" int kernel_attributes(int kernel, int dtype, int a, int b, int* out) {
+extern "C" int kernel_attributes(int kernel, int dtype, int a, int b, int c, int* out) {
   if (kernel != 0) return cudaErrorInvalidValue;
   switch (dtype) {
     case kFloat32: return attributes_w<float>(a, out);

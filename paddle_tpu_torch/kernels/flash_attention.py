@@ -31,12 +31,13 @@ Registered in :mod:`.registry` as ``flash_fwd_resident`` (non-causal),
 from __future__ import annotations
 
 import ctypes
+import itertools
 import math
 from typing import Optional, Tuple
 
 import torch
 
-from ..analysis.kernel_lint import BlockUse, KernelSpec, ScratchUse, cuda_semantics
+from ..analysis.kernel_lint import ENUM_CAP, BlockUse, KernelSpec, ScratchUse, cuda_semantics
 from . import _build, registry
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd"]
@@ -86,25 +87,47 @@ def _scores(q, k, causal: bool, sm_scale: float):
     return s
 
 
+def _blind_rows(sq: int, sk: int, causal: bool) -> int:
+    """How many leading query rows see no key: with the causal diagonal
+    offset by ``Sk - Sq < 0``, the first ``Sq - Sk``."""
+    return max(sq - sk, 0) if causal else 0
+
+
+def _probs(s, lse, causal: bool):
+    """``exp(s - lse)``; a row that sees no key has every score at -1e30,
+    they tie, and it weighs each key ``1 / Sk``, as the one-shot softmax of
+    :func:`_attention_reference` gives it (``exp(s - lse)`` would give 1:
+    ``lse = -1e30 + log(Sk)`` rounds to -1e30 in fp32)."""
+    p = torch.exp(s - lse[..., None])
+    blind = _blind_rows(s.shape[-2], s.shape[-1], causal)
+    if blind:
+        p[..., :blind, :] = 1.0 / s.shape[-1]
+    return p
+
+
 def _flash_fwd_reference(q, k, v, causal: bool, sm_scale: float):
     """``(o, lse)``: ``lse = logsumexp(s)`` fp32 ``[B, H, Sq]``, ``o =
-    exp(s - lse) @ v`` in q's dtype."""
+    exp(s - lse) @ v`` in q's dtype (a row that sees no key: the mean of
+    v)."""
     rep = q.shape[2] // k.shape[2]
     s = _scores(q, k, causal, sm_scale)
     lse = torch.logsumexp(s, dim=-1)
     vt = v.repeat_interleave(rep, dim=2).transpose(1, 2).to(torch.float32)
-    o = torch.matmul(torch.exp(s - lse[..., None]), vt)
+    o = torch.matmul(_probs(s, lse, causal), vt)
     return o.transpose(1, 2).to(q.dtype), lse
 
 
 def _flash_bwd_reference(q, k, v, o, lse, do, causal: bool, sm_scale: float):
     """``(dq, dk, dv)`` from the saved ``lse``, as ``_flash_bwd_impl``:
     ``p = exp(s - lse)``, ``delta = sum(do * o)``, ``ds = p (dp - delta)
-    scale``, all fp32; dK/dV summed over each kv-head's query heads."""
+    scale``, all fp32; dK/dV summed over each kv-head's query heads.  A row
+    that sees no key weighs each key ``1 / Sk`` and has ``ds = 0``: its
+    scores are the constant -1e30, as autograd of the one-shot softmax
+    gives it."""
     B, Sq, H, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     rep = H // Hk
-    p = torch.exp(_scores(q, k, causal, sm_scale) - lse[..., None])
+    p = _probs(_scores(q, k, causal, sm_scale), lse, causal)
     qt = q.transpose(1, 2).to(torch.float32)
     kt = k.repeat_interleave(rep, dim=2).transpose(1, 2).to(torch.float32)
     vt = v.repeat_interleave(rep, dim=2).transpose(1, 2).to(torch.float32)
@@ -113,6 +136,7 @@ def _flash_bwd_reference(q, k, v, o, lse, do, causal: bool, sm_scale: float):
     dv = torch.matmul(p.transpose(-1, -2), dot)
     dp = torch.matmul(dot, vt.transpose(-1, -2))
     ds = p * (dp - delta[..., None]) * sm_scale
+    ds[..., :_blind_rows(Sq, Sk, causal), :] = 0.0
     dq = torch.matmul(ds, kt)
     dk = torch.matmul(ds.transpose(-1, -2), qt)
 
@@ -264,163 +288,253 @@ def flash_attention(q, k, v, causal: bool = False, mask=None,
 # kernel-registry entries (verified by analysis.kernel_lint; see registry.py)
 # ---------------------------------------------------------------------------
 
-def _tile_rows(D: int) -> int:
-    return _build.GEOMETRY["flash_attention"][f"FLASH_TILE_ROWS_D{D}"]
+def _geometry(name: str, D: int) -> int:
+    return _build.GEOMETRY["flash_attention"][f"{name}_D{D}"]
 
 
-def _smem_tiles(kind: str, BM: int, D: int, dtype):
-    """The shared tiles of one kernel, as csrc/flash_attention.cu lays
-    them out: fp32 tiles with a one-float skew (CUDA-core kernels), or
-    padded bf16 tiles and fp32 staging (tensor-core kernels)."""
+def _kv_tiles(q0: int, BQ: int, BK: int, Sq: int, Sk: int, causal: bool) -> int:
+    """k-tiles of BK keys a q-tile of BQ rows from q0 visits, as
+    ``kv_tiles`` in csrc/flash_attention.cu: up to the causal diagonal, or
+    every one when its first row sees no key."""
+    n_k = -(-Sk // BK)
+    off = Sk - Sq
+    if not causal or q0 + off < 0:
+        return n_k
+    return min((min(q0 + BQ, Sq) - 1 + off) // BK + 1, n_k)
+
+
+def _smem_tiles(kind: str, D: int, dtype):
+    """The shared memory of one kernel, as csrc/flash_attention.cu lays it
+    out: fp32 tiles with a one-float skew (CUDA-core kernels); for bf16 the
+    slack that aligns the tiles to 1024 bytes, the tiles TMA loads once, the
+    two streamed tiles once per stage of the ring (swizzled in place), and
+    the mbarriers (the tiles loaded once; each stage's two tiles and its
+    release) (tensor-core kernels)."""
     f32 = torch.float32
     if dtype == torch.float32:
+        BM = _geometry("FLASH_TILE_ROWS", D)
         rows, scores = ScratchUse((BM, D + 1), f32), ScratchUse((BM, BM + 1), f32)
         n_rows, n_scores, extra = {"fwd": (3, 1, 0), "dkdv": (4, 2, 2), "dq": (4, 1, 0)}[kind]
         return [rows] * n_rows + [scores] * n_scores + [ScratchUse((BM,), f32)] * extra
     bf = torch.bfloat16
-    rows_h, scores_f = ScratchUse((BM, D + 8), bf), ScratchUse((BM, BM + 4), f32)
-    scores_h, out_f = ScratchUse((BM, BM + 8), bf), ScratchUse((BM, D + 4), f32)
-    n_rows, n_sf, n_sh, extra = {"fwd": (3, 1, 2, 0), "dkdv": (4, 2, 4, 2),
-                                 "dq": (4, 2, 2, 0)}[kind]
-    return ([rows_h] * n_rows + [scores_f] * n_sf + [scores_h] * n_sh + [out_f]
-            + [ScratchUse((BM,), f32)] * extra)
+    geo = _build.GEOMETRY["flash_attention"]
+    if kind == "fwd":       # Q once; K and V streamed
+        once, streamed, stages = ((_geometry("FLASH_FWD_Q_ROWS", D),),
+                                  _geometry("FLASH_FWD_K_ROWS", D), geo["FLASH_FWD_STAGES"])
+    elif kind == "dkdv":    # K and V once; Q and dO streamed
+        once, streamed, stages = ((_geometry("FLASH_DKDV_K_ROWS", D),) * 2,
+                                  _geometry("FLASH_DKDV_Q_ROWS", D), geo["FLASH_BWD_STAGES"])
+    else:                   # Q and dO once; K and V streamed
+        once, streamed, stages = ((_geometry("FLASH_DQ_Q_ROWS", D),) * 2,
+                                  _geometry("FLASH_DQ_K_ROWS", D), geo["FLASH_BWD_STAGES"])
+    return ([ScratchUse((1024,), torch.uint8)]                  # alignment slack
+            + [ScratchUse((rows, D), bf) for rows in once]
+            + [ScratchUse((streamed, D), bf)] * (2 * stages)    # the ring's two tiles a stage
+            + [ScratchUse((1 + 3 * stages,), torch.int64)])     # the mbarriers
 
 
 def kernel_specs(B: int, Sq: int, Sk: int, H: int, Hk: int, D: int, causal: bool, dtype,
                  backward: bool = False):
-    """The launches of ``csrc/flash_attention.cu``: the forward, grid
-    (q-tiles, B*H) and its CTA's walk over k-tiles; or the dK/dV pass, grid
-    (k-tiles, B*Hk) walking its group's heads and the q-tiles from the
-    causal lower bound, and the dQ pass, grid (q-tiles, B*H) walking
-    k-tiles.  Under the causal mask the k-tile walk ends at the diagonal:
-    the map is clamped there (a revisit reads nothing new), as the JAX
-    kernels' index map is.  Every tile load is masked past the sequence."""
-    BM = _tile_rows(D)
-    nq, nk = -(-Sq // BM), -(-Sk // BM)
+    """The launches of ``csrc/flash_attention.cu``: the forward, one CTA a
+    (batch x head, q-tile) walking the k-tiles of its kv-head; or the dK/dV
+    pass, one CTA a (batch x kv-head, k-tile) walking its group's heads and
+    the q-tiles from the causal lower bound, and the dQ pass, one CTA a
+    (batch x head, q-tile) walking k-tiles.  Under the causal mask a walk
+    ends at the diagonal: the map is clamped there (a revisit reads nothing
+    new), as the JAX kernels' index map is.  fp32 runs the CUDA-core kernels
+    (grid (q-tiles, batch x heads)), bf16 the tensor-core ones (grid
+    (batch x heads, q-tiles), the q-tiles with the longest causal walks
+    first).  Every tile load is masked past the sequence."""
     rep, off = H // Hk, Sk - Sq
     code = _build.dtype_code(dtype)
     f32 = torch.float32
+    tc = dtype != f32
+    if tc:
+        fq, fk = _geometry("FLASH_FWD_Q_ROWS", D), _geometry("FLASH_FWD_K_ROWS", D)
+        vk, vq = _geometry("FLASH_DKDV_K_ROWS", D), _geometry("FLASH_DKDV_Q_ROWS", D)
+        qq, qk = _geometry("FLASH_DQ_Q_ROWS", D), _geometry("FLASH_DQ_K_ROWS", D)
+    else:
+        fq = fk = vk = vq = qq = qk = _geometry("FLASH_TILE_ROWS", D)
 
-    def hi(i):          # the last k-tile q-tile i sees (kv_tiles - 1)
-        if not causal:
-            return nk - 1
-        return max(min((min(i * BM + BM, Sq) - 1 + off) // BM, nk - 1), 0)
+    def rows(name, S, heads, rows_, at):
+        return BlockUse((B, S, heads, D), dtype, (1, rows_, 1, D), at, name=name, masked=True)
 
-    def lo(j):          # the first q-tile k-tile j sees
-        return max(j * BM - off, 0) // BM if causal else 0
+    def stats(name, rows_, at):
+        return BlockUse((B, H, Sq), f32, (1, 1, rows_), at, name=name, masked=True)
 
-    def rows(name, S, heads, at):
-        return BlockUse((B, S, heads, D), dtype, (1, BM, 1, D), at, name=name, masked=True)
+    def walk(BQ, BK, heads_first):
+        """A CTA a (q-tile, batch x head) that walks the k-tiles of its
+        kv-head: (grid, the q-tile of a grid point, the batch x head, the
+        k-tile)."""
+        nq, nk = -(-Sq // BQ), -(-Sk // BK)
+        last = [_kv_tiles(i * BQ, BQ, BK, Sq, Sk, causal) - 1 for i in range(nq)]
 
-    def stats(name, at):
-        return BlockUse((B, H, Sq), f32, (1, 1, BM), at, name=name, masked=True)
+        def at(x, y, j):
+            i, bh = (nq - 1 - y, x) if heads_first else (x, y)
+            return i, bh, max(min(j, last[i]), 0)
+        grid = (B * H, nq, nk) if heads_first else (nq, B * H, nk)
+        return grid, at
 
-    acc = ScratchUse((BM, D), f32, "registers")
-    if not backward:
-        def qmap(i, bh, j):
+    def q_rows(name, BQ, at):
+        def m(*pt):
+            i, bh, _ = at(*pt)
             return (bh // H, i, bh % H, 0)
+        return rows(name, Sq, H, BQ, m)
 
-        def kmap(i, bh, j):
-            return (bh // H, min(j, hi(i)), bh % H // rep, 0)
+    def kv_rows(name, BK, at):
+        def m(*pt):
+            _, bh, j = at(*pt)
+            return (bh // H, j, bh % H // rep, 0)
+        return rows(name, Sk, Hk, BK, m)
 
-        tiles = _smem_tiles("fwd", BM, D, dtype)
-        stat = ScratchUse((BM,), f32, "registers")
+    def q_stats(name, BQ, at):
+        def m(*pt):
+            i, bh, _ = at(*pt)
+            return (bh // H, bh % H, i)
+        return stats(name, BQ, m)
+
+    acc = ScratchUse((fq, D), f32, "registers")
+    if not backward:
+        grid, at = walk(fq, fk, tc)
+        tiles = _smem_tiles("fwd", D, dtype)
+        stat = ScratchUse((fq,), f32, "registers")
         return [KernelSpec(
-            "flash_fwd_kernel" if dtype == f32 else "flash_fwd_tc_kernel", grid=(nq, B * H, nk),
-            inputs=[rows("q", Sq, H, qmap), rows("k", Sk, Hk, kmap), rows("v", Sk, Hk, kmap)],
-            outputs=[rows("o", Sq, H, qmap),
-                     stats("lse", lambda i, bh, j: (bh // H, bh % H, i))],
+            "flash_fwd_tc_kernel" if tc else "flash_fwd_kernel", grid=grid,
+            inputs=[q_rows("q", fq, at), kv_rows("k", fk, at), kv_rows("v", fk, at)],
+            outputs=[q_rows("o", fq, at), q_stats("lse", fq, at)],
             scratch=tiles + [stat, stat, acc],
             dimension_semantics=cuda_semantics(2, 1),
             # the online softmax (max, sum, accumulators) is carried over the k-tile walk
             carried_scratch=[(n, frozenset({2})) for n in range(len(tiles), len(tiles) + 3)],
             cuda=("flash_attention", 0, code, D, 0))]
 
-    def kv_at(j, bg, r, qt):
-        return (bg // Hk, j, bg % Hk, 0)
+    # dK/dV: a CTA a (k-tile, batch x kv-head), looping over the group's
+    # heads and the q-tiles from the causal lower bound (every q-tile when
+    # rows that see no key, Sq > Sk, see every key)
+    nkv, nqv = -(-Sk // vk), -(-Sq // vq)
 
-    def q_at(j, bg, r, qt):
-        return (bg // Hk, max(qt, lo(j)), bg % Hk * rep + r, 0)
+    def lo(j):
+        return max(j * vk - off, 0) // vq if causal and off >= 0 else 0
 
-    def s_at(j, bg, r, qt):
-        return (bg // Hk, bg % Hk * rep + r, max(qt, lo(j)))
+    def kv_at(*pt):
+        j, bg = (pt[1], pt[0]) if tc else (pt[0], pt[1])
+        r, qt = pt[2], pt[3]
+        return j, bg, r, max(qt, lo(j))
 
-    tiles = _smem_tiles("dkdv", BM, D, dtype)
+    def kv_tile(name):
+        def m(*pt):
+            j, bg, _, _ = kv_at(*pt)
+            return (bg // Hk, j, bg % Hk, 0)
+        return rows(name, Sk, Hk, vk, m)
+
+    def q_tile(name):
+        def m(*pt):
+            _, bg, r, qt = kv_at(*pt)
+            return (bg // Hk, qt, bg % Hk * rep + r, 0)
+        return rows(name, Sq, H, vq, m)
+
+    def q_stat(name):
+        def m(*pt):
+            _, bg, r, qt = kv_at(*pt)
+            return (bg // Hk, bg % Hk * rep + r, qt)
+        return stats(name, vq, m)
+
+    tiles = _smem_tiles("dkdv", D, dtype)
+    kv_acc = ScratchUse((vk, D), f32, "registers")
     dkdv = KernelSpec(
-        "flash_bwd_dkdv_kernel" if dtype == f32 else "flash_bwd_dkdv_tc_kernel",
-        grid=(nk, B * Hk, rep, nq),
-        inputs=[rows("k", Sk, Hk, kv_at), rows("v", Sk, Hk, kv_at), rows("q", Sq, H, q_at),
-                rows("do", Sq, H, q_at), stats("lse", s_at), stats("delta", s_at)],
-        outputs=[rows("dk", Sk, Hk, kv_at), rows("dv", Sk, Hk, kv_at)],
-        scratch=tiles + [acc, acc],
+        "flash_bwd_dkdv_tc_kernel" if tc else "flash_bwd_dkdv_kernel",
+        grid=(B * Hk, nkv, rep, nqv) if tc else (nkv, B * Hk, rep, nqv),
+        inputs=[kv_tile("k"), kv_tile("v"), q_tile("q"), q_tile("do"), q_stat("lse"),
+                q_stat("delta")],
+        outputs=[kv_tile("dk"), kv_tile("dv")],
+        scratch=tiles + [kv_acc, kv_acc],
         dimension_semantics=cuda_semantics(2, 2),
         # dK and dV sum over the group's heads and the q-tiles, inside the CTA
         carried_scratch=[(len(tiles), frozenset({2, 3})), (len(tiles) + 1, frozenset({2, 3}))],
         cuda=("flash_attention", 1, code, D, 0))
 
-    def qi_at(i, bh, j):
-        return (bh // H, i, bh % H, 0)
-
-    def ki_at(i, bh, j):
-        return (bh // H, min(j, hi(i)), bh % H // rep, 0)
-
-    tiles = _smem_tiles("dq", BM, D, dtype)
+    grid, at = walk(qq, qk, tc)
+    tiles = _smem_tiles("dq", D, dtype)
     dq = KernelSpec(
-        "flash_bwd_dq_kernel" if dtype == f32 else "flash_bwd_dq_tc_kernel",
-        grid=(nq, B * H, nk),
-        inputs=[rows("q", Sq, H, qi_at), rows("do", Sq, H, qi_at),
-                rows("k", Sk, Hk, ki_at), rows("v", Sk, Hk, ki_at),
-                stats("lse", lambda i, bh, j: (bh // H, bh % H, i)),
-                stats("delta", lambda i, bh, j: (bh // H, bh % H, i))],
-        outputs=[rows("dq", Sq, H, qi_at)],
-        scratch=tiles + [acc],
+        "flash_bwd_dq_tc_kernel" if tc else "flash_bwd_dq_kernel", grid=grid,
+        inputs=[q_rows("q", qq, at), q_rows("do", qq, at), kv_rows("k", qk, at),
+                kv_rows("v", qk, at), q_stats("lse", qq, at), q_stats("delta", qq, at)],
+        outputs=[q_rows("dq", qq, at)],
+        scratch=tiles + [ScratchUse((qq, D), f32, "registers")],
         dimension_semantics=cuda_semantics(2, 1),
         carried_scratch=[(len(tiles), frozenset({2}))],
         cuda=("flash_attention", 2, code, D, 0))
     return [dkdv, dq]
 
 
-# the JAX registry's example: BH 2, S 256, D 128 fp32 (here B 1, H = Hk = 2);
-# also in bf16, which runs the tensor-core kernels
-_EX_B, _EX_S, _EX_H, _EX_D = 1, 256, 2, 128
+def _enumerated(specs):
+    """``specs`` with each callable index map over a grid larger than the
+    verifier's ``ENUM_CAP`` given as its table of every grid point, so the
+    static leg checks a production-shape example in full."""
+    for spec in specs:
+        if math.prod(spec.grid) <= ENUM_CAP:
+            continue
+        points = list(itertools.product(*map(range, spec.grid)))
+        for bu in spec.inputs + spec.outputs:
+            if callable(bu.index_map):
+                bu.index_map = ("table", {pt: tuple(bu.index_map(*pt)) for pt in points})
+    return specs
+
+
+# the JAX registry's example: BH 2, S 256, D 128 fp32 (here B 1, H = Hk = 2),
+# also in bf16, which runs the tensor-core kernels; the causal entries also
+# at `base`'s shape in bf16 ("bfloat16@base": B 3, S 2048, H 16 over Hk 8),
+# the launches the training path makes, so the card's leg checks them at a
+# production shape (B, S, H, Hk, D)
+_EXAMPLES = {"": (1, 256, 2, 2, 128), "base": (3, 2048, 16, 8, 128)}
 _EX_DTYPES = ("float32", "bfloat16")
+_STREAM_DTYPES = _EX_DTYPES + ("bfloat16@base",)
 # the output against the plain version: fp32 sums in another order, bf16 two
 # bf16 ulps; lse fp32 in both; the gradients' atol scaled by their largest
 # |value| (at least 1)
 _FWD_TOL = {"float32": ((2e-5, 2e-5, None), (1e-5, 1e-5, None)),
             "bfloat16": ((1e-3, 1.6e-2, None), (1e-5, 1e-5, None))}
 _BWD_TOL = {"float32": (2e-5, 2e-5, 1.0), "bfloat16": (1e-3, 1.6e-2, 1.0)}
+for _tol in (_FWD_TOL, _BWD_TOL):
+    _tol["bfloat16@base"] = _tol["bfloat16"]
 
 
-def _example_qkv(device, seed=0, dtype=torch.float32):
+def _example(dtype: str):
+    """(torch dtype, (B, S, H, Hk, D)) of an example key."""
+    name, _, shape = dtype.partition("@")
+    return getattr(torch, name), _EXAMPLES[shape]
+
+
+def _example_qkv(device, shape, seed=0, dtype=torch.float32):
+    B, S, H, Hk, D = shape
     g = torch.Generator().manual_seed(seed)
-    return tuple(torch.randn(_EX_B, _EX_S, _EX_H, _EX_D, generator=g).to(dtype).to(device)
-                 for _ in range(3))
+    return tuple(torch.randn(B, S, h, D, generator=g).to(dtype).to(device) for h in (H, Hk, Hk))
 
 
 def _fwd_example(causal):
     def build(dtype="float32"):
-        scale = 1.0 / math.sqrt(_EX_D)
-        dt = getattr(torch, dtype)
-        return (kernel_specs(_EX_B, _EX_S, _EX_S, _EX_H, _EX_H, _EX_D, causal, dt),
+        dt, shape = _example(dtype)
+        B, S, H, Hk, D = shape
+        scale = 1.0 / math.sqrt(D)
+        return (_enumerated(kernel_specs(B, S, S, H, Hk, D, causal, dt)),
                 lambda q, k, v: flash_attention_fwd(q, k, v, causal, scale),
                 lambda q, k, v: _flash_fwd_reference(q, k, v, causal, scale),
-                lambda device: _example_qkv(device, dtype=dt))
+                lambda device: _example_qkv(device, shape, dtype=dt))
     return build
 
 
 def _bwd_example(dtype="float32"):
-    scale = 1.0 / math.sqrt(_EX_D)
-    dt = getattr(torch, dtype)
+    dt, shape = _example(dtype)
+    B, S, H, Hk, D = shape
+    scale = 1.0 / math.sqrt(D)
 
     def args(device):
-        q, k, v = _example_qkv(device, dtype=dt)
+        q, k, v = _example_qkv(device, shape, dtype=dt)
         o, lse = _flash_fwd_reference(q, k, v, True, scale)
-        do = _example_qkv(device, seed=1, dtype=dt)[0]
+        do = _example_qkv(device, shape, seed=1, dtype=dt)[0]
         return q, k, v, o, lse, do
 
-    return (kernel_specs(_EX_B, _EX_S, _EX_S, _EX_H, _EX_H, _EX_D, True, dt,
-                         backward=True),
+    return (_enumerated(kernel_specs(B, S, S, H, Hk, D, True, dt, backward=True)),
             lambda q, k, v, o, lse, do: flash_attention_bwd(q, k, v, o, lse, do, True, scale),
             lambda q, k, v, o, lse, do: _flash_bwd_reference(q, k, v, o, lse, do, True, scale),
             args)
@@ -432,7 +546,7 @@ registry.register("flash_fwd_resident", _fwd_example(False), presets=_FLASH_PRES
                   dtypes=_EX_DTYPES)
 registry.register("flash_fwd_stream", _fwd_example(True), presets=_FLASH_PRESETS,
                   description="streaming flash forward: causal KV paging + "
-                              "online-softmax VMEM carry", tol=_FWD_TOL, dtypes=_EX_DTYPES)
+                              "online-softmax VMEM carry", tol=_FWD_TOL, dtypes=_STREAM_DTYPES)
 registry.register("flash_bwd_stream", _bwd_example, presets=_FLASH_PRESETS,
                   description="streaming flash backward (dk/dv + dq passes)", tol=_BWD_TOL,
-                  dtypes=_EX_DTYPES)
+                  dtypes=_STREAM_DTYPES)

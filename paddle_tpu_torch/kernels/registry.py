@@ -16,7 +16,10 @@ An entry whose kernels are instantiated per dtype lists its ``dtypes``
 weights; the first is the JAX registry's example), and its builder takes
 one of them: ``build(dtype)`` gives the specs of the instantiations that
 dtype launches and example arguments of it.  Checked without a dtype, the
-entry is verified at every one of them.
+entry is verified at every one of them.  A dtype may come again with an
+``@`` tag (``"bfloat16@base"``): the same instantiations at a second
+example, a production shape; the CLI checks it, and no wrapper's dtype key
+selects it for admission.
 
 Three consumers:
 

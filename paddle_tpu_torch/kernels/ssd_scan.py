@@ -38,10 +38,29 @@ from ..analysis.kernel_lint import BlockUse, KernelSpec, ScratchUse
 from . import _build, registry
 
 __all__ = ["ssd_chunk_outputs", "ssd_chunk_state", "ssd_scan_states", "ssd_scan_reference",
-           "ssd_recurrence_reference", "ssd_scan", "KERNEL_SHAPES"]
+           "ssd_recurrence_reference", "ssd_scan", "column_block"]
 
-# (P, N, L) the kernel is built for: ssd_8b_config and ssd_tiny_config
-KERNEL_SHAPES = ((64, 128, 128), (32, 16, 16))
+# what the kernel (csrc/ssd_scan.cu) is instantiated for: P split into column
+# blocks of the widest of these that divides it, one CTA each; N and L
+# (chunk) from these sets.  Every such (block, N, L) fits shared memory.
+COLUMN_BLOCKS = (64, 32, 8)
+KERNEL_N = (4, 8, 16, 32, 64, 128)
+KERNEL_L = (16, 32, 64, 128)
+
+
+def column_block(P: int, N: int, L: int) -> int:
+    """The column block the kernel runs ``(P, N, chunk L)`` with; raises
+    ``ValueError`` naming the limit a shape the kernel does not take
+    breaks."""
+    if N not in KERNEL_N:
+        raise ValueError(f"ssd_scan kernel: N={N} not in {KERNEL_N}")
+    if L not in KERNEL_L:
+        raise ValueError(f"ssd_scan kernel: chunk={L} not in {KERNEL_L}")
+    for pb in COLUMN_BLOCKS:
+        if P > 0 and P % pb == 0:
+            return pb
+    raise ValueError(f"ssd_scan kernel: P={P} is not a multiple of {COLUMN_BLOCKS[-1]} "
+                     f"(column blocks of {COLUMN_BLOCKS})")
 
 
 def ssd_chunk_outputs(s, x, b, c, la):
@@ -123,9 +142,7 @@ def ssd_recurrence_reference(x, b, c, la):
 def _launch(x, b, c, la, chunk: int):
     G, T, P = x.shape
     N = b.shape[-1]
-    if (P, N, chunk) not in KERNEL_SHAPES:
-        raise ValueError(f"ssd_scan kernel is built for (P, N, chunk) in {KERNEL_SHAPES}; "
-                         f"got ({P}, {N}, {chunk})")
+    column_block(P, N, chunk)
     for name, t in (("x", x), ("b", b), ("c", c), ("la", la)):
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"ssd_scan kernel: {name} must be contiguous, 16-byte aligned "
@@ -186,38 +203,46 @@ ssd_scan.launches = 0
 
 def kernel_spec(G: int, T: int, P: int, N: int, L: int,
                 chunk_axis: str = "arbitrary") -> KernelSpec:
-    """``ssd_scan_kernel``'s launch: grid (G,), one CTA a recurrence, and
-    the chunk loop inside the CTA as axis 1 (``chunk_axis``: declared
+    """``ssd_scan_kernel``'s launch: grid (G * P / PB,), one CTA a
+    (recurrence, column block), the blocks of one recurrence adjacent; the
+    chunk loop inside the CTA as axis 1 (``chunk_axis``: declared
     ``"parallel"`` it is the bug class the verifier refuses).  Scratch 0 is
-    the [N, P] state, carried across the chunk axis only; the rest are the
-    chunk's tiles (csrc/ssd_scan.cu Shape<L, N, P>)."""
+    the block's [N, PB] columns of the state, carried across the chunk axis
+    only; the rest are the chunk's tiles (csrc/ssd_scan.cu Shape<L, N,
+    PB>)."""
     f32 = torch.float32
+    pb = column_block(P, N, L)
+    nb = P // pb
     rt = min(L, 32)
 
-    def tok(name, width):
-        return BlockUse((G, T, width), f32, (1, L, width), lambda g, c: (g, c, 0), name=name)
+    def cols(name):     # x, y: the CTA's column block of each chunk row
+        return BlockUse((G, T, P), f32, (1, L, pb), lambda gb, c: (gb // nb, c, gb % nb),
+                        name=name)
+
+    def rows(name):     # b, c: whole rows, read by every column block
+        return BlockUse((G, T, N), f32, (1, L, N), lambda gb, c: (gb // nb, c, 0), name=name)
 
     return KernelSpec(
-        "ssd_scan_kernel", grid=(G, T // L),
-        inputs=[tok("x", P), tok("b", N), tok("c", N),
-                BlockUse((G, T), f32, (1, L), lambda g, c: (g, c), name="la")],
-        outputs=[tok("y", P),
-                 BlockUse((G, N, P), f32, (1, N, P), lambda g, c: (g, 0, 0), name="s_final")],
-        scratch=[ScratchUse((N, P), f32),            # the carried state S
-                 ScratchUse((L, P), f32),            # the chunk's x
+        "ssd_scan_kernel", grid=(G * nb, T // L),
+        inputs=[cols("x"), rows("b"), rows("c"),
+                BlockUse((G, T), f32, (1, L), lambda gb, c: (gb // nb, c), name="la")],
+        outputs=[cols("y"),
+                 BlockUse((G, N, P), f32, (1, N, pb), lambda gb, c: (gb // nb, 0, gb % nb),
+                          name="s_final")],
+        scratch=[ScratchUse((N, pb), f32),           # the carried state's columns
+                 ScratchUse((L, pb), f32),           # the chunk's x columns
                  ScratchUse((rt, N), f32),           # a row tile of C
                  ScratchUse((rt, L), f32),           # the row tile of M
                  ScratchUse((L, N + 1), f32),        # the chunk's B, rows padded
                  ScratchUse((2, L), f32)],           # log-decay prefix sum, state weights
         dimension_semantics=("parallel", chunk_axis),
         carried_scratch=[(0, frozenset({1}))],
-        cuda=("ssd_scan", 0, 0, P, L))
+        cuda=("ssd_scan", 0, 0, pb, N, L))
 
 
 def _registry_example():
-    # the JAX registry's G 2, T 128 at ssd_tiny_config's widths (P 32, N 16,
-    # chunk 16): the kernel is instantiated for the port's configs only
-    G, T, P, N, L = 2, 128, 32, 16, 16
+    # the JAX registry's example: G 2, T 128, P 8, N 4, chunk 64
+    G, T, P, N, L = 2, 128, 8, 4, 64
 
     def args(device):
         g = torch.Generator().manual_seed(0)

@@ -100,11 +100,14 @@ def _tile_rel_err(a, b, tile=64):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("causal,sq,sk", [(True, 200, 200), (False, 200, 200),
-                                          (True, 77, 200)])
+                                          (True, 77, 200), (True, 200, 77),
+                                          (True, 1000, 1000)])
 def test_flash_kernels_match_plain(cuda, dtype, d, causal, sq, sk):
     """Forward and both backward passes against the plain versions, with
     4 query heads over 2 kv-heads (a missing group sum in dK/dV shows) and
-    ragged tiles on both sides."""
+    ragged tiles on both sides; with Sq > Sk the first Sq - Sk rows see no
+    key (the mean of all of V, no gradient to their scores), and 1000 rows
+    walk many ragged tiles under the causal mask."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     g = torch.Generator(device=cuda).manual_seed(2)
@@ -220,8 +223,10 @@ def _ssd_operands(dev, G, T, P, N, seed, decay=0.1):
     return x, b, c, la
 
 
-# (P, N, L) of ssd_tiny_config and ssd_8b_config
-SSD_SHAPES = [(32, 16, 16), (64, 128, 128)]
+# (P, N, L) of ssd_tiny_config and ssd_8b_config; SSDConfig()'s defaults
+# (two column blocks a recurrence), bench.py's on-chip case and the JAX
+# registry's example (a column block of 8, N < 32)
+SSD_SHAPES = [(32, 16, 16), (64, 128, 128), (128, 64, 64), (128, 128, 128), (8, 4, 64)]
 
 
 @pytest.mark.parametrize("P,N,L", SSD_SHAPES)
@@ -238,8 +243,11 @@ def test_ssd_scan_kernel_matches_plain(cuda, P, N, L):
     # of the output's scale (read 1.25e-6 at the 8B shape)
     for a, r in ((y, y_ref), (s, s_ref)):
         torch.testing.assert_close(a, r, rtol=0, atol=1e-5 * float(r.abs().max()))
-    with pytest.raises(ValueError):
-        ts.ssd_scan(x[..., :16], b, c, la, chunk=L)     # a (P, N, L) it is not built for
+    with pytest.raises(ValueError, match="not a multiple of 8"):   # P + 4 columns
+        ts.ssd_scan(torch.cat([x, x[..., :4]], dim=-1), b, c, la, chunk=L)
+    wide = torch.zeros(*b.shape[:2], 256, device=cuda)
+    with pytest.raises(ValueError, match="N=256"):       # a state that cannot fit
+        ts.ssd_scan(x, wide, wide, la, chunk=L)
 
 
 @pytest.mark.parametrize("P,N,L", SSD_SHAPES)
@@ -259,6 +267,40 @@ def test_ssd_scan_zero_rows_are_exact_noops_on_the_card(cuda, P, N, L):
     y1, s1 = ts.ssd_scan(*pad, chunk=L)
     assert torch.equal(y0, y1[:, :2 * L]) and torch.equal(s0, s1)
     assert bool((y1[:, 2 * L:] == 0).all())
+
+
+def test_default_shaped_ssd_model_trains_on_the_card(cuda):
+    """SSDConfig()'s mixer shape (P 128, N 64, chunk 64) in a narrow model
+    (2 heads, 2 layers): a TrainStep step on the card launches the scan
+    kernel once a layer and gives the CPU's loss (the plain scan) on the
+    same weights."""
+    import numpy as np
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import ssd_scan as ts
+    from paddle_tpu_torch.models import (SSDForCausalLM, load_paddle_tpu_params,
+                                         to_paddle_tpu_params)
+    from paddle_tpu_torch.models.ssd import SSDConfig
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = SSDConfig(vocab_size=512, hidden_size=256, num_heads=2, num_hidden_layers=2,
+                    max_position_embeddings=256)
+    assert (cfg.head_dim, cfg.state_size, cfg.chunk_size) == (128, 64, 64)
+    cpu = SSDForCausalLM(cfg, device="cpu", seed=0)
+    gpu = SSDForCausalLM(cfg, device=cuda, seed=0)
+    load_paddle_tpu_params(gpu, to_paddle_tpu_params(cpu))
+    ids = torch.from_numpy(np.random.default_rng(0).integers(1, 512, (2, 128)))
+    losses = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda)):
+        step = TrainStep(model, lambda m, x: m.compute_loss(m(x), x),
+                         AdamW(learning_rate=1e-3, weight_decay=0.1,
+                               parameters=model.parameters()))
+        before = ts.ssd_scan.launches
+        losses.append(float(step(ids.to(dev))))
+        launched = ts.ssd_scan.launches - before
+    assert launched == 2                              # the card's step: once a layer
+    # fp32 on both sides, sums in another order (cuBLAS, the scan kernel)
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+    assert all(np.isfinite(p.detach().cpu().numpy()).all() for p in gpu.parameters())
 
 
 def test_ssd_scan_gradients_on_the_card(cuda):

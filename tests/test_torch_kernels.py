@@ -5,6 +5,8 @@ mode where it has one) and the port's wrapper, which on CPU tensors runs
 its plain PyTorch version.  fp32 throughout; tolerances are stated per test.
 """
 
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ import torch
 from paddle_tpu.kernels import decode_attention as jda
 from paddle_tpu.kernels import rms_norm as jrms
 from paddle_tpu.kernels import rope as jrope
+from paddle_tpu_torch.analysis import kernel_lint as tlint
 from paddle_tpu_torch.kernels import adamw as tadamw
 from paddle_tpu_torch.kernels import decode_attention as tda
 from paddle_tpu_torch.kernels import flash_attention as tfa
@@ -247,3 +250,35 @@ def test_paged_chunk_attention_matches_jax_under_nan_trash():
     out = tda.paged_chunk_attention(*(_t(a) for a in (q, kp, vp, tbl, ctx)))
     assert np.isfinite(out.numpy()).all()
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+# (g) the flash kernels' build inputs and specs ------------------------------
+
+def test_wgmma_header_is_generated():
+    """csrc/wgmma.cuh is the generator's output (the wgmma wrappers list
+    every accumulator register, so they are written out, not hand-kept)."""
+    from paddle_tpu_torch.kernels import _build, _wgmma_gen
+
+    assert (_build.CSRC / "wgmma.cuh").read_text() == _wgmma_gen.header()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_specs_walk_every_key_for_rows_that_see_none(dtype):
+    """Causal with Sq > Sk: a q-tile holding a row that sees no key walks
+    every k-tile (the row is the mean of all of V), and the dK/dV pass
+    starts at q-tile 0 for every k-tile; with Sq <= Sk the walk ends at the
+    diagonal.  The maps the specs declare are the kernels' walks."""
+    B, H, Hk, D = 1, 2, 1, 64
+    assert tfa._kv_tiles(0, 128, 64, 200, 77, True) == 2           # every k-tile
+    assert tfa._kv_tiles(0, 128, 64, 200, 200, True) == 2          # rows 0..127
+    assert tfa._kv_tiles(128, 128, 64, 200, 200, True) == 4
+    assert tfa._kv_tiles(0, 64, 64, 77, 200, True) == 3            # diagonal offset 123
+    fwd, = tfa.kernel_specs(B, 200, 77, H, Hk, D, True, dtype)
+    kmap = fwd.inputs[1].index_map
+    first_q = [pt for pt in itertools.product(*map(range, fwd.grid))
+               if fwd.inputs[0].index_map(*pt)[1] == 0]
+    assert {kmap(*pt)[1] for pt in first_q} == set(range(-(-77 // fwd.inputs[1].block_shape[1])))
+    dkdv, _ = tfa.kernel_specs(B, 200, 77, H, Hk, D, True, dtype, backward=True)
+    qmap = dkdv.inputs[2].index_map
+    assert min(qmap(*pt)[1] for pt in itertools.product(*map(range, dkdv.grid))) == 0
+    assert not tlint.lint_kernel_spec(fwd) and not tlint.lint_kernel_spec(dkdv)

@@ -54,6 +54,19 @@ def test_plain_scan_matches_jax_reference(chunk):
     np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=1e-5, atol=1e-5)
 
 
+def test_plain_scan_matches_jax_reference_at_default_widths():
+    """SSDConfig()'s widths (P 128, N 64, chunk 64), which the kernel now
+    runs as two column blocks, at a small G and T."""
+    ops = _operands(G=2, T=128, N=64, P=128, seed=1)
+    y_j, s_j = jscan.ssd_scan_reference(*map(jnp.asarray, ops), chunk=64)
+    y_t, s_t = tscan.ssd_scan_reference(*_t(ops), 64)
+    # fp32 sums of up to 64 + 64 products a term, in another order: y reaches
+    # ~126 here, so atol 1e-4 is ~1e-6 of its scale (read 3.8e-5)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=1e-5, atol=1e-4)
+    assert tscan.column_block(128, 64, 64) == 64
+
+
 def test_plain_scan_matches_recurrence_and_is_chunk_size_invariant():
     ops = _t(_operands())
     y8, s8 = tscan.ssd_scan_reference(*ops, 8)

@@ -99,6 +99,36 @@ def test_flash_plain_matches_pallas_streamed_variants(monkeypatch, causal):
     _flash_case(256, 256, causal, seed=2)
 
 
+@pytest.mark.parametrize("sq,sk", [(200, 77), (130, 64)])
+def test_flash_plain_matches_jax_reference_causal_longer_queries(sq, sk):
+    """Causal with Sq > Sk: the first Sq - Sk query rows see no key.  JAX's
+    flash_attention takes its reference path at these shapes (the one-shot
+    softmax of _attention_reference, differentiated by jax.vjp): such a row
+    is the mean of all of V and passes no gradient to q or k.  The port's
+    plain forward and backward (the kernels' plain versions) must agree."""
+    rng = np.random.default_rng(5)
+    B, H, Hk, D = 2, 4, 2, 64
+    q, do = (rng.standard_normal((B, sq, H, D), dtype=np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((B, sk, Hk, D), dtype=np.float32) for _ in range(2))
+    o_j, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention(q, k, v, causal=True),
+                       *(jnp.asarray(x) for x in (q, k, v)))
+    g_j = vjp(jnp.asarray(do))
+    qt, kt, vt = _t(q, True), _t(k, True), _t(v, True)
+    o_t = tfa.flash_attention(qt, kt, vt, causal=True)
+    g_t = torch.autograd.grad(o_t, (qt, kt, vt), _t(do))
+    blind = sq - sk
+    mean_v = np.repeat(v.mean(axis=1, keepdims=True), H // Hk, axis=2)
+    # fp32 both sides: one softmax over at most sk keys, sums in another order
+    np.testing.assert_allclose(o_t.detach().numpy()[:, :blind], np.broadcast_to(
+        mean_v, (B, blind, H, D)), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(o_t.detach().numpy(), np.asarray(o_j), rtol=2e-5, atol=2e-5)
+    assert not g_t[0][:, :blind].any()
+    for name, a, b in zip(("dq", "dk", "dv"), g_t, g_j):
+        # grads sum up to 200 rows (dk, dv over the group's 2 heads too)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+
+
 # (b) RMSNorm gradients against jax.grad through the Pallas forward
 
 def test_rms_norm_grads_match_jax():
