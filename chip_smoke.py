@@ -9,7 +9,7 @@ and serve Llama-3-8B-shaped and SSD-8B requests through the port's Engine.
     python3 chip_smoke.py --layers 8       # cut Llama serving depth (never width)
     python3 chip_smoke.py --phases card,build,kernels,train
     python3 chip_smoke.py --phases card,build,kernels,longctx_train
-    python3 chip_smoke.py --phases card,build,kernels,parity,fuse_train
+    python3 chip_smoke.py --phases card,build,kernels,kernel_gate,parity,fuse_train
     python3 chip_smoke.py --phases card,build,kernels,parity,ssd_train,ssd_serve
     python3 chip_smoke.py --phases card,build,kernels,kernel_gate
 
@@ -32,6 +32,11 @@ Phases:
              its autograd, elementwise and per 64-row tile, with the seam's
              stock chain timed beside it, and three planted faults (gate
              and up swapped, the last K tile dropped, a row's RMS skipped);
+             each bf16 GEMM launch of the sites at `base` alone (ms,
+             TFLOP/s, bound, registers and spill bytes, torch.matmul on
+             the same operands as its yardstick) and the two preparation
+             passes (an fp32 weight rounded, the head's rows normed: bit
+             for bit their plain versions);
              the gate's two seeded-defect kernels, exact on the part their
              defect leaves defined
   3b kernel_gate  the kernel gate (kernels/registry.py, analysis/
@@ -1004,6 +1009,118 @@ def _site_case(gen, name, M, dtype, transpose=False, timed=False):
     return recs
 
 
+def _gemm_products(gen):
+    """Each bf16 GEMM launch of the sites at `base` timed on its own, on
+    operands already in bf16 (the weights rounded, the head's rows normed):
+    ms, TFLOP/s, bound, the card's registers and spill bytes, and one
+    torch.matmul on the same operands as the yardstick (``library_ms``; the
+    port never calls it); each product also held to the fusion checks
+    against its plain version.  Then the two preparation passes (the
+    head's fp32 weight rounded, the head's rows normed), against their
+    plain versions bit for bit, with the torch cast as their yardstick.
+    Returns ``{site: [record, ...]}``."""
+    import torch
+    from paddle_tpu_torch.kernels import _build, emit
+    from paddle_tpu_torch.kernels import fused_gemm as fg
+
+    M, H, I, V = FUSE_M, FUSE_H, FUSE_I, FUSE_V
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rnd(*shape, std=1.0, dt=bf):
+        return (std * torch.randn(*shape, generator=gen, device="cuda")).to(dt)
+
+    x, dy, act = rnd(M, H), rnd(M, H), rnd(M, I)
+    d_gu, normed, d_logits = rnd(M, 2 * I), rnd(M, H), rnd(M, V)
+    wgu, wd, wh = rnd(H, 2 * I, std=0.02), rnd(I, H, std=0.02), rnd(H, V, std=0.02)
+    # (site, product, launch, plain, yardstick, layout (a_t, b_t, epilogue), M, N, K, bytes)
+    S, SB = fg._EPI_SWIGLU, fg._EPI_SWIGLU_BWD
+    products = [
+        ("fuse_swiglu_mlp", "gate_up+swiglu", lambda: fg.swiglu_gate_up(x, wgu, I),
+         lambda: fg.swiglu_gate_up_reference(x, wgu, I), lambda: torch.matmul(x, wgu),
+         (0, 0, S), M, I, H, 2 * (M * H + H * 2 * I + M * I)),
+        ("fuse_swiglu_mlp", "down", lambda: fg.matmul(act, wd),
+         lambda: fg.matmul_reference(act, wd), lambda: torch.matmul(act, wd),
+         (0, 0, 0), M, H, I, 2 * (M * I + I * H + M * H)),
+        ("fuse_swiglu_mlp_bwd", "d_act", lambda: fg.matmul(dy, wd, b_t=True),
+         lambda: fg.matmul_reference(dy, wd, b_t=True), lambda: torch.matmul(dy, wd.T),
+         (0, 1, 0), M, I, H, 2 * (M * H + I * H + M * I)),
+        ("fuse_swiglu_mlp_bwd", "gate_up+swiglu_bwd",
+         lambda: fg.swiglu_gate_up_bwd(x, wgu, act, I),
+         lambda: fg.swiglu_gate_up_bwd_reference(x, wgu, act, I), lambda: torch.matmul(x, wgu),
+         (0, 0, SB), M, I, H, 2 * (M * H + H * 2 * I + 2 * M * I + M * 2 * I)),
+        ("fuse_swiglu_mlp_bwd", "d_w_down", lambda: fg.matmul(act, dy, a_t=True, out_dtype=f32),
+         lambda: fg.matmul_reference(act, dy, a_t=True, out_dtype=f32),
+         lambda: torch.matmul(act.T, dy), (1, 0, 0), I, H, M, 2 * (M * I + M * H) + 4 * I * H),
+        ("fuse_swiglu_mlp_bwd", "d_hidden", lambda: fg.matmul(d_gu, wgu, b_t=True),
+         lambda: fg.matmul_reference(d_gu, wgu, b_t=True), lambda: torch.matmul(d_gu, wgu.T),
+         (0, 1, 0), M, H, 2 * I, 2 * (M * 2 * I + H * 2 * I + M * H)),
+        ("fuse_swiglu_mlp_bwd", "d_w_gate_up",
+         lambda: fg.matmul(x, d_gu, a_t=True, out_dtype=f32),
+         lambda: fg.matmul_reference(x, d_gu, a_t=True, out_dtype=f32),
+         lambda: torch.matmul(x.T, d_gu), (1, 0, 0), H, 2 * I, M,
+         2 * (M * H + M * 2 * I) + 4 * H * 2 * I),
+        ("fuse_rms_norm_head", "head", lambda: fg.matmul(normed, wh),
+         lambda: fg.matmul_reference(normed, wh), lambda: torch.matmul(normed, wh),
+         (0, 0, 0), M, V, H, 2 * (M * H + H * V + M * V)),
+        ("fuse_rms_norm_head_bwd", "d_normed", lambda: fg.matmul(d_logits, wh, b_t=True),
+         lambda: fg.matmul_reference(d_logits, wh, b_t=True),
+         lambda: torch.matmul(d_logits, wh.T), (0, 1, 0), M, H, V, 2 * (M * V + H * V + M * H)),
+        ("fuse_rms_norm_head_bwd", "d_w_head",
+         lambda: fg.matmul(normed, d_logits, a_t=True, out_dtype=f32),
+         lambda: fg.matmul_reference(normed, d_logits, a_t=True, out_dtype=f32),
+         lambda: torch.matmul(normed.T, d_logits), (1, 0, 0), H, V, M,
+         2 * (M * H + M * V) + 4 * H * V),
+    ]
+    out = {}
+    code = _build.dtype_code(bf)
+    for site, name, launch, plain, yard, (a_t, b_t, epi), m, n, k, nbytes in products:
+        got, ref = emit._as_tuple(launch()), emit._as_tuple(plain())
+        for g, r in zip(got, ref):
+            check(not _fuse_rejects(g, r, False),
+                  f"{name} at base: max err {max_err(g, r)} (max |plain| "
+                  f"{float(r.float().abs().max())}), tile norm err {rows_tile_err(g, r)}")
+        flops = 2 * m * n * k * (2 if epi else 1)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        ms = time_ms(launch)
+        at = _build.kernel_attributes("fused_gemm", 2, code, 0,
+                                      a_t | (1 - b_t) << 1 | epi << 2)
+        rec = {"product": name, "M": m, "N": n, "K": k,
+               "layout": ("T" if a_t else "N") + ("T" if b_t else "N"),
+               "epilogue": ("store", "swiglu", "swiglu_bwd")[epi], "gflop": flops / 1e9,
+               "ms": ms, "tflops": flops / ms / 1e9, "bound_ms": b_ms, "bound_by": b_by,
+               "of_bound": b_ms / ms, "library_ms": time_ms(yard),
+               "library": "torch.matmul of the same bf16 operands (no epilogue)",
+               "max_abs_err": max(max_err(g, r) for g, r in zip(got, ref)),
+               "registers": at["registers"], "spill_bytes": at["local_bytes"],
+               "smem_bytes": at["static_smem"] + at["dynamic_smem"]}
+        log(f"fused GEMM {site} {name}: {json.dumps(rec)}")
+        out.setdefault(site, []).append(rec)
+    w32 = torch.randn(H, V, generator=gen, device="cuda")
+    r = 0.5 + torch.rand(M, generator=gen, device="cuda")
+    w_norm = 1 + 0.1 * torch.randn(H, generator=gen, device="cuda")
+    passes = [("fuse_rms_norm_head", "round w_head (fp32 [2048, 32000])",
+               lambda: fg.to_compute(w32, bf), lambda: w32.to(bf), H * V * 6, (0, 0)),
+              ("fuse_rms_norm_head", "normed rows ([6144, 2048] bf16)",
+               lambda: fg._prep(x, (r, w_norm, "a")),
+               lambda: ((x.float() * r[:, None]) * w_norm).to(bf), M * H * 4 + M * 4 + H * 4,
+               (code, 1))]
+    for site, name, launch, plain, nbytes, (dt, scale) in passes:
+        got, ref = launch(), plain()
+        check(torch.equal(got, ref), f"the preparation pass {name} is not bitwise its plain version")
+        b_ms, b_by = bound(nbytes, 0)
+        at = _build.kernel_attributes("fused_gemm", 3, dt, scale)
+        rec = {"product": f"prep_kernel: {name}", "ms": time_ms(launch), "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": time_ms(plain),
+               "library": "the torch ops of the plain version", "max_abs_err": 0.0,
+               "registers": at["registers"], "spill_bytes": at["local_bytes"]}
+        rec["of_bound"] = b_ms / rec["ms"]
+        log(f"fused GEMM {site} {name}: {json.dumps(rec)}")
+        out[site].append(rec)
+    del x, dy, act, d_gu, normed, d_logits, wgu, wd, wh, w32
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_fuse_kernels(gen):
     """Every fusion site's kernels at `base` (timed), at a ragged row count
     (1000 rows, not a multiple of the 128-row tile), the tied head, and in
@@ -1025,6 +1142,8 @@ def phase_fuse_kernels(gen):
     for name in ("fuse_swiglu_mlp", "fuse_rms_norm_head"):
         cases[name][0]["planted_faults"] = faults
     torch.cuda.empty_cache()
+    for site, recs in _gemm_products(gen).items():
+        cases[site][0]["gemm_products"] = recs
     return cases
 
 
@@ -1256,7 +1375,8 @@ ADMITTED_BY_PATH = {
     "generate": {("decode_mmha", "float32"), ("decode_mmha_fused", "float32")},
     "train": {(n, "float32") for n in (*_FLASH_ENTRIES, "adamw_fused")},
     "fused_train": {(n, dt) for n in _SITE_ENTRIES
-                    for dt in ("float32", "bfloat16+float32", "bfloat16")},
+                    for dt in ("float32", "bfloat16+float32", "bfloat16",
+                               "bfloat16+float32@base")},
     "train_bf16": {(n, "bfloat16") for n in _FLASH_ENTRIES} | {("rms_norm", "bfloat16+float32")},
 }
 
@@ -1797,8 +1917,8 @@ def _profile(fn, label, ranges=()):
     log(f"profile: {label}: wall {wall_ms:.3f} ms, kernels {busy_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.1f}% of wall)")
     # first match wins: the fusion sites' kernels before cuBLAS and RMSNorm
-    groups = {"fusion sites": ("gemm_kernel<", "row_rms_kernel", "add_rms_norm_",
-                               "dw_reduce_kernel"),
+    groups = {"fusion sites": ("gemm_kernel<", "gemm_tc_kernel<", "prep_kernel<",
+                               "row_rms_kernel", "add_rms_norm_", "dw_reduce_kernel"),
               "flash": ("flash_",), "gemm (cuBLAS)": ("nvjet", "gemm", "cutlass"),
               "adamw": ("adamw_",), "rms_norm": ("rms_norm_",), "decode": ("decode_",),
               "ssd_scan": ("ssd_scan",)}

@@ -87,7 +87,7 @@ from .findings import Report
 __all__ = [
     "BlockUse", "ScratchUse", "KernelSpec", "DEFAULT_SMEM_BUDGET", "ENUM_CAP",
     "KRN_CODES", "Report", "check_kernel", "cuda_semantics", "itemsize", "lint_kernel_spec",
-    "sentinel_outputs",
+    "sentinel_outputs", "tabulated",
 ]
 
 # H100: the most shared memory one CTA may opt into (227 KiB)
@@ -197,6 +197,20 @@ def cuda_semantics(n_grid: int, n_loops: int = 0) -> Tuple[str, ...]:
 # ---------------------------------------------------------------------------
 # index-map resolution
 # ---------------------------------------------------------------------------
+
+def tabulated(specs):
+    """``specs`` with each callable index map over a grid larger than
+    ``ENUM_CAP`` given as its table of every grid point, so the static leg
+    checks a production-shape example in full."""
+    for spec in specs:
+        if math.prod(spec.grid) <= ENUM_CAP:
+            continue
+        points = list(itertools.product(*map(range, spec.grid)))
+        for bu in spec.inputs + spec.outputs:
+            if callable(bu.index_map):
+                bu.index_map = ("table", {pt: tuple(bu.index_map(*pt)) for pt in points})
+    return specs
+
 
 def _resolve_index_map(bu: BlockUse, grid: Tuple[int, ...]):
     """Normalize ``bu.index_map`` to ("affine", dims) / ("table", images) /

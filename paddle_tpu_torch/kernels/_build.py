@@ -79,6 +79,8 @@ SIGNATURES = {
         "fused_gemm_launch": (P, P, P, P, P, P, P, I, I, I, L, L, L, I, I, I, I, I, I, I, P),
         # x, r, rows, d, eps, dtype, stream
         "row_rms_launch": (P, P, I, I, F, I, P),
+        # x, rs, cs, out, rows, cols, x_dtype, stream
+        "prep_launch": (P, P, P, P, I, I, I, P),
     },
     "add_rms_norm": {
         # x, h, w, s, y, rows, d, eps, dtype, w_dtype, stream
@@ -117,8 +119,14 @@ GEOMETRY = {
         **{f"FLASH_DQ_Q_ROWS_D{d}": 128 for d in (32, 64, 128, 256)},
         **{f"FLASH_DQ_K_ROWS_D{d}": 32 if d == 256 else 64 for d in (32, 64, 128, 256)},
         "FLASH_FWD_STAGES": 2, "FLASH_BWD_STAGES": 2},
-    # CTA tile and K step; the epilogue's fp32 staging tile row stride
-    "fused_gemm": {"GEMM_BM": 128, "GEMM_BN": 128, "GEMM_BK": 32, "GEMM_LDC": 128 + 4},
+    # fp32 (CUDA cores): CTA tile and K step, the epilogue's fp32 staging
+    # tile row stride; bf16 (wgmma): CTA tile (two consumer warpgroups of 64
+    # rows; SwiGLU: half the columns each of gate and up), K step (one
+    # 128-byte swizzle span) and the stages of the TMA ring; rows a CTA of
+    # the preparation pass
+    "fused_gemm": {"GEMM_BM": 128, "GEMM_BN": 128, "GEMM_BK": 32, "GEMM_LDC": 128 + 4,
+                   "GEMM_TC_BM": 128, "GEMM_TC_BN": 256, "GEMM_TC_BK": 64, "GEMM_TC_STAGES": 4,
+                   "GEMM_PREP_ROWS": 8},
     "injected": {"INJECTED_TILE_ROWS": 8, "INJECTED_TILE_COLS": 128},
 }
 # the build variants: name -> (source, extra defines)

@@ -1,4 +1,5 @@
-// Tiled GEMM with the fusion sites' prologues and epilogues, for Hopper.
+// The fusion sites' matrix products for Hopper, with their prologues and
+// epilogues.
 //
 // Replaces the matrix products inside the emitted Pallas kernels of
 // paddle_tpu/kernels/emit.py: _row_block_call (a site's forward, the jnp
@@ -10,21 +11,20 @@
 //                      bwd  d_act = dY Wd^T; gate_up again (SwiGLU-backward
 //                           epilogue: d_gu and act); dWd = act^T dY;
 //                           dX = d_gu Wgu^T; dWgu = X^T d_gu
-//   fuse_rms_norm_head fwd  row_rms pre-pass; logits = (RMS prologue X) W
+//   fuse_rms_norm_head fwd  row_rms; logits = (RMS prologue X) W
 //                      bwd  d_normed = dL W^T; row_rms; dW = normed^T dL
 //                           (RMS prologue on the transposed operand); the
 //                           norm's backward in add_rms_norm.cu
 //
-// C[M, N] = A[M, K] B[K, N] over strided operands: A is K-contiguous (row
+// C[M, N] = A[M, K] B[K, N] over stored operands: A is K-contiguous (row
 // major) or M-contiguous (a transposed view), B is N-contiguous or
-// K-contiguous, so one template covers NN (X W), NT (dY W^T, the tied head
-// X E^T) and TN (X^T dY, the weight gradients).  Every operand is read as
-// rows ("outer") of a contiguous dimension ("inner", a feature width that is
-// a multiple of 8); the row count of the model (batch x sequence) is always
-// an outer dimension, so it may be ragged.
+// K-contiguous, so one source covers NN (X W), NT (dY W^T, the tied head
+// X E^T), TN (X^T dY, the weight gradients) and TT.  Every operand's
+// contiguous dimension is a multiple of 8; the row count of the model
+// (batch x sequence) is always an outer dimension, so it may be ragged.
 //
 // Rounding follows torch's autograd of the plain site references exactly:
-// an fp32 weight is rounded to the compute dtype as it is loaded (the
+// an fp32 weight is rounded to the compute dtype before its product (the
 // reference's .to(hidden.dtype)); every product is summed in fp32 and
 // rounded once to the compute dtype; a weight gradient is that bf16 product
 // widened to fp32 (the gradient of the cast); SwiGLU rounds gate, up,
@@ -34,36 +34,51 @@
 //
 // Bound: operations.  At `base` (6144 rows, hidden 2048, intermediate 5632,
 // vocab 32000) every product is far above the card's ~295 flop/byte balance
-// point: the MLP forward does 425 GFLOP against ~135 MB.
-// Design (a first kernel, right before fast): CTA tile 128 x 128, K step 32,
-// 256 threads; the next K tile is loaded into registers (16-byte vector
-// loads, converted to the compute dtype, scaled by the prologue and packed
-// there) while the current one is multiplied out of shared memory, double
-// buffered, one barrier a step; two bf16 CTAs share an SM (a K step of 64
-// needs more registers than that leaves, and spilled).
-//   bf16: 8 warps as 2 x 4, each a 64 x 32 block of mma.sync m16n8k16 tiles
-//     with fp32 accumulators; shared tiles keep the source orientation and
-//     ldmatrix reads the fragments, transposed where the orientation is the
-//     other one (wmma's fragment loads compiled to plain shared loads here,
-//     and ran at an eighth of the rate).
-//   fp32: 16 x 16 threads each own an 8 x 8 block, fp32 FMAs on CUDA cores
-//     (true fp32, no TF32).
-// The accumulators then pass through shared memory to an epilogue that
-// writes 8 consecutive outputs a thread.  SwiGLU CTAs hold the gate and the
-// up columns of the same 64 outputs in the two halves of the tile, so gu
-// [M, 2I] is never written in the forward.  The down product reads act back
-// from device memory: one 128-row block of act at I = 5632 is 1.4 MB, far
-// more than a CTA's 227 KB of shared memory.  TMA, wgmma and warp
-// specialisation are work for later.
+// point: the head's product does 805 GFLOP against ~420 MB.
+//
+// bf16 (the training path), three kernels:
+//   prep_kernel: the operands as the main loop reads them, each written
+//     once to device memory in bf16: an fp32 weight rounded (round to
+//     nearest even, the bits of .to(torch.bfloat16)), or the RMS prologue's
+//     normed rows.  Byte-bound passes, so the GEMM's loop moves no operand
+//     through registers.
+//   gemm_tc_kernel: one CTA an output tile of 128 rows x 256 columns
+//     (SwiGLU: 128 output columns, read as a gate box and an up box), warp
+//     specialised: a producer warpgroup (one thread) issues TMA loads of
+//     64-deep K steps into a ring of GEMM_TC_STAGES shared-memory stages,
+//     128-byte swizzled, gated by full / empty mbarrier pairs; two consumer
+//     warpgroups each run wgmma m64 x 256 x 16 (SwiGLU: two m64 x 128 chains,
+//     gate and up, into two accumulator arrays, so element i of one and of
+//     the other are the same output) on 64 of the rows, with the operands'
+//     orientation given by wgmma's transpose immediates: K-major tiles are
+//     one TMA box of [rows][64], MN-major ones boxes of [64 K rows][64].
+//     The producer gives its registers to the consumers (setmaxnreg).  The
+//     epilogue runs on the accumulators in registers: rounding, SwiGLU and
+//     its backward pairwise per thread, then the four lanes that share a
+//     row exchange pairs by shuffles so that each stores (and, for the
+//     SwiGLU backward, loads d_act as) 16 contiguous bytes, masked at M
+//     and N.
+//   row_rms_kernel: the RMS prologue's fp32 row statistic (also fp32).
+// fp32 (the parity path): the CUDA-core kernel gemm_kernel, CTA tile 128 x
+// 128, K step 32, 256 threads each owning an 8 x 8 block of fp32 FMAs (true
+// fp32, no TF32); the next K tile is loaded into registers (16-byte loads,
+// a bf16 B widened, the prologue applied) while the current one is
+// multiplied out of shared memory, double buffered, one barrier a step; the
+// accumulators pass through shared memory to an epilogue that writes 8
+// consecutive outputs a thread.
+// Every output element has one writer and each CTA sums its K range in one
+// order, so two launches are bit-equal.
+#include <string.h>
+
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-// geometry: -D defines from _build.GEOMETRY
-constexpr int BM = GEMM_BM, BN = GEMM_BN, BK = GEMM_BK, NT = 256;
-constexpr int LDC = GEMM_LDC;   // fp32 staging tile of the epilogue
+using bf16 = __nv_bfloat16;
 
 enum Epilogue { kStore = 0, kSwiglu = 1, kSwigluBwd = 2 };
 
@@ -73,7 +88,7 @@ struct Params {
   void* c;           // kStore: C [M, N]; kSwiglu / kSwigluBwd: act [M, N]
   void* c2;          // kSwigluBwd: d_gu [M, 2N]
   const void* aux;   // kSwigluBwd: d_act [M, N]
-  const float* rs;   // RMS prologue: inverse RMS of each source row (or null)
+  const float* rs;   // RMS prologue (fp32 kernel): inverse RMS of each source row (or null)
   const float* cs;   // RMS prologue: norm weight of each source column
   int M, N, K;       // dual epilogues: N = I, and B has 2I columns
   long long lda, ldb, ldc;
@@ -83,9 +98,7 @@ struct Params {
   int m_fast;        // blockIdx.x walks the M tiles (B is the larger operand)
 };
 
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_float(from_float<T>(v));
-}
+__device__ __forceinline__ float round_bf16(float v) { return to_float(from_float<bf16>(v)); }
 
 __device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
 
@@ -99,9 +112,9 @@ __device__ __forceinline__ void load8<float>(const float* p, float (&f)[8]) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 template <>
-__device__ __forceinline__ void load8<__nv_bfloat16>(const __nv_bfloat16* p, float (&f)[8]) {
+__device__ __forceinline__ void load8<bf16>(const bf16* p, float (&f)[8]) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&u);
+  const bf16* v = reinterpret_cast<const bf16*>(&u);
 #pragma unroll
   for (int j = 0; j < 8; ++j) f[j] = __bfloat162float(v[j]);
 }
@@ -114,35 +127,24 @@ __device__ __forceinline__ void store8<float>(float* p, const float (&f)[8]) {
   reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
 }
 template <>
-__device__ __forceinline__ void store8<__nv_bfloat16>(__nv_bfloat16* p, const float (&f)[8]) {
+__device__ __forceinline__ void store8<bf16>(bf16* p, const float (&f)[8]) {
   uint4 u;
-  __nv_bfloat16* v = reinterpret_cast<__nv_bfloat16*>(&u);
+  bf16* v = reinterpret_cast<bf16*>(&u);
 #pragma unroll
   for (int j = 0; j < 8; ++j) v[j] = __float2bfloat16(f[j]);
   *reinterpret_cast<uint4*>(p) = u;
 }
 
-__device__ __forceinline__ uint32_t pack2(float a, float b) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);   // round to nearest even
-  return *reinterpret_cast<uint32_t*>(&h);
-}
+// ---------------------------------------------------------------------------
+// fp32: the CUDA-core kernel
+// ---------------------------------------------------------------------------
 
-// 8 consecutive values of T held in registers, packed
-template <typename T> struct Chunk;
-template <> struct Chunk<__nv_bfloat16> {
-  uint4 u;
-  __device__ __forceinline__ void set(const float (&f)[8]) {
-    u = make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]), pack2(f[6], f[7]));
-  }
-  __device__ __forceinline__ void copy(const __nv_bfloat16* src) {
-    u = *reinterpret_cast<const uint4*>(src);
-  }
-  __device__ __forceinline__ void zero() { u = make_uint4(0u, 0u, 0u, 0u); }
-  __device__ __forceinline__ void put(__nv_bfloat16* dst) const {
-    *reinterpret_cast<uint4*>(dst) = u;
-  }
-};
-template <> struct Chunk<float> {
+// geometry: -D defines from _build.GEOMETRY
+constexpr int BM = GEMM_BM, BN = GEMM_BN, BK = GEMM_BK, NT = 256;
+constexpr int LDC = GEMM_LDC;   // fp32 staging tile of the epilogue
+
+// 8 consecutive fp32 values held in registers
+struct Chunk {
   float4 a, b;
   __device__ __forceinline__ void set(const float (&f)[8]) {
     a = make_float4(f[0], f[1], f[2], f[3]);
@@ -161,17 +163,16 @@ template <> struct Chunk<float> {
 
 // One operand tile [OUTER][INNER] in the source's orientation, held in
 // shared memory with rows padded by 16 bytes.  Each thread moves chunks of
-// 8 inner elements: global -> registers (converted to T and packed, the
-// prologue applied) -> shared.  DUAL splits the inner range in two halves
-// read from columns i0 .. and n_inner + i0 .. (the gate and up halves of
-// gate_up).
-template <typename T, typename TS, int OUTER, int INNER, bool DUAL>
+// 8 inner elements: global -> registers (widened to fp32, the prologue
+// applied) -> shared.  DUAL splits the inner range in two halves read from
+// columns i0 .. and n_inner + i0 .. (the gate and up halves of gate_up).
+template <typename TS, int OUTER, int INNER, bool DUAL>
 struct Stage {
-  static constexpr int LD = INNER + 16 / sizeof(T);
+  static constexpr int LD = INNER + 4;
   static constexpr int SIZE = OUTER * LD;
   static constexpr int PER = OUTER * INNER / 8 / NT;
   static_assert(PER * NT * 8 == OUTER * INNER, "tile not covered");
-  Chunk<T> v[PER];
+  Chunk v[PER];
 
   __device__ __forceinline__ void load(const TS* src, long long ld, int o0, int i0, int n_outer,
                                        int n_inner, const float* rs, const float* cs) {
@@ -194,8 +195,8 @@ struct Stage {
         continue;
       }
       const TS* at = src + static_cast<long long>(go) * ld + gi;
-      if (std::is_same<TS, T>::value && rs == nullptr) {
-        v[p].copy(reinterpret_cast<const T*>(at));
+      if (std::is_same<TS, float>::value && rs == nullptr) {
+        v[p].copy(reinterpret_cast<const float*>(at));
         continue;
       }
       float f[8];
@@ -211,7 +212,7 @@ struct Stage {
     }
   }
 
-  __device__ __forceinline__ void store(T* dst) const {
+  __device__ __forceinline__ void store(float* dst) const {
 #pragma unroll
     for (int p = 0; p < PER; ++p) {
       const int c = threadIdx.x + p * NT;
@@ -227,14 +228,14 @@ template <bool BNC> struct BTile {  // B(k, n): N-contiguous [BK][BN] or K-conti
   static constexpr int OUTER = BNC ? BK : BN, INNER = BNC ? BN : BK;
 };
 
-template <typename T, typename TB, bool AK, bool BNC, bool DUAL>
+template <typename TB, bool AK, bool BNC, bool DUAL>
 struct Gemm {
-  using SA = Stage<T, T, ATile<AK>::OUTER, ATile<AK>::INNER, false>;
-  using SB = Stage<T, TB, BTile<BNC>::OUTER, BTile<BNC>::INNER, DUAL>;
-  static constexpr int STAGE_BYTES = 2 * (SA::SIZE + SB::SIZE) * static_cast<int>(sizeof(T));
+  using SA = Stage<float, ATile<AK>::OUTER, ATile<AK>::INNER, false>;
+  using SB = Stage<TB, BTile<BNC>::OUTER, BTile<BNC>::INNER, DUAL>;
+  static constexpr int STAGE_BYTES = 2 * (SA::SIZE + SB::SIZE) * 4;
   static constexpr int C_BYTES = BM * LDC * 4;
   static constexpr int SMEM = STAGE_BYTES > C_BYTES ? STAGE_BYTES : C_BYTES;
-  static_assert(SA::SIZE * sizeof(T) % 128 == 0 && SB::SIZE * sizeof(T) % 128 == 0,
+  static_assert(SA::SIZE * 4 % 128 == 0 && SB::SIZE * 4 % 128 == 0,
                 "stage buffers must keep 128-byte alignment");
 };
 
@@ -252,67 +253,10 @@ __device__ __forceinline__ void b_coords(int n0, int kt, int N, int K, int& o0, 
   else     { o0 = n0; i0 = kt * BK; no = N; ni = K; }
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-template <bool TRANS>
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  if (TRANS)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                          unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// bf16 tile product: warp (wm, wn) accumulates rows wm*64 + 16 i and cols
-// wn*32 + 8 j in m16n8k16 tensor-core tiles, fragments read by ldmatrix
-// (transposed where the shared tile keeps the other orientation)
-template <bool AK, bool BNC>
-__device__ __forceinline__ void mma_tile(const __nv_bfloat16* As, const __nv_bfloat16* Bs,
-                                         int LDA, int LDB, int wm, int wn,
-                                         float (&acc)[4][4][4]) {
-  const int l = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    unsigned b[2][4];   // b[h]: n8 tiles 2h and 2h + 1, k halves 0 and 1
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = wn * 32 + 16 * h;
-      if (BNC)   // [k][n]: rows k, transposed
-        ldmatrix_x4<true>(b[h], Bs + (kk + (l & 7) + 8 * ((l >> 3) & 1)) * LDB + n + 8 * (l >> 4));
-      else       // [n][k]
-        ldmatrix_x4<false>(b[h], Bs + (n + (l & 7) + 8 * (l >> 4)) * LDB + kk + 8 * ((l >> 3) & 1));
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = wm * 64 + 16 * i;
-      unsigned a[4];
-      if (AK)    // [m][k]
-        ldmatrix_x4<false>(a, As + (m + (l & 7) + 8 * ((l >> 3) & 1)) * LDA + kk + 8 * (l >> 4));
-      else       // [k][m]: transposed
-        ldmatrix_x4<true>(a, As + (kk + (l & 7) + 8 * (l >> 4)) * LDA + m + 8 * ((l >> 3) & 1));
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mma_16816(acc[i][j], a, b[j >> 1][2 * (j & 1)],
-                                            b[j >> 1][2 * (j & 1) + 1]);
-    }
-  }
-}
-
 // fp32 tile product: thread (ty, tx) owns rows ty + 16 i, cols tx + 16 j
 template <bool AK, bool BNC>
 __device__ __forceinline__ void fma_tile(const float* As, const float* Bs, int LDA, int LDB,
-                                         int ty, int tx, float (&acc)[8][8][1]) {
+                                         int ty, int tx, float (&acc)[8][8]) {
 #pragma unroll 4
   for (int kk = 0; kk < BK; ++kk) {
     float a[8], b[8];
@@ -329,12 +273,12 @@ __device__ __forceinline__ void fma_tile(const float* As, const float* Bs, int L
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j][0] = fmaf(a[i], b[j], acc[i][j][0]);
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }
 }
 
 // The epilogue over the fp32 tile Cs [BM][LDC]; 8 consecutive outputs a thread.
-template <typename T, bool DUAL>
+template <bool DUAL>
 __device__ __forceinline__ void epilogue(const float* Cs, const Params& p, int m0, int n0) {
   constexpr int COLS = DUAL ? BN / 2 : BN;
   for (int idx = threadIdx.x; idx < BM * COLS / 8; idx += NT) {
@@ -345,53 +289,53 @@ __device__ __forceinline__ void epilogue(const float* Cs, const Params& p, int m
     const float* cr = Cs + r * LDC + c;
     const long long off = static_cast<long long>(gm) * p.ldc + gn;
     float v[8];
-    if (!DUAL) {
+    if constexpr (!DUAL) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = round_to<T>(cr[j]);
+      for (int j = 0; j < 8; ++j) v[j] = cr[j];
       if (p.c_dtype == kFloat32) store8<float>(static_cast<float*>(p.c) + off, v);
-      else store8<__nv_bfloat16>(static_cast<__nv_bfloat16*>(p.c) + off, v);
-      continue;
-    }
-    float g[8], u[8], s[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      g[j] = round_to<T>(cr[j]);
-      u[j] = round_to<T>(cr[j + BN / 2]);
-      s[j] = round_to<T>(silu(g[j]));
-      v[j] = round_to<T>(s[j] * u[j]);
-    }
-    store8<T>(static_cast<T*>(p.c) + off, v);
-    if (p.epi == kSwigluBwd) {
-      float da[8], dg[8], du[8];
-      load8<T>(static_cast<const T*>(p.aux) + off, da);
+      else store8<bf16>(static_cast<bf16*>(p.c) + off, v);
+    } else {
+      float g[8], u[8], s[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float ds = round_to<T>(da[j] * u[j]);
-        du[j] = round_to<T>(da[j] * s[j]);
-        const float sig = 1.f / (1.f + expf(-g[j]));
-        dg[j] = round_to<T>(ds * sig * (1.f + g[j] * (1.f - sig)));
+        g[j] = cr[j];
+        u[j] = cr[j + BN / 2];
+        s[j] = silu(g[j]);
+        v[j] = s[j] * u[j];
       }
-      T* dgu = static_cast<T*>(p.c2) + static_cast<long long>(gm) * 2 * p.N + gn;
-      store8<T>(dgu, dg);
-      store8<T>(dgu + p.N, du);
+      store8<float>(static_cast<float*>(p.c) + off, v);
+      if (p.epi == kSwigluBwd) {
+        float da[8], dg[8], du[8];
+        load8<float>(static_cast<const float*>(p.aux) + off, da);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float ds = da[j] * u[j];
+          du[j] = da[j] * s[j];
+          const float sig = 1.f / (1.f + expf(-g[j]));
+          dg[j] = ds * sig * (1.f + g[j] * (1.f - sig));
+        }
+        float* dgu = static_cast<float*>(p.c2) + static_cast<long long>(gm) * 2 * p.N + gn;
+        store8<float>(dgu, dg);
+        store8<float>(dgu + p.N, du);
+      }
     }
   }
 }
 
-template <typename T, typename TB, bool AK, bool BNC, bool DUAL>
-__global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1) gemm_kernel(Params p) {
-  using G = Gemm<T, TB, AK, BNC, DUAL>;
+template <typename TB, bool AK, bool BNC, bool DUAL>
+__global__ void __launch_bounds__(NT, 1) gemm_kernel(Params p) {
+  using G = Gemm<TB, AK, BNC, DUAL>;
   using SA = typename G::SA;
   using SB = typename G::SB;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* As[2] = {reinterpret_cast<T*>(smem), reinterpret_cast<T*>(smem) + SA::SIZE};
-  T* Bs[2] = {As[1] + SA::SIZE, As[1] + SA::SIZE + SB::SIZE};
+  float* As[2] = {reinterpret_cast<float*>(smem), reinterpret_cast<float*>(smem) + SA::SIZE};
+  float* Bs[2] = {As[1] + SA::SIZE, As[1] + SA::SIZE + SB::SIZE};
 
   const int m0 = (p.m_fast ? blockIdx.x : blockIdx.y) * BM;
   const int n0 = (p.m_fast ? blockIdx.y : blockIdx.x) * (DUAL ? BN / 2 : BN);
   const float* ars = p.pro_on_b ? nullptr : p.rs;
   const float* brs = p.pro_on_b ? p.rs : nullptr;
-  const T* A = static_cast<const T*>(p.a);
+  const float* A = static_cast<const float*>(p.a);
   const TB* B = static_cast<const TB*>(p.b);
   SA sa;
   SB sb;
@@ -408,23 +352,12 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1) gemm_kernel(Params
   sb.store(Bs[0]);
   __syncthreads();
 
-  constexpr bool TC = sizeof(T) == 2;
-  const int warp = threadIdx.x >> 5;
-  // bf16: [m16 tile][n8 tile][4] mma accumulators; fp32: an 8 x 8 block
-  float acc[TC ? 4 : 8][TC ? 4 : 8][TC ? 4 : 1] = {};
-
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float acc[8][8] = {};
   for (int kt = 0; kt < nk; ++kt) {
     const int cur = kt & 1;
     if (kt + 1 < nk) load(kt + 1);
-    if constexpr (TC) {
-      mma_tile<AK, BNC>(reinterpret_cast<const __nv_bfloat16*>(As[cur]),
-                        reinterpret_cast<const __nv_bfloat16*>(Bs[cur]), SA::LD, SB::LD,
-                        warp >> 2, warp & 3, acc);
-    } else {
-      fma_tile<AK, BNC>(reinterpret_cast<const float*>(As[cur]),
-                        reinterpret_cast<const float*>(Bs[cur]), SA::LD, SB::LD,
-                        threadIdx.x >> 4, threadIdx.x & 15, acc);
-    }
+    fma_tile<AK, BNC>(As[cur], Bs[cur], SA::LD, SB::LD, ty, tx, acc);
     if (kt + 1 < nk) {
       sa.store(As[cur ^ 1]);
       sb.store(Bs[cur ^ 1]);
@@ -433,31 +366,17 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1) gemm_kernel(Params
   }
 
   float* Cs = reinterpret_cast<float*>(smem);
-  if constexpr (TC) {   // accumulator (g, 2t..2t+1) and (g + 8, ...), g = lane / 4, t = lane % 4
-    const int r0 = (warp >> 2) * 64 + ((threadIdx.x & 31) >> 2);
-    const int c0 = (warp & 3) * 32 + 2 * (threadIdx.x & 3);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float* c = Cs + (r0 + 16 * i) * LDC + c0 + 8 * j;
-        *reinterpret_cast<float2*>(c) = make_float2(acc[i][j][0], acc[i][j][1]);
-        *reinterpret_cast<float2*>(c + 8 * LDC) = make_float2(acc[i][j][2], acc[i][j][3]);
-      }
-  } else {
-    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j][0];
-  }
+    for (int j = 0; j < 8; ++j) Cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j];
   __syncthreads();
 #ifdef KERNEL_GATE_EMIT_RACE
   // the kernel gate's seeded defect (a build variant, never the real
   // library): every CTA stores its tile to output tile (0, 0)
-  epilogue<T, DUAL>(Cs, p, 0, 0);
+  epilogue<DUAL>(Cs, p, 0, 0);
 #else
-  epilogue<T, DUAL>(Cs, p, m0, n0);
+  epilogue<DUAL>(Cs, p, m0, n0);
 #endif
 }
 
@@ -465,16 +384,16 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 2 ? 2 : 1) gemm_kernel(Params
 // M tiles fastest, a column tile of B serves every row tile while it is in
 // L2 and A stays there whole, so the larger operand (an fp32 weight of 92 or
 // 262 MB at `base`, against 25 MB of rows) streams from HBM once.
-template <typename T, typename TB, bool AK, bool BNC, bool DUAL>
+template <typename TB, bool AK, bool BNC, bool DUAL>
 cudaError_t launch(Params p, cudaStream_t stream) {
-  constexpr int smem = Gemm<T, TB, AK, BNC, DUAL>::SMEM;
-  auto kernel = gemm_kernel<T, TB, AK, BNC, DUAL>;
+  constexpr int smem = Gemm<TB, AK, BNC, DUAL>::SMEM;
+  auto kernel = gemm_kernel<TB, AK, BNC, DUAL>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem);
   if (err != cudaSuccess) return err;
   const int cols = DUAL ? BN / 2 : BN;
   const int mt = (p.M + BM - 1) / BM, nt = (p.N + cols - 1) / cols;
-  const double a_bytes = static_cast<double>(p.M) * p.K * sizeof(T);
+  const double a_bytes = static_cast<double>(p.M) * p.K * 4;
   const double b_bytes = static_cast<double>(p.N) * (DUAL ? 2 : 1) * p.K * sizeof(TB);
   p.m_fast = b_bytes > a_bytes;
   const dim3 grid = p.m_fast ? dim3(mt, nt) : dim3(nt, mt);
@@ -482,18 +401,420 @@ cudaError_t launch(Params p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, typename TB>
+template <typename TB>
 cudaError_t dispatch_layout(const Params& p, int a_kcontig, int b_ncontig, cudaStream_t s) {
   if (p.epi != kStore) {   // the SwiGLU epilogues: X [M, H] times gate_up [H, 2I]
     if (!a_kcontig || !b_ncontig) return cudaErrorInvalidValue;
-    return launch<T, TB, true, true, true>(p, s);
+    return launch<TB, true, true, true>(p, s);
   }
   if (a_kcontig) {
-    return b_ncontig ? launch<T, TB, true, true, false>(p, s)
-                     : launch<T, TB, true, false, false>(p, s);
+    return b_ncontig ? launch<TB, true, true, false>(p, s) : launch<TB, true, false, false>(p, s);
   }
-  return b_ncontig ? launch<T, TB, false, true, false>(p, s)
-                   : launch<T, TB, false, false, false>(p, s);
+  return b_ncontig ? launch<TB, false, true, false>(p, s) : launch<TB, false, false, false>(p, s);
+}
+
+template <typename TB>
+int gemm_attributes(int layout, int* out) {
+#define GEMM_ATTR(AK, BNC, DUAL)                                                          \
+  case (AK) | (BNC) << 1 | (DUAL) << 2:                                                   \
+    return func_attributes(gemm_kernel<TB, AK, BNC, DUAL>, Gemm<TB, AK, BNC, DUAL>::SMEM, out);
+  switch (layout) {
+    GEMM_ATTR(true, true, false)
+    GEMM_ATTR(true, false, false)
+    GEMM_ATTR(false, true, false)
+    GEMM_ATTR(false, false, false)
+    GEMM_ATTR(true, true, true)
+  }
+#undef GEMM_ATTR
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// bf16: the warp-specialised tensor-core kernel
+// ---------------------------------------------------------------------------
+
+namespace tc {
+constexpr int BM = GEMM_TC_BM;       // rows of a CTA tile: two consumer warpgroups of 64
+constexpr int BN = GEMM_TC_BN;       // columns of B a CTA reads (SwiGLU: BN / 2 gate + BN / 2 up)
+constexpr int BK = GEMM_TC_BK;       // depth of a K step: 128 bytes of bf16, one swizzle span
+constexpr int ST = GEMM_TC_STAGES;   // stages of the ring
+constexpr int NT = 384;              // two consumer warpgroups, then the producer's
+constexpr int SW = 128;              // swizzle span, bytes
+constexpr int CH = SW / 2;           // its elements: the width of an MN-major box
+constexpr int kChunk = CH * BK * 2;  // bytes of an MN-major box: [BK rows][CH]
+constexpr int kA = BM * BK * 2, kB = BN * BK * 2;   // bytes of a stage's A and B tiles
+constexpr int kStage = kA + kB;
+constexpr int kBytes = 1024 + ST * kStage + 2 * ST * 8;   // 1024: alignment slack; full, empty
+static_assert(BM == 128 && BK == CH && BN % (2 * CH) == 0 && ST >= 2 && kBytes <= 232448,
+              "geometry");
+}  // namespace tc
+
+// the tensor maps of A and B (the gate half and the up half of gate_up for
+// the SwiGLU epilogues: two maps, each clipped at column I, so a box past I
+// is zero-filled and never reads the other half) and the launch's
+// parameters, one kernel argument
+struct TcArgs {
+  CUtensorMap a, b, b2;
+  Params p;
+};
+
+__device__ __forceinline__ unsigned pack_bf16(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);   // round to nearest even
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+__device__ __forceinline__ float2 unpack_bf16(unsigned v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// The accumulators give a lane columns 8 j + 2 t, + 1 (t = lane % 4) of its
+// rows.  For a group of four j, x[jj] holding the pair of j = 4 q + jj, the
+// four lanes of a quad exchange their pairs (a 4 x 4 transpose, its own
+// inverse) so that lane t ends with the 8 columns 8 (4 q + t) .. + 7, in
+// order: one 16-byte access a lane, 64 contiguous bytes a row.  Every lane
+// of the warp must take part (shuffles): mask the accesses, not the call.
+__device__ __forceinline__ uint4 quad_swap(const unsigned (&x)[4], int lane) {
+  const int t = lane & 3;
+  unsigned w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    // lane s sends its pair of j = (s - k) & 3; lane t takes it from s = (t + k) & 3
+    const int i = (t - k) & 3, s = (t + k) & 3;
+    const unsigned mine = i == 0 ? x[0] : i == 1 ? x[1] : i == 2 ? x[2] : x[3];
+    const unsigned got = k == 0 ? mine : __shfl_sync(0xffffffffu, mine, (lane & ~3) | s);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) w[r] = r == s ? got : w[r];
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ void quad_unswap(uint4 v, int lane, unsigned (&x)[4]) {
+  const unsigned in[4] = {v.x, v.y, v.z, v.w};
+  const uint4 o = quad_swap(in, lane);
+  x[0] = o.x; x[1] = o.y; x[2] = o.z; x[3] = o.w;
+}
+
+__device__ __forceinline__ void store16(void* base, long long off_elems, uint4 v) {
+  *reinterpret_cast<uint4*>(static_cast<bf16*>(base) + off_elems) = v;
+}
+
+// The SwiGLU epilogues on the pair (g, u) of accumulators: act's pair, and
+// for kSwigluBwd with d_act's pair `da`, d_gate's and d_up's
+template <int EPI>
+__device__ __forceinline__ void swiglu_pair(float g0, float g1, float u0, float u1, unsigned da,
+                                            unsigned& act, unsigned& dgate, unsigned& dup) {
+  const float g[2] = {round_bf16(g0), round_bf16(g1)};
+  const float u[2] = {round_bf16(u0), round_bf16(u1)};
+  float s[2], v[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    s[e] = round_bf16(silu(g[e]));
+    v[e] = round_bf16(s[e] * u[e]);
+  }
+  act = pack_bf16(v[0], v[1]);
+  if (EPI == kSwigluBwd) {
+    const float2 df = unpack_bf16(da);
+    const float d[2] = {df.x, df.y};
+    float dg[2], du[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float ds = round_bf16(d[e] * u[e]);
+      du[e] = round_bf16(d[e] * s[e]);
+      const float sig = 1.f / (1.f + expf(-g[e]));
+      dg[e] = round_bf16(ds * sig * (1.f + g[e] * (1.f - sig)));
+    }
+    dgate = pack_bf16(dg[0], dg[1]);
+    dup = pack_bf16(du[0], du[1]);
+  }
+}
+
+// TA: A is M-contiguous (MN-major); TB: B is N-contiguous (MN-major)
+template <bool TA, bool TB, int EPI>
+__global__ void __launch_bounds__(tc::NT, 1) gemm_tc_kernel(const __grid_constant__ TcArgs args) {
+  constexpr int BM = tc::BM, BN = tc::BN, BK = tc::BK, ST = tc::ST, SW = tc::SW, CH = tc::CH;
+  constexpr int kChunk = tc::kChunk, kA = tc::kA, kStage = tc::kStage;
+  constexpr int WN = EPI == kStore ? BN : BN / 2;   // columns of each wgmma: output columns
+  constexpr int NACC = EPI == kStore ? 1 : 2;       // accumulator arrays: C, or gate and up
+  const Params& p = args.p;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + ST * kStage);
+  uint64_t* empty = full + ST;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m0 = (p.m_fast ? blockIdx.x : blockIdx.y) * BM;
+  const int n0 = (p.m_fast ? blockIdx.y : blockIdx.x) * WN;
+  const int nk = (p.K + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      bar_init(full + s, 1);
+      bar_init(empty + s, 256);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {                                 // the producer warpgroup: one thread
+    producer_registers();
+    if (warp == 8 && lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % ST, k0 = kt * BK;
+        bar_wait(empty + s, ((kt / ST) & 1) ^ 1);   // the consumers released the stage
+        unsigned char* As = base + s * kStage;
+        unsigned char* Bs = As + kA;
+        bar_expect(full + s, kStage);               // whole boxes, clipped or not
+        if (TA) {
+#pragma unroll
+          for (int c = 0; c < BM / CH; ++c) tma_load_2d(As + c * kChunk, &args.a, m0 + c * CH, k0, full + s);
+        } else {
+          tma_load_2d(As, &args.a, k0, m0, full + s);
+        }
+        if (EPI != kStore) {                        // gate boxes, then up boxes
+#pragma unroll
+          for (int c = 0; c < WN / CH; ++c) {
+            tma_load_2d(Bs + c * kChunk, &args.b, n0 + c * CH, k0, full + s);
+            tma_load_2d(Bs + (WN / CH + c) * kChunk, &args.b2, n0 + c * CH, k0, full + s);
+          }
+        } else if (TB) {
+#pragma unroll
+          for (int c = 0; c < BN / CH; ++c) tma_load_2d(Bs + c * kChunk, &args.b, n0 + c * CH, k0, full + s);
+        } else {
+          tma_load_2d(Bs, &args.b, k0, n0, full + s);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows 64 cw .. 64 cw + 63 of the tile
+  consumer_registers();
+  const int cw = warp >> 2;
+  float acc[NACC][WN / 2];
+#pragma unroll
+  for (int h = 0; h < NACC; ++h)
+#pragma unroll
+    for (int i = 0; i < WN / 2; ++i) acc[h][i] = 0.f;
+
+  // one K step's wgmma group is kept in flight: step kt's stage is released
+  // once step kt + 1's group is issued and step kt's has completed
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % ST;
+    bar_wait(full + s, (kt / ST) & 1);
+    const unsigned char* As = base + s * kStage;
+    const unsigned char* Bs = As + kA;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // K-major: [rows][64] rows of 128 bytes, k16 = 32 bytes along the row;
+      // MN-major: [64 K rows][64] boxes, k16 = 16 rows, LBO = the box stride
+      const uint64_t da = TA ? wg_desc<SW>(As + cw * kChunk + kk * 16 * SW, kChunk, 8 * SW)
+                             : wg_desc<SW>(As + cw * 64 * SW + kk * 32, 16, 8 * SW);
+#pragma unroll
+      for (int h = 0; h < NACC; ++h) {
+        const unsigned char* Bh = Bs + h * (WN / CH) * kChunk;
+        const uint64_t db = TB ? wg_desc<SW>(Bh + kk * 16 * SW, kChunk, 8 * SW)
+                               : wg_desc<SW>(Bh + kk * 32, 16, 8 * SW);
+        WgmmaSS<WN, TA, TB>::ss(acc[h], da, db, 1);
+      }
+    }
+    wg_commit();
+    wg_wait<1>();
+    if (kt > 0) bar_arrive(empty + (kt - 1) % ST);
+  }
+  wg_wait<0>();
+#pragma unroll
+  for (int h = 0; h < NACC; ++h) wg_fence_regs(acc[h]);
+
+  // accumulator 4 j + 2 e + {0, 1}: row lane / 4 + 8 e of the warp's 16,
+  // columns 8 j + 2 (lane % 4) + {0, 1}
+#ifdef KERNEL_GATE_EMIT_RACE
+  // the kernel gate's seeded defect (a build variant, never the real
+  // library): every CTA stores its tile to output tile (0, 0)
+  const int r0 = cw * 64 + (warp & 3) * 16 + (lane >> 2), c0 = 0;
+#else
+  const int r0 = m0 + cw * 64 + (warp & 3) * 16 + (lane >> 2), c0 = n0;
+#endif
+  const int t = lane & 3;
+  if (EPI == kStore && p.c_dtype == kFloat32) {   // a weight gradient: 8-byte pairs
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = r0 + 8 * e;
+      if (row >= p.M) continue;
+#pragma unroll
+      for (int j = 0; j < WN / 8; ++j) {
+        const int col = c0 + 8 * j + 2 * t, i = 4 * j + 2 * e;
+        if (col < p.N)
+          *reinterpret_cast<float2*>(static_cast<float*>(p.c) + static_cast<long long>(row) * p.ldc + col) =
+              make_float2(round_bf16(acc[0][i]), round_bf16(acc[0][i + 1]));
+      }
+    }
+    return;
+  }
+  // bf16 outputs: a group of four j a 16-byte access (quad_swap).
+  // kSwigluBwd: every d_act access of the thread is issued before the first
+  // store (the compiler cannot move a load above a store that may alias it)
+  uint4 dl[2][WN / 32] = {};
+  if constexpr (EPI == kSwigluBwd) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int q = 0; q < WN / 32; ++q) {
+        const int row = r0 + 8 * e, col = c0 + 8 * (4 * q + t);
+        if (row < p.M && col < p.N)
+          dl[e][q] = __ldg(reinterpret_cast<const uint4*>(static_cast<const bf16*>(p.aux) +
+                                                          static_cast<long long>(row) * p.N + col));
+      }
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = r0 + 8 * e;
+#pragma unroll
+    for (int q = 0; q < WN / 32; ++q) {
+      const int col = c0 + 8 * (4 * q + t);
+      const bool ok = row < p.M && col < p.N;
+      unsigned v[4], dg[4], du[4], da[4];
+      if constexpr (EPI == kSwigluBwd) quad_unswap(dl[e][q], lane, da);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int i = 4 * (4 * q + jj) + 2 * e;
+        if constexpr (EPI == kStore)
+          v[jj] = pack_bf16(acc[0][i], acc[0][i + 1]);
+        else
+          swiglu_pair<EPI>(acc[0][i], acc[0][i + 1], acc[1][i], acc[1][i + 1],
+                           EPI == kSwigluBwd ? da[jj] : 0u, v[jj], dg[jj], du[jj]);
+      }
+      const uint4 out = quad_swap(v, lane);
+      if (ok) store16(p.c, static_cast<long long>(row) * p.ldc + col, out);
+      if constexpr (EPI == kSwigluBwd) {
+        const uint4 g4 = quad_swap(dg, lane), u4 = quad_swap(du, lane);
+        const long long off = static_cast<long long>(row) * 2 * p.N + col;
+        if (ok) {
+          store16(p.c2, off, g4);
+          store16(p.c2, off + p.N, u4);
+        }
+      }
+    }
+  }
+}
+
+// The TMA map of a row-major bf16 matrix [rows, cols] with row stride ld
+// elements: boxes of box_rows rows by 64 columns (one 128-byte swizzle
+// span), 128-byte swizzled; elements past either edge read as 0
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int cols, long long ld,
+                     int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows > 0 ? rows : 1)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  const cuuint32_t box[2] = {tc::CH, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// One CTA an output tile, rasterised as the fp32 launch's: the larger
+// operand's tile is shared by consecutive CTAs (no split-K, no persistent
+// loop: every element has one writer and one sum order)
+template <bool TA, bool TB, int EPI>
+cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
+  constexpr int BM = tc::BM, BN = tc::BN, BK = tc::BK;
+  constexpr int WN = EPI == kStore ? BN : BN / 2;
+  static bool ready = false;
+  if (p.M == 0 || p.N == 0) return cudaGetLastError();
+  TcArgs a;
+  memset(&a, 0, sizeof(a));
+  a.p = p;
+  // A: [M, K] boxes of BM rows, or stored [K, M] boxes of BK rows (no maps
+  // for K = 0: the kernel loads nothing and stores zeros)
+  cudaError_t e = p.K == 0 ? cudaSuccess
+                  : TA     ? make_map(&a.a, p.a, p.K, p.M, p.lda, BK)
+                           : make_map(&a.a, p.a, p.M, p.K, p.lda, BM);
+  if (e == cudaSuccess && p.K > 0) {
+    if (EPI != kStore) {   // gate_up [K, 2N]: the gate half and the up half at column N
+      e = make_map(&a.b, p.b, p.K, p.N, p.ldb, BK);
+      if (e == cudaSuccess)
+        e = make_map(&a.b2, static_cast<const bf16*>(p.b) + p.N, p.K, p.N, p.ldb, BK);
+    } else {               // B: stored [K, N] boxes of BK rows, or [N, K] boxes of BN rows
+      e = TB ? make_map(&a.b, p.b, p.K, p.N, p.ldb, BK) : make_map(&a.b, p.b, p.N, p.K, p.ldb, BN);
+      a.b2 = a.b;
+    }
+  }
+  if (e == cudaSuccess) e = allow_smem(gemm_tc_kernel<TA, TB, EPI>, tc::kBytes, ready);
+  if (e != cudaSuccess) return e;
+  const int mt = (p.M + BM - 1) / BM, nt = (p.N + WN - 1) / WN;
+  a.p.m_fast = static_cast<double>(p.N) * (EPI == kStore ? 1 : 2) > static_cast<double>(p.M);
+  const dim3 grid = a.p.m_fast ? dim3(mt, nt) : dim3(nt, mt);
+  gemm_tc_kernel<TA, TB, EPI><<<grid, tc::NT, tc::kBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_tc(const Params& p, int a_kcontig, int b_ncontig, cudaStream_t s) {
+  if (p.epi == kSwiglu || p.epi == kSwigluBwd) {
+    if (!a_kcontig || !b_ncontig) return cudaErrorInvalidValue;
+    return p.epi == kSwiglu ? launch_tc<false, true, kSwiglu>(p, s)
+                            : launch_tc<false, true, kSwigluBwd>(p, s);
+  }
+  if (a_kcontig)
+    return b_ncontig ? launch_tc<false, true, kStore>(p, s) : launch_tc<false, false, kStore>(p, s);
+  return b_ncontig ? launch_tc<true, true, kStore>(p, s) : launch_tc<true, false, kStore>(p, s);
+}
+
+int tc_attributes(int variant, int* out) {
+#define TC_ATTR(TA, TB, EPI) \
+  case (TA) | (TB) << 1 | (EPI) << 2: return func_attributes(gemm_tc_kernel<TA, TB, EPI>, tc::kBytes, out);
+  switch (variant) {
+    TC_ATTR(false, true, kStore)
+    TC_ATTR(false, false, kStore)
+    TC_ATTR(true, true, kStore)
+    TC_ATTR(true, false, kStore)
+    TC_ATTR(false, true, kSwiglu)
+    TC_ATTR(false, true, kSwigluBwd)
+  }
+#undef TC_ATTR
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// the row passes
+// ---------------------------------------------------------------------------
+
+// out = bf16(x), or with SCALE bf16((x * rs[row]) * cs[col]): an fp32 weight
+// rounded, or the RMS prologue's normed operand; one CTA a block of
+// GEMM_PREP_ROWS rows, 8 elements (16-byte vectors) a thread at a time
+template <typename TS, bool SCALE>
+__global__ void __launch_bounds__(256) prep_kernel(const TS* __restrict__ x,
+                                                   const float* __restrict__ rs,
+                                                   const float* __restrict__ cs,
+                                                   bf16* __restrict__ out, int rows, int cols) {
+  const int r0 = blockIdx.x * GEMM_PREP_ROWS;
+  const int per_row = cols / 8;
+  const int n = min(GEMM_PREP_ROWS, rows - r0) * per_row;
+  const long long base = static_cast<long long>(r0) * cols;
+#pragma unroll 4
+  for (int c = threadIdx.x; c < n; c += 256) {
+    const long long off = base + static_cast<long long>(c) * 8;
+    float f[8];
+    load8<TS>(x + off, f);
+    if (SCALE) {
+      const float r = rs[r0 + c / per_row];
+      float w[8];
+      load8<float>(cs + (c % per_row) * 8, w);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) f[j] = f[j] * r * w[j];
+    }
+    store8<bf16>(out + off, f);
+  }
+}
+
+template <typename TS, bool SCALE>
+cudaError_t launch_prep(const void* x, const void* rs, const void* cs, void* out, int rows,
+                        int cols, cudaStream_t s) {
+  if (rows > 0)
+    prep_kernel<TS, SCALE><<<(rows + GEMM_PREP_ROWS - 1) / GEMM_PREP_ROWS, 256, 0, s>>>(
+        static_cast<const TS*>(x), static_cast<const float*>(rs), static_cast<const float*>(cs),
+        static_cast<bf16*>(out), rows, cols);
+  return cudaGetLastError();
 }
 
 // inverse RMS of each row: one warp a row, 16-byte loads
@@ -515,48 +836,41 @@ __global__ void row_rms_kernel(const T* __restrict__ x, float* __restrict__ r, i
   if (lane == 0) r[row] = rsqrtf(ss / static_cast<float>(d) + eps);
 }
 
-template <typename T, typename TB>
-int gemm_attributes(int layout, int* out) {
-#define GEMM_ATTR(AK, BNC, DUAL)                                                          \
-  case (AK) | (BNC) << 1 | (DUAL) << 2:                                                   \
-    return func_attributes(gemm_kernel<T, TB, AK, BNC, DUAL>,                             \
-                           Gemm<T, TB, AK, BNC, DUAL>::SMEM, out);
-  switch (layout) {
-    GEMM_ATTR(true, true, false)
-    GEMM_ATTR(true, false, false)
-    GEMM_ATTR(false, true, false)
-    GEMM_ATTR(false, false, false)
-    GEMM_ATTR(true, true, true)
-  }
-#undef GEMM_ATTR
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
-// kernel 0: gemm_kernel<dtype, a = B's dtype, b = AK | BNC << 1 | DUAL << 2>;
-// kernel 1: row_rms_kernel<dtype>
+// kernel 0: gemm_kernel (fp32 compute) <a = B's dtype, b = AK | BNC << 1 | DUAL << 2>;
+// kernel 1: row_rms_kernel<dtype>;
+// kernel 2: gemm_tc_kernel (bf16 compute) <b = TA | TB << 1 | epilogue << 2>;
+// kernel 3: prep_kernel<dtype = the source's, a = SCALE>
 extern "C" int kernel_attributes(int kernel, int dtype, int a, int b, int c, int* out) {
   if (kernel == 1) {
     if (dtype == kFloat32) return func_attributes(row_rms_kernel<float>, 0, out);
-    if (dtype == kBFloat16) return func_attributes(row_rms_kernel<__nv_bfloat16>, 0, out);
+    if (dtype == kBFloat16) return func_attributes(row_rms_kernel<bf16>, 0, out);
     return cudaErrorInvalidValue;
   }
-  if (kernel != 0) return cudaErrorInvalidValue;
-  if (dtype == kFloat32 && a == kFloat32) return gemm_attributes<float, float>(b, out);
-  if (dtype == kFloat32 && a == kBFloat16) return gemm_attributes<float, __nv_bfloat16>(b, out);
-  if (dtype == kBFloat16 && a == kFloat32) return gemm_attributes<__nv_bfloat16, float>(b, out);
-  if (dtype == kBFloat16 && a == kBFloat16)
-    return gemm_attributes<__nv_bfloat16, __nv_bfloat16>(b, out);
+  if (kernel == 2 && dtype == kBFloat16) return tc_attributes(b, out);
+  if (kernel == 3) {
+    if (dtype == kFloat32) {
+      return a ? func_attributes(prep_kernel<float, true>, 0, out)
+               : func_attributes(prep_kernel<float, false>, 0, out);
+    }
+    if (dtype == kBFloat16 && a) return func_attributes(prep_kernel<bf16, true>, 0, out);
+    return cudaErrorInvalidValue;
+  }
+  if (kernel != 0 || dtype != kFloat32) return cudaErrorInvalidValue;
+  if (a == kFloat32) return gemm_attributes<float>(b, out);
+  if (a == kBFloat16) return gemm_attributes<bf16>(b, out);
   return cudaErrorInvalidValue;
 }
 
 // C = A B with the selected prologue and epilogue; see Params.  Dtypes:
-// A and the compute dtype are `dtype` (fp32 or bf16), B is `b_dtype` (an
-// fp32 or bf16 weight, or an activation), C is `c_dtype` for kStore (the
-// product is rounded to the compute dtype first) and the compute dtype
-// otherwise.  Every pointer 16-byte aligned, every leading dimension and the
-// inner extent of each operand a multiple of 8 (checked by the wrapper).
+// A and the compute dtype are `dtype` (fp32 or bf16), B is `b_dtype` (fp32:
+// an fp32 or bf16 B, widened as it is loaded; bf16: bf16 only, and no
+// prologue: prep_launch rounds and normalises first), C is `c_dtype` for
+// kStore (the product is rounded to the compute dtype first) and the compute
+// dtype otherwise.  Every pointer 16-byte aligned, every leading dimension
+// and the inner extent of each operand a multiple of 8 (checked by the
+// wrapper).
 extern "C" int fused_gemm_launch(const void* a, const void* b, void* c, void* c2,
                                  const void* aux, const void* rs, const void* cs, int M, int N,
                                  int K, long long lda, long long ldb, long long ldc,
@@ -567,15 +881,24 @@ extern "C" int fused_gemm_launch(const void* a, const void* b, void* c, void* c2
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (epi == kStore && c_dtype != kFloat32 && c_dtype != kBFloat16) return cudaErrorInvalidValue;
   if (dtype == kFloat32) {
-    if (b_dtype == kFloat32) return dispatch_layout<float, float>(p, a_kcontig, b_ncontig, s);
-    if (b_dtype == kBFloat16)
-      return dispatch_layout<float, __nv_bfloat16>(p, a_kcontig, b_ncontig, s);
-  } else if (dtype == kBFloat16) {
-    if (b_dtype == kFloat32)
-      return dispatch_layout<__nv_bfloat16, float>(p, a_kcontig, b_ncontig, s);
-    if (b_dtype == kBFloat16)
-      return dispatch_layout<__nv_bfloat16, __nv_bfloat16>(p, a_kcontig, b_ncontig, s);
+    if (b_dtype == kFloat32) return dispatch_layout<float>(p, a_kcontig, b_ncontig, s);
+    if (b_dtype == kBFloat16) return dispatch_layout<bf16>(p, a_kcontig, b_ncontig, s);
+  } else if (dtype == kBFloat16 && b_dtype == kBFloat16 && rs == nullptr) {
+    return dispatch_tc(p, a_kcontig, b_ncontig, s);
   }
+  return cudaErrorInvalidValue;
+}
+
+// out [rows, cols] bf16 = x rounded (rs, cs null) or bf16((x * rs[row]) *
+// cs[col]); x fp32 or bf16 (bf16 only with the scales), cols a multiple of 8
+extern "C" int prep_launch(const void* x, const void* rs, const void* cs, void* out, int rows,
+                           int cols, int x_dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool scale = rs != nullptr;
+  if (x_dtype == kFloat32)
+    return scale ? launch_prep<float, true>(x, rs, cs, out, rows, cols, s)
+                 : launch_prep<float, false>(x, rs, cs, out, rows, cols, s);
+  if (x_dtype == kBFloat16 && scale) return launch_prep<bf16, true>(x, rs, cs, out, rows, cols, s);
   return cudaErrorInvalidValue;
 }
 
@@ -590,8 +913,8 @@ extern "C" int row_rms_launch(const void* x, void* r, int rows, int d, float eps
     row_rms_kernel<float><<<blocks, 256, 0, s>>>(static_cast<const float*>(x),
                                                  static_cast<float*>(r), rows, d, eps);
   else if (dtype == kBFloat16)
-    row_rms_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<float*>(r), rows, d, eps);
+    row_rms_kernel<bf16><<<blocks, 256, 0, s>>>(static_cast<const bf16*>(x),
+                                                static_cast<float*>(r), rows, d, eps);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();

@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import default_device
+from ..analysis.kernel_lint import tabulated
 from . import add_rms_norm as arn
 from . import fused_gemm as fg
 from . import registry
@@ -180,7 +181,9 @@ def _count(fn, t: torch.Tensor) -> None:
 def fuse_swiglu_mlp_fwd(hidden, w_gate_up, w_down, *, intermediate_size, lib="fused_gemm"):
     """``(silu(gate) * up) @ w_down``: gate_up with the SwiGLU epilogue
     (``gu`` never stored), then the down product; ``lib`` the GEMM's
-    library (a build variant only in the kernel gate's seeded defect)."""
+    library (a build variant only in the kernel gate's seeded defect).
+    Each fp32 weight is rounded to a bf16 compute dtype once a call."""
+    w_gate_up, w_down = (fg.to_compute(w, hidden.dtype) for w in (w_gate_up, w_down))
     act = fg.swiglu_gate_up(hidden, w_gate_up, intermediate_size, lib=lib)
     out = fg.matmul(act, w_down, lib=lib)
     _count(fuse_swiglu_mlp_fwd, hidden)
@@ -193,10 +196,11 @@ def fuse_swiglu_mlp_bwd(primals, cts, *, intermediate_size):
     backward epilogue."""
     hidden, w_gate_up, w_down = primals
     (d_out,) = cts
-    d_act = fg.matmul(d_out, w_down, b_t=True)
-    act, d_gu = fg.swiglu_gate_up_bwd(hidden, w_gate_up, d_act, intermediate_size)
+    wgu, wd = (fg.to_compute(w, hidden.dtype) for w in (w_gate_up, w_down))
+    d_act = fg.matmul(d_out, wd, b_t=True)
+    act, d_gu = fg.swiglu_gate_up_bwd(hidden, wgu, d_act, intermediate_size)
     d_w_down = fg.matmul(act, d_out, a_t=True, out_dtype=w_down.dtype)
-    d_hidden = fg.matmul(d_gu, w_gate_up, b_t=True)
+    d_hidden = fg.matmul(d_gu, wgu, b_t=True)
     d_w_gate_up = fg.matmul(hidden, d_gu, a_t=True, out_dtype=w_gate_up.dtype)
     _count(fuse_swiglu_mlp_bwd, hidden)
     return d_hidden, d_w_gate_up, d_w_down
@@ -222,7 +226,8 @@ def fuse_rms_norm_head_fwd(hidden, w_norm, w_head, *, epsilon, transpose):
     """Logits of the final RMSNorm's rows: the row statistic, then the
     vocab product with the RMS prologue (normed rows never stored)."""
     r = fg.row_rms(hidden, epsilon)
-    out = fg.matmul(hidden, w_head, b_t=transpose, rms=(r, w_norm, "a"))
+    out = fg.matmul(hidden, fg.to_compute(w_head, hidden.dtype), b_t=transpose,
+                    rms=(r, w_norm, "a"))
     _count(fuse_rms_norm_head_fwd, hidden)
     return out
 
@@ -233,7 +238,7 @@ def fuse_rms_norm_head_bwd(primals, cts, *, epsilon, transpose):
     transposed operand), then the norm's backward."""
     hidden, w_norm, w_head = primals
     (d_logits,) = cts
-    d_normed = fg.matmul(d_logits, w_head, b_t=not transpose)
+    d_normed = fg.matmul(d_logits, fg.to_compute(w_head, hidden.dtype), b_t=not transpose)
     r = fg.row_rms(hidden, epsilon)
     if transpose:    # w_head is the [vocab, hidden] embedding: dE = dLᵀ normed
         d_w_head = fg.matmul(d_logits, hidden, a_t=True, rms=(r, w_norm, "b"),
@@ -451,33 +456,55 @@ def verified_activation(device=None) -> Dict[str, Callable]:
 
 _FUSE_PRESETS = ("tiny", "small", "base", "longctx")
 # fp32 at the example shapes, bf16 rows over fp32 weights (the `base` train
-# path's) and over bf16 weights: the kernels' tests' tolerances, the atol
-# scaled by the plain output's largest |value|
-_SITE_DTYPES = ("float32", "bfloat16+float32", "bfloat16")
+# path's) and over bf16 weights, and bf16 rows over fp32 weights again at
+# `base`'s widths ("@base": the launches the fused `base` step makes, so the
+# card's leg checks the tensor-core GEMM at a production shape): the
+# kernels' tests' tolerances, the atol scaled by the plain output's largest
+# |value|
+_SITE_DTYPES = ("float32", "bfloat16+float32", "bfloat16", "bfloat16+float32@base")
 _BF16_SITE_TOL = (1e-3, 1.6e-2, 1e-30)
 _SITE_TOL = {"float32": (1e-5, 1e-5, 1e-30), "bfloat16+float32": _BF16_SITE_TOL,
-             "bfloat16": _BF16_SITE_TOL}
+             "bfloat16": _BF16_SITE_TOL, "bfloat16+float32@base": _BF16_SITE_TOL}
+# `base`'s site shapes: batch 3 x seq 2048 rows, hidden 2048, intermediate
+# 5632, vocab 32000 (the untied head): (statics, primal shapes)
+_BASE_EXAMPLES = {
+    "fuse_swiglu_mlp": ({"intermediate_size": 5632}, ((6144, 2048), (2048, 11264), (5632, 2048))),
+    "fuse_add_rms_norm": ({"epsilon": 1e-6}, ((6144, 2048), (6144, 2048), (2048,))),
+    "fuse_rms_norm_head": ({"epsilon": 1e-6, "transpose": False},
+                           ((6144, 2048), (2048,), (2048, 32000))),
+}
 
 
 def site_specs(name: str, shapes, static, backward: bool = False,
                lib: str = "fused_gemm") -> list:
     """The spec of every CUDA kernel a site's forward (or backward)
     launches, for primals of ``shapes`` ``[(shape, dtype), ...]``, in the
-    order the site function launches them."""
+    order the site function launches them (on bf16 rows over fp32 weights
+    first each weight's rounding, once a call)."""
     (M, H), dt = shapes[0]
     wdt = shapes[1][1]
+    bf16 = torch.bfloat16
+
+    def rounded(*weights):
+        """The rounding passes of ``(label, shape, dtype)`` weights, and the
+        dtype the products then read each weight in."""
+        specs = [fg.prep_spec(f"round {lbl}", *shape, w) for lbl, shape, w in weights
+                 if dt == bf16 and w == torch.float32]
+        return specs, [bf16 if dt == bf16 else w for _, _, w in weights]
+
     if name == "fuse_swiglu_mlp":
         I = static["intermediate_size"]
+        pre, (gdt, ddt) = rounded(("w_gate_up", (H, 2 * I), wdt), ("w_down", (I, H), wdt))
         if not backward:
-            return [fg.gemm_spec("gate_up+swiglu", M, I, H, dt, b_dtype=wdt,
-                                 epi=fg._EPI_SWIGLU, lib=lib),
-                    fg.gemm_spec("down", M, H, I, dt, b_dtype=wdt, lib=lib)]
-        return [fg.gemm_spec("d_act", M, I, H, dt, b_dtype=wdt, b_t=True),
-                fg.gemm_spec("gate_up+swiglu_bwd", M, I, H, dt, b_dtype=wdt,
-                             epi=fg._EPI_SWIGLU_BWD),
-                fg.gemm_spec("d_w_down", I, H, M, dt, c_dtype=wdt, a_t=True),
-                fg.gemm_spec("d_hidden", M, H, 2 * I, dt, b_dtype=wdt, b_t=True),
-                fg.gemm_spec("d_w_gate_up", H, 2 * I, M, dt, c_dtype=wdt, a_t=True)]
+            return pre + [*fg.matmul_specs("gate_up+swiglu", M, I, H, dt, b_dtype=gdt,
+                                           epi=fg._EPI_SWIGLU, lib=lib),
+                          *fg.matmul_specs("down", M, H, I, dt, b_dtype=ddt, lib=lib)]
+        return pre + [*fg.matmul_specs("d_act", M, I, H, dt, b_dtype=ddt, b_t=True),
+                      *fg.matmul_specs("gate_up+swiglu_bwd", M, I, H, dt, b_dtype=gdt,
+                                       epi=fg._EPI_SWIGLU_BWD),
+                      *fg.matmul_specs("d_w_down", I, H, M, dt, c_dtype=wdt, a_t=True),
+                      *fg.matmul_specs("d_hidden", M, H, 2 * I, dt, b_dtype=gdt, b_t=True),
+                      *fg.matmul_specs("d_w_gate_up", H, 2 * I, M, dt, c_dtype=wdt, a_t=True)]
     if name == "fuse_add_rms_norm":
         wdt = shapes[2][1]
         if not backward:
@@ -488,15 +515,20 @@ def site_specs(name: str, shapes, static, backward: bool = False,
         w_head = shapes[2]
         V = w_head[0][0] if transpose else w_head[0][1]
         hdt = w_head[1]
+        pre, (rdt,) = rounded(("w_head", w_head[0], hdt))
         if not backward:
-            return [fg.row_rms_spec(M, H, dt),
-                    fg.gemm_spec("head", M, V, H, dt, b_dtype=hdt, b_t=transpose, rms_side="a")]
+            return [fg.row_rms_spec(M, H, dt), *pre,
+                    *fg.matmul_specs("head", M, V, H, dt, b_dtype=rdt, b_t=transpose,
+                                     rms_side="a")]
         if transpose:       # dE = dLᵀ normed: the prologue on the transposed B
-            d_w_head = fg.gemm_spec("d_w_head", V, H, M, dt, c_dtype=hdt, a_t=True, rms_side="b")
+            d_w_head = fg.matmul_specs("d_w_head", V, H, M, dt, c_dtype=hdt, a_t=True,
+                                       rms_side="b")
         else:               # dW = normedᵀ dL
-            d_w_head = fg.gemm_spec("d_w_head", H, V, M, dt, c_dtype=hdt, a_t=True, rms_side="a")
-        return [fg.gemm_spec("d_normed", M, H, V, dt, b_dtype=hdt, b_t=not transpose),
-                fg.row_rms_spec(M, H, dt), d_w_head,
+            d_w_head = fg.matmul_specs("d_w_head", H, V, M, dt, c_dtype=hdt, a_t=True,
+                                       rms_side="a")
+        return [*pre, *fg.matmul_specs("d_normed", M, H, V, dt, b_dtype=rdt,
+                                       b_t=not transpose),
+                fg.row_rms_spec(M, H, dt), *d_w_head,
                 *arn.bwd_specs(M, H, dt, wdt, with_h=False, with_ds=False)]
     raise KeyError(name)
 
@@ -504,18 +536,23 @@ def site_specs(name: str, shapes, static, backward: bool = False,
 def _example_shapes(site: FusionSite, dtype: str = "float32"):
     """The site's example primals: its rows in ``dtype``'s first dtype,
     the weights in its last (``"bfloat16+float32"``: bf16 rows, fp32
-    weights)."""
-    names = dtype.split("+")
+    weights), at `base`'s widths for an ``@base`` key."""
+    names, _, at = dtype.partition("@")
+    names = names.split("+")
     rows, weights = getattr(torch, names[0]), getattr(torch, names[-1])
-    return [(s, rows if i < site.n_row_args else weights)
-            for i, (s, _) in enumerate(site.example_shapes)]
+    shapes = _BASE_EXAMPLES[site.name][1] if at else [s for s, _ in site.example_shapes]
+    return [(s, rows if i < site.n_row_args else weights) for i, s in enumerate(shapes)]
+
+
+def _example_static(site: FusionSite, dtype: str = "float32"):
+    return dict(_BASE_EXAMPLES[site.name][0] if "@" in dtype else site.example_static)
 
 
 def _fwd_builder(site: FusionSite):
     def build(dtype="float32"):
-        static = dict(site.example_static)
+        static = _example_static(site, dtype)
         shapes = _example_shapes(site, dtype)
-        return (site_specs(site.name, shapes, static),
+        return (tabulated(site_specs(site.name, shapes, static)),
                 lambda *a: _FORWARD[site.name](*a, **static),
                 lambda *a: site.ref(*a, **static),
                 lambda device: _example_concrete(site, device, 0, shapes))
@@ -524,7 +561,7 @@ def _fwd_builder(site: FusionSite):
 
 def _bwd_builder(site: FusionSite):
     def build(dtype="float32"):
-        static = dict(site.example_static)
+        static = _example_static(site, dtype)
         n = len(site.example_shapes)
         shapes = _example_shapes(site, dtype)
 
@@ -534,7 +571,7 @@ def _bwd_builder(site: FusionSite):
             return primals + _example_concrete(site, device, 1,
                                                [(r.shape, r.dtype) for r in refs])
 
-        return (site_specs(site.name, shapes, static, backward=True),
+        return (tabulated(site_specs(site.name, shapes, static, backward=True)),
                 lambda *a: _BACKWARD[site.name](a[:n], a[n:], **static),
                 lambda *a: _vjp_reference(site, a[:n], a[n:], static), args)
     return build

@@ -31,13 +31,12 @@ Registered in :mod:`.registry` as ``flash_fwd_resident`` (non-causal),
 from __future__ import annotations
 
 import ctypes
-import itertools
 import math
 from typing import Optional, Tuple
 
 import torch
 
-from ..analysis.kernel_lint import ENUM_CAP, BlockUse, KernelSpec, ScratchUse, cuda_semantics
+from ..analysis.kernel_lint import BlockUse, KernelSpec, ScratchUse, cuda_semantics, tabulated
 from . import _build, registry
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd"]
@@ -467,20 +466,6 @@ def kernel_specs(B: int, Sq: int, Sk: int, H: int, Hk: int, D: int, causal: bool
     return [dkdv, dq]
 
 
-def _enumerated(specs):
-    """``specs`` with each callable index map over a grid larger than the
-    verifier's ``ENUM_CAP`` given as its table of every grid point, so the
-    static leg checks a production-shape example in full."""
-    for spec in specs:
-        if math.prod(spec.grid) <= ENUM_CAP:
-            continue
-        points = list(itertools.product(*map(range, spec.grid)))
-        for bu in spec.inputs + spec.outputs:
-            if callable(bu.index_map):
-                bu.index_map = ("table", {pt: tuple(bu.index_map(*pt)) for pt in points})
-    return specs
-
-
 # the JAX registry's example: BH 2, S 256, D 128 fp32 (here B 1, H = Hk = 2),
 # also in bf16, which runs the tensor-core kernels; the causal entries also
 # at `base`'s shape in bf16 ("bfloat16@base": B 3, S 2048, H 16 over Hk 8),
@@ -516,7 +501,7 @@ def _fwd_example(causal):
         dt, shape = _example(dtype)
         B, S, H, Hk, D = shape
         scale = 1.0 / math.sqrt(D)
-        return (_enumerated(kernel_specs(B, S, S, H, Hk, D, causal, dt)),
+        return (tabulated(kernel_specs(B, S, S, H, Hk, D, causal, dt)),
                 lambda q, k, v: flash_attention_fwd(q, k, v, causal, scale),
                 lambda q, k, v: _flash_fwd_reference(q, k, v, causal, scale),
                 lambda device: _example_qkv(device, shape, dtype=dt))
@@ -534,7 +519,7 @@ def _bwd_example(dtype="float32"):
         do = _example_qkv(device, shape, seed=1, dtype=dt)[0]
         return q, k, v, o, lse, do
 
-    return (_enumerated(kernel_specs(B, S, S, H, Hk, D, True, dt, backward=True)),
+    return (tabulated(kernel_specs(B, S, S, H, Hk, D, True, dt, backward=True)),
             lambda q, k, v, o, lse, do: flash_attention_bwd(q, k, v, o, lse, do, True, scale),
             lambda q, k, v, o, lse, do: _flash_bwd_reference(q, k, v, o, lse, do, True, scale),
             args)

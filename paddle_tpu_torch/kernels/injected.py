@@ -136,15 +136,18 @@ def parallel_carry_entry():
             lambda device: (_randn((2, 4 * TILE[0], TILE[1]), device),))
 
 
-def emit_race_entry():
+def emit_race_entry(dtype: str = "float32"):
     """``fuse_swiglu_mlp``'s forward entry with its GEMMs launched from the
-    seeded build variant; the specs are the site's own (they describe the
-    correct kernel), so the defect is visible only on the card."""
+    seeded build variant, at ``dtype`` (fp32: the CUDA-core kernel; bf16
+    rows over fp32 weights: the tensor-core kernel); the specs are the
+    site's own (they describe the correct kernel), so the defect is visible
+    only on the card."""
     from . import emit
 
     site = emit.SITES["fuse_swiglu_mlp"]
     static = dict(site.example_static)
-    _, _, plain, args = emit._fwd_builder(site)()
-    specs = emit.site_specs(site.name, emit._example_shapes(site), static, lib=EMIT_RACE_LIB)
+    _, _, plain, args = emit._fwd_builder(site)(dtype)
+    specs = emit.site_specs(site.name, emit._example_shapes(site, dtype), static,
+                            lib=EMIT_RACE_LIB)
     return (specs, lambda *a: emit.fuse_swiglu_mlp_fwd(*a, **static, lib=EMIT_RACE_LIB),
             plain, args)

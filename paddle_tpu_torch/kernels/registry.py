@@ -270,19 +270,20 @@ def _build_injected_parallel_carry():
     return injected.parallel_carry_entry()
 
 
-def _build_injected_emit_race():
+def _build_injected_emit_race(dtype="float32"):
     # the real fuse_swiglu_mlp forward, its GEMM launched from the build
     # variant whose epilogue stores every tile to tile (0, 0), under the
-    # site's honest spec: the static leg passes, the card's must not
+    # site's honest spec, at both GEMM kernels (the fp32 CUDA-core one, the
+    # bf16 tensor-core one): the static leg passes, the card's must not
     from . import injected
 
-    return injected.emit_race_entry()
+    return injected.emit_race_entry(dtype)
 
 
 _INJECTIONS = {
-    "write-race": _build_injected_write_race,
-    "parallel-carry": _build_injected_parallel_carry,
-    "emit-race": _build_injected_emit_race,
+    "write-race": (_build_injected_write_race, ()),
+    "parallel-carry": (_build_injected_parallel_carry, ()),
+    "emit-race": (_build_injected_emit_race, ("float32", "bfloat16+float32")),
 }
 
 
@@ -290,8 +291,9 @@ def _apply_injection(kind: str) -> None:
     if kind not in _INJECTIONS:
         raise SystemExit(f"unknown KERNEL_GATE_INJECT={kind!r} "
                          f"(known: {sorted(_INJECTIONS)})")
-    register(f"injected_{kind.replace('-', '_')}", _INJECTIONS[kind],
-             description=f"seeded defect: {kind}")
+    build, dtypes = _INJECTIONS[kind]
+    register(f"injected_{kind.replace('-', '_')}", build,
+             description=f"seeded defect: {kind}", dtypes=dtypes)
 
 
 # ---------------------------------------------------------------------------

@@ -414,6 +414,99 @@ def test_swiglu_epilogues_match_plain(cuda, dtype, w_dtype):
         _fuse_close(got, ref, dtype)
 
 
+# bf16 runs the tensor-core kernel (128 x 256 output tiles, 128 x 128 for
+# the SwiGLU epilogues, K steps of 64): a single row, one row past a tile,
+# K not a multiple of 64 (8, 200), N and I not multiples of the tile; for
+# TN the ragged extent is the stored rows (K; TT's B holds K contiguous)
+TC_SHAPES = {"NN": [(1, 200, 264), (129, 8, 8), (129, 520, 1000)],
+             "NT": [(1, 200, 264), (129, 8, 8), (129, 520, 1000)],
+             "TN": [(136, 1, 200), (264, 129, 8), (520, 200, 1000)],
+             "TT": [(136, 8, 200), (264, 136, 8), (520, 200, 1000)]}
+
+
+def _tc_operands(dev, layout, M, K, N, seed):
+    a_t, b_t = layout[0] == "T", layout[1] == "T"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn((K, M) if a_t else (M, K), generator=g, device=dev).to(torch.bfloat16)
+    b = 0.1 * torch.randn((N, K) if b_t else (K, N), generator=g, device=dev)
+    return a, b, a_t, b_t
+
+
+@pytest.mark.parametrize("layout", list(TC_SHAPES))
+@pytest.mark.parametrize("case", range(3))
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_fused_gemm_ragged_shapes_on_the_tensor_cores(cuda, layout, case, w_dtype):
+    """Every layout at ragged M, K and N, a weight-gradient store (the bf16
+    product widened to fp32) and a bf16 one."""
+    from paddle_tpu_torch.kernels import fused_gemm as fg
+
+    M, K, N = TC_SHAPES[layout][case]
+    a, b, a_t, b_t = _tc_operands(cuda, layout, M, K, N, 12 + case)
+    b = b.to(w_dtype)
+    for out_dtype in (None, torch.float32):
+        got = fg.matmul(a, b, a_t=a_t, b_t=b_t, out_dtype=out_dtype)
+        _fuse_close(got, fg.matmul_reference(a, b, a_t=a_t, b_t=b_t, out_dtype=out_dtype),
+                    torch.bfloat16)
+        if out_dtype is not None:
+            assert torch.equal(got, got.to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("M,H,I", [(1, 72, 8), (129, 200, 136), (300, 520, 264)])
+def test_swiglu_epilogues_at_ragged_shapes(cuda, M, H, I):
+    """The gate / up boxes at I not a multiple of the 128 output columns of
+    a tile (the up half starts at column I of gate_up), K not a multiple of
+    64, one row and one row past a tile."""
+    from paddle_tpu_torch.kernels import fused_gemm as fg
+
+    g = torch.Generator(device=cuda).manual_seed(M + I)
+    x = torch.randn(M, H, generator=g, device=cuda).to(torch.bfloat16)
+    w_gu = 0.1 * torch.randn(H, 2 * I, generator=g, device=cuda)
+    d_act = torch.randn(M, I, generator=g, device=cuda).to(torch.bfloat16)
+    _fuse_close(fg.swiglu_gate_up(x, w_gu, I), fg.swiglu_gate_up_reference(x, w_gu, I),
+                torch.bfloat16)
+    for got, ref in zip(fg.swiglu_gate_up_bwd(x, w_gu, d_act, I),
+                        fg.swiglu_gate_up_bwd_reference(x, w_gu, d_act, I)):
+        _fuse_close(got, ref, torch.bfloat16)
+
+
+def test_fused_gemm_launches_are_bit_equal(cuda):
+    """No split-K and one writer an element: two launches of every bf16
+    instantiation on the same inputs agree to the bit."""
+    from paddle_tpu_torch.kernels import fused_gemm as fg
+
+    runs = []
+    for layout in TC_SHAPES:
+        a, b, a_t, b_t = _tc_operands(cuda, layout, *TC_SHAPES[layout][2], 20)
+        runs.append(lambda a=a, b=b, a_t=a_t, b_t=b_t: (fg.matmul(a, b, a_t=a_t, b_t=b_t),))
+    g = torch.Generator(device=cuda).manual_seed(21)
+    x = torch.randn(300, 520, generator=g, device=cuda).to(torch.bfloat16)
+    w_gu = 0.1 * torch.randn(520, 528, generator=g, device=cuda)
+    d_act = torch.randn(300, 264, generator=g, device=cuda).to(torch.bfloat16)
+    runs.append(lambda: (fg.swiglu_gate_up(x, w_gu, 264),))
+    runs.append(lambda: fg.swiglu_gate_up_bwd(x, w_gu, d_act, 264))
+    for run in runs:
+        for one, two in zip(run(), run()):
+            assert torch.equal(one.view(torch.int16), two.view(torch.int16))
+
+
+@pytest.mark.parametrize("src_dtype", [torch.float32, torch.bfloat16])
+def test_preparation_passes_are_exact(cuda, src_dtype):
+    """The rounding pass gives .to(bfloat16)'s bits, the normed pass the
+    plain prologue's (x r) w rounded once, bit for bit; rows past a CTA's
+    block of rows included."""
+    from paddle_tpu_torch.kernels import fused_gemm as fg
+
+    g = torch.Generator(device=cuda).manual_seed(22)
+    x = (3 * torch.randn(77, 264, generator=g, device=cuda)).to(src_dtype)
+    if src_dtype == torch.float32:
+        assert torch.equal(fg.to_compute(x, torch.bfloat16), x.to(torch.bfloat16))
+    assert fg.to_compute(x.to(torch.bfloat16), torch.bfloat16).dtype == torch.bfloat16
+    r = fg.row_rms(x, 1e-6)
+    w = 1 + 0.1 * torch.randn(264, generator=g, device=cuda)
+    want = ((x.float() * r[:, None]) * w).to(torch.bfloat16)
+    assert torch.equal(fg._prep(x, (r, w, "a")), want)
+
+
 @pytest.mark.parametrize("with_h", [True, False], ids=["add_norm", "norm_only"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_add_rms_norm_kernels_match_plain(cuda, with_h, dtype):
@@ -523,6 +616,9 @@ def test_gate_refuses_each_seeded_defect_on_the_card(cuda, kind, codes):
     assert rep.meta["legs"] == ["static", "dynamic"]
     if kind == "emit-race":            # the honest spec: only the card sees the defect
         assert not registry.check("fuse_swiglu_mlp")
+        # refused at both GEMM kernels: the fp32 CUDA-core and the bf16 tensor-core one
+        holes = {f.where.split(":")[0] for f in rep.findings if f.code == "krn-coverage-hole"}
+        assert holes == {f"{name}@float32", f"{name}@bfloat16+float32"}, rep.report()
 
 
 def test_every_entry_is_clean_on_the_card(cuda):

@@ -312,16 +312,24 @@ def test_verified_activation_admits_through_the_cache(admission):
 @pytest.mark.parametrize("name", ["flash_fwd_stream", "flash_bwd_stream", "fuse_swiglu_mlp"])
 def test_bf16_examples_declare_the_bf16_kernels(name):
     """An entry's bf16 example declares the instantiations bf16 launches:
-    flash's tensor-core kernels, the GEMM with its bf16 code."""
+    flash's tensor-core kernels; the GEMM's tensor-core kernel with its
+    bf16 code, after the passes that round the site's fp32 weights."""
     entry = registry.entries()[name]
     bf16 = [d for d in entry.dtypes if d.startswith("bfloat16")][0]
     specs32, specs16 = entry.build("float32")[0], entry.build(bf16)[0]
+    if name == "fuse_swiglu_mlp":          # bf16 rows over fp32 weights
+        rounds, specs16 = specs16[:2], specs16[2:]
+        assert [s.name for s in rounds] == ["prep_kernel[round w_gate_up]",
+                                            "prep_kernel[round w_down]"]
+        assert all(s.cuda[1:4] == (3, _build.dtype_code(torch.float32), 0) for s in rounds)
     assert len(specs32) == len(specs16)
     for a, b in zip(specs32, specs16):
         assert a.cuda[2] == _build.dtype_code(torch.float32)
         assert b.cuda[2] == _build.dtype_code(torch.bfloat16)
         if name.startswith("flash"):
             assert b.name == a.name.replace("_kernel", "_tc_kernel")
+        else:
+            assert b.name == a.name.replace("gemm_kernel", "gemm_tc_kernel")
 
 
 def test_geometry_reaches_its_sources():
