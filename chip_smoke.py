@@ -17,7 +17,11 @@ Phases:
   1 card     name and power limit (nvidia-smi), torch device name
   2 build    nvcc of kernels/csrc/*.cu for sm_90a, all in parallel
   3 kernels  each kernel against its plain version at its path's shapes
-             (flash attention forward and backward at `base` and at
+             (RMSNorm at a decode step, a serving prefill and a `base`
+             step; decode attention dense and paged at the kernel table's
+             lengths and at the `serve` phase's own, NaN in the trash block
+             and stale tails, with each of its two launches' device time;
+             flash attention forward and backward at `base` and at
              `longctx`, AdamW on base's largest leaf and on all 75, the
              SSD scan at `ssd_8b`, SSDConfig()'s default, bench.py's
              on-chip and tiny widths): max error, kernel / plain / library
@@ -111,6 +115,11 @@ Phases:
              torch.profiler:
              device time by kernel, and the device's busy share of the
              wall time
+
+`python3 kernel_ab.py SET DIR [DIR ...]` times kernels of several checkouts
+on the same inputs: `gemm` the sites' GEMMs, `serve` RMSNorm and decode
+(outputs hashed), `rms_plan` each RMSNorm kernel at the serving path's row
+counts, `tokens` the `serve` and `ssd_serve` greedy tokens (hashed).
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero before that
@@ -385,43 +394,75 @@ def _sdpa_ms(q, k, v, lengths):
         qt, kt, vt, attn_mask=mask, enable_gqa=True))
 
 
-def _dense_case(gen):
+def _serve_lengths(seed=0, B=8):
+    """The first ``B`` requests of the `serve` phase at their last decode
+    step: prompt plus new tokens."""
+    from paddle_tpu_torch.models import llama3_8b_config
+
+    reqs = _serve_requests(llama3_8b_config().vocab_size, seed)[0]
+    return [len(r.prompt_ids) + r.max_new_tokens for r in reqs[:B]]
+
+
+def _decode_passes_ms(fn, iters=20):
+    """Device ms of each kernel ``fn`` launches (pass 1 and the combine),
+    read by torch.profiler over ``iters`` calls, each after the L2 flush of
+    ``time_ms``; ``{}`` where the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(16 << 20, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return {("partial" if "partial" in ev.key else "combine"):
+            ev.self_device_time_total / 1e3 / ev.count
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and "decode_" in ev.key and ev.count}
+
+
+def _dense_case(gen, lengths, C=2048, label="table"):
     import torch
     from paddle_tpu_torch.kernels import decode_attention as da
 
-    B, C, H, Hk, D = 8, 2048, 32, 8, 128
+    B, H, Hk, D = len(lengths), 32, 8, 128
     q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(torch.bfloat16)
     k = torch.randn(B, C, Hk, D, generator=gen, device="cuda").to(torch.bfloat16)
     v = torch.randn(B, C, Hk, D, generator=gen, device="cuda").to(torch.bfloat16)
-    lengths = torch.tensor([1, 37, 128, 129, 500, 1024, 2047, 2048],
-                           dtype=torch.int32, device="cuda")
+    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     sm = 1.0 / D ** 0.5
     out = da.masked_multihead_attention(q, k, v, lengths)
     ref = da._decode_reference(q, k, v, lengths, sm)
     torch.cuda.synchronize()
     err = max_err(out, ref)
-    check(within(out, ref, DECODE_TOL), f"dense decode disagrees: max err {err}")
+    check(within(out, ref, DECODE_TOL), f"dense decode ({label}) disagrees: max err {err}")
     b_ms, b_by = _decode_bound(lengths.tolist(), Hk, D, H, 2, B)
     rec = {"shape": {"B": B, "C": C, "H": H, "Hk": Hk, "D": D,
-                     "lengths": lengths.tolist()}, "dtype": "bfloat16",
+                     "lengths": lengths.tolist()}, "dtype": "bfloat16", "lengths_from": label,
            "max_abs_err": err, "tol": {"atol": DECODE_TOL[0], "rtol": DECODE_TOL[1]},
            "ms": time_ms(lambda: da.masked_multihead_attention(q, k, v, lengths)),
+           "passes_ms": _decode_passes_ms(lambda: da.masked_multihead_attention(q, k, v, lengths)),
            "plain_ms": time_ms(lambda: da._decode_reference(q, k, v, lengths, sm)),
            "library_ms": _sdpa_ms(q, k, v, lengths),
            "bound_ms": b_ms, "bound_by": b_by}
-    log(f"decode dense: {json.dumps(rec)}")
+    log(f"decode dense ({label}): {json.dumps(rec)}")
     return rec
 
 
-def _paged_case(gen):
+def _paged_case(gen, lengths, label="table"):
+    """Paged decode over the Engine's pool (512 blocks of 128) and table
+    width (8 blocks), NaN in the trash block and in every stale tail."""
     import torch
     from paddle_tpu_torch.kernels import decode_attention as da
 
-    B, NB, H, Hk, bs, D, MAXB = 8, 512, 32, 8, 128, 128, 8
+    B, NB, H, Hk, bs, D, MAXB = len(lengths), 512, 32, 8, 128, 128, 8
     q = torch.randn(B, 1, H, D, generator=gen, device="cuda").to(torch.bfloat16)
     kp = torch.randn(NB, Hk, bs, D, generator=gen, device="cuda").to(torch.bfloat16)
     vp = torch.randn(NB, Hk, bs, D, generator=gen, device="cuda").to(torch.bfloat16)
-    lengths = [0, 1, 128, 129, 256, 300, 777, 1024]
     perm = torch.randperm(NB - 1, generator=torch.Generator().manual_seed(1)) + 1
     table = torch.zeros(B, MAXB, dtype=torch.int32)
     nxt = 0
@@ -441,20 +482,24 @@ def _paged_case(gen):
     out = da.paged_decode_attention(q, kp, vp, table, len_t)
     ref = da._paged_pool_reference(q, kp, vp, table, len_t, sm)
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(out.float()).all()), "paged decode: NaN trash leaked")
-    check(bool((out[0] == 0).all()), "paged decode: lengths==0 row is not zero")
+    check(bool(torch.isfinite(out.float()).all()), f"paged decode ({label}): NaN trash leaked")
+    for b, L in enumerate(lengths):
+        if L == 0:
+            check(bool((out[b] == 0).all()), f"paged decode ({label}): lengths==0 row is not zero")
     err = max_err(out, ref)
-    check(within(out, ref, DECODE_TOL), f"paged decode disagrees: max err {err}")
+    check(within(out, ref, DECODE_TOL), f"paged decode ({label}) disagrees: max err {err}")
     b_ms, b_by = _decode_bound(lengths, Hk, D, H, 2, B)
     kg, vg = da._gather_pool(kp, table), da._gather_pool(vp, table)
     rec = {"shape": {"B": B, "pool": [NB, Hk, bs, D], "maxb": MAXB, "H": H,
-                     "lengths": lengths}, "dtype": "bfloat16",
+                     "lengths": lengths}, "dtype": "bfloat16", "lengths_from": label,
            "max_abs_err": err, "tol": {"atol": DECODE_TOL[0], "rtol": DECODE_TOL[1]},
            "ms": time_ms(lambda: da.paged_decode_attention(q, kp, vp, table, len_t)),
+           "passes_ms": _decode_passes_ms(
+               lambda: da.paged_decode_attention(q, kp, vp, table, len_t)),
            "plain_ms": time_ms(lambda: da._paged_pool_reference(q, kp, vp, table, len_t, sm)),
            "library_ms": _sdpa_ms(q, kg, vg, len_t),
            "bound_ms": b_ms, "bound_by": b_by}
-    log(f"decode paged: {json.dumps(rec)}")
+    log(f"decode paged ({label}): {json.dumps(rec)}")
     return rec
 
 
@@ -1151,11 +1196,23 @@ def phase_kernels():
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # RMSNorm: a decode step's rows, 4096 rows, a `base` training step's
+    # rows over the fp32 weight, and the Engine's prefill forwards (n
+    # same-bucket prompts, n in 4/2/1: 2048 and 512 rows among them), these
+    # from a generator of their own, so the cases after them keep their
+    # inputs
+    rows_gen = torch.Generator(device="cuda").manual_seed(1)
     cases = {"rms_norm": [_rms_case(8, 4096, gen, torch.bfloat16),
                           _rms_case(8 * 512, 4096, gen, torch.bfloat16),
-                          _rms_case(3 * 2048, 2048, gen, torch.float32)],
-             "decode_attention_dense": [_dense_case(gen)],
-             "decode_attention_paged": [_paged_case(gen)]}
+                          _rms_case(3 * 2048, 2048, gen, torch.float32),
+                          _rms_case(4 * 512, 4096, rows_gen, torch.bfloat16),
+                          _rms_case(512, 4096, rows_gen, torch.bfloat16)],
+             "decode_attention_dense": [
+                 _dense_case(gen, [1, 37, 128, 129, 500, 1024, 2047, 2048]),
+                 _dense_case(gen, _serve_lengths(), C=1024, label="serve")],
+             "decode_attention_paged": [
+                 _paged_case(gen, [0, 1, 128, 129, 256, 300, 777, 1024]),
+                 _paged_case(gen, _serve_lengths(), label="serve")]}
     base = _flash_case(gen, 3, 2048, 16, 8, 128)
     longctx = _flash_case(gen, 1, 16384, 16, 8, 128, heads=2)
     cases["flash_attention_fwd"] = [base[0], longctx[0]]
@@ -2000,8 +2057,21 @@ def _check_path(name, rec, norms, decode_kernel=None, n_decode=0):
         check(got == want, f"serve: {name} launches a prefill forward {got}, expected {want}")
 
 
-def phase_serve(seed, layers):
+def _serve_requests(vocab, seed):
+    """`serve`'s requests: 14 with 128-512-token prompts and two that share
+    a 256-token prefix, 32-128 new tokens each; and the chunked-prefill
+    request."""
     import numpy as np
+
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(1, vocab, size=(256,)).astype(np.int32)
+    lens = [int(x) for x in rng.integers(128, 513, size=14)] + [-100, -150]
+    news = [int(x) for x in rng.integers(32, 129, size=16)]
+    reqs = _requests(rng, vocab, lens, news, prefix)
+    return reqs, _requests(rng, vocab, [400], [48])
+
+
+def phase_serve(seed, layers):
     import torch
     from paddle_tpu_torch.models import LlamaForCausalLM, llama3_8b_config
 
@@ -2014,12 +2084,7 @@ def phase_serve(seed, layers):
     log(f"serve: random bf16 weights ({sum(p.numel() for p in model.parameters()) / 1e9:.2f} "
         f"B params) in {time.perf_counter() - t0:.1f} s")
     watch = _HeadWatch(model)
-    rng = np.random.default_rng(seed)
-    prefix = rng.integers(1, cfg.vocab_size, size=(256,)).astype(np.int32)
-    lens = [int(x) for x in rng.integers(128, 513, size=14)] + [-100, -150]
-    news = [int(x) for x in rng.integers(32, 129, size=16)]
-    reqs = _requests(rng, cfg.vocab_size, lens, news, prefix)
-    chunk_req = _requests(rng, cfg.vocab_size, [400], [48])
+    reqs, chunk_req = _serve_requests(cfg.vocab_size, seed)
     gen_reqs = reqs[:2]
     kw = dict(max_batch=8, block_size=128, prefill_buckets=(128, 256, 512))
     from paddle_tpu_torch.serving import Engine
@@ -2167,10 +2232,20 @@ def _first_token_check(label, model, head, gen_reqs, gens, outs, eng_first):
         f"per prompt: {diverge} (None = all equal)")
 
 
+def _ssd_serve_requests(vocab, seed):
+    """`ssd_serve`'s 16 requests (128-512-token prompts, 32-128 new tokens)
+    and the generator that drew them, for the profile's requests after."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 5)
+    lens = [int(x) for x in rng.integers(128, 513, size=16)]
+    news = [int(x) for x in rng.integers(32, 129, size=16)]
+    return _requests(rng, vocab, lens, news), rng
+
+
 def phase_ssd_serve(seed, profile):
     """ssd_8b_config at full depth through the Engine's recurrent path and
     generate; see the module docstring."""
-    import numpy as np
     import torch
     from paddle_tpu_torch.models import SSDForCausalLM, ssd_8b_config
     from paddle_tpu_torch.serving import Engine, RecurrentState
@@ -2183,10 +2258,7 @@ def phase_ssd_serve(seed, profile):
         f"({sum(p.numel() for p in model.parameters())} params) in "
         f"{time.perf_counter() - t0:.1f} s")
     watch = _HeadWatch(model)
-    rng = np.random.default_rng(seed + 5)
-    lens = [int(x) for x in rng.integers(128, 513, size=16)]
-    news = [int(x) for x in rng.integers(32, 129, size=16)]
-    reqs = _requests(rng, cfg.vocab_size, lens, news)
+    reqs, rng = _ssd_serve_requests(cfg.vocab_size, seed)
     gen_reqs = reqs[:2]
     kw = dict(max_batch=8, block_size=128, prefill_buckets=(128, 256, 512))
     Engine(model, device="cuda", num_blocks=16, **kw).warmup()

@@ -1,0 +1,289 @@
+#!/usr/bin/env python3
+"""Time hand-written kernels of one or more checkouts of the port on the
+same inputs, each checkout in its own process, in the order given (for a
+comparison on one card: parent, change, change, parent).
+
+    python3 kernel_ab.py SET [--split-keys N] DIR [DIR ...]   # each DIR holds paddle_tpu_torch/
+
+Sets:
+
+- ``gemm``: the fusion sites' ten bf16 GEMM launches at `base` (operands
+  bf16, weights already rounded, as the sites' tensor-core launches read
+  them).
+- ``serve``: the serving path's two kernels.  RMSNorm at a decode step
+  [8, 4096], at the Engine's prefill forwards [512, 4096] and [2048, 4096]
+  and at [4096, 4096] (bf16 over a bf16 weight), and at a `base` training
+  step [6144, 2048] (bf16 over fp32); decode attention dense (B 8, C 2048,
+  H 32 over Hk 8, D 128) and paged (the Engine's pool [512, 8, 128, 128], 8
+  blocks a row, NaN in the trash block and in stale tails) at the kernel
+  table's lengths and at the `serve` phase's own lengths.  Each output is
+  also hashed (sha256 prefix), so checkouts can be held to the same bits,
+  and each decode output is held to its plain version within
+  ``chip_smoke.DECODE_TOL``.
+- ``rms_plan``: each RMSNorm kernel (``plan``'s two choices forced) at the
+  row counts the serving path gives it, for checkouts with
+  ``rms_norm.plan``.
+- ``tokens``: the Engine drain and `generate` of ``chip_smoke.py``'s
+  `serve` phase (Llama-3-8B widths, 32 layers) and of its `ssd_serve` phase
+  (SSD-8B), random weights from seed 0: sha256 prefixes of the greedy
+  tokens, and (for checkouts with ``rms_norm.plan``) the RMSNorm launches
+  of the `serve` drain by row count.
+
+``--split-keys N`` builds decode attention with N keys a CTA of its first
+pass instead of ``_build.GEOMETRY``'s (a multiple of 32).  Every launch is
+timed alone by ``chip_smoke.time_ms`` (CUDA events after an L2 flush).
+Prints one JSON line a checkout: ``{"tree", "card", "set", ...}``.  Needs
+a CUDA card.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+SETS = ("gemm", "serve", "rms_plan", "tokens")
+TABLE_DENSE = [1, 37, 128, 129, 500, 1024, 2047, 2048]
+TABLE_PAGED = [0, 1, 128, 129, 256, 300, 777, 1024]
+# RMSNorm rows of the serving path: a decode step's 8 and the Engine's
+# prefill forwards, n requests of one bucket (n in 4/2/1, buckets 128-512)
+SERVE_ROWS = (8, 128, 256, 384, 512, 768, 1024, 1536, 2048, 4096)
+
+
+def _smoke():
+    """This script's chip_smoke.py: the same inputs for every checkout."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _digest(t) -> str:
+    import torch
+
+    t = t.detach().contiguous().cpu()
+    return hashlib.sha256(t.view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+
+
+def _rnd(gen, *shape, dt=None, std=1.0):
+    import torch
+
+    return (std * torch.randn(*shape, generator=gen, device="cuda")).to(dt or torch.bfloat16)
+
+
+def _gemm_cases():
+    import torch
+    from paddle_tpu_torch.kernels import fused_gemm as fg
+
+    M, H, I, V = 3 * 2048, 2048, 5632, 32000     # `base`: rows, hidden, intermediate, vocab
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x, dy, act = _rnd(gen, M, H), _rnd(gen, M, H), _rnd(gen, M, I)
+    d_gu, d_logits = _rnd(gen, M, 2 * I), _rnd(gen, M, V)
+    wd, wh = _rnd(gen, I, H, std=0.02), _rnd(gen, H, V, std=0.02)
+    wgu = _rnd(gen, H, 2 * I, std=0.02)
+    f32 = torch.float32
+    return {
+        "gate_up+swiglu": lambda: fg.swiglu_gate_up(x, wgu, I),
+        "down": lambda: fg.matmul(act, wd),
+        "d_act": lambda: fg.matmul(dy, wd, b_t=True),
+        "gate_up+swiglu_bwd": lambda: fg.swiglu_gate_up_bwd(x, wgu, act, I),
+        "d_w_down": lambda: fg.matmul(act, dy, a_t=True, out_dtype=f32),
+        "d_hidden": lambda: fg.matmul(d_gu, wgu, b_t=True),
+        "d_w_gate_up": lambda: fg.matmul(x, d_gu, a_t=True, out_dtype=f32),
+        "head": lambda: fg.matmul(x, wh),
+        "d_normed": lambda: fg.matmul(d_logits, wh, b_t=True),
+        "d_w_head": lambda: fg.matmul(x, d_logits, a_t=True, out_dtype=f32),
+    }, {}
+
+
+def _serve_cases(smoke):
+    """{case: launch} and {case: plain version} on inputs from fixed seeds."""
+    import torch
+    from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.kernels.rms_norm import rms_norm
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf = torch.bfloat16
+    cases, plain = {}, {}
+    for rows, d, w_dt in ((8, 4096, bf), (512, 4096, bf), (2048, 4096, bf), (4096, 4096, bf),
+                          (6144, 2048, torch.float32)):
+        x, w = _rnd(gen, rows, d), (1.0 + _rnd(gen, d, dt=torch.float32, std=0.1)).to(w_dt)
+        label = f"rms_norm [{rows}, {d}]" + (" fp32 w" if w_dt != bf else "")
+        cases[label] = lambda x=x, w=w: rms_norm(x, w, 1e-6)
+
+    B, H, Hk, D, bs, NB, MAXB = 8, 32, 8, 128, 128, 512, 8
+    sm = D ** -0.5
+    serve = smoke._serve_lengths()
+    for label, lengths, C in (("decode dense (table)", TABLE_DENSE, 2048),
+                              ("decode dense (serve)", serve, 1024)):
+        q, k, v = _rnd(gen, B, 1, H, D), _rnd(gen, B, C, Hk, D), _rnd(gen, B, C, Hk, D)
+        ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        cases[label] = lambda q=q, k=k, v=v, ln=ln: da.masked_multihead_attention(q, k, v, ln)
+        plain[label] = lambda q=q, k=k, v=v, ln=ln: da._decode_reference(q, k, v, ln, sm)
+    for label, lengths in (("decode paged (table)", TABLE_PAGED),
+                           ("decode paged (serve)", serve)):
+        q, kp, vp = _rnd(gen, B, 1, H, D), _rnd(gen, NB, Hk, bs, D), _rnd(gen, NB, Hk, bs, D)
+        kp[0] = vp[0] = float("nan")
+        table = torch.zeros(B, MAXB, dtype=torch.int32)
+        nxt = 1
+        for b, L in enumerate(lengths):
+            n = -(-L // bs)
+            table[b, :n] = torch.arange(nxt, nxt + n)
+            nxt += n
+            if L % bs:
+                kp[int(table[b, n - 1]), :, L % bs:] = float("nan")
+                vp[int(table[b, n - 1]), :, L % bs:] = float("nan")
+        table = table.cuda()
+        ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        cases[label] = (lambda q=q, kp=kp, vp=vp, table=table, ln=ln:
+                        da.paged_decode_attention(q, kp, vp, table, ln))
+        plain[label] = (lambda q=q, kp=kp, vp=vp, table=table, ln=ln:
+                        da._paged_pool_reference(q, kp, vp, table, ln, sm))
+    return cases, plain
+
+
+def _rms_plan_cases():
+    """Each kernel ``plan`` can pick, forced, at the serving path's rows of
+    4096 (bf16 weight) and at a `base` training step's 6144 rows of 2048
+    (fp32 weight)."""
+    import torch
+    from paddle_tpu_torch.kernels import rms_norm as rn
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows_nv = {4096: rn.plan(1 << 20, 4096, torch.bfloat16)[1],
+               2048: rn.plan(1 << 20, 2048, torch.bfloat16)[1]}
+    real_plan = rn.plan
+    cases = {}
+    for rows, d, w_dt in [(r, 4096, torch.bfloat16) for r in SERVE_ROWS] + [
+            (6144, 2048, torch.float32)]:
+        x, w = _rnd(gen, rows, d), (1.0 + _rnd(gen, d, dt=torch.float32, std=0.1)).to(w_dt)
+        for kind, nv in (("cta", 0), ("rows", rows_nv[d])):
+            def run(x=x, w=w, choice=(kind, nv)):
+                rn.plan = lambda *a: choice
+                try:
+                    return rn.rms_norm(x, w, 1e-6)
+                finally:
+                    rn.plan = real_plan
+            cases[f"{kind} [{rows}, {d}]"] = run
+    return cases, {}
+
+
+def _tokens(smoke) -> dict:
+    """sha256 of the greedy tokens of `serve`'s Engine drain and generate
+    and of `ssd_serve`'s, as chip_smoke.py's phases drive them; and the
+    `serve` drain's RMSNorm launches by row count."""
+    import collections
+
+    import torch
+    from paddle_tpu_torch.kernels import rms_norm as rn
+    from paddle_tpu_torch.models import (LlamaForCausalLM, SSDForCausalLM, llama3_8b_config,
+                                         ssd_8b_config)
+
+    kw = dict(max_batch=8, block_size=128, prefill_buckets=(128, 256, 512))
+    out, rows = {}, collections.Counter()
+    real_plan = getattr(rn, "plan", None)
+    for name, cls, cfg, reqs, blocks in (
+            ("serve", LlamaForCausalLM, llama3_8b_config(),
+             smoke._serve_requests(llama3_8b_config().vocab_size, 0)[0], 512),
+            ("ssd_serve", SSDForCausalLM, ssd_8b_config(),
+             smoke._ssd_serve_requests(ssd_8b_config().vocab_size, 0)[0], 16)):
+        model = cls(cfg, device="cuda", seed=0)
+        if name == "serve" and real_plan is not None:
+            rn.plan = lambda n, d, dt: (rows.update([n]), real_plan(n, d, dt))[1]
+        try:
+            _, outs = smoke._serve(model, reqs, "cuda", num_blocks=blocks, **kw)
+        finally:
+            if real_plan is not None:
+                rn.plan = real_plan
+        gens = [model.generate(r.prompt_ids[None], max_new_tokens=16) for r in reqs[:2]]
+        h = hashlib.sha256()
+        for o in outs:
+            h.update(json.dumps([int(t) for t in o.output_ids]).encode())
+        for g in gens:
+            h.update(json.dumps(g.tolist()).encode())
+        out[name] = h.hexdigest()[:16]
+        del model, outs, gens
+        torch.cuda.empty_cache()
+    rec = {"tokens_sha256": out}
+    if real_plan is not None:
+        rec["serve_rms_norm_launches_by_rows"] = dict(sorted(rows.items()))
+    return rec
+
+
+def _run_tree(which: str, tree: str, split_keys: int) -> dict:
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import torch
+    from paddle_tpu_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: no CUDA device")
+    if split_keys:
+        _build.GEOMETRY["decode_attention"]["DECODE_SPLIT_KEYS"] = split_keys
+    smoke = _smoke()
+    if which == "tokens":
+        return _tokens(smoke)
+    if which == "rms_plan":
+        from paddle_tpu_torch.kernels import rms_norm as rn
+
+        if not hasattr(rn, "plan"):
+            return {"skipped": "this checkout's RMSNorm has one kernel"}
+        cases, plain = _rms_plan_cases()
+    else:
+        cases, plain = _gemm_cases() if which == "gemm" else _serve_cases(smoke)
+    for fn in cases.values():      # builds, first launches and the card's clocks
+        for _ in range(20):
+            fn()
+    torch.cuda.synchronize()
+    ms, sha, err = {}, {}, {}
+    for label, fn in cases.items():
+        y = fn()
+        sha[label] = _digest(y)
+        if label in plain:
+            ref = plain[label]()
+            err[label] = smoke.max_err(y, ref)
+            if not smoke.within(y, ref, smoke.DECODE_TOL):
+                raise SystemExit(f"kernel_ab: {label} disagrees with its plain version: "
+                                 f"max err {err[label]}")
+        ms[label] = smoke.time_ms(fn)
+    rec = {"ms": ms, "sha256": sha}
+    if err:
+        rec["max_abs_err"] = err
+    return rec
+
+
+def main(argv=None) -> int:
+    args = list(sys.argv[1:] if argv is None else argv)
+    if len(args) == 4 and args[0] == "--one":
+        print(json.dumps(_run_tree(args[1], args[3], int(args[2]))), flush=True)
+        return 0
+    split_keys = 0
+    if "--split-keys" in args:
+        i = args.index("--split-keys")
+        split_keys = int(args[i + 1])
+        del args[i:i + 2]
+    if len(args) < 2 or args[0] not in SETS:
+        raise SystemExit(__doc__)
+    which, trees = args[0], args[1:]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
+    for tree in trees:
+        proc = subprocess.run([sys.executable, __file__, "--one", which, str(split_keys), tree],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-3000:], file=sys.stderr)
+            return proc.returncode
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        extra = {"split_keys": split_keys} if split_keys else {}
+        print(json.dumps({"tree": tree, "card": card, "set": which, **extra, **rec}),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

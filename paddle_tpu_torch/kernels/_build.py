@@ -46,13 +46,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "rms_norm": {
-        # x, w, y, rows, d, eps, x_dtype, w_dtype, stream
-        "rms_norm_launch": (P, P, P, I, I, F, I, I, P),
+        # x, w, y, rows, d, eps, x_dtype, w_dtype, vectors a lane (0: a CTA a row), stream
+        "rms_norm_launch": (P, P, P, I, I, F, I, I, I, P),
     },
     "decode_attention": {
-        # q, k, v, lengths, table, ws, out, B, H, Hk, D, cap, maxb, paged,
-        # nsplit, sm_scale, dtype, stream
-        "decode_attention_launch": (P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+        # q, k, v, lengths, table, ws, out, B, H, Hk, D, cap, maxb, lead (the
+        # caches' first dim), paged, nsplit, sm_scale, dtype, stream
+        "decode_attention_launch": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                                     I, F, I, P),
         "decode_attention_split_keys": (),
     },
@@ -102,9 +102,13 @@ ATTRIBUTES_SIGNATURE = (I, I, I, I, I, P)
 GEOMETRY = {
     "adamw": {"ADAMW_THREADS": 256, "ADAMW_MAX_BLOCKS": 132 * 16},  # a few waves over the SMs
     "add_rms_norm": {"ADD_RMS_NORM_GROUPS": 512},     # most row groups of the backward's dw
-    "decode_attention": {"DECODE_TILE": 32,           # keys a step = lanes of the softmax warp
+    "decode_attention": {"DECODE_TILE": 32,           # keys a tile = lanes of a warp
                          "DECODE_MAX_REP": 8,         # query rows a kv-head (H / Hk)
-                         "DECODE_SPLIT_KEYS": 256},   # keys a CTA of pass 1 (DECODE_TILE x k)
+                         "DECODE_SPLIT_KEYS": 256,    # keys a CTA of pass 1 (DECODE_TILE x k)
+                         "DECODE_WARPS": 8,           # warps a CTA of pass 1
+                         # shared memory for the K/V tiles resident at once
+                         # (the whole split up to D 128 in bf16)
+                         "DECODE_RESIDENT_BYTES": 160 * 1024},
     # per head_dim: the fp32 kernels' q- and k-tile rows; for bf16 the
     # forward's query rows (64 a consumer warpgroup) and keys of its k-tiles,
     # the keys of a dK/dV CTA (64 a warpgroup, or 64 shared by two at D 256)
@@ -128,6 +132,9 @@ GEOMETRY = {
                    "GEMM_TC_BM": 128, "GEMM_TC_BN": 256, "GEMM_TC_BK": 64, "GEMM_TC_STAGES": 4,
                    "GEMM_PREP_ROWS": 8},
     "injected": {"INJECTED_TILE_ROWS": 8, "INJECTED_TILE_COLS": 128},
+    # 16-byte vectors a lane of the row kernel (a row of G groups of 32
+    # vectors takes G / that many warps)
+    "rms_norm": {"RMS_LANE_VECTORS": 4},
 }
 # the build variants: name -> (source, extra defines)
 VARIANTS = {"fused_gemm_emit_race": ("fused_gemm", ("-DKERNEL_GATE_EMIT_RACE",))}

@@ -31,6 +31,38 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// warp_sum of N values a lane at once (N a power of two <= 32), each to
+// warp_sum's bits: at each level of its xor butterfly a lane keeps half of
+// the values it carries and sends the other half to its partner, whose sum
+// of a value is the same bits (a + b == b + a), so N values take
+// N + 4 - log2 N shuffles, not 5 N.  Lane l ends with the sum of value
+// l >> (5 - log2 N).
+template <int N>
+__device__ __forceinline__ float warp_sum_many(float (&v)[N], int lane) {
+  static_assert(N >= 1 && N <= 32 && (N & (N - 1)) == 0, "N is a power of two <= 32");
+#pragma unroll
+  for (int level = 0; level < 5; ++level) {
+    const int o = 16 >> level;
+    const int c = N >> level;  // values a lane carries into this level
+    if (c > 1) {
+      const bool upper = (lane & o) != 0;
+#pragma unroll
+      for (int i = 0; i < c / 2; ++i) {
+        const float send = upper ? v[i] : v[i + c / 2];
+        const float keep = upper ? v[i + c / 2] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+      }
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+    }
+  }
+  return v[0];
+}
+// log2 of a power of two up to 32, at compile time
+__host__ __device__ constexpr int log2_pow2(int n) {
+  return n >= 32 ? 5 : n >= 16 ? 4 : n >= 8 ? 3 : n >= 4 ? 2 : n >= 2 ? 1 : 0;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));

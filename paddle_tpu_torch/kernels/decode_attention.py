@@ -130,6 +130,9 @@ def _launch(q, k, v, lengths, table, cap: int, maxb: int, paged: bool,
         raise ValueError("decode attention kernel: all tensors must be on one device")
     if not (k.is_contiguous() and v.is_contiguous()):
         raise ValueError("decode attention kernel needs contiguous caches")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("decode attention kernel needs 16-byte aligned caches "
+                         "(TMA tensor maps and 16-byte copies read them)")
     q = q.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     table_ptr = None
@@ -147,7 +150,7 @@ def _launch(q, k, v, lengths, table, cap: int, maxb: int, paged: bool,
         err = lib.decode_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
             table_ptr, ws.data_ptr(), out.data_ptr(), B, h, hk, d, cap, maxb,
-            int(paged), nsplit, float(sm_scale), _build.dtype_code(q.dtype), stream)
+            k.shape[0], int(paged), nsplit, float(sm_scale), _build.dtype_code(q.dtype), stream)
     _build.check(lib, err, "decode_attention")
     return out
 
@@ -302,55 +305,75 @@ def write_paged_prefill(k_pool, v_pool, blocks, k_seq, v_seq):
 # kernel-registry entries (verified by analysis.kernel_lint; see registry.py)
 # ---------------------------------------------------------------------------
 
+def resident_tiles(D: int, dtype) -> int:
+    """32-key tiles of K and V a CTA of pass 1 holds at once: the whole split
+    where they fit ``DECODE_RESIDENT_BYTES``, else 4, 2 or 1
+    (``Smem::kResident`` in the source)."""
+    geo = _build.GEOMETRY["decode_attention"]
+    tile_kv = 2 * geo["DECODE_TILE"] * D * itemsize(dtype)
+    for r in (geo["DECODE_SPLIT_KEYS"] // geo["DECODE_TILE"], 4, 2):
+        if r * tile_kv <= geo["DECODE_RESIDENT_BYTES"]:
+            return r
+    return 1
+
+
 def kernel_specs(B: int, H: int, Hk: int, D: int, cap: int, dtype, paged: bool = False,
                  maxb: int = 0, num_blocks: int = 0):
     """The two launches of ``csrc/decode_attention.cu``: the split-K pass,
-    grid (Hk, B, nsplit) and its CTA's walk over key tiles, writing the
-    workspace, then the combine pass, grid (Hk, B), reading it.  Paged pools
-    are addressed through the block table by the kernel itself."""
+    grid (Hk, B, nsplit), whose CTA walks its split in rounds of
+    :func:`resident_tiles` tiles (the loop axis; one round up to D 128 in
+    bf16), writing the workspace, then the combine pass, grid (Hk, B, rep),
+    a thread an output element, reading it.  Paged pools are addressed
+    through the block table by the kernel itself."""
     geo = _build.GEOMETRY["decode_attention"]
     split, tile, max_rep = geo["DECODE_SPLIT_KEYS"], geo["DECODE_TILE"], geo["DECODE_MAX_REP"]
     capacity = cap * maxb if paged else cap
     nsplit = -(-capacity // split)
-    ntile = split // tile
+    res = resident_tiles(D, dtype)
+    rounds = -(-(split // tile) // res)
     rep = H // Hk
     width = rep * (D + 2)
     f32, i32 = torch.float32, torch.int32
     lengths = BlockUse((B,), i32, (1,), lambda *pt: (pt[1],), name="lengths")
-    q = BlockUse((B, H, D), dtype, (1, rep, D), lambda g, b, s, t: (b, g, 0), name="q")
+    q = BlockUse((B, H, D), dtype, (1, rep, D), lambda g, b, s, c: (b, g, 0), name="q")
     if paged:
         kv = [BlockUse((num_blocks, Hk, cap, D), dtype, memory_space="any", name=n)
               for n in ("k_pool", "v_pool")]
-        kv.append(BlockUse((B, maxb), i32, (1, maxb), lambda g, b, s, t: (b, 0),
+        kv.append(BlockUse((B, maxb), i32, (1, maxb), lambda g, b, s, c: (b, 0),
                            name="block_table"))
     else:
-        last = -(-cap // tile) - 1      # tiles past the capacity are never visited
-        kv = [BlockUse((B, cap, Hk, D), dtype, (1, tile, 1, D),
-                       lambda g, b, s, t: (b, min(s * ntile + t, last), g, 0),
+        keys = res * tile
+        last = -(-cap // keys) - 1      # rounds past the capacity are never visited
+        kv = [BlockUse((B, cap, Hk, D), dtype, (1, keys, 1, D),
+                       lambda g, b, s, c: (b, min(s * rounds + c, last), g, 0),
                        name=n, masked=True) for n in ("k_cache", "v_cache")]
     ws = BlockUse((B, Hk, nsplit, width), f32, (1, 1, 1, width),
-                  lambda g, b, s, t: (b, g, s, 0), name="workspace")
-    row = D * itemsize(dtype) + 16      # a K or V row in shared memory, bank skew
+                  lambda g, b, s, c: (b, g, s, 0), name="workspace")
     partial = KernelSpec(
-        "decode_partial_kernel", grid=(Hk, B, nsplit, ntile),
+        "decode_partial_kernel", grid=(Hk, B, nsplit, rounds),
         inputs=[q, *kv, lengths], outputs=[ws],
-        scratch=[ScratchUse((2, 2, tile, row), torch.uint8),   # K, V tiles, two stages
-                 ScratchUse((max_rep, D), f32),                 # the query rows
-                 ScratchUse((max_rep, tile), f32),              # scores, then probabilities
-                 ScratchUse((max_rep,), f32),                   # running max
-                 ScratchUse((max_rep,), f32),                   # running sum
-                 ScratchUse((max_rep,), f32),                   # rescale factors
-                 ScratchUse((max_rep, D), f32, "registers")],   # the p @ V accumulators
+        scratch=[ScratchUse((1024,), torch.uint8),                # alignment slack (TMA swizzle)
+                 ScratchUse((res, 2, tile, D), dtype),            # K, V tiles of a round
+                 ScratchUse((max_rep, D), dtype),                 # the query rows
+                 ScratchUse((max_rep, res * tile), f32),          # scores, then probabilities
+                 ScratchUse((max_rep, res), f32),                 # each (row, tile)'s max
+                 ScratchUse((max_rep, res), f32),                 # ... sum
+                 ScratchUse((max_rep, res), f32),                 # ... rescale factor
+                 ScratchUse((max_rep,), f32),                     # running max
+                 ScratchUse((max_rep,), f32),                     # running sum
+                 ScratchUse((2, res), torch.int64),               # a tile's mbarriers (TMA, cp.async)
+                 ScratchUse((max_rep, D), f32, "registers")],     # the p @ V accumulators
         dimension_semantics=cuda_semantics(3, 1),
-        # the online softmax state is carried over the CTA's own key walk only
-        carried_scratch=[(3, frozenset({3})), (4, frozenset({3})), (6, frozenset({3}))],
+        # the online softmax state is carried over the CTA's own rounds only
+        carried_scratch=[(7, frozenset({3})), (8, frozenset({3})), (10, frozenset({3}))],
         cuda=("decode_attention", 0, _build.dtype_code(dtype), D, int(paged)))
     combine = KernelSpec(
-        "decode_combine_kernel", grid=(Hk, B),
+        "decode_combine_kernel", grid=(Hk, B, rep),
         inputs=[BlockUse((B, Hk, nsplit, width), f32, (1, 1, nsplit, width),
-                         lambda g, b: (b, g, 0, 0), name="workspace"), lengths],
-        outputs=[BlockUse((B, H, D), dtype, (1, rep, D), lambda g, b: (b, g, 0), name="out")],
-        dimension_semantics=cuda_semantics(2),
+                         lambda g, b, r: (b, g, 0, 0), name="workspace"), lengths],
+        outputs=[BlockUse((B, H, D), dtype, (1, 1, D), lambda g, b, r: (b, g * rep + r, 0),
+                          name="out")],
+        dimension_semantics=cuda_semantics(3),
         cuda=("decode_attention", 1, _build.dtype_code(dtype), D, int(paged)))
     return [partial, combine]
 
@@ -359,15 +382,30 @@ def _randn(g, shape, device, dtype=torch.float32):
     return torch.randn(shape, generator=g).to(dtype).to(device)
 
 
+# the `serve` phase of chip_smoke.py: its first eight requests' lengths at
+# their last decode step (prompt plus new tokens)
+SERVE_LENGTHS = (251, 247, 506, 350, 548, 445, 558, 466)
+
+
+# (B, H, Hk, D, C, lengths): the JAX registry's example, at lengths where
+# a split of 129-255 live keys ends off a 32-key tile (fp32 at D 128 holds
+# half a split at once: its last tile comes by cp.async in a later round);
+# at `serve` the table's dense shape, Llama-3-8B's heads over a 2048-slot
+# cache, ragged
+_DENSE_SHAPES = {"": (2, 8, 2, 128, 512, [200, 500]),
+                 "serve": (8, 32, 8, 128, 2048, [1, 37, 128, 129, 500, 1024, 2047, 2048])}
+
+
 def _dense_example(dtype="float32"):
-    B, h, hk, d, C = 2, 8, 2, 128, 512
-    dt = getattr(torch, dtype)
+    name, _, at = dtype.partition("@")
+    B, h, hk, d, C, lens = _DENSE_SHAPES[at]
+    dt = getattr(torch, name)
 
     def args(device):
         g = torch.Generator().manual_seed(0)
         return (_randn(g, (B, 1, h, d), device, dt), _randn(g, (B, C, hk, d), device, dt),
                 _randn(g, (B, C, hk, d), device, dt),
-                torch.tensor([300, C], dtype=torch.int32, device=device))
+                torch.tensor(lens, dtype=torch.int32, device=device))
 
     scale = 1.0 / math.sqrt(d)
     return (kernel_specs(B, h, hk, d, C, dt),
@@ -381,15 +419,24 @@ def _paged_tables(B, maxb, device):
     return (torch.arange(B * maxb, dtype=torch.int32) + 1).reshape(B, maxb).to(device)
 
 
+# (B, H, Hk, D, num_blocks, bs, maxb): the JAX registry's example (at the
+# dense example's lengths); at `serve` the Engine's pool and table width
+# (buckets up to 512 tokens: 8 blocks of 128) at Llama-3-8B's heads, over
+# the `serve` phase's lengths
+_PAGED_SHAPES = {"": (2, 8, 2, 128, 16, 128, 4), "serve": (8, 32, 8, 128, 512, 128, 8)}
+
+
 def _paged_example(dtype="float32"):
-    B, h, hk, d, nb, bs, maxb = 2, 8, 2, 128, 16, 128, 4
-    dt = getattr(torch, dtype)
+    name, _, at = dtype.partition("@")
+    B, h, hk, d, nb, bs, maxb = _PAGED_SHAPES[at]
+    dt = getattr(torch, name)
+    lens = torch.tensor(SERVE_LENGTHS if at else _DENSE_SHAPES[""][-1], dtype=torch.int32)
 
     def args(device):
         g = torch.Generator().manual_seed(0)
         return (_randn(g, (B, 1, h, d), device, dt), _randn(g, (nb, hk, bs, d), device, dt),
                 _randn(g, (nb, hk, bs, d), device, dt), _paged_tables(B, maxb, device),
-                torch.tensor([300, maxb * bs], dtype=torch.int32, device=device))
+                lens.to(device))
 
     scale = 1.0 / math.sqrt(d)
     return (kernel_specs(B, h, hk, d, bs, dt, paged=True, maxb=maxb, num_blocks=nb),
@@ -398,8 +445,10 @@ def _paged_example(dtype="float32"):
 
 
 # fp32: the plain version sums in another order; bf16: two bf16 ulps
-_DECODE = dict(dtypes=("float32", "bfloat16"),
-               tol={"float32": (2e-5, 2e-5, None), "bfloat16": (1e-3, 1.6e-2, None)})
+_BF16_TOL = (1e-3, 1.6e-2, None)
+_DECODE = dict(dtypes=("float32", "bfloat16", "bfloat16@serve"),
+               tol={"float32": (2e-5, 2e-5, None), "bfloat16": _BF16_TOL,
+                    "bfloat16@serve": _BF16_TOL})
 registry.register("decode_mmha", _dense_example, presets=("decode", "serve"),
                   description="per-(batch, kv-head) dense decode attention", **_DECODE)
 registry.register("decode_mmha_fused", _dense_example, presets=("decode", "serve"),

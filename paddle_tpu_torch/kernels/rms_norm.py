@@ -1,9 +1,10 @@
 """RMSNorm (port of ``paddle_tpu/kernels/rms_norm.py``).
 
 :func:`rms_norm` is differentiable through :class:`_RMSNorm`, a
-``torch.autograd.Function``.  Its forward launches the hand-written kernel
-``csrc/rms_norm.cu`` (the counterpart of the Pallas
-``_rms_norm_fwd_kernel_call``) on a CUDA tensor and runs
+``torch.autograd.Function``.  Its forward launches the hand-written kernels
+of ``csrc/rms_norm.cu`` (the counterpart of the Pallas
+``_rms_norm_fwd_kernel_call``; :func:`plan` picks one from the row count and
+width) on a CUDA tensor and runs
 :func:`rms_norm_reference`, the plain version with the same fp32-statistics
 expression as ``_rms_norm_ref``, on a CPU tensor.  Its backward is
 :func:`rms_norm_backward`, the port of ``_rms_bwd_rule``: the same fp32
@@ -17,11 +18,11 @@ presets and example shape); :func:`rms_norm` is admitted there first when
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from ..analysis.kernel_lint import BlockUse, KernelSpec, ScratchUse, cuda_semantics
+from ..analysis.kernel_lint import BlockUse, KernelSpec, ScratchUse, cuda_semantics, itemsize
 from . import _build, registry
 
 __all__ = ["rms_norm", "rms_norm_reference", "rms_norm_backward"]
@@ -57,6 +58,26 @@ def rms_norm_backward(x, weight, dy, epsilon: float = 1e-6):
     return dx.to(x.dtype), dw.to(weight.dtype)
 
 
+_GEO = _build.GEOMETRY["rms_norm"]
+# fewer rows finish sooner a CTA a row, a vector a thread: on an H100 at
+# D 4096 bf16 the CTA kernel leads at 256 rows and the row kernel from 384
+# (`kernel_ab.py rms_plan`, PERF.md); the Engine's prefill forwards give
+# 256-2048 rows (n same-bucket prompts, n in 4/2/1), a decode step 8
+_ROW_KERNEL_MIN_ROWS = 384
+
+
+def plan(rows: int, d: int, x_dtype) -> Tuple[str, int]:
+    """The kernel the launcher runs for ``rows`` rows of ``d``: ``("rows",
+    nv)`` where the row is at most 32 groups of 32 16-byte vectors (16 KB)
+    and there are ``_ROW_KERNEL_MIN_ROWS`` rows or more: ``nv`` is the groups
+    rounded up to a power of two, at least ``RMS_LANE_VECTORS``, and a row
+    takes ``nv / RMS_LANE_VECTORS`` warps; else ``("cta", 0)``, a CTA a row."""
+    groups = -(-(d // (16 // itemsize(x_dtype))) // 32)     # 32-vector groups a row
+    if rows >= _ROW_KERNEL_MIN_ROWS and 0 < groups <= 32:
+        return "rows", max(_GEO["RMS_LANE_VECTORS"], 1 << (groups - 1).bit_length())
+    return "cta", 0
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor, epsilon: float) -> torch.Tensor:
     d = x.shape[-1]
     if x.dtype not in _X_DTYPES:
@@ -70,6 +91,8 @@ def _launch(x: torch.Tensor, w: torch.Tensor, epsilon: float) -> torch.Tensor:
         raise ValueError(f"rms_norm weight must be [{d}] on {x.device}")
     x = x.contiguous()
     w = w.contiguous()
+    if w.data_ptr() % 16:          # the kernels read the weight as 16-byte vectors
+        w = w.clone()
     y = torch.empty_like(x)
     if x.data_ptr() % 16 or y.data_ptr() % 16:
         raise ValueError("rms_norm kernel needs 16-byte aligned rows")
@@ -80,7 +103,8 @@ def _launch(x: torch.Tensor, w: torch.Tensor, epsilon: float) -> torch.Tensor:
         err = lib.rms_norm_launch(x.data_ptr(), w.data_ptr(), y.data_ptr(),
                                   rows, d, float(epsilon),
                                   _build.dtype_code(x.dtype),
-                                  _build.dtype_code(w.dtype), stream)
+                                  _build.dtype_code(w.dtype), plan(rows, d, x.dtype)[1],
+                                  stream)
     _build.check(lib, err, "rms_norm")
     rms_norm.launches += 1
     return y
@@ -123,23 +147,44 @@ rms_norm.launches = 0
 # ---------------------------------------------------------------------------
 
 def kernel_spec(rows: int, d: int, x_dtype, w_dtype) -> KernelSpec:
-    """``rms_norm_kernel``'s launch: one CTA a row, the fp32 warp partials
-    and the row's inverse RMS in static shared memory."""
+    """The launch :func:`plan` picks, one CTA a row: ``rms_norm_rows_kernel``,
+    ``nv / RMS_LANE_VECTORS`` warps holding the row in registers and its
+    group sums in static shared memory; or ``rms_norm_kernel``, the fp32
+    warp partials and the row's inverse RMS in static shared memory."""
+    kind, nv = plan(rows, d, x_dtype)
+    codes = (_build.dtype_code(x_dtype), _build.dtype_code(w_dtype))
+    row_of_cta = ("affine", (("axis", 0), ("const", 0)))   # any grid size
+    x = BlockUse((rows, d), x_dtype, (1, d), row_of_cta, name="x")
+    y = BlockUse((rows, d), x_dtype, (1, d), row_of_cta, name="y")
+    weight = BlockUse((d,), w_dtype, (d,), ("affine", (("const", 0),)), name="w")
+    if kind == "rows":
+        return KernelSpec(
+            "rms_norm_rows_kernel", grid=(rows,), inputs=[x, weight], outputs=[y],
+            scratch=[ScratchUse((nv,), torch.float32),                     # group sums
+                     ScratchUse((32 * nv, 16), torch.uint8, "registers")],  # the row
+            dimension_semantics=cuda_semantics(1),
+            cuda=("rms_norm", 1, *codes, nv))
     return KernelSpec(
-        "rms_norm_kernel", grid=(rows,),
-        inputs=[BlockUse((rows, d), x_dtype, (1, d), lambda i: (i, 0), name="x"),
-                BlockUse((d,), w_dtype, (d,), lambda i: (0,), name="w")],
-        outputs=[BlockUse((rows, d), x_dtype, (1, d), lambda i: (i, 0), name="y")],
+        "rms_norm_kernel", grid=(rows,), inputs=[x, weight], outputs=[y],
         scratch=[ScratchUse((32,), torch.float32), ScratchUse((1,), torch.float32)],
         dimension_semantics=cuda_semantics(1),
-        cuda=("rms_norm", 0, _build.dtype_code(x_dtype), _build.dtype_code(w_dtype), 0))
+        cuda=("rms_norm", 0, *codes, 0))
+
+
+# the main path's shapes beside the JAX registry's [64, 256]: the Engine's
+# largest prefill forward (4 same-bucket prompts of 512 tokens) at
+# Llama-3-8B's width (bf16 weight), and a `base` training step's rows over
+# its fp32 weight
+_SHAPES = {"": (64, 256), "serve": (4 * 512, 4096), "base": (3 * 2048, 2048)}
 
 
 def _registry_example(dtype="bfloat16"):
     """The JAX registry's [64, 256] bf16, or x and weight in ``dtype``
-    (``"x+w"``: the train path's bf16 rows over an fp32 weight)."""
-    rows, d = 64, 256
-    names = dtype.split("+")
+    (``"x+w"``: the train path's bf16 rows over an fp32 weight; ``@serve``
+    / ``@base``: at that path's shape)."""
+    names, _, at = dtype.partition("@")
+    rows, d = _SHAPES[at]
+    names = names.split("+")
     x_dt, w_dt = getattr(torch, names[0]), getattr(torch, names[-1])
 
     def args(device):
@@ -156,5 +201,7 @@ registry.register(
     "rms_norm", _registry_example,
     presets=("tiny", "small", "base", "longctx", "moe", "ocr"),
     description="fused RMSNorm forward: row statistics kept in VMEM",
-    dtypes=("bfloat16", "float32", "bfloat16+float32"),
-    tol={"bfloat16": _BF16_TOL, "float32": (1e-5, 1e-5, None), "bfloat16+float32": _BF16_TOL})
+    dtypes=("bfloat16", "float32", "bfloat16+float32", "bfloat16@serve",
+            "bfloat16+float32@base"),
+    tol={"bfloat16": _BF16_TOL, "float32": (1e-5, 1e-5, None), "bfloat16+float32": _BF16_TOL,
+         "bfloat16@serve": _BF16_TOL, "bfloat16+float32@base": _BF16_TOL})

@@ -75,6 +75,115 @@ def test_decode_kernels_match_plain_under_nan_trash(cuda, d, dtype):
     torch.testing.assert_close(out_d[1:], ref_d[1:], **tol)
 
 
+# RMSNorm at row counts that take each kernel (a CTA a row up to 131 rows, a
+# warp a row at 4096) and widths from 32 vectors (256) to 16 KB (8192), a
+# ragged vector group (264) among them, over each weight dtype
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [256, 264, 2048, 4096, 8192])
+@pytest.mark.parametrize("rows", [1, 7, 131, 4096])
+def test_rms_norm_kernels_at_every_row_count_and_width(cuda, rows, d, w_dtype):
+    from paddle_tpu_torch.kernels.rms_norm import rms_norm, rms_norm_reference
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(rows, d, generator=g, device=cuda).to(torch.bfloat16)
+    w = (1.0 + 0.1 * torch.randn(d, generator=g, device=cuda)).to(w_dtype)
+    before = rms_norm.launches
+    y = rms_norm(x, w)
+    assert rms_norm.launches == before + 1
+    # two bf16 ulps of the plain value
+    torch.testing.assert_close(y, rms_norm_reference(x, w), rtol=1.6e-2, atol=1e-3)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [256, 264, 2048, 4096])
+def test_rms_norm_row_and_cta_kernels_give_the_same_bits(cuda, monkeypatch, x_dtype, d):
+    """Both kernels sum a row in one order, so the warp-a-row kernel's
+    result is the CTA-a-row kernel's to the bit."""
+    from paddle_tpu_torch.kernels import rms_norm as rn
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(1031, d, generator=g, device=cuda).to(x_dtype)
+    w = torch.randn(d, generator=g, device=cuda)
+    assert rn.plan(1031, d, x_dtype)[0] == "rows"
+    rows = rn.rms_norm(x, w)
+    monkeypatch.setattr(rn, "plan", lambda *a: ("cta", 0))
+    cta = rn.rms_norm(x, w)
+    assert torch.equal(rows.view(torch.int16 if x_dtype == torch.bfloat16 else torch.int32),
+                       cta.view(torch.int16 if x_dtype == torch.bfloat16 else torch.int32))
+
+
+def _decode_both_ways(cuda, rep, d, dtype, bs, MAXB, lengths, seed):
+    """Paged decode over pools with NaN in the trash block and every stale
+    tail, and dense decode over the same sequences gathered, each against
+    its plain version, with launch counts, zeros for L == 0 and the same
+    bits from both addressings."""
+    from paddle_tpu_torch.kernels import decode_attention as da
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    Hk = 2
+    B, H = len(lengths), rep * Hk
+    NB = 1 + sum(-(-L // bs) for L in lengths) + 3
+    q = torch.randn(B, 1, H, d, generator=g, device=cuda).to(dtype)
+    kp = torch.randn(NB, Hk, bs, d, generator=g, device=cuda).to(dtype)
+    vp = torch.randn(NB, Hk, bs, d, generator=g, device=cuda).to(dtype)
+    tbl = torch.zeros(B, MAXB, dtype=torch.int32)
+    nxt = 1
+    for b, L in enumerate(lengths):
+        n = -(-L // bs)
+        tbl[b, :n] = torch.arange(nxt, nxt + n)
+        nxt += n
+        if L % bs:
+            kp[tbl[b, n - 1], :, L % bs:] = float("nan")
+            vp[tbl[b, n - 1], :, L % bs:] = float("nan")
+    kp[0] = vp[0] = float("nan")
+    tbl = tbl.to(cuda)
+    len_t = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    sm = d ** -0.5
+    tol = dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32 else dict(rtol=1.6e-2, atol=1e-3)
+    before = da.paged_decode_attention.launches
+    out = da.paged_decode_attention(q, kp, vp, tbl, len_t)
+    assert da.paged_decode_attention.launches == before + 1
+    assert bool(torch.isfinite(out.float()).all())
+    assert bool((out[0] == 0).all())
+    torch.testing.assert_close(out, da._paged_pool_reference(q, kp, vp, tbl, len_t, sm), **tol)
+    # dense: the same sequences gathered, trash and stale tails included
+    kd = da._gather_pool(kp, tbl).contiguous()
+    vd = da._gather_pool(vp, tbl).contiguous()
+    before = da.masked_multihead_attention.launches
+    out_d = da.masked_multihead_attention(q, kd, vd, len_t)
+    assert da.masked_multihead_attention.launches == before + 1
+    assert bool(torch.isfinite(out_d.float()).all())
+    assert bool((out_d[0] == 0).all())
+    torch.testing.assert_close(out_d[1:], da._decode_reference(q, kd, vd, len_t, sm)[1:], **tol)
+    # one kernel, two addressings: the same bits
+    assert torch.equal(out_d.float(), out.float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+def test_decode_kernels_at_ragged_lengths(cuda, rep, d, dtype):
+    """Paged and dense decode at lengths around a 48-key block (a multiple
+    of 16 that is not one of 32: tiles straddle blocks) and at the table's
+    capacity (more than two 256-key splits), every query-row count a kv-head
+    takes, NaN in the trash block and every stale tail."""
+    bs, MAXB = 48, 12
+    _decode_both_ways(cuda, rep, d, dtype, bs, MAXB,
+                      [0, 1, 15, 16, 17, bs - 1, bs, bs + 1, bs * MAXB], seed=5)
+
+
+@pytest.mark.parametrize("rep", [1, 8])
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 256), (torch.float32, 128),
+                                     (torch.float32, 256)])
+def test_decode_kernels_over_rounds_of_resident_tiles(cuda, dtype, d, rep):
+    """Where fewer tiles than a split's fit shared memory (bf16 at D 256,
+    fp32 at D 128 and 256), a split takes rounds of tiles, and a split of
+    129-255 live keys ending off a 32-key tile ends with a tile copied by
+    cp.async into a slot whose earlier tiles came by TMA: blocks of 128
+    keys (whole tiles by TMA) at lengths 200, 500 and 1000."""
+    _decode_both_ways(cuda, rep, d, dtype, 128, 8, [0, 200, 500, 1000, 1024], seed=6)
+
+
 # fp32: sums in another order than the plain version; bf16: both compute in
 # fp32 from the same bf16 inputs and round once, so two bf16 ulps of the
 # plain value plus an atol a little above an ulp of the O(1) outputs' small

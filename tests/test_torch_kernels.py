@@ -63,6 +63,41 @@ def test_rms_norm_bf16_keeps_fp32_statistics():
                                rtol=2 ** -7, atol=1e-6)
 
 
+# the launcher's choice of kernel over (rows, D): the row kernel where the
+# row is at most 32 groups of 32 16-byte vectors (16 KB) and the rows fill
+# the card, with its groups rounded up to a power of two (at least 4, the
+# vectors a lane; a row takes nv / 4 warps)
+@pytest.mark.parametrize("rows,d,dtype,want", [
+    (0, 4096, torch.bfloat16, ("cta", 0)),
+    (8, 4096, torch.bfloat16, ("cta", 0)),              # a decode step
+    (256, 4096, torch.bfloat16, ("cta", 0)),            # a prefill of 2 x 128 or 1 x 256
+    (383, 4096, torch.bfloat16, ("cta", 0)),
+    (384, 4096, torch.bfloat16, ("rows", 16)),
+    (512, 4096, torch.bfloat16, ("rows", 16)),          # the Engine's prefill forwards
+    (2048, 4096, torch.bfloat16, ("rows", 16)),
+    (4096, 4096, torch.bfloat16, ("rows", 16)),
+    (6144, 2048, torch.bfloat16, ("rows", 8)),          # a `base` training step
+    (4096, 256, torch.bfloat16, ("rows", 4)),
+    (4096, 264, torch.bfloat16, ("rows", 4)),           # 33 vectors: two groups
+    (4096, 8192, torch.bfloat16, ("rows", 32)),         # 16 KB: the widest a warp takes
+    (4096, 8200, torch.bfloat16, ("cta", 0)),
+    (4096, 16384, torch.bfloat16, ("cta", 0)),
+    (4096, 4096, torch.float32, ("rows", 32)),
+    (4096, 4104, torch.float32, ("cta", 0)),
+])
+def test_rms_norm_plan_over_rows_and_widths(rows, d, dtype, want):
+    assert trms.plan(rows, d, dtype) == want
+    kind, nv = want
+    spec = trms.kernel_spec(rows, d, dtype, torch.float32)
+    assert spec.name == {"rows": "rms_norm_rows_kernel", "cta": "rms_norm_kernel"}[kind]
+    if kind == "rows":
+        vectors = d * dtype.itemsize // 16
+        assert 32 * nv >= vectors and (nv == 4 or 16 * nv < vectors)
+        assert spec.grid == (rows,) and spec.cuda[-1] == nv
+        assert spec.scratch[0].nbytes() == 4 * nv      # the row's group sums
+        assert not tlint.lint_kernel_spec(spec).findings
+
+
 # (b) rope ------------------------------------------------------------------
 
 def test_rope_matches_jax():
