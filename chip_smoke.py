@@ -28,14 +28,22 @@ Phases:
              time, bound; flash also against sdpa's backward alone, with
              each kernel's registers and spill bytes, its gradients tile by
              tile, and planted faults in them must be rejected; the SSD
-             scan also by norm per recurrence, with zero rows bitwise
-             no-ops, under a log-decay near -20 a token, and against three
-             planted faults; each fusion site's forward and backward at
+             scan's forward and backward kernels also by norm per
+             recurrence (the backward in each of dx, db, dc, dla, against
+             its plain closed form, whose own fp32 error against fp64 is
+             logged), with zero rows bitwise no-ops (zero gradients in the
+             backward), under a log-decay near -20 a token, and against
+             three planted faults each (the backward's: the state gradient
+             not carried, dla without its chunk-end terms, dM's mask off by
+             one); each fusion site's forward and backward at
              `base` (bf16 rows, fp32 weights; also 1000 ragged rows, the
              tied head, fp32 at 520 rows) against the plain reference and
-             its autograd, elementwise and per 64-row tile, with the seam's
-             stock chain timed beside it, and three planted faults (gate
-             and up swapped, the last K tile dropped, a row's RMS skipped);
+             its autograd, elementwise and per 64-row tile (the add +
+             RMSNorm backward's dx and dh with one bf16 ulp of the rounded
+             norm gradient more), with the seam's stock chain timed beside
+             it, and four planted faults (gate and up swapped, the last K
+             tile dropped, a row's RMS skipped, a row's norm gradient
+             dropped);
              each bf16 GEMM launch of the sites at `base` alone (ms,
              TFLOP/s, bound, registers and spill bytes, torch.matmul on
              the same operands as its yardstick) and the two preparation
@@ -44,7 +52,7 @@ Phases:
              the gate's two seeded-defect kernels, exact on the part their
              defect leaves defined
   3b kernel_gate  the kernel gate (kernels/registry.py, analysis/
-             kernel_lint.py): its CLI on the card, clean (18 entries, each
+             kernel_lint.py): its CLI on the card, clean (19 entries, each
              at every dtype it has an example of, both legs, no finding,
              every kernel's shared memory as the card reports it) and under
              each KERNEL_GATE_INJECT (write-race, parallel-carry, emit-race:
@@ -99,7 +107,7 @@ Phases:
   7 ssd_train  ssd_8b_config cut to 8 layers, fp32 params, bf16 compute,
              batch 2 x seq 4096, 5 steps on one batch, counters zeroed just
              before and read just after: every step must launch the SSD
-             scan once a layer (forward only), RMSNorm once a layer plus
+             scan's forward and its backward once a layer, RMSNorm once a layer plus
              once, AdamW once a leaf (inside the update) and no attention
              kernel; losses finite and falling; step 1's loss within a
              limit of the fp32-activation loss
@@ -119,7 +127,8 @@ Phases:
 `python3 kernel_ab.py SET DIR [DIR ...]` times kernels of several checkouts
 on the same inputs: `gemm` the sites' GEMMs, `serve` RMSNorm and decode
 (outputs hashed), `rms_plan` each RMSNorm kernel at the serving path's row
-counts, `tokens` the `serve` and `ssd_serve` greedy tokens (hashed).
+counts, `tokens` the `serve` and `ssd_serve` greedy tokens (hashed), `ssd`
+the SSD scan's forward and backward (errors against the plain versions).
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero before that
@@ -140,6 +149,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory bandwidth (data sheet)
 FP32_FLOPS_PER_S = 67e12     # H100 SXM fp32 rate outside the tensor cores
 BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor-core rate
+TF32_FLOPS_PER_S = 495e12    # H100 SXM dense TF32 tensor-core rate
 RMS_TOL = (1e-3, 1.6e-2)     # (atol, rtol): two bf16 ulps of the plain value
 # (atol, rtol) of bf16 flash attention: kernel and plain version compute in
 # fp32 from the same bf16 inputs and round once, so two bf16 ulps; the atol
@@ -199,13 +209,15 @@ DECODE_TOL = (1e-3, 1.6e-2)
 # over the vocabulary may be at most this multiple of generate's own bf16
 # error, its max |difference| from the same prefill with fp32 activations
 LOGIT_TOL = 2.0
-# the SSD scan kernel against its plain version, both fp32 (sums and the
-# log-decay prefix sum in another order): elementwise |kernel - plain| at most
-# SSD_ATOL x max |plain|, and in every g row (one recurrence) |kernel - plain|
-# / |plain| (Frobenius norms of y, and of the final state) at most
-# SSD_NORM_RTOL.  Read at `ssd_8b` widths on an H100: 1.25e-6 and 1.38e-6
-# (fp32 rounding is 6e-8; the sums run over up to L + N = 256 terms), so
-# each limit is about 8x its reading; the planted faults read 0.056 and up
+# the SSD scan kernels against their plain versions, both fp32 (split-TF32
+# products, sums and the log-decay prefix sum in another order):
+# elementwise |kernel - plain| at most SSD_ATOL x max |plain|, and in every
+# g row (one recurrence) |kernel - plain| / |plain| (Frobenius norms of y
+# and of the final state; of dx, db, dc and dla) at most SSD_NORM_RTOL.
+# Read on an H100 (split-TF32 kernels): forward 1.52e-6 and 1.18e-6, backward
+# up to 2.96e-6 and 2.56e-6 (fp32 rounding is 6e-8; the sums run over up to
+# L + N = 256 terms), so each limit is 3-8x its reading; the planted faults
+# read 0.06 and up
 SSD_ATOL = 1e-5
 SSD_NORM_RTOL = 1e-5
 # the fusion sites' kernels against their plain versions (the site
@@ -217,6 +229,12 @@ SSD_NORM_RTOL = 1e-5
 # 64-row tile by |kernel - plain| / |plain| (Frobenius norms) at most one
 # bf16 ulp, 2^-8; the planted faults below show both checks at work
 FUSE_TOL = (1e-3, 1.6e-2)
+# ... but the add + RMSNorm backward's residual gradient d_s + g (dx, also
+# dh) sums the norm's gradient g after kernel and plain have each rounded g
+# to bf16 on its own: where the add cancels, one bf16 ulp of g (0.0156 at
+# |g| in [2, 4)) is far above two ulps of the sum.  So those two outputs'
+# elementwise limit also takes one bf16 ulp of the plain version's rounded
+# g at each element (fuse_add_norm_slack)
 FUSE_TILE = 64
 FUSE_TILE_RTOL = 2.0 ** -8
 # fp32 (CUDA cores, no TF32 on either side): sums of up to 32000 terms in
@@ -227,6 +245,7 @@ FUSE_TILE_RTOL_FP32 = 1e-5
 # `base`'s site shapes: batch 3 x seq 2048 rows, hidden, intermediate, vocab
 FUSE_M, FUSE_H, FUSE_I, FUSE_V = 3 * 2048, 2048, 5632, 32000
 SSD_TRAIN_LAYERS = 8         # depth of `ssd_train` (32 would need 77 GB for params and AdamW)
+GATE_ENTRIES = 19            # the kernel registry: the JAX registry's 18 and ssd_scan_bwd
 SSD_TRAIN_BATCH, SSD_TRAIN_SEQ = 2, 4096
 ALL_PHASES = ("card", "build", "kernels", "kernel_gate", "parity", "train", "longctx_train",
               "fuse_train", "ssd_train", "serve", "ssd_serve", "profile")
@@ -285,14 +304,27 @@ def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
-def within(a, b, tol, scaled=False):
-    """|a - b| <= atol + rtol |b|; with ``scaled`` the atol is multiplied by
-    max(1, max |b|)."""
+def within(a, b, tol, scaled=False, slack=None):
+    """|a - b| <= atol + rtol |b| (+ ``slack``, a tensor of b's shape: a
+    further limit at each element); with ``scaled`` the atol is multiplied
+    by max(1, max |b|)."""
     atol, rtol = tol
     a, b = a.float(), b.float()
     if scaled:
         atol = atol * max(1.0, float(b.abs().max()))
-    return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+    limit = atol + rtol * b.abs()
+    if slack is not None:
+        limit = limit + slack
+    return bool(((a - b).abs() <= limit).all())
+
+
+def bf16_ulp(v):
+    """One bf16 ulp at each element of ``v``: 2^(e - 8) for |v| in
+    [2^(e-1), 2^e) (8 significant bits); 0 where v is 0."""
+    import torch
+
+    m, e = torch.frexp(v.float())
+    return torch.where(v == 0, 0.0, torch.ldexp(torch.ones_like(m), e - 8))
 
 
 def max_ulps(a, b):
@@ -805,18 +837,135 @@ def _ssd_planted_faults(x, b, c, la, L, y, s, y_ref, s_ref):
     return out
 
 
-def _ssd_case(gen, G, T, P, N, L, full):
-    """The SSD scan kernel against its plain version (fp32) at one shape:
-    errors within ``SSD_ATOL`` / ``SSD_NORM_RTOL``; zero rows (inside the
-    last chunk and a whole extra chunk) bitwise no-ops; a log-decay near -20
-    a token finite and within the limits; with ``full`` the planted
-    faults."""
+def _ssd_grad_errors(got, want):
+    """_ssd_errors of each of dx, db, dc, dla: {name: (elementwise over max
+    |plain|, largest per-g norm)}."""
+    out = {}
+    for name, a, r in zip(("dx", "db", "dc", "dla"), got, want):
+        def norm(a, r):
+            d = (a.float() - r.float()).flatten(1).norm(dim=1)
+            return float((d / r.float().flatten(1).norm(dim=1).clamp_min(1e-30)).max())
+        out[name] = (max_err(a, r) / max(float(r.abs().max()), 1e-30), norm(a, r))
+    return out
+
+
+def _ssd_grad_rejects(errs):
+    return any(_ssd_rejects(e) for e in errs.values())
+
+
+def _ssd_bwd_faulted(x, b, c, la, states, dy, ds, L, fault):
+    """The scan's closed-form VJP (kernels/ssd_scan.py
+    ssd_scan_bwd_reference, the same steps) with one planted fault: "carry"
+    the state gradient not carried across chunks (each chunk's G' is the
+    next chunk's own C^T (e dy) only), "end" dla without the state update's
+    chunk-end terms, "mask" dM masked off by one (s < t: the diagonal
+    dropped).  With ``fault`` None it is the reference bit for bit, which
+    _ssd_bwd_planted_faults checks before it plants a fault."""
     import torch
-    from paddle_tpu_torch.kernels.ssd_scan import ssd_scan, ssd_scan_reference
+
+    G, T, P = x.shape
+    N, nc = b.shape[-1], T // L
+    xr, dyr = x.reshape(G, nc, L, P), dy.reshape(G, nc, L, P)
+    br, cr = b.reshape(G, nc, L, N), c.reshape(G, nc, L, N)
+    cum = la.reshape(G, nc, L).double().cumsum(-1)
+    tot = cum[..., -1:]
+    e, w, a = (torch.exp(v.float()) for v in (cum, tot - cum, tot))
+    idx = torch.arange(L, device=x.device)
+    mask = idx[None, :] <= idx[:, None]
+    decay = torch.where(mask, torch.exp(torch.where(
+        mask, cum[..., :, None] - cum[..., None, :], 0.0).float()), 0.0)
+    m = (cr @ br.transpose(-1, -2)) * decay
+    s_in = states[:, :nc]
+    q = (cr * e[..., None]).transpose(-1, -2) @ dyr
+    if fault == "carry":          # each chunk's G' its successor's Q alone; the last ds
+        g_out = torch.cat([q[:, 1:], ds[:, None]], dim=1)
+    else:
+        grads = [ds]
+        for k in reversed(range(nc)):
+            grads.append(a[:, k, :, None] * grads[-1] + q[:, k])
+        g_out = torch.stack(grads[-2::-1], dim=1)
+    dx = m.transpose(-1, -2) @ dyr + (br * w[..., None]) @ g_out
+    dcb = (dyr @ xr.transpose(-1, -2)) * decay
+    diag = dcb.diagonal(0, -2, -1)[..., None]
+    if fault == "mask":
+        diag = torch.zeros_like(diag)
+    dcb = torch.where(idx[None, :] < idx[:, None], dcb, 0.0)
+    dc_in, db_in = dcb @ br, dcb.transpose(-1, -2) @ cr
+    dys = e[..., None] * (dyr @ s_in.transpose(-1, -2))
+    xg = w[..., None] * (xr @ g_out.transpose(-1, -2))
+    dc, db = dc_in + diag * br + dys, db_in + diag * cr + xg
+    wterm = (br * xg).sum(-1)[..., :-1]
+    dcum = (cr * (dc_in + dys)).sum(-1) - (br * db_in).sum(-1)
+    end = wterm.sum(-1) + a[..., 0] * (g_out * s_in).sum((-1, -2))
+    if fault == "end":
+        end = torch.zeros_like(end)
+    dcum = torch.cat([dcum[..., :-1] - wterm, dcum[..., -1:] + end[..., None]], dim=-1)
+    dla = dcum.flip(-1).cumsum(-1).flip(-1)
+    return dx.reshape(G, T, P), db.reshape(G, T, N), dc.reshape(G, T, N), dla.reshape(G, T)
+
+
+def _ssd_bwd_planted_faults(x, b, c, la, dy, ds, L):
+    """Faults planted in the backward's plain steps, each of which the
+    backward's checks must reject: the state gradient not carried across
+    chunks, dla missing its state-update (chunk-end) terms, dM masked off by
+    one (the diagonal s = t dropped).  At a tenth of the cases' log-decay
+    (-0.01 |n| a token): at -0.1 |n| a 128-token chunk keeps e^-10 of the
+    state it is handed, so a carry dropped there moves the gradients by
+    less than the limit; at -0.01 |n| it keeps e^-1.  The kernel is held to
+    the plain version at that decay too."""
+    import torch
+    from paddle_tpu_torch.kernels import ssd_scan as ts
+
+    la = la / 10
+    _, _, states = ts._launch(x, b, c, la, L)
+    ops = (x, b, c, la, states, dy, ds)
+    want = ts.ssd_scan_bwd_reference(*ops, L)
+    check(all(torch.equal(a, r) for a, r in zip(_ssd_bwd_faulted(*ops, L, None), want)),
+          "ssd_scan_bwd: the planted faults' copy of the plain backward is not the plain "
+          "backward")
+    errs = _ssd_grad_errors(ts.ssd_scan_bwd(*ops, chunk=L), want)
+    check(not _ssd_grad_rejects(errs), f"ssd_scan_bwd: at log-decay -0.01 |n| the kernel "
+                                       f"disagrees: {errs}")
+    out = {"kernel at this decay": errs}
+    for fault, label in (("carry", "state gradient not carried across chunks"),
+                         ("end", "dla missing its state-update term"),
+                         ("mask", "dM masked off by one (s < t)")):
+        errs = _ssd_grad_errors(_ssd_bwd_faulted(*ops, L, fault), want)
+        out[label] = errs
+        check(_ssd_grad_rejects(errs), f"ssd_scan_bwd: the checks pass the planted fault "
+                                       f"'{label}': {errs}")
+    log(f"ssd_scan_bwd planted faults: {json.dumps(out)}")
+    return out
+
+
+def _ssd_bwd_bound(G, T, P, N, L):
+    """(bytes, flops) of the backward: x, b, c, la, dy, ds and the saved
+    states entering each chunk (nc of the nc + 1: the final one is not read)
+    read once, dx, db, dc, dla written once (three [G, T, P], four [G, T, N],
+    two [G, T]); a chunk's 3 L (L + 1) N (C B^T, dCB B, dCB^T C over the
+    causal entries) + 2 L (L + 1) P (M^T dy, dy x^T) + 8 L N P (C^T (e dy),
+    (B w) G', dy S^T, x G'^T) flops."""
+    nc = T // L
+    nbytes = 4 * (3 * G * T * P + 4 * G * T * N + 2 * G * T + G * nc * N * P + G * N * P)
+    flops = G * nc * (3 * L * (L + 1) * N + 2 * L * (L + 1) * P + 8 * L * N * P)
+    return nbytes, flops
+
+
+def _ssd_case(gen, G, T, P, N, L, full):
+    """The SSD scan's forward and backward kernels against their plain
+    versions (fp32) at one shape: errors within ``SSD_ATOL`` /
+    ``SSD_NORM_RTOL`` (the backward: each of dx, db, dc, dla); zero rows
+    (inside the last chunk and a whole extra chunk) bitwise no-ops, and in
+    the backward zero gradients that leave every other one's bits; a
+    log-decay near -20 a token finite and within the limits; with ``full``
+    the planted faults.  The fp32 plain backward's own error against fp64 is
+    logged beside.  Returns (forward record, backward record)."""
+    import torch
+    from paddle_tpu_torch.kernels import ssd_scan as ts
 
     x, b, c, la = _ssd_inputs(gen, G, T, P, N)
-    y, s = ssd_scan(x, b, c, la, chunk=L)
-    y_ref, s_ref = ssd_scan_reference(x, b, c, la, L)
+    y, s = ts.ssd_scan(x, b, c, la, chunk=L)
+    y_ref, s_ref = ts.ssd_scan_reference(x, b, c, la, L)
     torch.cuda.synchronize()
     shape = {"G": G, "T": T, "P": P, "N": N, "L": L}
     errs = _ssd_errors(y, s, y_ref, s_ref)
@@ -827,45 +976,116 @@ def _ssd_case(gen, G, T, P, N, L, full):
     zeros = [t.clone() for t in (x, b, c, la)]
     for t in zeros:
         t[:, T - 5:] = 0
-    y0, s0 = ssd_scan(*zeros, chunk=L)
-    y1, s1 = ssd_scan(*[torch.cat([t, torch.zeros_like(t[:, :L])], dim=1) for t in zeros],
-                      chunk=L)
+    y0, s0 = ts.ssd_scan(*zeros, chunk=L)
+    y1, s1 = ts.ssd_scan(*[torch.cat([t, torch.zeros_like(t[:, :L])], dim=1) for t in zeros],
+                         chunk=L)
     check(torch.equal(y0, y1[:, :T]) and torch.equal(s0, s1),
           f"ssd_scan {shape}: zero rows are not exact no-ops")
     x20, b20, c20, la20 = _ssd_inputs(gen, min(G, 16), T, P, N, decay=-20.0)
-    y20, s20 = ssd_scan(x20, b20, c20, la20, chunk=L)
-    errs20 = _ssd_errors(y20, s20, *ssd_scan_reference(x20, b20, c20, la20, L))
+    y20, s20 = ts.ssd_scan(x20, b20, c20, la20, chunk=L)
+    errs20 = _ssd_errors(y20, s20, *ts.ssd_scan_reference(x20, b20, c20, la20, L))
     check(bool(torch.isfinite(y20).all() and torch.isfinite(s20).all()),
           f"ssd_scan {shape}: log-decay near -20 gives non-finite values")
     check(not _ssd_rejects(errs20), f"ssd_scan {shape}: log-decay near -20 disagrees: {errs20}")
     faults = _ssd_planted_faults(x, b, c, la, L, y, s, y_ref, s_ref) if full else None
-    # the scan's backward (a plain recompute and its autograd VJP, no kernel)
-    args = [t.detach().requires_grad_() for t in (x, b, c, la)]
-    dy, ds = torch.randn_like(y), torch.randn_like(s)
 
-    def backward():
+    # the backward: the kernels against the plain closed form on the same
+    # inputs, the forward kernels' states and the same cotangents
+    _, _, states = ts._launch(x, b, c, la, L)
+    dy, ds = (torch.randn(t.shape, generator=gen, device="cuda") for t in (y, s))
+    ops = (x, b, c, la, states, dy, ds)
+    got = ts.ssd_scan_bwd(*ops, chunk=L)
+    want = ts.ssd_scan_bwd_reference(*ops, L)
+    torch.cuda.synchronize()
+    berrs = _ssd_grad_errors(got, want)
+    check(all(bool(torch.isfinite(g).all()) for g in got), f"ssd_scan_bwd {shape}: not finite")
+    check(not _ssd_grad_rejects(berrs), f"ssd_scan_bwd {shape}: disagrees with the plain "
+          f"backward: {berrs} (limits {SSD_ATOL}, {SSD_NORM_RTOL})")
+    # zero rows (dy 0 there, ds 0): zero gradients, and an appended zero
+    # chunk changes no bit of the others
+    zs = [t.clone() for t in (x, b, c, la, dy)]
+    for t in zs:
+        t[:, T - 5:] = 0
+
+    def zgrads(x, b, c, la, dy):
+        _, s, st = ts._launch(x, b, c, la, L)
+        return ts.ssd_scan_bwd(x, b, c, la, st, dy, torch.zeros_like(s), chunk=L)
+
+    g0 = zgrads(*zs)
+    g1 = zgrads(*[torch.cat([t, torch.zeros_like(t[:, :L])], dim=1) for t in zs])
+    check(all(torch.equal(a, r[:, :T]) and bool((r[:, T - 5:] == 0).all())
+              for a, r in zip(g0, g1)),
+          f"ssd_scan_bwd {shape}: zero rows do not give exact zero gradients and no-ops")
+    del g0, g1, zs
+    _, _, st20 = ts._launch(x20, b20, c20, la20, L)
+    ops20 = (x20, b20, c20, la20, st20, dy[:x20.shape[0]], ds[:x20.shape[0]])
+    got20 = ts.ssd_scan_bwd(*ops20, chunk=L)
+    berrs20 = _ssd_grad_errors(got20, ts.ssd_scan_bwd_reference(*ops20, L))
+    check(all(bool(torch.isfinite(g).all()) for g in got20),
+          f"ssd_scan_bwd {shape}: log-decay near -20 gives non-finite gradients")
+    check(not _ssd_grad_rejects(berrs20),
+          f"ssd_scan_bwd {shape}: log-decay near -20 disagrees: {berrs20}")
+    # the fp32 plain backward's own error against fp64, at both decays
+    fp64 = {}
+    for label, o in (("decay_0.1", ops), ("decay_near_minus_20", ops20)):
+        x_, b_, c_, la_, _, dy_, ds_ = o
+        _, st32 = ts.ssd_scan_states(x_, b_, c_, la_, L)
+        plain32 = ts.ssd_scan_bwd_reference(x_, b_, c_, la_, torch.stack(st32, 1), dy_, ds_, L)
+        o64 = [t.double() for t in (x_, b_, c_, la_)]
+        _, st64 = ts.ssd_scan_states(*o64, L)
+        plain64 = ts.ssd_scan_bwd_reference(*o64, torch.stack(st64, 1), dy_.double(),
+                                            ds_.double(), L)
+        fp64[label] = _ssd_grad_errors(plain32, plain64)
+        del plain32, plain64, st32, st64, o64
+    bfaults = _ssd_bwd_planted_faults(x, b, c, la, dy, ds, L) if full else None
+
+    plain_bwd_ms = time_ms(lambda: ts.ssd_scan_bwd_reference(*ops, L), 5)
+    # the backward before the scan had a backward kernel: autograd through a
+    # recompute of the plain scan (the forward record's plain_backward_ms)
+    args = [t.detach().requires_grad_() for t in (x, b, c, la)]
+
+    def recompute_backward():
         with torch.enable_grad():
-            yy, ss = ssd_scan_reference(*args, L)
+            yy, ss = ts.ssd_scan_reference(*args, L)
         torch.autograd.grad((yy, ss), args, (dy, ds))
     nbytes = 4 * (2 * G * T * P + 2 * G * T * N + G * T + G * N * P)
     # a chunk: C.B^T and M.x over the L(L+1)/2 entries with s <= t (the
     # causal mask needs no others), C.S and the state update in full
     flops = G * (T // L) * (L * (L + 1) * (N + P) + 4 * L * N * P)
     b_ms, b_by = bound(nbytes, flops)
+    tc_ms, tc_by = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
     rec = {"shape": shape, "dtype": "float32", "max_abs_err": max_err(y, y_ref),
            "max_abs_err_state": max_err(s, s_ref), "max_err_over_max_abs": errs[0],
            "g_norm_err": errs[1], "zero_rows_bitwise": True,
            "decay_near_minus_20": {"max_err_over_max_abs": errs20[0], "g_norm_err": errs20[1]},
            "planted_faults": faults,
            "tol": {"atol_over_max_abs": SSD_ATOL, "g_norm_rtol": SSD_NORM_RTOL},
-           "ms": time_ms(lambda: ssd_scan(x, b, c, la, chunk=L)),
-           "plain_ms": time_ms(lambda: ssd_scan_reference(x, b, c, la, L)),
+           "ms": time_ms(lambda: ts.ssd_scan(x, b, c, la, chunk=L)),
+           "plain_ms": time_ms(lambda: ts.ssd_scan_reference(x, b, c, la, L)),
            "library_ms": None,
            "library": "none: no single PyTorch call computes the chunked scan",
-           "plain_backward_ms": time_ms(backward, 5),
-           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops}
+           "plain_backward_ms": time_ms(recompute_backward, 5),
+           "bound_ms": b_ms, "bound_by": b_by, "bound_tf32x3_ms": tc_ms, "bound_tf32x3_by": tc_by,
+           "bytes": nbytes, "flops": flops}
     log(f"ssd_scan {shape}: {json.dumps(rec)}")
-    return rec
+    nbytes, flops = _ssd_bwd_bound(G, T, P, N, L)
+    b_ms, b_by = bound(nbytes, flops)
+    tc_ms, tc_by = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+    brec = {"shape": shape, "dtype": "float32",
+            "max_abs_err": max(max_err(a, r) for a, r in zip(got, want)),
+            "max_abs_err_by_output": {n: max_err(a, r) for n, a, r in
+                                      zip(("dx", "db", "dc", "dla"), got, want)},
+            "errors": berrs, "decay_near_minus_20": berrs20, "plain_fp32_vs_fp64": fp64,
+            "zero_rows_bitwise": True, "planted_faults": bfaults,
+            "tol": {"atol_over_max_abs": SSD_ATOL, "g_norm_rtol": SSD_NORM_RTOL},
+            "ms": time_ms(lambda: ts.ssd_scan_bwd(*ops, chunk=L)),
+            "plain_ms": plain_bwd_ms,
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes the scan's VJP",
+            "bound_ms": b_ms, "bound_by": b_by, "bound_tf32x3_ms": tc_ms,
+            "bound_tf32x3_by": tc_by, "bytes": nbytes, "flops": flops}
+    log(f"ssd_scan_bwd {shape}: {json.dumps(brec)}")
+    return rec, brec
 
 
 def rows_tile_err(a, b, tile=FUSE_TILE):
@@ -881,15 +1101,35 @@ def rows_tile_err(a, b, tile=FUSE_TILE):
     return float((num / b.square().sum((1, 2)).sqrt().clamp_min(1e-30)).max())
 
 
-def _fuse_rejects(got, ref, fp32):
-    """The fusion checks: True when ``got`` fails them against ``ref``."""
+def _fuse_rejects(got, ref, fp32, slack=None):
+    """The fusion checks: True when ``got`` fails them against ``ref``
+    (``slack``: a further elementwise limit, see FUSE_TOL)."""
     tol, tile = (FUSE_TOL_FP32, FUSE_TILE_RTOL_FP32) if fp32 else (FUSE_TOL, FUSE_TILE_RTOL)
     if fp32:
         tol = (tol[0] * max(float(ref.float().abs().max()), 1e-30), tol[1])
-    return not within(got, ref, tol, scaled=not fp32) or rows_tile_err(got, ref) > tile
+    return (not within(got, ref, tol, scaled=not fp32, slack=slack)
+            or rows_tile_err(got, ref) > tile)
 
 
-def _site_args(gen, name, M, dtype, transpose=False):
+def fuse_add_norm_slack(args, cts, static):
+    """One bf16 ulp, at each element, of the add + RMSNorm site's norm
+    gradient g as the plain version rounds it before the residual add (its
+    autograd of the norm in the rows' dtype): the further limit of that
+    backward's dx and dh (FUSE_TOL).  None for fp32 rows, which round
+    nothing."""
+    import torch
+    from paddle_tpu_torch.kernels import emit
+
+    x, h, w = args
+    if x.dtype == torch.float32:
+        return None
+    with torch.enable_grad():
+        s = (x + h).detach().requires_grad_()
+        (g,) = torch.autograd.grad(emit._rms_rows(s, w, static["epsilon"]), s, cts[1])
+    return bf16_ulp(g)
+
+
+def _site_args(gen, name, M, dtype, transpose=False, device="cuda"):
     """A site's operands at `base` widths, ``M`` rows of ``dtype``
     activations, fp32 weights at the model's init scale: hidden rows N(0, 1)
     (N(0, 4) before the final norm, whose inverse RMS is then ~0.5), norm
@@ -897,7 +1137,7 @@ def _site_args(gen, name, M, dtype, transpose=False):
     import torch
 
     def rnd(*shape, std=1.0, dt=torch.float32):
-        return (std * torch.randn(*shape, generator=gen, device="cuda")).to(dt)
+        return (std * torch.randn(*shape, generator=gen, device=device)).to(dt)
 
     H, I, V = FUSE_H, FUSE_I, FUSE_V
     if name == "fuse_swiglu_mlp":
@@ -950,17 +1190,19 @@ def _site_bounds(name, M, itemsize):
             bound(2 * act + 2 * H * 4 + 2 * H * V * 4 + logits, 2 * mm, rate))
 
 
-def _fuse_planted_faults(gen):
-    """Faults planted in the sites' outputs at `base`, each of which the
-    fusion checks must reject: the gate and up halves swapped, the down
-    product's last K tile (32 of 5632) dropped, and one row's RMS scale
-    skipped in the head's prologue.  Each is built from the plain pieces on
-    the same inputs and held against the plain output."""
+def _fuse_planted_faults(gen, M=FUSE_M, device="cuda"):
+    """Faults planted in the sites' outputs at `base` widths (``M`` rows),
+    each of which the fusion checks must reject: the gate and up halves
+    swapped, the down product's last K tile (32 of 5632) dropped, one row's
+    RMS scale skipped in the head's prologue, and one row's norm gradient
+    dropped from the add + RMSNorm backward's dx (held with that output's
+    further limit, fuse_add_norm_slack).  Each is built from the plain
+    pieces on the same inputs and held against the plain output."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import emit
 
-    (x, w_gu, w_d), st = _site_args(gen, "fuse_swiglu_mlp", FUSE_M, torch.bfloat16)
+    (x, w_gu, w_d), st = _site_args(gen, "fuse_swiglu_mlp", M, torch.bfloat16, device=device)
     I = st["intermediate_size"]
     ref = emit._swiglu_ref(x, w_gu, w_d, intermediate_size=I)
     gate, up = torch.split(x @ w_gu.to(x.dtype), [I, I], dim=-1)
@@ -969,19 +1211,32 @@ def _fuse_planted_faults(gen):
     faults = {"gate and up halves swapped": (F.silu(up) * gate) @ wd,
               "down product's last K tile dropped": act[:, :-32] @ wd[:-32]}
     refs = {k: ref for k in faults}
-    (hid, w_n, w_h), st = _site_args(gen, "fuse_rms_norm_head", FUSE_M, torch.bfloat16)
+    slacks = {}
+    (hid, w_n, w_h), st = _site_args(gen, "fuse_rms_norm_head", M, torch.bfloat16,
+                                     device=device)
     logits = emit._rms_norm_head_ref(hid, w_n, w_h, **st)
     bad = logits.clone()
     unscaled = (hid[5].float() * w_n).to(hid.dtype)           # row 5 without its 1/RMS
     bad[5] = unscaled @ w_h.to(hid.dtype)
     faults["one row's RMS scale skipped"] = bad
     refs["one row's RMS scale skipped"] = logits
+    args, st = _site_args(gen, "fuse_add_rms_norm", M, torch.bfloat16, device=device)
+    site = emit.SITES["fuse_add_rms_norm"]
+    cts = tuple(torch.randn(a.shape, generator=gen, device=device).to(a.dtype)
+                for a in args[:2])
+    dx = emit._vjp_reference(site, args, cts, st)[0]
+    bad = dx.clone()
+    bad[5] = cts[0][5]                                        # row 5 without its norm gradient
+    fault = "one row's norm gradient dropped (add + RMSNorm dx)"
+    faults[fault], refs[fault] = bad, dx
+    slacks[fault] = fuse_add_norm_slack(args, cts, st)
     out = {}
     for fault, got in faults.items():
         r = refs[fault]
         out[fault] = {"tile_norm_err": rows_tile_err(got, r),
-                      "elementwise_check_passes": within(got, r, FUSE_TOL, scaled=True)}
-        check(_fuse_rejects(got, r, False),
+                      "elementwise_check_passes": within(got, r, FUSE_TOL, scaled=True,
+                                                         slack=slacks.get(fault))}
+        check(_fuse_rejects(got, r, False, slacks.get(fault)),
               f"fusion sites: the checks pass the planted fault '{fault}': {out[fault]}")
     log(f"fusion planted faults: {json.dumps(out)}")
     return out
@@ -1007,6 +1262,9 @@ def _site_case(gen, name, M, dtype, transpose=False, timed=False):
     shape = {"M": M, "H": FUSE_H, "dtype": str(dtype)[6:], "weights": "float32"}
     shape.update({"I": FUSE_I} if name == "fuse_swiglu_mlp" else
                  {"V": FUSE_V, "tied": transpose} if name == "fuse_rms_norm_head" else {})
+    # the add + RMSNorm backward's dx and dh: one bf16 ulp of the rounded
+    # norm gradient more (FUSE_TOL)
+    slack = fuse_add_norm_slack(args, cts, st) if name == "fuse_add_rms_norm" else None
     recs = []
     for direction, got, ref in (("forward", outs, refs), ("backward", grads, want)):
         errs = [max_err(g, r) for g, r in zip(got, ref)]
@@ -1015,7 +1273,8 @@ def _site_case(gen, name, M, dtype, transpose=False, timed=False):
             check(g.dtype == r.dtype and g.shape == r.shape,
                   f"{name} {direction} {shape}: output {i} is {g.dtype} {tuple(g.shape)}, plain "
                   f"{r.dtype} {tuple(r.shape)}")
-            check(not _fuse_rejects(g, r, fp32),
+            extra = slack if direction == "backward" and i < 2 else None
+            check(not _fuse_rejects(g, r, fp32, extra),
                   f"{name} {direction} {shape}: output {i} disagrees: max err {errs[i]} (max "
                   f"|plain| {float(r.float().abs().max())}), {FUSE_TILE}-row tile norm err "
                   f"{tiles[i]}")
@@ -1225,10 +1484,12 @@ def phase_kernels():
     # G = batch 2 x 32 heads, T 4096), two column blocks a recurrence;
     # bench.py's on-chip case (G 8, T 512, P 128, N 128, L 128); and
     # ssd_tiny_config's widths
-    cases["ssd_scan"] = [_ssd_case(gen, 128, 4096, 64, 128, 128, full=True),
-                         _ssd_case(gen, 64, 4096, 128, 64, 64, full=True),
-                         _ssd_case(gen, 8, 512, 128, 128, 128, full=True),
-                         _ssd_case(gen, 8, 256, 32, 16, 16, full=True)]
+    ssd = [_ssd_case(gen, 128, 4096, 64, 128, 128, full=True),
+           _ssd_case(gen, 64, 4096, 128, 64, 64, full=True),
+           _ssd_case(gen, 8, 512, 128, 128, 128, full=True),
+           _ssd_case(gen, 8, 256, 32, 16, 16, full=True)]
+    cases["ssd_scan"] = [fwd for fwd, _ in ssd]
+    cases["ssd_scan_bwd"] = [bwd for _, bwd in ssd]
     torch.cuda.empty_cache()
     cases.update(phase_fuse_kernels(gen))
     cases["injected_write_race"] = [_injected_case(gen, "write_race")]
@@ -1330,7 +1591,7 @@ def _check_gate(runs):
 
     registry.load_all()
     rc, clean, err = runs[""]
-    check(rc == 0 and clean["kernel_count"] == 18 and clean["total_findings"] == 0,
+    check(rc == 0 and clean["kernel_count"] == GATE_ENTRIES and clean["total_findings"] == 0,
           f"kernel_gate: clean gate rc {rc}, {clean['kernel_count']} entries, "
           f"{clean['total_findings']} findings:\n{err[-3000:]}")
     for name, k in clean["kernels"].items():
@@ -1342,8 +1603,8 @@ def _check_gate(runs):
               f"the card reports {k['smem_bytes_card_by_kernel']}")
     dyn = {n: round(k["dynamic_ms"], 3) for n, k in clean["kernels"].items()}
     pairs = sum(max(1, len(k["dtypes"])) for k in clean["kernels"].values())
-    log(f"kernel_gate: clean, 18 entries at {pairs} (entry, dtype) pairs, both legs; dynamic "
-        f"leg ms by entry {dyn} (sum {sum(dyn.values()):.1f} ms)")
+    log(f"kernel_gate: clean, {GATE_ENTRIES} entries at {pairs} (entry, dtype) pairs, both legs; "
+        f"dynamic leg ms by entry {dyn} (sum {sum(dyn.values()):.1f} ms)")
     log(f"kernel_gate: compiled attributes "
         f"{ {n: k['attributes_by_kernel'] for n, k in clean['kernels'].items()} }")
     launches = {}
@@ -1356,7 +1617,7 @@ def _check_gate(runs):
               f"kernel_gate: KERNEL_GATE_INJECT={inject} rc {rc}, codes {k.get('codes')}, "
               f"expected {sorted(want)}:\n{err[-3000:]}")
         others = {n: v["findings"] for n, v in rep["kernels"].items() if n != name}
-        check(len(others) == 18 and not any(others.values()),
+        check(len(others) == GATE_ENTRIES and not any(others.values()),
               f"kernel_gate: KERNEL_GATE_INJECT={inject}: other entries {others}")
         log(f"kernel_gate: {inject} refused with {k['codes']} (static leg alone: "
             f"{'clean' if inject == 'emit-race' else 'refused'}); gate launches "
@@ -1693,6 +1954,7 @@ def _ssd_parity(seed):
               f"differ")
         kinds = cfg.types
         _train_parity(label, cfg, cpu, gpu, seed, {"ssd_scan": kinds.count("ssd"),
+                                                   "ssd_scan_bwd": kinds.count("ssd"),
                                                    "flash_attention_fwd": kinds.count("attention")})
 
 
@@ -1978,7 +2240,10 @@ def _profile(fn, label, ranges=()):
                                "row_rms_kernel", "add_rms_norm_", "dw_reduce_kernel"),
               "flash": ("flash_",), "gemm (cuBLAS)": ("nvjet", "gemm", "cutlass"),
               "adamw": ("adamw_",), "rms_norm": ("rms_norm_",), "decode": ("decode_",),
-              "ssd_scan": ("ssd_scan",)}
+              "ssd_scan": ("chunk_state_kernel<true>", "state_pass_kernel<false>",
+                           "chunk_apply_kernel<false>"),
+              "ssd_scan_bwd": ("chunk_state_kernel<false>", "state_pass_kernel<true>",
+                               "chunk_apply_kernel<true>", "ssd_dcb_kernel")}
     by_group = dict.fromkeys([*groups, "other"], 0.0)
     for ms, _, key in rows:
         name = next((g for g, marks in groups.items() if any(m in key for m in marks)), "other")
@@ -2360,7 +2625,7 @@ def phase_ssd_train(profile):
     L = cfg.num_hidden_layers
     n_leaves = len(list(model.parameters()))
     want = dict.fromkeys(launch_counts(), 0)
-    want.update(rms_norm=L + 1, ssd_scan=L, adamw=n_leaves)
+    want.update(rms_norm=L + 1, ssd_scan=L, ssd_scan_bwd=L, adamw=n_leaves)
     want_update = dict.fromkeys(launch_counts(), 0)
     want_update["adamw"] = TRAIN_STEPS * n_leaves
     step_ms = [w * 1e3 for w in walls]
@@ -2394,8 +2659,8 @@ def phase_ssd_train(profile):
 
 def _profile_ssd_step(model, step):
     """One ssd_train step under torch.profiler, with the device time of two
-    ranges read apart: the scan's plain backward recompute and the
-    128256-wide cross-entropy's forward (prints, checks nothing)."""
+    ranges read apart: the scan's backward kernels and the 128256-wide
+    cross-entropy's forward (prints, checks nothing)."""
     import torch
     from paddle_tpu_torch.kernels import ssd_scan as ts
 
@@ -2403,7 +2668,7 @@ def _profile_ssd_step(model, step):
     loss = model.compute_loss
 
     def timed_backward(ctx, dy, ds):
-        with torch.profiler.record_function("ssd_scan backward (plain recompute)"):
+        with torch.profiler.record_function("ssd_scan backward (kernels)"):
             return backward(ctx, dy, ds)
 
     def timed_loss(*a, **kw):
@@ -2414,7 +2679,7 @@ def _profile_ssd_step(model, step):
     model.compute_loss = timed_loss
     try:
         _profile(step, "ssd_train: one step",
-                 ranges=("ssd_scan backward (plain recompute)", "compute_loss forward"))
+                 ranges=("ssd_scan backward (kernels)", "compute_loss forward"))
     finally:
         ts._SSDScan.backward = staticmethod(backward)
         del model.compute_loss
@@ -2453,6 +2718,8 @@ SOURCES = {
     "adamw": ("paddle_tpu_torch/kernels/csrc/adamw.cu", "paddle_tpu/kernels/adamw.py:79"),
     "ssd_scan": ("paddle_tpu_torch/kernels/csrc/ssd_scan.cu",
                  "paddle_tpu/kernels/ssd_scan.py:159"),
+    "ssd_scan_bwd": ("paddle_tpu_torch/kernels/csrc/ssd_scan_bwd.cu",
+                     "paddle_tpu/kernels/ssd_scan.py:226"),
     "fuse_swiglu_mlp": ("paddle_tpu_torch/kernels/csrc/fused_gemm.cu",
                         "paddle_tpu/kernels/emit.py:111"),
     "fuse_swiglu_mlp_bwd": ("paddle_tpu_torch/kernels/csrc/fused_gemm.cu",
@@ -2484,6 +2751,7 @@ ALSO_REPLACES = {
 MAIN_PATH = {"rms_norm": "engine", "decode_attention_dense": "generate",
              "decode_attention_paged": "engine", "flash_attention_fwd": "train",
              "flash_attention_bwd": "train", "adamw": "train", "ssd_scan": "ssd_train",
+             "ssd_scan_bwd": "ssd_train",
              **{name: "fuse_train" for name in ("fuse_swiglu_mlp", "fuse_swiglu_mlp_bwd",
                                                 "fuse_add_rms_norm", "fuse_add_rms_norm_bwd",
                                                 "fuse_rms_norm_head", "fuse_rms_norm_head_bwd")},

@@ -28,6 +28,14 @@ Sets:
   (SSD-8B), random weights from seed 0: sha256 prefixes of the greedy
   tokens, and (for checkouts with ``rms_norm.plan``) the RMSNorm launches
   of the `serve` drain by row count.
+- ``ssd``: the SSD scan at the `ssd_train` shape (G 128, T 4096, P 64, N
+  128, chunk 128) and SSDConfig()'s (G 64, T 4096, P 128, N 64, chunk 64):
+  the forward (``ssd_scan``) and the backward (autograd of its outputs,
+  the graph kept: the backward kernels where the checkout has them, the
+  plain recompute where not), inputs and cotangents from seed 0 as
+  ``chip_smoke.py``'s ``_ssd_case`` makes them; each output's largest
+  error over the plain version's largest |value| (the plain scan and
+  autograd of it).  Equal bits are not expected.
 
 ``--split-keys N`` builds decode attention with N keys a CTA of its first
 pass instead of ``_build.GEOMETRY``'s (a multiple of 32).  Every launch is
@@ -45,7 +53,8 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-SETS = ("gemm", "serve", "rms_plan", "tokens")
+SETS = ("gemm", "serve", "rms_plan", "tokens", "ssd")
+SSD_SHAPES = {"ssd_train": (128, 4096, 64, 128, 128), "SSDConfig()": (64, 4096, 128, 64, 64)}
 TABLE_DENSE = [1, 37, 128, 129, 500, 1024, 2047, 2048]
 TABLE_PAGED = [0, 1, 128, 129, 256, 300, 777, 1024]
 # RMSNorm rows of the serving path: a decode step's 8 and the Engine's
@@ -215,6 +224,44 @@ def _tokens(smoke) -> dict:
     return rec
 
 
+def _ssd(smoke) -> dict:
+    """The scan's forward and backward times at SSD_SHAPES, with their
+    errors against the plain versions."""
+    import torch
+    from paddle_tpu_torch.kernels import ssd_scan as ts
+
+    rec = {"ms": {}, "max_err_over_max_abs": {}}
+    for label, (G, T, P, N, L) in SSD_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        ops = smoke._ssd_inputs(gen, G, T, P, N)
+        args = [t.detach().requires_grad_() for t in ops]
+        with torch.enable_grad():
+            y, s = ts.ssd_scan(*args, chunk=L)
+        cts = tuple(torch.randn(t.shape, generator=gen, device="cuda") for t in (y, s))
+
+        def backward():
+            return torch.autograd.grad((y, s), args, cts, retain_graph=True)
+
+        got = backward()
+        with torch.enable_grad():
+            ref = ts.ssd_scan_reference(*args, L)
+            want = torch.autograd.grad(ref, args, cts)
+        for name, a, r in zip(("y", "s", "dx", "db", "dc", "dla"), (y, s, *got),
+                              (*ref, *want)):
+            rec["max_err_over_max_abs"][f"{label} {name}"] = (
+                smoke.max_err(a, r) / max(float(r.abs().max()), 1e-30))
+        del ref, want, got
+        for _ in range(3):
+            ts.ssd_scan(*ops, chunk=L)
+            backward()
+        torch.cuda.synchronize()
+        rec["ms"][f"{label} forward"] = smoke.time_ms(lambda: ts.ssd_scan(*ops, chunk=L))
+        rec["ms"][f"{label} backward"] = smoke.time_ms(backward, 10)
+        del y, s, args
+        torch.cuda.empty_cache()
+    return rec
+
+
 def _run_tree(which: str, tree: str, split_keys: int) -> dict:
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
@@ -227,6 +274,8 @@ def _run_tree(which: str, tree: str, split_keys: int) -> dict:
     smoke = _smoke()
     if which == "tokens":
         return _tokens(smoke)
+    if which == "ssd":
+        return _ssd(smoke)
     if which == "rms_plan":
         from paddle_tpu_torch.kernels import rms_norm as rn
 

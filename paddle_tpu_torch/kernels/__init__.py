@@ -3,8 +3,8 @@
 tensors.  Nothing here builds or loads CUDA code at import time.
 
 RMSNorm and decode attention serve; flash attention forward and backward
-and the fused AdamW train; the SSD chunked scan runs the SSD family's
-training forward; the fusion sites of :mod:`.emit` (a tiled GEMM with the
+and the fused AdamW train; the SSD chunked scan's forward and backward
+train the SSD family; the fusion sites of :mod:`.emit` (a tiled GEMM with the
 sites' prologues and epilogues, and the residual add + RMSNorm) train when
 a table of sites is activated.  :mod:`.injected` holds the kernel gate's
 seeded defects, launched only by the gate.  :mod:`.registry` is the
@@ -35,6 +35,7 @@ WRAPPERS = {
     "flash_attention_bwd": flash_attention.flash_attention_bwd,   # one per backward: both passes
     "adamw": adamw.adamw_update,                                  # one per leaf
     "ssd_scan": ssd_scan.ssd_scan,                                # one per forward
+    "ssd_scan_bwd": ssd_scan.ssd_scan_bwd,                        # one per backward
     # the fusion sites: one per site forward or backward, whatever it launches
     "fuse_swiglu_mlp": emit.fuse_swiglu_mlp_fwd,
     "fuse_swiglu_mlp_bwd": emit.fuse_swiglu_mlp_bwd,

@@ -70,8 +70,13 @@ SIGNATURES = {
         "adamw_launch": (P, P, P, P, P, L, F, F, F, F, F, F, F, F, F, F, I, I, I, P),
     },
     "ssd_scan": {
-        # x, b, c, la, y, s, G, T, P, N, L, stream
-        "ssd_scan_launch": (P, P, P, P, P, P, I, I, I, I, I, P),
+        # x, b, c, la, y, s, states, tot, G, T, P, N, L, stream
+        "ssd_scan_launch": (P, P, P, P, P, P, P, P, I, I, I, I, I, P),
+    },
+    "ssd_scan_bwd": {
+        # x, b, c, la, states, dy, ds, dx, db, dc, dla, states_grad, tot,
+        # G, T, P, N, L, stream
+        "ssd_scan_bwd_launch": (P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
     },
     "fused_gemm": {
         # a, b, c, c2, aux, rs, cs, M, N, K, lda, ldb, ldc, a_kcontig, b_ncontig,
@@ -132,6 +137,9 @@ GEOMETRY = {
                    "GEMM_TC_BM": 128, "GEMM_TC_BN": 256, "GEMM_TC_BK": 64, "GEMM_TC_STAGES": 4,
                    "GEMM_PREP_ROWS": 8},
     "injected": {"INJECTED_TILE_ROWS": 8, "INJECTED_TILE_COLS": 128},
+    # state columns of an N block of the SSD backward's dCB kernel (its dC
+    # and dB accumulators, a 32 x 16 unit a warp at chunk 128)
+    "ssd_scan_bwd": {"SSD_BWD_NB": 32},
     # 16-byte vectors a lane of the row kernel (a row of G groups of 32
     # vectors takes G / that many warps)
     "rms_norm": {"RMS_LANE_VECTORS": 4},

@@ -333,3 +333,42 @@ def test_hybrid_ssd_under_activation_matches_jax_and_keeps_its_head():
     np.testing.assert_allclose(float(loss_t.detach()), float(loss_j), rtol=1e-6)
     for n, g in zip(names, gt):
         _close(g.numpy(), np.asarray(gj[n]), 1e-5, n)
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's check of the add + RMSNorm backward, on the CPU
+# ---------------------------------------------------------------------------
+
+def _exact_add_norm_dx(args, cts, eps):
+    """d_s + g with the norm's gradient g taken in fp64 from the same bf16
+    operands and the sum rounded to bf16 once: the exactly computed
+    gradient a kernel may return."""
+    x, h, w = args
+    s = (x + h).double().requires_grad_()
+    w64 = w.double()
+    normed = s * torch.rsqrt(s.square().mean(-1, keepdim=True) + eps) * w64
+    (g,) = torch.autograd.grad(normed, s, cts[1].double())
+    return (cts[0].double() + g).to(x.dtype)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_add_norm_backward_check_counts_the_rounded_norm_gradient(seed):
+    """At `base` widths (1024 rows of 2048, bf16): the old elementwise limit
+    rejects the exactly computed, once-rounded dx, which sits a bf16 ulp of
+    the norm gradient from the plain version's (it rounds that gradient
+    before the residual add); the limit with that ulp added accepts it.
+    The planted faults, a new one in this very output among them, are all
+    still rejected (chip_smoke's own check raises otherwise)."""
+    import chip_smoke as cs
+
+    gen = torch.Generator().manual_seed(seed)
+    args, st = cs._site_args(gen, "fuse_add_rms_norm", 1024, torch.bfloat16, device="cpu")
+    cts = tuple(torch.randn(a.shape, generator=gen).to(a.dtype) for a in args[:2])
+    want = emit._vjp_reference(emit.SITES["fuse_add_rms_norm"], args, cts, st)[0]
+    exact = _exact_add_norm_dx(args, cts, st["epsilon"])
+    slack = cs.fuse_add_norm_slack(args, cts, st)
+    assert cs._fuse_rejects(exact, want, False)
+    assert not cs._fuse_rejects(exact, want, False, slack)
+    faults = cs._fuse_planted_faults(torch.Generator().manual_seed(seed), M=64, device="cpu")
+    assert len(faults) == 4 and not any(f["elementwise_check_passes"] and f["tile_norm_err"]
+                                        <= cs.FUSE_TILE_RTOL for f in faults.values())

@@ -347,9 +347,9 @@ def test_ssd_scan_kernel_matches_plain(cuda, P, N, L):
     y, s = ts.ssd_scan(x, b, c, la, chunk=L)
     assert ts.ssd_scan.launches == before + 1
     y_ref, s_ref = ts.ssd_scan_reference(x, b, c, la, L)
-    # fp32 sums of up to L + N products a term in another order, and the
-    # log-decay prefix sum in another order: chip_smoke.py's SSD_ATOL, 1e-5
-    # of the output's scale (read 1.25e-6 at the 8B shape)
+    # fp32 sums of up to L + N split-TF32 products a term in another order,
+    # and the log-decay prefix sum in another order: chip_smoke.py's
+    # SSD_ATOL, 1e-5 of the output's scale (read 1.52e-6 at the 8B shape)
     for a, r in ((y, y_ref), (s, s_ref)):
         torch.testing.assert_close(a, r, rtol=0, atol=1e-5 * float(r.abs().max()))
     with pytest.raises(ValueError, match="not a multiple of 8"):   # P + 4 columns
@@ -380,9 +380,9 @@ def test_ssd_scan_zero_rows_are_exact_noops_on_the_card(cuda, P, N, L):
 
 def test_default_shaped_ssd_model_trains_on_the_card(cuda):
     """SSDConfig()'s mixer shape (P 128, N 64, chunk 64) in a narrow model
-    (2 heads, 2 layers): a TrainStep step on the card launches the scan
-    kernel once a layer and gives the CPU's loss (the plain scan) on the
-    same weights."""
+    (2 heads, 2 layers): a TrainStep step on the card launches the scan's
+    forward and backward kernels once a layer each and gives the CPU's loss
+    (the plain scan) on the same weights."""
     import numpy as np
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.kernels import ssd_scan as ts
@@ -403,10 +403,12 @@ def test_default_shaped_ssd_model_trains_on_the_card(cuda):
         step = TrainStep(model, lambda m, x: m.compute_loss(m(x), x),
                          AdamW(learning_rate=1e-3, weight_decay=0.1,
                                parameters=model.parameters()))
-        before = ts.ssd_scan.launches
+        before, before_bwd = ts.ssd_scan.launches, ts.ssd_scan_bwd.launches
         losses.append(float(step(ids.to(dev))))
         launched = ts.ssd_scan.launches - before
+        launched_bwd = ts.ssd_scan_bwd.launches - before_bwd
     assert launched == 2                              # the card's step: once a layer
+    assert launched_bwd == 2                          # and its backward kernels once a layer
     # fp32 on both sides, sums in another order (cuBLAS, the scan kernel)
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
     assert all(np.isfinite(p.detach().cpu().numpy()).all() for p in gpu.parameters())
@@ -414,7 +416,7 @@ def test_default_shaped_ssd_model_trains_on_the_card(cuda):
 
 def test_ssd_scan_gradients_on_the_card(cuda):
     """The kernel's outputs are in the autograd graph, and its gradients
-    (the plain version's VJP) equal autograd through the plain scan."""
+    (the backward kernels) equal autograd through the plain scan."""
     from paddle_tpu_torch.kernels import ssd_scan as ts
 
     ops = [t.requires_grad_() for t in _ssd_operands(cuda, 4, 64, 32, 16, seed=8)]
@@ -428,9 +430,66 @@ def test_ssd_scan_gradients_on_the_card(cuda):
     want = torch.autograd.grad((y_r, s_r), ops, (dy, ds))
     for name, a, r in zip(("x", "b", "c", "la"), got, want):
         assert bool(torch.isfinite(a).all()), name
-        # the same plain backward at the same inputs: only the kernel's
-        # forward differs, and the backward does not read it
+        # split-TF32 products and sums in another order: SSD_ATOL, 1e-5 of
+        # the gradient's scale
         torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5 * float(r.abs().max()))
+
+
+def _ssd_backward_case(cuda, G, T, P, N, L, seed, decay=0.1):
+    from paddle_tpu_torch.kernels import ssd_scan as ts
+
+    x, b, c, la = _ssd_operands(cuda, G, T, P, N, seed=seed, decay=decay)
+    y, s, states = ts._launch(x, b, c, la, L)
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+    dy = torch.randn(y.shape, generator=g, device=cuda)
+    ds = torch.randn(s.shape, generator=g, device=cuda)
+    return (x, b, c, la, states, dy, ds)
+
+
+@pytest.mark.parametrize("P,N,L", SSD_SHAPES)
+def test_ssd_scan_backward_kernel_matches_plain(cuda, P, N, L):
+    """The backward kernels against ssd_scan_bwd_reference on the same
+    inputs, the forward kernel's states and the same cotangents: each of dx,
+    db, dc, dla within SSD_ATOL (1e-5) of its largest |value|, also at a
+    log-decay of ~0.5 a token; one launch counted a call."""
+    from paddle_tpu_torch.kernels import ssd_scan as ts
+
+    for seed, decay in ((10, 0.1), (11, 5.0)):
+        ops = _ssd_backward_case(cuda, 4, 4 * L, P, N, L, seed, decay)
+        before = ts.ssd_scan_bwd.launches
+        got = ts.ssd_scan_bwd(*ops, chunk=L)
+        assert ts.ssd_scan_bwd.launches == before + 1
+        want = ts.ssd_scan_bwd_reference(*ops, L)
+        for name, a, r in zip(("dx", "db", "dc", "dla"), got, want):
+            assert bool(torch.isfinite(a).all()), name
+            torch.testing.assert_close(a, r, rtol=0, atol=1e-5 * float(r.abs().max()),
+                                       msg=lambda m: f"{name} {(P, N, L)}: {m}")
+
+
+@pytest.mark.parametrize("P,N,L", SSD_SHAPES)
+def test_ssd_scan_backward_zero_rows_on_the_card(cuda, P, N, L):
+    """Zero rows past the valid ones (x = b = c = 0, la = 0, dy = 0, ds =
+    0), inside a chunk and as a whole chunk: their dx, db, dc, dla are
+    exactly 0, and the valid rows' gradients are bit for bit those without
+    the appended chunk."""
+    from paddle_tpu_torch.kernels import ssd_scan as ts
+
+    x, b, c, la, _, dy, _ = _ssd_backward_case(cuda, 3, 2 * L, P, N, L, 12)
+    cut = 2 * L - 5
+    ops = [t.clone() for t in (x, b, c, la, dy)]
+    for t in ops:
+        t[:, cut:] = 0
+    x, b, c, la, dy = ops
+
+    def grads(x, b, c, la, dy):
+        _, s, states = ts._launch(x, b, c, la, L)
+        return ts.ssd_scan_bwd(x, b, c, la, states, dy, torch.zeros_like(s), chunk=L)
+
+    g0 = grads(x, b, c, la, dy)
+    g1 = grads(*[torch.cat([t, torch.zeros_like(t[:, :L])], dim=1) for t in (x, b, c, la, dy)])
+    for a, r in zip(g0, g1):
+        assert torch.equal(a, r[:, :2 * L])
+        assert bool((r[:, cut:] == 0).all())
 
 
 # the fusion sites' kernels (csrc/fused_gemm.cu, csrc/add_rms_norm.cu).
@@ -738,7 +797,7 @@ def test_every_entry_is_clean_on_the_card(cuda):
     before = launch_counts()
     reports = registry.check_all(device=cuda)
     assert launch_counts() == before           # the gate's launches land in no path
-    assert len(reports) == 18
+    assert len(reports) == 19
     for name, rep in reports.items():
         assert not rep, rep.report()
         assert rep.meta["legs"] == ["static", "dynamic"]

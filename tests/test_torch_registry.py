@@ -33,14 +33,20 @@ jregistry.load_all()
 registry.load_all()
 
 
+# the port's entries without a JAX counterpart: the SSD scan's backward
+# kernels (the JAX package differentiates its plain scan instead)
+PORT_ONLY = {"ssd_scan_bwd"}
+
+
 def test_inventory_matches_the_jax_registry():
-    assert registry.names() == jregistry.names()
-    assert len(registry.names()) == 18
-    for name in registry.names():
+    assert sorted(set(registry.names()) - PORT_ONLY) == jregistry.names()
+    assert set(registry.names()) >= PORT_ONLY
+    assert len(registry.names()) == 19
+    for name in jregistry.names():
         assert registry.entries()[name].presets == jregistry.entries()[name].presets, name
         assert registry.entries()[name].description == jregistry.entries()[name].description
     assert set(registry.check_all(presets="ssd")) == set(jregistry.check_all(presets="ssd")) \
-        == {"ssd_scan"}
+        | PORT_ONLY == {"ssd_scan", "ssd_scan_bwd"}
 
 
 @pytest.mark.parametrize("name", sorted(registry.names()))
@@ -190,17 +196,25 @@ def test_dynamic_leg_sees_each_defect(launch, codes):
 # ---------------------------------------------------------------------------
 
 def test_ssd_declares_sequential_chunk_axis():
-    (spec,) = registry.entries()["ssd_scan"].build()[0]
-    assert spec.dimension_semantics == ("parallel", "arbitrary")
-    assert spec.carried_scratch == [(0, frozenset({1}))]
-    assert not tlint.lint_kernel_spec(spec)
+    # the state pass carries the state; the chunks' kernels are all parallel
+    for name in ("ssd_scan", "ssd_scan_bwd"):
+        for dtype in ("float32", "float32@ssd_train"):
+            specs = registry.entries()[name].build(dtype)[0]
+            (spec,) = [s for s in specs if s.name.startswith("state_pass_kernel")]
+            assert spec.dimension_semantics == ("parallel", "parallel", "arbitrary")
+            assert spec.carried_scratch == [(0, frozenset({2}))]
+            assert not tlint.lint_kernel_spec(spec)
+            for other in specs:
+                if other is not spec and other.name != "ssd_dcb_kernel":
+                    assert set(other.dimension_semantics) == {"parallel"}, other.name
 
 
 def test_ssd_parallel_chunk_axis_variant_refused():
-    spec = tssd.kernel_spec(2, 128, 32, 16, 16, chunk_axis="parallel")
-    rep = tlint.lint_kernel_spec(spec)
-    assert rep.by_code("krn-parallel-carry"), rep.report()
-    assert rep.by_code("krn-write-race"), rep.report()
+    for reverse in (False, True):
+        spec = tssd.state_pass_spec(2, 128, 32, 16, 16, reverse=reverse, chunk_axis="parallel")
+        rep = tlint.lint_kernel_spec(spec)
+        assert rep.by_code("krn-parallel-carry"), rep.report()
+        assert rep.by_code("krn-write-race"), rep.report()
 
 
 def test_flash_stream_carry_certified():
@@ -251,7 +265,7 @@ def test_admission_passes_clean_kernel_and_caches(admission):
     y, s = tssd.ssd_scan(*_ssd_args(), chunk=64)
     assert y.shape == (2, 128, 8) and s.shape == (2, 4, 8)
     tssd.ssd_scan(*_ssd_args(), chunk=64)          # the cache: admitted once
-    assert registry.admissions() == {("ssd_scan", "cpu", None): 1}
+    assert registry.admissions() == {("ssd_scan", "cpu", "float32"): 1}
 
 
 def test_admission_off_is_a_no_op(admission):
@@ -360,7 +374,7 @@ def test_cli_on_the_cpu(inject, rc, codes):
     assert r.returncode == rc, r.stderr
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out["device"] == "cpu"
-    assert out["kernel_count"] == 18 + bool(inject)
+    assert out["kernel_count"] == 19 + bool(inject)
     for name, k in out["kernels"].items():
         assert k["legs"] == ["static"]
         if name.startswith("injected_"):
