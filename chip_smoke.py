@@ -44,6 +44,15 @@ Phases:
              it, and four planted faults (gate and up swapped, the last K
              tile dropped, a row's RMS skipped, a row's norm gradient
              dropped);
+             the RMSNorm backward (the add + RMSNorm backward kernel):
+             norm-only, as the stock RMSNorm's backward, at `base`'s,
+             `longctx`'s and `ssd_train`'s rows over fp32 weights, the
+             site's mode (h, d_s) at `base`, fp32 rows at the parity
+             widths, untimed a ragged row, one row and the wide kernel: dx
+             and dw against the plain version, dw the same bits twice,
+             kernel / plain / stock-chain / library ms, bound, registers and
+             spill bytes; two planted faults (a row's projection dropped
+             from dx, a CTA's rows left out of dw) must be rejected;
              each bf16 GEMM launch of the sites at `base` alone (ms,
              TFLOP/s, bound, registers and spill bytes, torch.matmul on
              the same operands as its yardstick) and the two preparation
@@ -52,7 +61,7 @@ Phases:
              the gate's two seeded-defect kernels, exact on the part their
              defect leaves defined
   3b kernel_gate  the kernel gate (kernels/registry.py, analysis/
-             kernel_lint.py): its CLI on the card, clean (19 entries, each
+             kernel_lint.py): its CLI on the card, clean (20 entries, each
              at every dtype it has an example of, both legs, no finding,
              every kernel's shared memory as the card reports it) and under
              each KERNEL_GATE_INJECT (write-race, parallel-carry, emit-race:
@@ -74,8 +83,8 @@ Phases:
              fp32 params) for 5 steps on one batch with the
              launch counters zeroed just before and read just after: every
              step must launch flash forward and backward once a layer,
-             RMSNorm twice a layer plus once, AdamW once a leaf (inside the
-             optimizer update) and no decode kernel; losses finite and
+             RMSNorm and its backward twice a layer plus once, AdamW once a
+             leaf (inside the optimizer update) and no decode kernel; losses finite and
              falling; step 1's loss within a limit of the same batch run
              with fp32 activations.  Step time, tokens/s and MFU are printed
   5a longctx_train  the `longctx` preset (the `base` model at seq 16384,
@@ -83,7 +92,8 @@ Phases:
              steps on one batch, counters zeroed just before and read just
              after: every step must launch flash forward twice a layer (the
              recompute), flash backward once a layer, RMSNorm four times a
-             layer plus once, AdamW once a leaf (inside the update); losses
+             layer plus once and its backward twice a layer plus once, AdamW
+             once a leaf (inside the update); losses
              finite and falling; step time, tokens/s and MFU are printed
   5b fuse_train  `base` in three legs, stock -> fused -> stock, each a fresh
              build_pretrain_step("base", "cuda") with the same seed, 5
@@ -91,8 +101,9 @@ Phases:
              `train` phase's run when that phase ran); the fused leg runs inside
              emit.activate(emit.verified_activation("cuda")) and each of its
              steps must launch every site forward and backward once a layer
-             (the head's once), RMSNorm once a layer, flash as before and
-             AdamW once a leaf in the update; the stock legs no site.
+             (the head's once), RMSNorm and its backward once a layer, flash
+             as before and AdamW once a leaf in the update; the stock legs
+             no site.
              Losses finite and falling; the fused step-1 loss within a
              limit of the stock one; the stock legs equal
   6 serve    llama3_8b_config, bf16, random weights from --seed, three
@@ -107,8 +118,9 @@ Phases:
   7 ssd_train  ssd_8b_config cut to 8 layers, fp32 params, bf16 compute,
              batch 2 x seq 4096, 5 steps on one batch, counters zeroed just
              before and read just after: every step must launch the SSD
-             scan's forward and its backward once a layer, RMSNorm once a layer plus
-             once, AdamW once a leaf (inside the update) and no attention
+             scan's forward and its backward once a layer, RMSNorm and its
+             backward once a layer plus once, AdamW once a leaf (inside the
+             update) and no attention
              kernel; losses finite and falling; step 1's loss within a
              limit of the fp32-activation loss
   8 ssd_serve  ssd_8b_config at 32 layers, bf16, random weights from
@@ -128,7 +140,9 @@ Phases:
 on the same inputs: `gemm` the sites' GEMMs, `serve` RMSNorm and decode
 (outputs hashed), `rms_plan` each RMSNorm kernel at the serving path's row
 counts, `tokens` the `serve` and `ssd_serve` greedy tokens (hashed), `ssd`
-the SSD scan's forward and backward (errors against the plain versions).
+the SSD scan's forward and backward (errors against the plain versions),
+`norm` the add + RMSNorm forward (hashed), the RMSNorm backward (errors
+against fp64) and five `base` steps.
 
 Prints the kernel table as one JSON line, then as the last line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero before that
@@ -151,6 +165,18 @@ FP32_FLOPS_PER_S = 67e12     # H100 SXM fp32 rate outside the tensor cores
 BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor-core rate
 TF32_FLOPS_PER_S = 495e12    # H100 SXM dense TF32 tensor-core rate
 RMS_TOL = (1e-3, 1.6e-2)     # (atol, rtol): two bf16 ulps of the plain value
+# the RMSNorm backward (the add + RMSNorm backward kernel, norm-only or with
+# h and d_s) against its plain version: dx within RMS_TOL (bf16; fp32 rows
+# within RMS_TOL_FP32, the atol scaled by max(1, max |plain|)), the site's
+# dx with one bf16 ulp of its rounded norm gradient more (fuse_add_norm_slack);
+# an fp32 dw within RMS_DW_ATOL of its largest |value| (rtol 0): the kernel
+# sums a column's rows in another order (a lane's rows, its CTA's teams, the
+# CTAs) than torch's reduction, each order rounding at ~1e-7 of the running
+# sum over up to 16384 rows, so the limit keeps a ~100x margin, and one
+# CTA's rows left out (~47 of 6144) move dw ~1000x past it; and dw must be
+# the same bits in two calls
+RMS_TOL_FP32 = (1e-5, 1e-5)
+RMS_DW_ATOL = 1e-5
 # (atol, rtol) of bf16 flash attention: kernel and plain version compute in
 # fp32 from the same bf16 inputs and round once, so two bf16 ulps; the atol
 # is scaled by the output's largest |value| (gradients grow with the rows
@@ -245,7 +271,7 @@ FUSE_TILE_RTOL_FP32 = 1e-5
 # `base`'s site shapes: batch 3 x seq 2048 rows, hidden, intermediate, vocab
 FUSE_M, FUSE_H, FUSE_I, FUSE_V = 3 * 2048, 2048, 5632, 32000
 SSD_TRAIN_LAYERS = 8         # depth of `ssd_train` (32 would need 77 GB for params and AdamW)
-GATE_ENTRIES = 19            # the kernel registry: the JAX registry's 18 and ssd_scan_bwd
+GATE_ENTRIES = 20            # the JAX registry's 18, ssd_scan_bwd and rms_norm_bwd
 SSD_TRAIN_BATCH, SSD_TRAIN_SEQ = 2, 4096
 ALL_PHASES = ("card", "build", "kernels", "kernel_gate", "parity", "train", "longctx_train",
               "fuse_train", "ssd_train", "serve", "ssd_serve", "profile")
@@ -316,15 +342,6 @@ def within(a, b, tol, scaled=False, slack=None):
     if slack is not None:
         limit = limit + slack
     return bool(((a - b).abs() <= limit).all())
-
-
-def bf16_ulp(v):
-    """One bf16 ulp at each element of ``v``: 2^(e - 8) for |v| in
-    [2^(e-1), 2^e) (8 significant bits); 0 where v is 0."""
-    import torch
-
-    m, e = torch.frexp(v.float())
-    return torch.where(v == 0, 0.0, torch.ldexp(torch.ones_like(m), e - 8))
 
 
 def max_ulps(a, b):
@@ -405,6 +422,170 @@ def _rms_case(rows, d, gen, w_dtype):
            "bound_ms": b_ms, "bound_by": b_by}
     log(f"rms_norm {rows}x{d} bf16, weight {rec['weight_dtype']}: {json.dumps(rec)}")
     return rec
+
+
+def _dw_rejects(got, ref):
+    """The RMSNorm backward's dw check: True when ``got`` fails it against
+    ``ref`` (fp32: RMS_DW_ATOL of max |ref|; a 2-byte dw: RMS_TOL)."""
+    import torch
+
+    if ref.dtype == torch.float32:
+        return not within(got, ref, (RMS_DW_ATOL * float(ref.abs().max()), 0.0))
+    return not within(got, ref, RMS_TOL)
+
+
+def _norm_bwd_case(gen, rows, d, dtype, site=False, timed=True, label=""):
+    """The RMSNorm backward kernel against its plain version on ``rows``
+    rows of ``d`` (``dtype`` rows over an fp32 weight, as the training paths
+    pass): norm-only through ``rms_norm_backward`` (the stock RMSNorm's
+    backward; plain: ``rms_norm_backward_reference``, what ran on the card
+    before), or with ``site`` through ``add_rms_norm_bwd`` with h and d_s
+    (the fuse_add_rms_norm backward; plain: autograd of the plain
+    reference).  Checks dx and dw (see RMS_DW_ATOL), dw's bits in two
+    calls; ``timed``: kernel, plain, stock-chain and library times, bound,
+    the kernels' registers and spill bytes."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import _build, add_rms_norm as arn, emit
+    from paddle_tpu_torch.kernels import rms_norm as rn
+
+    def rnd(*shape, dt=dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+    x, dy = rnd(rows, d), rnd(rows, d)
+    w = 1 + 0.1 * rnd(d, dt=torch.float32)
+    eps = 1e-6
+    if site:
+        h, d_s = rnd(rows, d), rnd(rows, d)
+        args = (x, h, w, d_s, dy, eps)
+
+        def launch():
+            dx, _, dw = arn.add_rms_norm_bwd(*args)
+            return dx, dw
+
+        def plain():
+            dx, _, dw = arn.add_rms_norm_bwd_reference(*args)
+            return dx, dw
+
+        slack = fuse_add_norm_slack((x, h, w), (d_s, dy), {"epsilon": eps})
+    else:
+        def launch():
+            return rn.rms_norm_backward(x, w, dy, eps)
+
+        def plain():
+            return rn.rms_norm_backward_reference(x, w, dy, eps)
+
+        slack = None
+    before = rn.rms_norm_backward.launches
+    got, again, ref = launch(), launch(), plain()
+    torch.cuda.synchronize()
+    check(rn.rms_norm_backward.launches == before + (0 if site else 2),
+          f"rms_norm backward [{rows},{d}]: the stock wrapper's count moved "
+          f"{rn.rms_norm_backward.launches - before} for {0 if site else 2} launches")
+    kind = "add + RMSNorm (h, d_s)" if site else "norm-only"
+    shape = {"rows": rows, "d": d, "dtype": str(dtype)[6:], "weight_dtype": "float32",
+             "mode": kind, "label": label}
+    fp32 = dtype == torch.float32
+    errs = {"dx": max_err(got[0], ref[0]), "dw": max_err(got[1], ref[1]),
+            "dw_over_max_abs": max_err(got[1], ref[1]) / max(float(ref[1].abs().max()), 1e-30)}
+    dx_ok = within(got[0], ref[0], RMS_TOL_FP32 if fp32 else RMS_TOL, scaled=fp32, slack=slack)
+    check(dx_ok and not _dw_rejects(got[1], ref[1]),
+          f"rms_norm backward {shape}: disagrees with its plain version: {errs}")
+    check(torch.equal(got[1], again[1]) and torch.equal(got[0], again[0]),
+          f"rms_norm backward {shape}: two calls differ (dw must be summed in a fixed order)")
+    check(bool(torch.isfinite(got[0].float()).all() and torch.isfinite(got[1]).all()),
+          f"rms_norm backward {shape}: non-finite output")
+    plan = arn.bwd_plan(rows, d, dtype, with_h=site, with_ds=site,
+                        sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    rec = {"shape": shape, "dtype": shape["dtype"], "plan": plan._asdict(),
+           "max_abs_err": errs["dx"], "max_abs_err_by_output": errs,
+           "tol": {"dx": {"atol": (RMS_TOL_FP32 if fp32 else RMS_TOL)[0],
+                          "rtol": (RMS_TOL_FP32 if fp32 else RMS_TOL)[1],
+                          "atol_scaled_by_max_abs": fp32,
+                          "slack": "one bf16 ulp of the rounded norm gradient" if site else None},
+                   "dw": {"atol_over_max_abs": RMS_DW_ATOL, "rtol": 0.0, "bitwise_repeat": True}},
+           "ms": None, "plain_ms": None, "stock_chain_ms": None, "library_ms": None,
+           "bound_ms": None, "bound_by": None}
+    if timed:
+        act = rows * d * x.element_size()
+        # site: x, h, d_s, d_normed read, ds written once; norm-only: x, dy
+        # read, dx written; the weight read and dw written (fp32)
+        nbytes = (5 if site else 3) * act + 2 * d * w.element_size()
+        b_ms, b_by = bound(nbytes, (14 if site else 10) * rows * d)
+        codes = (_build.dtype_code(dtype), _build.dtype_code(w.dtype))
+        if plan.kind == "ring":
+            main = _build.kernel_attributes("add_rms_norm", 3 if site else 4, *codes, d,
+                                            plan.slots * 4 + (3 if site else 0))
+        else:
+            main = _build.kernel_attributes("add_rms_norm", 1 if site else 5, *codes, d)
+        red = _build.kernel_attributes("add_rms_norm", 2 if site else 6, *codes)
+        p = [t.detach().requires_grad_() for t in ((x, h, w) if site else (x, w))]
+        with torch.enable_grad():
+            if site:
+                s_ = p[0] + p[1]
+                stock_outs, cts = (s_, rn.rms_norm(s_, p[2], eps)), (d_s, dy)
+            else:
+                stock_outs, cts = (rn.rms_norm(p[0], p[1], eps),), (dy,)
+            lib_out = None if site else F.rms_norm(p[0], (d,), p[1], eps)
+        rec.update(
+            ms=time_ms(launch), plain_ms=time_ms(plain),
+            stock_chain_ms=time_ms(lambda: torch.autograd.grad(stock_outs, p, cts,
+                                                               retain_graph=True)),
+            library_ms=None if site else time_ms(lambda: torch.autograd.grad(
+                lib_out, p, dy, retain_graph=True)),
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+            registers=main["registers"], spill_bytes=main["local_bytes"],
+            smem_bytes=main["static_smem"] + main["dynamic_smem"],
+            dw_kernel_registers=red["registers"], dw_kernel_spill_bytes=red["local_bytes"])
+        rec["of_bound"] = b_ms / rec["ms"]
+        rec["library"] = ("none: no single PyTorch call computes the site's backward" if site
+                          else "torch.autograd.grad through F.rms_norm's graph (PyTorch's own "
+                               "RMSNorm backward)")
+        rec["stock_chain_note"] = ("autograd backward of the stock forward's saved graph: "
+                                   "the residual add's and rms_norm's, whose backward is "
+                                   "rms_norm_backward")
+        del stock_outs, lib_out, p
+    log(f"rms_norm backward {json.dumps(rec)}")
+    del x, dy, w, got, again, ref
+    if site:
+        del h, d_s
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _norm_bwd_planted_faults(gen, rows=3 * 2048, d=2048):
+    """Faults planted in the norm-only backward's outputs at `base`, each of
+    which its checks must reject: one row's mean(g x_hat) term dropped from
+    dx, and one CTA's rows (as bwd_plan cuts them on this card) left out of
+    dw.  Built from the plain version on the same inputs."""
+    import torch
+    from paddle_tpu_torch.kernels import add_rms_norm as arn
+    from paddle_tpu_torch.kernels import rms_norm as rn
+
+    x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
+    dy = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
+    w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    dx, dw = rn.rms_norm_backward_reference(x, w, dy, 1e-6)
+    x32, g = x[5:6].float(), dy[5:6].float() * w
+    r = torch.rsqrt(x32.square().mean(-1, keepdim=True) + 1e-6)
+    bad_dx = dx.clone()
+    bad_dx[5] = (r * g).to(dx.dtype)[0]                       # row 5 without its projection
+    plan = arn.bwd_plan(rows, d, torch.bfloat16, with_h=False, with_ds=False,
+                        sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    c = 5
+    r0, r1 = c * rows // plan.ctas, (c + 1) * rows // plan.ctas
+    _, dw_cta = rn.rms_norm_backward_reference(x[r0:r1], w, dy[r0:r1], 1e-6)
+    out = {"dx: row 5's mean(g x_hat) term dropped": {
+               "max_abs_err": max_err(bad_dx, dx),
+               "rejected": not within(bad_dx, dx, RMS_TOL)},
+           f"dw: CTA {c}'s rows {r0}..{r1 - 1} left out": {
+               "max_abs_err_over_max_abs": max_err(dw - dw_cta, dw) / float(dw.abs().max()),
+               "rejected": _dw_rejects(dw - dw_cta, dw)}}
+    for fault, rec in out.items():
+        check(rec["rejected"], f"rms_norm backward: the checks pass the planted fault "
+                               f"'{fault}': {rec}")
+    log(f"rms_norm backward planted faults: {json.dumps(out)}")
+    return out
 
 
 def _decode_bound(lengths, hk, d, h, itemsize, B):
@@ -719,9 +900,26 @@ def _base_leaf_shapes():
             + [(c.hidden_size,), (c.hidden_size, c.vocab_size)])
 
 
-def _adamw_case(gen, shapes, label):
+def _ssd_train_leaf_shapes():
+    """The 43 parameter shapes of `ssd_train`'s model (ssd_8b widths at
+    SSD_TRAIN_LAYERS layers), in the model's order: the embedding, each
+    block's norm and mixer (in_proj z | x | B | C | dt, dt_bias, d_skip,
+    out_proj), the final norm, the untied head."""
+    from paddle_tpu_torch.models import ssd_8b_config
+
+    c = ssd_8b_config(num_hidden_layers=SSD_TRAIN_LAYERS, param_dtype="float32")
+    H, nh, P, N = c.hidden_size, c.num_heads, c.head_dim, c.state_size
+    layer = [(H,), (H, 2 * nh * P + 2 * nh * N + nh), (nh,), (nh,), (nh * P, H)]
+    return ([(c.vocab_size, H)] + layer * c.num_hidden_layers + [(H,)]
+            + ([] if c.tie_word_embeddings else [(H, c.vocab_size)]))
+
+
+def _adamw_case(gen, shapes, label, in_place=False):
     """The AdamW kernel over ``shapes`` (one launch a leaf) against the plain
-    version on the same fp32 p, g, m, v, at step 10 of `base`'s AdamW."""
+    version on the same fp32 p, g, m, v, at step 10 of `base`'s AdamW.
+    ``in_place``: the timed launches update the leaves themselves, not
+    copies (for `ssd_train`'s 2.0 B elements, whose copies would not fit
+    beside them)."""
     import torch
     from paddle_tpu_torch.kernels.adamw import adamw_reference, adamw_update
 
@@ -743,7 +941,7 @@ def _adamw_case(gen, shapes, label):
     n = sum(p.numel() for p, *_ in leaves)
     check(ulps <= ADAMW_ULPS, f"adamw {label}: {ulps} ulps from the plain version")
     b_ms, b_by = bound(28 * n, 12 * n)
-    state = [[x.clone() for x in (p, m, v)] for p, g, m, v in leaves]
+    state = [[x if in_place else x.clone() for x in (p, m, v)] for p, g, m, v in leaves]
 
     def kernel():
         for (p, m, v), (_, g, _, _) in zip(state, leaves):
@@ -1113,20 +1311,16 @@ def _fuse_rejects(got, ref, fp32, slack=None):
 
 def fuse_add_norm_slack(args, cts, static):
     """One bf16 ulp, at each element, of the add + RMSNorm site's norm
-    gradient g as the plain version rounds it before the residual add (its
-    autograd of the norm in the rows' dtype): the further limit of that
-    backward's dx and dh (FUSE_TOL).  None for fp32 rows, which round
-    nothing."""
+    gradient g as the plain version rounds it before the residual add
+    (``emit.add_norm_slack``, which the kernel gate's limit takes too): the
+    further limit of that backward's dx and dh (FUSE_TOL).  None for fp32
+    rows, which round nothing."""
     import torch
     from paddle_tpu_torch.kernels import emit
 
-    x, h, w = args
-    if x.dtype == torch.float32:
+    if args[0].dtype == torch.float32:
         return None
-    with torch.enable_grad():
-        s = (x + h).detach().requires_grad_()
-        (g,) = torch.autograd.grad(emit._rms_rows(s, w, static["epsilon"]), s, cts[1])
-    return bf16_ulp(g)
+    return emit.add_norm_slack(*args, *cts, epsilon=static["epsilon"])
 
 
 def _site_args(gen, name, M, dtype, transpose=False, device="cuda"):
@@ -1479,6 +1673,10 @@ def phase_kernels():
     shapes = _base_leaf_shapes()
     cases["adamw"] = [_adamw_case(gen, shapes, "base, all 75 leaves"),
                       _adamw_case(gen, [shapes[5]], "base, gate_up_proj")]
+    torch.cuda.empty_cache()
+    cases["adamw"].append(_adamw_case(gen, _ssd_train_leaf_shapes(), "ssd_train, all 43 leaves",
+                                      in_place=True))
+    torch.cuda.empty_cache()
     # `ssd_train`'s shape: G = batch 2 x 64 heads, T 4096, P 64, N 128, L 128;
     # SSDConfig()'s defaults (hidden 4096 over 32 heads: P 128, N 64, L 64;
     # G = batch 2 x 32 heads, T 4096), two column blocks a recurrence;
@@ -1492,6 +1690,24 @@ def phase_kernels():
     cases["ssd_scan_bwd"] = [bwd for _, bwd in ssd]
     torch.cuda.empty_cache()
     cases.update(phase_fuse_kernels(gen))
+    # the RMSNorm backward: norm-only (the stock backward) at `base`'s,
+    # `longctx`'s and `ssd_train`'s rows over their fp32 weights, the
+    # fuse_add_rms_norm site's mode (h and d_s) at `base`, fp32 rows at the
+    # parity phase's narrow Llama (2 x 256 rows of 256); untimed, a ragged
+    # row (33 vectors), one row, and a width past the ring (the wide kernel)
+    bf = torch.bfloat16
+    cases["rms_norm_bwd"] = [
+        _norm_bwd_case(gen, 3 * 2048, 2048, bf, label="base (train)"),
+        _norm_bwd_case(gen, 3 * 2048, 2048, bf, site=True, label="base, fuse_add_rms_norm"),
+        _norm_bwd_case(gen, 16384, 2048, bf, label="longctx"),
+        _norm_bwd_case(gen, SSD_TRAIN_BATCH * SSD_TRAIN_SEQ, 4096, bf, label="ssd_train"),
+        _norm_bwd_case(gen, 2 * 256, 256, torch.float32, label="parity, fp32"),
+        _norm_bwd_case(gen, 1037, 264, bf, timed=False, label="ragged"),
+        _norm_bwd_case(gen, 1037, 264, bf, site=True, timed=False, label="ragged"),
+        _norm_bwd_case(gen, 1, 2048, bf, timed=False, label="one row"),
+        _norm_bwd_case(gen, 64, 16384, bf, timed=False, label="the wide kernel"),
+        _norm_bwd_case(gen, 64, 16384, bf, site=True, timed=False, label="the wide kernel")]
+    cases["rms_norm_bwd"][0]["planted_faults"] = _norm_bwd_planted_faults(gen)
     cases["injected_write_race"] = [_injected_case(gen, "write_race")]
     cases["injected_parallel_carry"] = [_injected_case(gen, "parallel_carry")]
     return cases
@@ -1691,11 +1907,12 @@ ADMITTED_BY_PATH = {
     "engine": {("rms_norm", "float32"), ("paged_decode", "float32"),
                ("paged_decode_fused", "float32")},
     "generate": {("decode_mmha", "float32"), ("decode_mmha_fused", "float32")},
-    "train": {(n, "float32") for n in (*_FLASH_ENTRIES, "adamw_fused")},
+    "train": {(n, "float32") for n in (*_FLASH_ENTRIES, "adamw_fused", "rms_norm_bwd")},
     "fused_train": {(n, dt) for n in _SITE_ENTRIES
                     for dt in ("float32", "bfloat16+float32", "bfloat16",
                                "bfloat16+float32@base")},
-    "train_bf16": {(n, "bfloat16") for n in _FLASH_ENTRIES} | {("rms_norm", "bfloat16+float32")},
+    "train_bf16": {(n, "bfloat16") for n in _FLASH_ENTRIES} | {
+        ("rms_norm", "bfloat16+float32"), ("rms_norm_bwd", "bfloat16+float32")},
 }
 
 
@@ -2024,6 +2241,9 @@ def _train_parity(label, cfg, cpu, gpu, seed, per_step, steps=3, lr=3e-4):
     want = dict(per_step, adamw=len(list(gpu.parameters())))
     check(all(counts[k] == steps * n for k, n in want.items()),
           f"parity {label}: the card's training steps launched {counts}, expected {want} a step")
+    check(counts["rms_norm"] > 0 and counts["rms_norm_bwd"] == counts["rms_norm"],
+          f"parity {label}: {counts['rms_norm_bwd']} RMSNorm backward launches for "
+          f"{counts['rms_norm']} forwards (one each, nothing recomputed)")
 
 
 def _drive_train(step_fn, ids, steps):
@@ -2096,10 +2316,12 @@ def _train_leg(label, fused, fp32_loss=False, preset="base", steps=TRAIN_STEPS):
         check(sorted(table) == sorted(emit.SITES),
               f"{label}: sites verified on the card: {sorted(table)}")
         scope = emit.activate(table)
-        want.update(rms_norm=L, fuse_swiglu_mlp=L, fuse_swiglu_mlp_bwd=L, fuse_add_rms_norm=L,
-                    fuse_add_rms_norm_bwd=L, fuse_rms_norm_head=1, fuse_rms_norm_head_bwd=1)
+        want.update(rms_norm=L, rms_norm_bwd=L, fuse_swiglu_mlp=L, fuse_swiglu_mlp_bwd=L,
+                    fuse_add_rms_norm=L, fuse_add_rms_norm_bwd=L, fuse_rms_norm_head=1,
+                    fuse_rms_norm_head_bwd=1)
     else:
-        want.update(rms_norm=2 * passes * L + 1)
+        # a recomputed layer's norms run forward twice, backward once
+        want.update(rms_norm=2 * passes * L + 1, rms_norm_bwd=2 * L + 1)
     want_update = dict.fromkeys(launch_counts(), 0)
     want_update["adamw"] = steps * n_leaves
     loss32 = None
@@ -2235,9 +2457,11 @@ def _profile(fn, label, ranges=()):
     busy_ms = sum(r[0] for r in rows)
     log(f"profile: {label}: wall {wall_ms:.3f} ms, kernels {busy_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.1f}% of wall)")
-    # first match wins: the fusion sites' kernels before cuBLAS and RMSNorm
+    # first match wins: the fusion sites' kernels before cuBLAS and RMSNorm,
+    # the stock RMSNorm's backward (rms_norm_bwd_*) before its forward
     groups = {"fusion sites": ("gemm_kernel<", "gemm_tc_kernel<", "prep_kernel<",
                                "row_rms_kernel", "add_rms_norm_", "dw_reduce_kernel"),
+              "rms_norm_bwd": ("rms_norm_bwd_",),
               "flash": ("flash_",), "gemm (cuBLAS)": ("nvjet", "gemm", "cutlass"),
               "adamw": ("adamw_",), "rms_norm": ("rms_norm_",), "decode": ("decode_",),
               "ssd_scan": ("chunk_state_kernel<true>", "state_pass_kernel<false>",
@@ -2625,7 +2849,8 @@ def phase_ssd_train(profile):
     L = cfg.num_hidden_layers
     n_leaves = len(list(model.parameters()))
     want = dict.fromkeys(launch_counts(), 0)
-    want.update(rms_norm=L + 1, ssd_scan=L, ssd_scan_bwd=L, adamw=n_leaves)
+    want.update(rms_norm=L + 1, rms_norm_bwd=L + 1, ssd_scan=L, ssd_scan_bwd=L,
+                adamw=n_leaves)
     want_update = dict.fromkeys(launch_counts(), 0)
     want_update["adamw"] = TRAIN_STEPS * n_leaves
     step_ms = [w * 1e3 for w in walls]
@@ -2707,6 +2932,9 @@ def phase_profile(model, seed):
 SOURCES = {
     "rms_norm": ("paddle_tpu_torch/kernels/csrc/rms_norm.cu",
                  "paddle_tpu/kernels/rms_norm.py:38"),
+    # _rms_bwd_rule, XLA in the JAX package (no pallas_call)
+    "rms_norm_bwd": ("paddle_tpu_torch/kernels/csrc/add_rms_norm.cu",
+                     "paddle_tpu/kernels/rms_norm.py:77"),
     "decode_attention_dense": ("paddle_tpu_torch/kernels/csrc/decode_attention.cu",
                                "paddle_tpu/kernels/decode_attention.py:194"),
     "decode_attention_paged": ("paddle_tpu_torch/kernels/csrc/decode_attention.cu",
@@ -2748,10 +2976,10 @@ ALSO_REPLACES = {
 
 
 # the path whose run ``launches`` reports for each kernel
-MAIN_PATH = {"rms_norm": "engine", "decode_attention_dense": "generate",
-             "decode_attention_paged": "engine", "flash_attention_fwd": "train",
-             "flash_attention_bwd": "train", "adamw": "train", "ssd_scan": "ssd_train",
-             "ssd_scan_bwd": "ssd_train",
+MAIN_PATH = {"rms_norm": "engine", "rms_norm_bwd": "train",
+             "decode_attention_dense": "generate", "decode_attention_paged": "engine",
+             "flash_attention_fwd": "train", "flash_attention_bwd": "train", "adamw": "train",
+             "ssd_scan": "ssd_train", "ssd_scan_bwd": "ssd_train",
              **{name: "fuse_train" for name in ("fuse_swiglu_mlp", "fuse_swiglu_mlp_bwd",
                                                 "fuse_add_rms_norm", "fuse_add_rms_norm_bwd",
                                                 "fuse_rms_norm_head", "fuse_rms_norm_head_bwd")},

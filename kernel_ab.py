@@ -37,6 +37,16 @@ Sets:
   error over the plain version's largest |value| (the plain scan and
   autograd of it).  Equal bits are not expected.
 
+- ``norm``: the add + RMSNorm forward at `base` ([6144, 2048] bf16 over an
+  fp32 weight; output hashes and ms), the RMSNorm backward at five cases
+  (the ``fuse_add_rms_norm`` site's, with h and d_s, at `base`; the stock
+  RMSNorm's, ``rms_norm_backward``, at `base`'s, `longctx`'s [16384,
+  2048] and `ssd_train`'s [8192, 4096] rows over fp32 weights, and fp32
+  rows [512, 256]) with each output's error against an fp64 plain
+  backward and its ms (in a checkout without the kernel the stock cases
+  run its plain ``rms_norm_backward``), and five `base` training steps
+  (losses, step ms, the steady step, peak memory).
+
 ``--split-keys N`` builds decode attention with N keys a CTA of its first
 pass instead of ``_build.GEOMETRY``'s (a multiple of 32).  Every launch is
 timed alone by ``chip_smoke.time_ms`` (CUDA events after an L2 flush).
@@ -53,7 +63,7 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-SETS = ("gemm", "serve", "rms_plan", "tokens", "ssd")
+SETS = ("gemm", "serve", "rms_plan", "tokens", "ssd", "norm")
 SSD_SHAPES = {"ssd_train": (128, 4096, 64, 128, 128), "SSDConfig()": (64, 4096, 128, 64, 64)}
 TABLE_DENSE = [1, 37, 128, 129, 500, 1024, 2047, 2048]
 TABLE_PAGED = [0, 1, 128, 129, 256, 300, 777, 1024]
@@ -262,6 +272,92 @@ def _ssd(smoke) -> dict:
     return rec
 
 
+# the RMSNorm backward's cases: (label, rows, d, rows dtype, h and d_s given)
+NORM_CASES = (("site base", 3 * 2048, 2048, "bfloat16", True),
+              ("stock base", 3 * 2048, 2048, "bfloat16", False),
+              ("stock longctx", 16384, 2048, "bfloat16", False),
+              ("stock ssd_train", 2 * 4096, 4096, "bfloat16", False),
+              ("stock fp32", 2 * 256, 256, "float32", False))
+
+
+def _fp64_norm_bwd(x, h, w, d_s, dy, eps):
+    """``(dx, dw)`` of the (add +) RMSNorm backward in fp64 from the same
+    inputs (``s = x + h`` rounded to x's dtype, as the forward stores it)."""
+    import torch
+
+    s = (x if h is None else x + h).double()
+    dy64, w64 = dy.double(), w.double()
+    r = torch.rsqrt(s.square().mean(-1, keepdim=True) + eps)
+    s_hat, g = s * r, dy64 * w64
+    dx = r * (g - s_hat * (g * s_hat).mean(-1, keepdim=True))
+    if d_s is not None:
+        dx = dx + d_s.double()
+    return dx, (dy64 * s_hat).sum(0)
+
+
+def _norm(smoke) -> dict:
+    """The add + RMSNorm forward, the RMSNorm backward at NORM_CASES and five
+    `base` steps (see the module docstring)."""
+    import time
+
+    import torch
+    from paddle_tpu_torch.kernels import add_rms_norm as arn
+    from paddle_tpu_torch.kernels import rms_norm as rn
+    from paddle_tpu_torch.models.presets import build_pretrain_step
+
+    eps = 1e-6
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rec = {"ms": {}, "sha256": {}, "max_err": {}, "kernel": {}}
+    x, h = _rnd(gen, 3 * 2048, 2048), _rnd(gen, 3 * 2048, 2048)
+    w = 1 + _rnd(gen, 2048, dt=torch.float32, std=0.1)
+    s, y = arn.add_rms_norm_fwd(x, h, w, eps)
+    rec["sha256"]["add_rms_norm forward s"], rec["sha256"]["add_rms_norm forward normed"] = (
+        _digest(s), _digest(y))
+    rec["ms"]["add_rms_norm forward"] = smoke.time_ms(lambda: arn.add_rms_norm_fwd(x, h, w, eps))
+    del x, h, s, y
+    for label, rows, d, dt, site in NORM_CASES:
+        dt = getattr(torch, dt)
+        x, dy = _rnd(gen, rows, d, dt=dt), _rnd(gen, rows, d, dt=dt)
+        w = 1 + _rnd(gen, d, dt=torch.float32, std=0.1)
+        h, d_s = (_rnd(gen, rows, d, dt=dt), _rnd(gen, rows, d, dt=dt)) if site else (None, None)
+        if site:
+            def run(x=x, h=h, w=w, d_s=d_s, dy=dy):
+                dx, _, dw = arn.add_rms_norm_bwd(x, h, w, d_s, dy, eps)
+                return dx, dw
+        else:
+            def run(x=x, w=w, dy=dy):
+                return rn.rms_norm_backward(x, w, dy, eps)
+        before = rn.rms_norm_backward.launches if hasattr(rn.rms_norm_backward, "launches") \
+            else None
+        dx, dw = run()
+        rec["kernel"][label] = site or (before is not None
+                                        and rn.rms_norm_backward.launches == before + 1)
+        dx64, dw64 = _fp64_norm_bwd(x, h, w, d_s, dy, eps)
+        rec["max_err"][label] = {
+            "dx": float((dx.double() - dx64).abs().max()),
+            "dw_over_max_abs": float((dw.double() - dw64).abs().max() / dw64.abs().max())}
+        del dx, dw, dx64, dw64
+        for _ in range(3):
+            run()
+        rec["ms"][label] = smoke.time_ms(run)
+        del x, dy, h, d_s
+        torch.cuda.empty_cache()
+    step_fn, ids, *_ = build_pretrain_step("base", "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step_fn(ids)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    rec["base_steps"] = {"losses": losses, "step_ms": step_ms,
+                         "steady_step_ms": sum(step_ms[1:]) / 4,
+                         "peak_bytes": torch.cuda.max_memory_allocated()}
+    return rec
+
+
 def _run_tree(which: str, tree: str, split_keys: int) -> dict:
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
@@ -276,6 +372,8 @@ def _run_tree(which: str, tree: str, split_keys: int) -> dict:
         return _tokens(smoke)
     if which == "ssd":
         return _ssd(smoke)
+    if which == "norm":
+        return _norm(smoke)
     if which == "rms_plan":
         from paddle_tpu_torch.kernels import rms_norm as rn
 

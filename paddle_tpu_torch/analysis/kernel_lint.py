@@ -615,7 +615,7 @@ def _dynamic_leg(name: str, specs, launch, plain, make_args, device, tol,
     tols = tol if isinstance(tol[0], tuple) else (tol,) * len(ref)
     for i, (r, a, b, z) in enumerate(zip(ref, runs["nan"], runs["nan2"], runs["zero"])):
         where = f"{name}:out{i}"
-        atol, rtol, floor = tols[i]
+        atol, rtol, floor, *slack = tols[i]
         if z.shape != r.shape or z.dtype != r.dtype:
             rep.add("krn-plain-mismatch", "high",
                     f"output {i} is {tuple(z.shape)} {_dtype_name(z.dtype)}, the plain "
@@ -655,7 +655,10 @@ def _dynamic_leg(name: str, specs, launch, plain, make_args, device, tol,
         a_tol = atol
         if floor is not None:       # atol scaled by the plain output's largest |value|
             a_tol = atol * max(float(rf.abs().max()) if rf.numel() else 0.0, floor)
-        bad = (zf - rf).abs() > a_tol + rtol * rf.abs()
+        limit = a_tol + rtol * rf.abs()
+        if slack:                   # a further limit at each element, from the example
+            limit = limit + slack[0](*base).float()[ok]
+        bad = (zf - rf).abs() > limit
         if bool(bad.any()):
             err = float((zf - rf).abs().max())
             rep.add("krn-plain-mismatch", "high",

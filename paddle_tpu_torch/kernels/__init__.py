@@ -2,7 +2,8 @@
 (``csrc/``) on CUDA tensors and runs its plain PyTorch version on CPU
 tensors.  Nothing here builds or loads CUDA code at import time.
 
-RMSNorm and decode attention serve; flash attention forward and backward
+RMSNorm and decode attention serve; RMSNorm's backward (the add + RMSNorm
+backward kernel, norm-only), flash attention forward and backward
 and the fused AdamW train; the SSD chunked scan's forward and backward
 train the SSD family; the fusion sites of :mod:`.emit` (a tiled GEMM with the
 sites' prologues and epilogues, and the residual add + RMSNorm) train when
@@ -29,6 +30,7 @@ __all__ = ["adamw", "add_rms_norm", "decode_attention", "emit", "flash_attention
 # kernel name -> wrapper with a ``launches`` counter
 WRAPPERS = {
     "rms_norm": rms_norm.rms_norm,
+    "rms_norm_bwd": rms_norm.rms_norm_backward,                   # one per backward
     "decode_attention_dense": decode_attention.masked_multihead_attention,
     "decode_attention_paged": decode_attention.paged_decode_attention,
     "flash_attention_fwd": flash_attention.flash_attention_fwd,

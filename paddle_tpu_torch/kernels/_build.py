@@ -90,8 +90,9 @@ SIGNATURES = {
     "add_rms_norm": {
         # x, h, w, s, y, rows, d, eps, dtype, w_dtype, stream
         "add_rms_norm_fwd_launch": (P, P, P, P, P, I, I, F, I, I, P),
-        # x, h, w, d_s, d_normed, dx, partial, dw, rows, d, eps, dtype, w_dtype, stream
-        "add_rms_norm_bwd_launch": (P, P, P, P, P, P, P, P, I, I, F, I, I, P),
+        # x, h, w, d_s, d_normed, dx, partial, dw, rows, d, eps, dtype, w_dtype, warps
+        # a row (0: the wide kernel), teams, slots, ctas, stock, stream
+        "add_rms_norm_bwd_launch": (P, P, P, P, P, P, P, P, I, I, F, I, I, I, I, I, I, I, P),
     },
     "injected": {
         # x, y, rows, stream
@@ -106,7 +107,13 @@ ATTRIBUTES_SIGNATURE = (I, I, I, I, I, P)
 # definition the kernels and the verifier's specs both read
 GEOMETRY = {
     "adamw": {"ADAMW_THREADS": 256, "ADAMW_MAX_BLOCKS": 132 * 16},  # a few waves over the SMs
-    "add_rms_norm": {"ADD_RMS_NORM_GROUPS": 512},     # most row groups of the backward's dw
+    # the backward's ring kernel: 16-byte vectors of a row a lane owns (a row
+    # takes ceil(vectors / (32 x that)) warps), consumer warps a CTA (teams of
+    # a row's warps), most row slots and bytes of its ring in shared memory,
+    # CTAs an SM (the persistent grid); most row groups of the wide kernel
+    "add_rms_norm": {"ARN_LANE_VECTORS": 4, "ARN_CONSUMER_WARPS": 8, "ARN_MAX_SLOTS": 8,
+                     "ARN_RING_BYTES": 192 * 1024, "ARN_CTAS_PER_SM": 1,
+                     "ADD_RMS_NORM_GROUPS": 512},
     "decode_attention": {"DECODE_TILE": 32,           # keys a tile = lanes of a warp
                          "DECODE_MAX_REP": 8,         # query rows a kv-head (H / Hk)
                          "DECODE_SPLIT_KEYS": 256,    # keys a CTA of pass 1 (DECODE_TILE x k)

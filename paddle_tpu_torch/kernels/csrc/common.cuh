@@ -1,6 +1,6 @@
 // Shared helpers of the hand-written kernels: dtype codes, fp32 conversion,
 // warp reductions.  Dtype codes match kernels/_build.py::DTYPE_CODES.
-// Activations are fp32 or bf16; float16 is read only as an RMSNorm weight.
+// Activations are fp32 or bf16; float16 is only an RMSNorm weight (and its gradient).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,6 +23,9 @@ template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
+}
+template <> __device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);   // round to nearest even, as torch's .to(float16)
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

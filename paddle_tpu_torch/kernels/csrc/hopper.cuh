@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the warp-specialised kernels
-// (flash_attention.cu, fused_gemm.cu): mbarriers, TMA loads, wgmma matrix
+// (flash_attention.cu, fused_gemm.cu, add_rms_norm.cu): mbarriers, TMA loads
+// (tensor maps and 1-D bulk copies), named barriers, wgmma matrix
 // descriptors and ordering, the setmaxnreg register split, and the tensor-map
 // encoder looked up through the runtime (so no library links libcuda).
 #pragma once
@@ -34,6 +35,21 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
 // make the barriers' initialisation visible to the async proxy (TMA)
 __device__ __forceinline__ void bar_init_fence() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
+// aligned, counted on bar: a 1-D TMA copy, no tensor map
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// the named barrier `id` (1-15; 0 is __syncthreads') over `threads` threads,
+// whole warps
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // the box at (c0 .. c3) of a 4-D tensor map into shared memory, counted on bar

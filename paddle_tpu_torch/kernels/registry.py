@@ -57,8 +57,10 @@ __all__ = [
 
 # the dynamic leg's parity tolerance: (atol, rtol, floor) with |kernel - plain|
 # <= atol + rtol |plain|, the atol scaled by max(max |plain|, floor) unless
-# floor is None; or a tuple of such triples, one per output; or, for an entry
-# with dtypes, a dict of either by dtype
+# floor is None, and optionally a fourth item, a function of the example's
+# arguments giving a further limit at each element of the output; or a tuple
+# of such tuples, one per output; or, for an entry with dtypes, a dict of
+# either by dtype
 EXACT = (0.0, 0.0, None)
 
 

@@ -7,12 +7,16 @@ of ``csrc/rms_norm.cu`` (the counterpart of the Pallas
 width) on a CUDA tensor and runs
 :func:`rms_norm_reference`, the plain version with the same fp32-statistics
 expression as ``_rms_norm_ref``, on a CPU tensor.  Its backward is
-:func:`rms_norm_backward`, the port of ``_rms_bwd_rule``: the same fp32
-expression on both devices, as the JAX package computes it in XLA outside
-any Pallas kernel.
+:func:`rms_norm_backward`, the port of ``_rms_bwd_rule`` (which the JAX
+package computes in XLA outside any Pallas kernel): on a CUDA tensor the
+hand-written add + RMSNorm backward of ``csrc/add_rms_norm.cu`` in its
+norm-only mode (:func:`.add_rms_norm.norm_bwd`), on a CPU tensor
+:func:`rms_norm_backward_reference`, the plain fp32 expression.
 
 Registered in :mod:`.registry` as ``rms_norm`` (the JAX registry's name,
-presets and example shape); :func:`rms_norm` is admitted there first when
+presets and example shape) and ``rms_norm_bwd`` (the port's own: the JAX
+package's backward has no kernel); :func:`rms_norm` and
+:func:`rms_norm_backward` are admitted there first when
 ``FLAGS_kernel_admission`` is on.
 """
 
@@ -22,10 +26,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..analysis.kernel_lint import BlockUse, KernelSpec, ScratchUse, cuda_semantics, itemsize
+from ..analysis.kernel_lint import (BlockUse, KernelSpec, ScratchUse, cuda_semantics, itemsize,
+                                    tabulated)
 from . import _build, registry
 
-__all__ = ["rms_norm", "rms_norm_reference", "rms_norm_backward"]
+__all__ = ["rms_norm", "rms_norm_reference", "rms_norm_backward", "rms_norm_backward_reference"]
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 _W_DTYPES = (torch.float32, torch.bfloat16, torch.float16)   # fp32 params, bf16 compute
@@ -41,7 +46,7 @@ def rms_norm_reference(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
     return out.to(x.dtype)
 
 
-def rms_norm_backward(x, weight, dy, epsilon: float = 1e-6):
+def rms_norm_backward_reference(x, weight, dy, epsilon: float = 1e-6):
     """``(dx, dw)`` of ``y = rms_norm(x, weight)``: with ``r = rsqrt(mean(x^2)
     + eps)``, ``x_hat = x r`` and ``g = dy w``, ``dx = r (g - x_hat mean(g
     x_hat))`` and ``dw = sum(dy x_hat)`` over all rows, in fp32; ``dx`` in
@@ -56,6 +61,40 @@ def rms_norm_backward(x, weight, dy, epsilon: float = 1e-6):
     dx = r * (g - x_hat * torch.mean(g * x_hat, dim=-1, keepdim=True))
     dw = torch.sum(dy32 * x_hat, dim=tuple(range(x.dim() - 1)))
     return dx.to(x.dtype), dw.to(weight.dtype)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the kernels' vector
+    loads and 1-D TMA copies need it)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def rms_norm_backward(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                      epsilon: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, dw)`` of ``y = rms_norm(x, weight)`` for the cotangent ``dy``:
+    on CUDA tensors the add + RMSNorm backward kernel in its norm-only mode
+    (rows ``x.reshape(-1, d)``; ``dw`` in the weight's dtype, summed in a
+    fixed order), on CPU tensors :func:`rms_norm_backward_reference`."""
+    registry.ensure_admitted("rms_norm_bwd", x.device,
+                             registry.dtype_key(x.dtype, weight.dtype))
+    if x.device.type == "cpu":
+        return rms_norm_backward_reference(x, weight, dy, epsilon)
+    if x.device.type != "cuda":
+        raise ValueError(f"rms_norm_backward: unsupported device {x.device}")
+    from .add_rms_norm import norm_bwd
+
+    if dy.shape != x.shape:
+        raise ValueError(f"rms_norm backward: dy {tuple(dy.shape)} does not match x "
+                         f"{tuple(x.shape)}")
+    d = x.shape[-1]
+    dx, dw = norm_bwd(_aligned(x.reshape(-1, d)), _aligned(weight), _aligned(dy.reshape(-1, d)),
+                      epsilon)
+    rms_norm_backward.launches += 1
+    return dx.view(x.shape), dw
+
+
+rms_norm_backward.launches = 0
 
 
 _GEO = _build.GEOMETRY["rms_norm"]
@@ -121,6 +160,7 @@ class _RMSNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
+        # the kernel's norm-only mode on the card, the plain version on the CPU
         x, weight = ctx.saved_tensors
         dx, dw = rms_norm_backward(x, weight, dy, ctx.epsilon)
         return dx, dw, None
@@ -205,3 +245,59 @@ registry.register(
             "bfloat16+float32@base"),
     tol={"bfloat16": _BF16_TOL, "float32": (1e-5, 1e-5, None), "bfloat16+float32": _BF16_TOL,
          "bfloat16@serve": _BF16_TOL, "bfloat16+float32@base": _BF16_TOL})
+
+
+# the backward (``rms_norm_bwd``): the JAX registry's [64, 256] at every
+# (rows, weight) dtype pair the forward's kernels take, and bf16 rows over
+# an fp32 weight at the training paths' shapes (`base`: batch 3 x 2048 rows
+# of 2048; `longctx`: 16384 rows; `ssd_train`: batch 2 x 4096 rows of 4096)
+# and at a ragged one (1037 rows of 264: 33 vectors a row)
+_BWD_SHAPES = {"": (64, 256), "base": (3 * 2048, 2048), "longctx": (16384, 2048),
+               "ssd_train": (2 * 4096, 4096), "ragged": (1037, 264)}
+_BWD_DTYPES = ("bfloat16", "float32", "bfloat16+float32", "bfloat16+float16",
+               "float32+bfloat16", "float32+float16", "bfloat16+float32@base",
+               "bfloat16+float32@longctx", "bfloat16+float32@ssd_train",
+               "bfloat16+float32@ragged")
+
+
+def _bwd_registry_example(dtype="bfloat16"):
+    """The norm-only backward's launches (:func:`.add_rms_norm.bwd_specs`
+    under the stock names) at ``dtype``'s example, with x, w and dy."""
+    from .add_rms_norm import bwd_specs
+
+    names, _, at = dtype.partition("@")
+    rows, d = _BWD_SHAPES[at]
+    names = names.split("+")
+    x_dt, w_dt = getattr(torch, names[0]), getattr(torch, names[-1])
+
+    def args(device):
+        g = torch.Generator().manual_seed(0)
+        return (torch.randn(rows, d, generator=g).to(x_dt).to(device),
+                (1 + 0.1 * torch.randn(d, generator=g)).to(w_dt).to(device),
+                torch.randn(rows, d, generator=g).to(x_dt).to(device))
+
+    return (tabulated(bwd_specs(rows, d, x_dt, w_dt, False, False, stock=True)),
+            lambda x, w, dy: rms_norm_backward(x, w, dy),
+            lambda x, w, dy: rms_norm_backward_reference(x, w, dy), args)
+
+
+# dw in fp32: atol 1e-5 of its largest |value|.  The kernel sums a column's
+# rows in another order (a lane's rows, its CTA's teams, the CTAs) than
+# torch's reduction, each order rounding at ~1e-7 of the running sum; 1e-5
+# keeps a 100x margin at 16384 rows.  A 2-byte dw: two ulps (_BF16_TOL)
+_DW_TOL = (1e-5, 0.0, 1e-30)
+_FP32_TOL = (1e-5, 1e-5, None)
+
+
+def _bwd_tol(dtype: str):
+    x_dt, _, w_dt = dtype.partition("@")[0].partition("+")
+    dx = _FP32_TOL if x_dt == "float32" else _BF16_TOL
+    return dx, _DW_TOL if (w_dt or x_dt) == "float32" else _BF16_TOL
+
+
+registry.register(
+    "rms_norm_bwd", _bwd_registry_example,
+    presets=("tiny", "small", "base", "longctx", "moe", "ocr"),
+    description="RMSNorm backward (_rms_bwd_rule): the add + RMSNorm backward kernel "
+                "in its norm-only mode",
+    dtypes=_BWD_DTYPES, tol={dt: _bwd_tol(dt) for dt in _BWD_DTYPES})

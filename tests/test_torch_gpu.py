@@ -702,6 +702,105 @@ def test_add_rms_norm_kernels_match_plain(cuda, with_h, dtype):
     assert torch.equal(again[2], got[2])       # dw in a fixed order: deterministic
 
 
+# the RMSNorm backward (csrc/add_rms_norm.cu: the ring kernel up to 8192
+# bf16 / 4096 fp32 values a row, the wide kernel past it): `base`'s,
+# `longctx`'s and `ssd_train`'s rows, the parity phase's fp32 rows, a ragged
+# row (33 vectors), one row, d 8, the ring's widest row and two past it
+NORM_BWD_SHAPES = [(6144, 2048), (16384, 2048), (8192, 4096), (512, 256), (1037, 264),
+                   (1, 2048), (5, 8), (300, 8192), (300, 8200), (64, 16384)]
+NORM_BWD_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                  (torch.float32, torch.float16), (torch.bfloat16, torch.float32),
+                  (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float16)]
+
+
+def _norm_bwd_close(got, ref, slack=None):
+    """dx: fp32 rtol 1e-5, atol 1e-5 x max(1, max |plain|) (sums in another
+    order); bf16 two ulps (rtol 1.6e-2, atol 1e-3) plus ``slack``.  dw: fp32
+    within 1e-5 of its largest |value| (rows summed in another order; see
+    chip_smoke.RMS_DW_ATOL); a 2-byte dw two ulps."""
+    (dx, dw), (rdx, rdw) = got, ref
+    assert dx.dtype == rdx.dtype and dx.shape == rdx.shape
+    assert dw.dtype == rdw.dtype and dw.shape == rdw.shape
+    assert bool(torch.isfinite(dx.float()).all() and torch.isfinite(dw.float()).all())
+    err = (dx.float() - rdx.float()).abs()
+    if dx.dtype == torch.float32:
+        limit = 1e-5 * max(1.0, float(rdx.abs().max())) + 1e-5 * rdx.abs()
+    else:
+        limit = 1e-3 + 1.6e-2 * rdx.float().abs() + (0 if slack is None else slack)
+    assert bool((err <= limit).all()), float(err.max())
+    if dw.dtype == torch.float32:
+        torch.testing.assert_close(dw, rdw, rtol=0, atol=1e-5 * float(rdw.abs().max()))
+    else:
+        torch.testing.assert_close(dw.float(), rdw.float(), rtol=1.6e-2, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype,w_dtype", NORM_BWD_PAIRS)
+@pytest.mark.parametrize("rows,d", NORM_BWD_SHAPES)
+def test_stock_rms_norm_backward_kernel_matches_plain(cuda, rows, d, dtype, w_dtype):
+    """rms_norm_backward on CUDA tensors launches the kernel (its counter
+    moves one a call) for every (rows, weight) dtype pair the forward takes;
+    dx and dw agree with the plain version, dw is the same bits in two
+    calls."""
+    from paddle_tpu_torch.kernels import rms_norm as rn
+
+    g = torch.Generator(device=cuda).manual_seed(30)
+    x, dy = (torch.randn(rows, d, generator=g, device=cuda).to(dtype) for _ in range(2))
+    w = (1 + 0.1 * torch.randn(d, generator=g, device=cuda)).to(w_dtype)
+    before = rn.rms_norm_backward.launches
+    got = rn.rms_norm_backward(x, w, dy, 1e-6)
+    again = rn.rms_norm_backward(x, w, dy, 1e-6)
+    assert rn.rms_norm_backward.launches == before + 2
+    _norm_bwd_close(got, rn.rms_norm_backward_reference(x, w, dy, 1e-6))
+    assert torch.equal(got[1], again[1]) and torch.equal(got[0], again[0])
+
+
+@pytest.mark.parametrize("mode", ["h, d_s", "h", "d_s", "neither"])
+@pytest.mark.parametrize("dtype,w_dtype", [(torch.float32, torch.float32),
+                                           (torch.bfloat16, torch.float32),
+                                           (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("rows,d", [(6144, 2048), (8192, 4096), (1037, 264), (1, 2048), (5, 8),
+                                    (300, 8192), (64, 16384)])
+def test_add_rms_norm_backward_modes_match_plain(cuda, rows, d, dtype, w_dtype, mode):
+    """add_rms_norm_bwd in each of its modes (h and d_s given or not)
+    against the plain reference's autograd; dx with one bf16 ulp of the
+    rounded norm gradient more where d_s is added (emit.add_norm_slack); dw
+    deterministic."""
+    from paddle_tpu_torch.kernels import add_rms_norm as arn
+    from paddle_tpu_torch.kernels import emit
+
+    g = torch.Generator(device=cuda).manual_seed(31)
+    x, h, d_s, dn = (torch.randn(rows, d, generator=g, device=cuda).to(dtype) for _ in range(4))
+    w = (1 + 0.1 * torch.randn(d, generator=g, device=cuda)).to(w_dtype)
+    h = h if "h" in mode.split(", ") else None
+    d_s = d_s if "d_s" in mode else None
+    args = (x, h, w, d_s, dn, 1e-6)
+    dx, dh, dw = arn.add_rms_norm_bwd(*args)
+    rdx, _, rdw = arn.add_rms_norm_bwd_reference(*args)
+    assert (dh is dx) if h is not None else dh is None
+    slack = None if d_s is None else emit.add_norm_slack(x, h, w, d_s, dn, epsilon=1e-6)
+    _norm_bwd_close((dx, dw), (rdx, rdw), slack)
+    assert torch.equal(arn.add_rms_norm_bwd(*args)[2], dw)
+
+
+def test_rms_norm_autograd_runs_the_backward_kernel(cuda):
+    """_RMSNorm's backward on CUDA tensors launches the kernel once, for a
+    3-D non-contiguous x over an fp32 weight, and its gradients are the
+    plain backward's."""
+    from paddle_tpu_torch.kernels import rms_norm as rn
+
+    g = torch.Generator(device=cuda).manual_seed(32)
+    base = torch.randn(2048, 3, 2, generator=g, device=cuda).to(torch.bfloat16)
+    x = base.permute(1, 2, 0).detach().requires_grad_()      # [3, 2, 2048], not contiguous
+    w = (1 + 0.1 * torch.randn(2048, generator=g, device=cuda)).requires_grad_()
+    dy = torch.randn(3, 2, 2048, generator=g, device=cuda).to(torch.bfloat16)
+    before = (rn.rms_norm.launches, rn.rms_norm_backward.launches)
+    rn.rms_norm(x, w, 1e-6).backward(dy)
+    assert (rn.rms_norm.launches, rn.rms_norm_backward.launches) == (before[0] + 1,
+                                                                    before[1] + 1)
+    _norm_bwd_close((x.grad, w.grad), rn.rms_norm_backward_reference(x.detach(), w.detach(),
+                                                                     dy, 1e-6))
+
+
 @pytest.mark.parametrize("name,transpose", [("fuse_swiglu_mlp", None),
                                             ("fuse_add_rms_norm", None),
                                             ("fuse_rms_norm_head", False),
@@ -797,7 +896,7 @@ def test_every_entry_is_clean_on_the_card(cuda):
     before = launch_counts()
     reports = registry.check_all(device=cuda)
     assert launch_counts() == before           # the gate's launches land in no path
-    assert len(reports) == 19
+    assert len(reports) == 20
     for name, rep in reports.items():
         assert not rep, rep.report()
         assert rep.meta["legs"] == ["static", "dynamic"]

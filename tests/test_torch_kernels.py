@@ -192,7 +192,7 @@ def test_cpu_wrappers_run_plain_versions_without_launching():
     reset_launch_counts()
     q, kp, vp, tbl, lengths = _paged_case(5, poison=False)
     tda.paged_decode_attention(*(_t(a) for a in (q, kp, vp, tbl, lengths)))
-    trms.rms_norm(torch.ones(2, 64), torch.ones(64))
+    trms.rms_norm(torch.ones(2, 64, requires_grad=True), torch.ones(64)).sum().backward()
     tda.masked_multihead_attention(torch.ones(1, 1, 4, 64), torch.ones(1, 128, 2, 64),
                                    torch.ones(1, 128, 2, 64), 3)
     x = torch.ones(1, 128, 2, 64, requires_grad=True)
@@ -213,7 +213,7 @@ def test_cpu_wrappers_run_plain_versions_without_launching():
                                              intermediate_size=16)
     emit.make_fused("fuse_rms_norm_head")(s_ + out, w, torch.ones(64, 8), epsilon=1e-6,
                                           transpose=False).sum().backward()
-    assert launch_counts() == {"rms_norm": 0, "decode_attention_dense": 0,
+    assert launch_counts() == {"rms_norm": 0, "rms_norm_bwd": 0, "decode_attention_dense": 0,
                                "decode_attention_paged": 0, "flash_attention_fwd": 0,
                                "flash_attention_bwd": 0, "adamw": 0, "ssd_scan": 0,
                                "ssd_scan_bwd": 0, "fuse_swiglu_mlp": 0, "fuse_swiglu_mlp_bwd": 0,
