@@ -22,7 +22,11 @@ Phases:
              lengths and at the `serve` phase's own, NaN in the trash block
              and stale tails, with each of its two launches' device time;
              flash attention forward and backward at `base` and at
-             `longctx`, AdamW on base's largest leaf and on all 75, the
+             `longctx`, AdamW as one launch over base's 75 leaves and over
+             ssd_train's 43 (0 ulps, with torch._fused_adamw_ beside it; a
+             ragged table: sizes 1, 3, 4097, views at offset 1, bf16
+             gradients, bf16 params with masters, a table past one launch's
+             capacity, and a planted fault, one entry's size off by 4), the
              SSD scan at `ssd_8b`, SSDConfig()'s default, bench.py's
              on-chip and tiny widths): max error, kernel / plain / library
              time, bound; flash also against sdpa's backward alone, with
@@ -83,8 +87,9 @@ Phases:
              fp32 params) for 5 steps on one batch with the
              launch counters zeroed just before and read just after: every
              step must launch flash forward and backward once a layer,
-             RMSNorm and its backward twice a layer plus once, AdamW once a
-             leaf (inside the optimizer update) and no decode kernel; losses finite and
+             RMSNorm and its backward twice a layer plus once, AdamW once
+             (one launch over every leaf, inside the optimizer update) and no
+             decode kernel; losses finite and
              falling; step 1's loss within a limit of the same batch run
              with fp32 activations.  Step time, tokens/s and MFU are printed
   5a longctx_train  the `longctx` preset (the `base` model at seq 16384,
@@ -93,7 +98,7 @@ Phases:
              after: every step must launch flash forward twice a layer (the
              recompute), flash backward once a layer, RMSNorm four times a
              layer plus once and its backward twice a layer plus once, AdamW
-             once a leaf (inside the update); losses
+             once (inside the update); losses
              finite and falling; step time, tokens/s and MFU are printed
   5b fuse_train  `base` in three legs, stock -> fused -> stock, each a fresh
              build_pretrain_step("base", "cuda") with the same seed, 5
@@ -102,7 +107,7 @@ Phases:
              emit.activate(emit.verified_activation("cuda")) and each of its
              steps must launch every site forward and backward once a layer
              (the head's once), RMSNorm and its backward once a layer, flash
-             as before and AdamW once a leaf in the update; the stock legs
+             as before and AdamW once in the update; the stock legs
              no site.
              Losses finite and falling; the fused step-1 loss within a
              limit of the stock one; the stock legs equal
@@ -114,13 +119,24 @@ Phases:
              each path must launch its decode kernel once a layer and
              RMSNorm twice a layer plus once; generate's and the Engine's
              first-token logits must agree within a bf16 limit
+  6a resume_train  `base` at full width and depth: 5 steps uninterrupted;
+             a fresh build, 3 steps and CheckpointManager.save(3) into a
+             temporary directory; a build from another seed, resume, steps
+             4-5: the resumed losses and every param and slot after step 5
+             bit-equal to the uninterrupted run's (save and load ms and the
+             checkpoint's bytes logged, the directory removed)
+  6b optimizers  each of the 14 optimizers through TrainStep for 3 steps on
+             the tiny Llama in fp32, on the card and on the CPU from the same
+             weights: losses and params within their limits (OPT_PARITY);
+             Adam and AdamW launch the AdamW kernel once a step, the others
+             no kernel of the optimizer
 
   7 ssd_train  ssd_8b_config cut to 8 layers, fp32 params, bf16 compute,
              batch 2 x seq 4096, 5 steps on one batch, counters zeroed just
              before and read just after: every step must launch the SSD
              scan's forward and its backward once a layer, RMSNorm and its
-             backward once a layer plus once, AdamW once a leaf (inside the
-             update) and no attention
+             backward once a layer plus once, AdamW once (inside the update)
+             and no attention
              kernel; losses finite and falling; step 1's loss within a
              limit of the fp32-activation loss
   8 ssd_serve  ssd_8b_config at 32 layers, bf16, random weights from
@@ -194,8 +210,8 @@ FLASH_GRAD_RTOL = 2.0 ** -8
 LSE_TOL = (1e-5, 1e-5)       # fp32 log-sum-exp, sums in another order
 # the AdamW kernel rounds each operation on its own, as the plain version's
 # separate kernels do: at most this many fp32 ulps apart (FMA contraction
-# would cost one)
-ADAMW_ULPS = 1
+# would cost one), on every leaf of every table
+ADAMW_ULPS = 0
 # fp32 training parity, card against CPU, after three AdamW steps: the
 # parameters at most this far apart, ten times the largest difference read
 # on an H100 (5.0e-5).  It cannot see a missing last update (that moves an
@@ -273,8 +289,39 @@ FUSE_M, FUSE_H, FUSE_I, FUSE_V = 3 * 2048, 2048, 5632, 32000
 SSD_TRAIN_LAYERS = 8         # depth of `ssd_train` (32 would need 77 GB for params and AdamW)
 GATE_ENTRIES = 20            # the JAX registry's 18, ssd_scan_bwd and rms_norm_bwd
 SSD_TRAIN_BATCH, SSD_TRAIN_SEQ = 2, 4096
+# `optimizers`: (constructor keywords, parameter limit, slot limit) of each
+# optimizer on the tiny Llama, card against CPU after OPT_STEPS TrainStep
+# steps in fp32.  The parameter limit is ~10x the largest difference the
+# card and the CPU showed (NVIDIA H100, 700 W; this phase's own log, the
+# same bits in every run: 0 Rprop, 3.7e-9 Adadelta and RAdam, up to 8.7e-5
+# NAdam, where a near-zero gradient's rounding flips an adaptive step's
+# sign) and stays below the smallest move one step makes on the CPU (checked
+# in the run: 4.5e-6 Adadelta, 1.0e-4 RAdam, ~1e-3 the others), so an update
+# skipped or mangled on the card shows.  The slot limit is the atol, as a
+# share of the slot's largest |value|, beside rtol OPT_SLOT_RTOL, again ~10x
+# the reading (up to 1.3e-4 NAdam's m: later gradients at the parameters
+# that differ); 1e-6 where there is no slot or no difference.
+OPT_STEPS = 3
+OPT_PARITY = {
+    "SGD": (dict(learning_rate=1e-2), 1e-6, 1e-6),
+    "Momentum": (dict(learning_rate=1e-2, momentum=0.9, use_nesterov=True), 1e-7, 2e-6),
+    "Adam": (dict(learning_rate=1e-3, weight_decay=0.01), 1e-4, 2e-4),
+    "AdamW": (dict(learning_rate=1e-3, weight_decay=0.1), 5e-4, 6e-4),
+    "Adagrad": (dict(learning_rate=1e-3), 3e-5, 5e-8),
+    "RMSProp": (dict(learning_rate=1e-3, momentum=0.5, centered=True), 2e-6, 2e-5),
+    "Adadelta": (dict(learning_rate=1e-3, weight_decay=0.01), 5e-8, 5e-7),
+    "Adamax": (dict(learning_rate=1e-3), 5e-4, 7e-4),
+    "Lamb": (dict(learning_rate=1e-3), 2e-6, 3e-6),
+    "NAdam": (dict(learning_rate=1e-3), 8e-4, 1.3e-3),
+    "RAdam": (dict(learning_rate=1e-3), 5e-8, 2e-6),
+    "ASGD": (dict(learning_rate=1e-2), 1e-6, 1e-6),
+    "Rprop": (dict(learning_rate=1e-3, learning_rate_range=(1e-5, 1e-3)), 1e-6, 2e-6),
+    "LBFGS": (dict(learning_rate=1.0, max_iter=2), 5e-6, 1e-6),
+}
+OPT_SLOT_RTOL = 1e-4
 ALL_PHASES = ("card", "build", "kernels", "kernel_gate", "parity", "train", "longctx_train",
-              "fuse_train", "ssd_train", "serve", "ssd_serve", "profile")
+              "fuse_train", "ssd_train", "resume_train", "optimizers", "serve", "ssd_serve",
+              "profile")
 REPO = Path(__file__).resolve().parent
 
 
@@ -295,12 +342,14 @@ def check(cond, msg):
 # timing
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, iters: int = 20) -> float:
+def time_ms(fn, iters: int = 20, sleep_cycles: int = 1_000_000) -> float:
     """Mean device time of ``fn`` over ``iters`` launches, each timed with
     CUDA events after a 64 MiB write that evicts the 50 MB L2 cache (the
-    serving path finds its operands cold).  A ~0.5 ms device sleep ahead of
-    the start event keeps the host's launch cost out of the interval: the
-    host enqueues ``fn`` while the device sleeps."""
+    serving path finds its operands cold).  A device sleep of
+    ``sleep_cycles`` (~0.5 ms by default) ahead of the start event keeps
+    the host's launch cost out of the interval: the host enqueues ``fn``
+    while the device sleeps.  A wrapper whose host side takes longer (the
+    AdamW table's, a few tenths of a ms over 75 leaves) asks for more."""
     import torch
 
     flush = torch.empty(16 << 20, dtype=torch.int32, device="cuda")
@@ -311,7 +360,7 @@ def time_ms(fn, iters: int = 20) -> float:
     end = torch.cuda.Event(enable_timing=True)
     for _ in range(iters):
         flush.zero_()
-        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(sleep_cycles)
         start.record()
         fn()
         end.record()
@@ -887,88 +936,154 @@ def _flash_case(gen, B, S, H, Hk, D, heads=None):
     return fwd, bwd
 
 
-def _base_leaf_shapes():
-    """The 75 parameter shapes of the `base` preset, in the model's order."""
-    from paddle_tpu_torch.models.presets import build_config
-
-    c = build_config("base", "bfloat16")
-    qkv = (c.num_attention_heads + 2 * c.kv_heads) * c.head_dim
-    layer = [(c.hidden_size,), (c.hidden_size, qkv),
-             (c.num_attention_heads * c.head_dim, c.hidden_size), (c.hidden_size,),
-             (c.hidden_size, 2 * c.intermediate_size), (c.intermediate_size, c.hidden_size)]
-    return ([(c.vocab_size, c.hidden_size)] + layer * c.num_hidden_layers
-            + [(c.hidden_size,), (c.hidden_size, c.vocab_size)])
-
-
-def _ssd_train_leaf_shapes():
-    """The 43 parameter shapes of `ssd_train`'s model (ssd_8b widths at
-    SSD_TRAIN_LAYERS layers), in the model's order: the embedding, each
-    block's norm and mixer (in_proj z | x | B | C | dt, dt_bias, d_skip,
-    out_proj), the final norm, the untied head."""
-    from paddle_tpu_torch.models import ssd_8b_config
-
-    c = ssd_8b_config(num_hidden_layers=SSD_TRAIN_LAYERS, param_dtype="float32")
-    H, nh, P, N = c.hidden_size, c.num_heads, c.head_dim, c.state_size
-    layer = [(H,), (H, 2 * nh * P + 2 * nh * N + nh), (nh,), (nh,), (nh * P, H)]
-    return ([(c.vocab_size, H)] + layer * c.num_hidden_layers + [(H,)]
-            + ([] if c.tie_word_embeddings else [(H, c.vocab_size)]))
-
-
-def _adamw_case(gen, shapes, label, in_place=False):
-    """The AdamW kernel over ``shapes`` (one launch a leaf) against the plain
-    version on the same fp32 p, g, m, v, at step 10 of `base`'s AdamW.
-    ``in_place``: the timed launches update the leaves themselves, not
-    copies (for `ssd_train`'s 2.0 B elements, whose copies would not fit
-    beside them)."""
+def _adamw_leaves(sizes, seed):
+    """fp32 p, g, m, v a leaf of ``sizes`` (1-D) at the size of `base`'s
+    step 10 (g ~ 1e-3, m = 0.3 g, v = g^2), each leaf from a generator of
+    its own (``seed`` + its index), so any leaf's inputs can be made
+    again."""
     import torch
-    from paddle_tpu_torch.kernels.adamw import adamw_reference, adamw_update
 
-    hyper = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, weight_decay=0.1)
-    lr, step = 3e-4, 10
     leaves = []
-    for shp in shapes:
-        g = 1e-3 * torch.randn(shp, generator=gen, device="cuda")
-        leaves.append((0.02 * torch.randn(shp, generator=gen, device="cuda"), g, 0.3 * g,
-                       g * g))
+    for i, n in enumerate(sizes):
+        gen = torch.Generator(device="cuda").manual_seed(seed + i)
+        g = 1e-3 * torch.randn(n, generator=gen, device="cuda")
+        p = 0.02 * torch.randn(n, generator=gen, device="cuda")
+        leaves.append((p, g, 0.3 * g, g * g))
+    return leaves
+
+
+ADAMW_HYPER = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, weight_decay=0.1)
+# the device sleep ahead of each timed AdamW call (~2 ms): longer than its
+# wrapper's host side over 75 leaves, so the interval holds device time only
+ADAMW_SLEEP_CYCLES = 4_000_000
+
+
+def _adamw_case(sizes, label, seed):
+    """The AdamW kernel, ONE launch over the table of leaves of ``sizes``
+    (``adamw.TRAIN_TABLES``), on fp32 p, g, m, v at step 10 of `base`'s
+    AdamW, in place; then each leaf against the plain version on its inputs
+    made again (``_adamw_leaves``), which needs no copy of the table
+    (`ssd_train`'s 2.0 B elements fill 32 GB).  Timed: the kernel's one launch, the plain version a leaf, and
+    torch._fused_adamw_ over the same leaves."""
+    import torch
+    from paddle_tpu_torch.kernels.adamw import adamw_reference, adamw_update_leaves
+
+    lr, step = 3e-4, 10
+    leaves = _adamw_leaves(sizes, seed)
+    p, g, m, v = (list(c) for c in zip(*leaves))
+    before = adamw_update_leaves.launches
+    table = adamw_update_leaves(p, g, m, v, [None] * len(p), lr, step, **ADAMW_HYPER)
+    launches = adamw_update_leaves.launches - before
+    check(launches == 1, f"adamw {label}: {launches} launches for {len(p)} leaves, not one")
     ulps, err = 0, 0.0
-    for p, g, m, v in leaves:
-        ref = adamw_reference(p, g, m, v, lr, step, **hyper)
-        out = [x.clone() for x in (p, m, v)]
-        adamw_update(out[0], g, out[1], out[2], lr, step, **hyper)
-        ulps = max(ulps, *(max_ulps(a, b) for a, b in zip(out, ref)))
-        err = max(err, *(max_err(a, b) for a, b in zip(out, ref)))
-        del ref, out
-    n = sum(p.numel() for p, *_ in leaves)
+    for i, n_i in enumerate(sizes):
+        p0, g0, m0, v0 = _adamw_leaves([n_i], seed + i)[0]
+        ref = adamw_reference(p0, g0, m0, v0, lr, step, **ADAMW_HYPER)
+        ulps = max(ulps, *(max_ulps(a, b) for a, b in zip((p[i], m[i], v[i]), ref)))
+        err = max(err, *(max_err(a, b) for a, b in zip((p[i], m[i], v[i]), ref)))
+        del p0, g0, m0, v0, ref
+    n = sum(x.numel() for x in p)
     check(ulps <= ADAMW_ULPS, f"adamw {label}: {ulps} ulps from the plain version")
     b_ms, b_by = bound(28 * n, 12 * n)
-    state = [[x if in_place else x.clone() for x in (p, m, v)] for p, g, m, v in leaves]
 
     def kernel():
-        for (p, m, v), (_, g, _, _) in zip(state, leaves):
-            adamw_update(p, g, m, v, lr, step, **hyper)
+        adamw_update_leaves(p, g, m, v, [None] * len(p), lr, step, table=table, **ADAMW_HYPER)
 
     def plain():
-        for p, g, m, v in leaves:
-            adamw_reference(p, g, m, v, lr, step, **hyper)
+        for leaf in zip(p, g, m, v):
+            adamw_reference(*leaf, lr, step, **ADAMW_HYPER)
+
+    steps = [torch.tensor(float(step), device="cuda") for _ in p]
 
     def library():
-        torch._fused_adamw_([s[0] for s in state], [x[1] for x in leaves],
-                            [s[1] for s in state], [s[2] for s in state], [], steps,
-                            lr=lr, beta1=0.9, beta2=0.999, weight_decay=0.1, eps=1e-8,
-                            amsgrad=False, maximize=False)
+        torch._fused_adamw_(p, g, m, v, [], steps, lr=lr, beta1=0.9, beta2=0.999,
+                            weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False)
 
-    steps = [torch.tensor(float(step), device="cuda") for _ in leaves]
+    sleep = ADAMW_SLEEP_CYCLES
     try:
-        lib_ms = time_ms(library)
+        lib_ms = time_ms(library, sleep_cycles=sleep)
     except (RuntimeError, TypeError) as e:   # a yardstick only, never a check
         log(f"adamw {label}: torch._fused_adamw_ not timed: {e}")
         lib_ms = None
-    rec = {"shape": {"leaves": len(shapes), "elements": n, "label": label},
+    rec = {"shape": {"leaves": len(sizes), "elements": n, "label": label},
            "dtype": "float32", "max_abs_err": err, "max_ulps": ulps,
-           "tol": {"ulps": ADAMW_ULPS}, "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+           "tol": {"ulps": ADAMW_ULPS}, "launches_a_call": launches,
+           "ms": time_ms(kernel, sleep_cycles=sleep), "plain_ms": time_ms(plain),
            "library_ms": lib_ms, "library": "torch._fused_adamw_ over the same leaves",
            "bound_ms": b_ms, "bound_by": b_by}
+    rec["ms_again"] = time_ms(kernel, sleep_cycles=sleep)
     log(f"adamw {label}: {json.dumps(rec)}")
+    return rec
+
+
+def _adamw_ragged(seed):
+    """The table's edges, each held to the plain version at 0 ulps: sizes 1,
+    3, 4097, an empty leaf, 2048 and three chunks and a tail; the same at
+    views of offset 1 (no 16-byte phase: scalar leaves); bf16 gradients
+    (both); bf16 params with fp32 masters (the param the bf16 copy) and a
+    leaf undecayed; 1000 leaves, past one launch's capacity (its launches
+    counted).  A planted fault, one entry's size 4 short, must be
+    rejected."""
+    import torch
+    from paddle_tpu_torch.kernels import adamw
+
+    lr, step = 3e-4, 10
+    chunk = adamw.CHUNK
+    sizes = [1, 3, 4097, 0, 2048, 3 * chunk + 5]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def table(sizes, offset=0, g_dtype=torch.float32):
+        def leaf(n, scale):
+            return scale * torch.randn(n + offset, generator=gen, device="cuda")[offset:]
+
+        return [(leaf(n, 0.02), leaf(n, 1e-3).to(g_dtype), leaf(n, 3e-4), leaf(n, 1e-3) ** 2)
+                for n in sizes]
+
+    def run(leaves, outs=None, apply=None):
+        p, g, m, v = (list(c) for c in zip(*leaves))
+        outs = outs or [None] * len(p)
+        ref = [adamw.adamw_reference(pi, gi.float(), mi, vi, lr, step,
+                                     apply_decay=True if apply is None else apply[i],
+                                     **ADAMW_HYPER)
+               for i, (pi, gi, mi, vi) in enumerate(leaves)]
+        before = adamw.adamw_update_leaves.launches
+        adamw.adamw_update_leaves(p, g, m, v, outs, lr, step, apply_decay=apply, **ADAMW_HYPER)
+        launches = adamw.adamw_update_leaves.launches - before
+        ulps = 0
+        for got, want, o in zip(zip(p, m, v), ref, outs):
+            ulps = max([ulps] + [max_ulps(a, b) for a, b in zip(got, want) if a.numel()])
+            if o is not None:
+                ulps = max(ulps, int((o != want[0].to(torch.bfloat16)).sum()))
+        return ulps, launches
+
+    rec = {}
+    for label, leaves, kw in (
+            ("ragged", table(sizes), {}),
+            ("offset 1", table(sizes, 1), {}),
+            ("bf16 gradients", table(sizes, 0, torch.bfloat16), {}),
+            ("bf16 gradients, offset 1", table(sizes, 1, torch.bfloat16), {}),
+            ("bf16 params over masters", table(sizes), dict(
+                outs=[torch.empty(n, dtype=torch.bfloat16, device="cuda") for n in sizes],
+                apply=[True, False, True, True, True, True])),
+            ("1000 leaves", table([5] * 999 + [chunk + 3]), {})):
+        ulps, launches = run(leaves, **kw)
+        want = -(-sum(1 for p, *_ in leaves if p.numel()) // adamw.TABLE_CAP)
+        rec[label] = {"ulps": ulps, "launches": launches}
+        check(ulps <= ADAMW_ULPS, f"adamw table {label}: {ulps} ulps from the plain version")
+        check(launches == want, f"adamw table {label}: {launches} launches, expected {want}")
+    # the planted fault: the table's 2048-value entry 4 values short
+    leaves = table(sizes)
+    p, g, m, v = (list(c) for c in zip(*leaves))
+    ref = [adamw.adamw_reference(*x, lr, step, **ADAMW_HYPER) for x in leaves]
+    t = adamw.LeafTable(p, m, v, [None] * len(p), [True] * len(p), [False] * len(p))
+    g_dtype = t.fill(g)
+    t.groups[0][0][3].n -= 4
+    t.launch(adamw.step_scalars(lr, step, 0.9, 0.999, 0.1), (0.9, 0.999, 1e-8, 0.1), g_dtype)
+    ulps = max(max_ulps(a, b) for got, want in zip(zip(p, m, v), ref)
+               for a, b in zip(got, want) if a.numel())
+    check(ulps > ADAMW_ULPS, "adamw table: the planted fault (an entry 4 values short) passed")
+    rec["planted fault: an entry 4 values short"] = {"ulps": ulps, "rejected": True}
+    log(f"adamw table edges: {json.dumps(rec)}")
     return rec
 
 
@@ -1647,6 +1762,7 @@ def phase_fuse_kernels(gen):
 
 def phase_kernels():
     import torch
+    from paddle_tpu_torch.kernels import adamw
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     # RMSNorm: a decode step's rows, 4096 rows, a `base` training step's
@@ -1670,12 +1786,11 @@ def phase_kernels():
     longctx = _flash_case(gen, 1, 16384, 16, 8, 128, heads=2)
     cases["flash_attention_fwd"] = [base[0], longctx[0]]
     cases["flash_attention_bwd"] = [base[1], longctx[1]]
-    shapes = _base_leaf_shapes()
-    cases["adamw"] = [_adamw_case(gen, shapes, "base, all 75 leaves"),
-                      _adamw_case(gen, [shapes[5]], "base, gate_up_proj")]
+    tables = adamw.TRAIN_TABLES
+    cases["adamw"] = [_adamw_case(tables["base"], "base, all 75 leaves", 100)]
+    cases["adamw"][0]["table_edges"] = _adamw_ragged(101)
     torch.cuda.empty_cache()
-    cases["adamw"].append(_adamw_case(gen, _ssd_train_leaf_shapes(), "ssd_train, all 43 leaves",
-                                      in_place=True))
+    cases["adamw"].append(_adamw_case(tables["ssd_train"], "ssd_train, all 43 leaves", 200))
     torch.cuda.empty_cache()
     # `ssd_train`'s shape: G = batch 2 x 64 heads, T 4096, P 64, N 128, L 128;
     # SSDConfig()'s defaults (hidden 4096 over 32 heads: P 128, N 64, L 64;
@@ -2181,8 +2296,8 @@ def _train_parity(label, cfg, cpu, gpu, seed, per_step, steps=3, lr=3e-4):
     (sums in another order); after ``steps`` TrainStep steps the losses
     within rtol 1e-5, the m and v slots within ``PARITY_SLOT_TOL`` and the
     parameters within ``PARITY_PARAM_ATOL``.  The card's steps must launch
-    each kernel of ``per_step`` that many times a step, and AdamW once a
-    leaf."""
+    each kernel of ``per_step`` that many times a step, and AdamW once (one
+    launch over every leaf)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.jit import TrainStep
@@ -2238,7 +2353,7 @@ def _train_parity(label, cfg, cpu, gpu, seed, per_step, steps=3, lr=3e-4):
         check(abs(a - b) <= 1e-5 * abs(b), f"parity {label}: training losses differ: {losses}")
     check(perr <= PARITY_PARAM_ATOL,
           f"parity {label}: parameters differ by {perr} after {steps} steps")
-    want = dict(per_step, adamw=len(list(gpu.parameters())))
+    want = dict(per_step, adamw=1)
     check(all(counts[k] == steps * n for k, n in want.items()),
           f"parity {label}: the card's training steps launched {counts}, expected {want} a step")
     check(counts["rms_norm"] > 0 and counts["rms_norm_bwd"] == counts["rms_norm"],
@@ -2306,10 +2421,10 @@ def _train_leg(label, fused, fp32_loss=False, preset="base", steps=TRAIN_STEPS):
     log(f"{label}: {preset} preset, {cfg.num_hidden_layers} layers, "
         f"{sum(p.numel() for p in model.parameters())} params (dtype {cfg.dtype}, params "
         f"{cfg.pdtype}), batch {B} x seq {S}, built in {time.perf_counter() - t0:.1f} s")
-    L, n_leaves = cfg.num_hidden_layers, len(list(model.parameters()))
+    L = cfg.num_hidden_layers
     passes = 2 if cfg.recompute else 1       # a layer's forward, again in the backward
     want = dict.fromkeys(launch_counts(), 0)
-    want.update(flash_attention_fwd=passes * L, flash_attention_bwd=L, adamw=n_leaves)
+    want.update(flash_attention_fwd=passes * L, flash_attention_bwd=L, adamw=1)
     scope = contextlib.nullcontext({})
     if fused:
         table = emit.verified_activation("cuda")
@@ -2323,7 +2438,7 @@ def _train_leg(label, fused, fp32_loss=False, preset="base", steps=TRAIN_STEPS):
         # a recomputed layer's norms run forward twice, backward once
         want.update(rms_norm=2 * passes * L + 1, rms_norm_bwd=2 * L + 1)
     want_update = dict.fromkeys(launch_counts(), 0)
-    want_update["adamw"] = steps * n_leaves
+    want_update["adamw"] = steps         # one launch over every leaf a step
     loss32 = None
     if fp32_loss:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -2847,12 +2962,11 @@ def phase_ssd_train(profile):
     losses, walls, rec = _drive_train(step_fn, ids, TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated()
     L = cfg.num_hidden_layers
-    n_leaves = len(list(model.parameters()))
     want = dict.fromkeys(launch_counts(), 0)
     want.update(rms_norm=L + 1, rms_norm_bwd=L + 1, ssd_scan=L, ssd_scan_bwd=L,
-                adamw=n_leaves)
+                adamw=1)
     want_update = dict.fromkeys(launch_counts(), 0)
-    want_update["adamw"] = TRAIN_STEPS * n_leaves
+    want_update["adamw"] = TRAIN_STEPS     # one launch over every leaf a step
     step_ms = [w * 1e3 for w in walls]
     steady = sum(step_ms[1:]) / (TRAIN_STEPS - 1)
     flops = ssd_flops_per_token(cfg, S) * B * S
@@ -2880,6 +2994,191 @@ def phase_ssd_train(profile):
     del step_fn, model, opt
     torch.cuda.empty_cache()
     return rec
+
+
+def phase_resume_train():
+    """`base` through a checkpoint: 5 steps uninterrupted (run A); a fresh
+    build (the same seed), 3 steps and ``CheckpointManager.save(3)`` (run
+    B); a build from another seed, ``resume`` and steps 4-5 (run C).  C's
+    losses and its every param and slot after step 5 must be A's bits.  A's
+    steps 1-3 against B's show whether two runs of the same steps are
+    bit-equal at all; if they are not, C is held to the spread they show
+    (a finding).  A's end state is kept as host copies, and each model is
+    freed before the next is built."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch.distributed.fleet import CheckpointManager
+    from paddle_tpu_torch.models.presets import build_pretrain_step
+
+    def leg(seed, steps, save=None, resume=None):
+        """A fresh `base` build from ``seed``: resumed from ``resume`` (a
+        manager) first, ``steps`` steps, saved into ``save`` (a manager)
+        after; returns the losses, the end state as host tensors and the
+        timings.  Nothing of the build outlives the call."""
+        step_fn, ids = build_pretrain_step("base", "cuda", seed=seed)[:2]
+        info = {}
+        if resume is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            info["resumed_at"] = resume.resume(step_fn)
+            torch.cuda.synchronize()
+            info["load_ms"] = (time.perf_counter() - t0) * 1e3
+            info["step_counter"] = step_fn._step
+        losses = [float(step_fn(ids)) for _ in range(steps)]
+        if save is not None:
+            t0 = time.perf_counter()
+            save.save(step_fn._step, step_fn)
+            info["save_ms"] = (time.perf_counter() - t0) * 1e3
+        end = {k: t.detach().cpu() for k, t in step_fn.state_dict().items()}
+        return losses, end, info
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    losses_a, end_a, _ = leg(0, 5)
+    free()
+    root = tempfile.mkdtemp(prefix="resume_train_")
+    try:
+        mgr = CheckpointManager(root, keep=1)
+        losses_b, _, saved = leg(0, 3, save=mgr)
+        free()
+        ckpt = os.path.join(root, "step_00000003")
+        nbytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+        losses_c, end_c, loaded = leg(1, 2, resume=mgr)
+        free()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    save_ms, load_ms = saved["save_ms"], loaded["load_ms"]
+    check(loaded["resumed_at"] == 3 and loaded["step_counter"] == 3,
+          f"resume_train: resumed at {loaded}, not at step 3")
+    check(sorted(end_c) == sorted(end_a), "resume_train: the state's keys differ")
+    differ = sorted(k for k in end_a if not torch.equal(end_a[k], end_c[k]))
+    repeatable = losses_b == losses_a[:3]
+    spread = max(abs(a - b) for a, b in zip(losses_a, losses_b))
+    rec = {"losses_uninterrupted": losses_a, "losses_first_three_again": losses_b,
+           "losses_resumed_4_5": losses_c, "save_ms": save_ms, "load_ms": load_ms,
+           "checkpoint_bytes": nbytes, "tensors": len(end_a), "tensors_differing": differ[:8],
+           "two_runs_bit_equal": repeatable}
+    log(f"resume_train: {json.dumps(rec)}")
+    if repeatable:
+        check(losses_c == losses_a[3:], f"resume_train: resumed losses {losses_c} are not the "
+                                        f"uninterrupted run's {losses_a[3:]}")
+        check(not differ, f"resume_train: {len(differ)} tensors differ after step 5 from the "
+                          f"uninterrupted run's, e.g. {differ[:4]}")
+    else:
+        log(f"resume_train: FINDING: two runs of the same steps are not bit-equal (steps 1-3 "
+            f"{losses_a[:3]} against {losses_b}); the resumed losses are held to that spread, "
+            f"{spread:.3g}")
+        check(all(abs(a - c) <= spread for a, c in zip(losses_a[3:], losses_c)),
+              f"resume_train: resumed losses {losses_c} outside the spread {spread} of the "
+              f"uninterrupted run's {losses_a[3:]}")
+    return rec
+
+
+def phase_optimizers(seed):
+    """Each optimizer of OPT_PARITY through TrainStep for OPT_STEPS steps on
+    the tiny Llama in fp32, on the card and on the CPU from the same
+    weights: step-1 losses within rtol 1e-5 (fp32 forwards of equal
+    weights), later ones within 1e-4, params within the optimizer's limit,
+    which must lie below the smallest move a CPU step made, every slot
+    within OPT_SLOT_RTOL and its slot limit, the step counts equal; on the card
+    Adam and AdamW launch the AdamW kernel once a step (inside the update),
+    the others never.  LBFGS steps through its closure (params only).
+    Every optimizer is run and logged before the phase fails."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import adamw
+    from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny_config,
+                                         load_paddle_tpu_params, to_paddle_tpu_params)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = llama_tiny_config()
+    ids = np.random.default_rng(seed + 5).integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    base = to_paddle_tpu_params(LlamaForCausalLM(cfg, device="cpu", seed=seed))
+    recs, failed = {}, []
+    for name, (kw, atol, slot_atol) in OPT_PARITY.items():
+        losses, state, kernel, moves = {}, {}, {}, []
+        for dev in ("cpu", "cuda"):
+            model = LlamaForCausalLM(cfg, device=dev, seed=seed)
+            load_paddle_tpu_params(model, base)
+            opt = getattr(topt, name)(parameters=model.parameters(), **kw)
+            x = torch.from_numpy(ids).to(dev)
+            before = adamw.adamw_update_leaves.launches
+            if name == "LBFGS":
+                def closure(model=model, opt=opt, x=x):
+                    opt.clear_grad()
+                    loss = model.compute_loss(model(x), x)
+                    loss.backward()
+                    return loss
+
+                run = lambda: opt.step(closure)                          # noqa: E731
+                flat = lambda: {f"param.{n}": p.detach()                 # noqa: E731
+                                for n, p in model.named_parameters()}
+            else:
+                step = TrainStep(model, lambda m, t: m.compute_loss(m(t), t), opt)
+                run, flat = (lambda: float(step(x))), step.state_dict
+            losses[dev] = []
+            for _ in range(OPT_STEPS):
+                prev = {k: v.clone() for k, v in flat().items() if k.startswith("param.")}
+                losses[dev].append(float(run()))
+                if dev == "cpu":
+                    moves.append(max(max_err(flat()[k], v) for k, v in prev.items()))
+            kernel[dev] = adamw.adamw_update_leaves.launches - before
+            state[dev] = {k: v.detach().cpu() for k, v in flat().items()}
+        cpu, card = state["cpu"], state["cuda"]
+        err = max(max_err(card[k], cpu[k]) for k in cpu if k.startswith("param."))
+        # each slot's atol needed beside OPT_SLOT_RTOL, as a share of its
+        # largest |value|
+        slots = {k: float(((card[k] - cpu[k]).abs() - OPT_SLOT_RTOL * cpu[k].abs()).max()
+                          / max(float(cpu[k].abs().max()), 1e-30))
+                 for k in cpu if k.startswith("opt") and k in card}
+        worst = max(slots, key=slots.get, default=None)
+        recs[name] = {"losses_cpu": losses["cpu"], "losses_card": losses["cuda"],
+                      "param_max_err": err, "limit": atol, "cpu_step_moves": moves,
+                      "slot_atol_needed": slots.get(worst, 0.0), "slot_worst": worst,
+                      "slot_limit": slot_atol,
+                      "adamw_launches": kernel["cuda"]}
+        log(f"optimizers {name}: {json.dumps(recs[name])}")
+        try:
+            _optimizer_checks(name, (atol, slot_atol), losses, moves, err, slots, cpu, card,
+                              kernel)
+        except PhaseError as e:
+            failed.append(str(e))
+    log(f"optimizers: {json.dumps(recs)}")
+    check(not failed, "; ".join(failed))
+    return recs
+
+
+def _optimizer_checks(name, limits, losses, moves, err, slots, cpu, card, kernel):
+    """``phase_optimizers``' checks of one optimizer."""
+    import torch
+
+    atol, slot_atol = limits
+    check(sorted(cpu) == sorted(card), f"optimizers {name}: state keys differ")
+    # LBFGS reports the loss after each step's line search, not before
+    check(name == "LBFGS" or abs(losses["cuda"][0] - losses["cpu"][0])
+          <= 1e-5 * abs(losses["cpu"][0]), f"optimizers {name}: step-1 losses {losses}")
+    check(all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(losses["cuda"], losses["cpu"])),
+          f"optimizers {name}: losses {losses}")
+    check(atol < min(moves), f"optimizers {name}: limit {atol} not below the smallest "
+                             f"step move {min(moves)}")
+    check(err <= atol, f"optimizers {name}: params {err} apart after {OPT_STEPS} steps, "
+                       f"past {atol}")
+    bad = {k: v for k, v in slots.items() if v > slot_atol}
+    check(not bad, f"optimizers {name}: slots past rtol {OPT_SLOT_RTOL} + {slot_atol} of "
+                   f"their largest value (the atol each needs): {bad}")
+    check(all(torch.equal(card[k], cpu[k]) for k in cpu
+              if not k.startswith(("param.", "opt"))), f"optimizers {name}: step counts")
+    want = OPT_STEPS if name in ("Adam", "AdamW") else 0
+    check(kernel["cuda"] == want and kernel["cpu"] == 0,
+          f"optimizers {name}: {kernel} AdamW kernel launches, expected {want} on the card")
 
 
 def _profile_ssd_step(model, step):
@@ -3058,6 +3357,10 @@ def main(argv=None) -> int:
             paths["fuse_train"] = phase_fuse_train("profile" in phases, paths.get("train"))
         if "ssd_train" in phases:
             paths["ssd_train"] = phase_ssd_train("profile" in phases)
+        if "resume_train" in phases:
+            phase_resume_train()
+        if "optimizers" in phases:
+            phase_optimizers(args.seed)
         if "serve" in phases:
             serve_paths, model = phase_serve(args.seed, args.layers)
             paths.update(serve_paths)

@@ -47,6 +47,13 @@ Sets:
   run its plain ``rms_norm_backward``), and five `base` training steps
   (losses, step ms, the steady step, peak memory).
 
+- ``adamw``: the optimizer update of a `base` step alone (``TrainStep``'s
+  update over one step's gradients, AdamW at step 10: every leaf of the
+  model, its launches counted) and five `base` training steps of a fresh
+  build (losses, their sha256, step ms, the steady step): the update's
+  arithmetic is the same in every checkout, so the losses must be equal
+  bits.
+
 ``--split-keys N`` builds decode attention with N keys a CTA of its first
 pass instead of ``_build.GEOMETRY``'s (a multiple of 32).  Every launch is
 timed alone by ``chip_smoke.time_ms`` (CUDA events after an L2 flush).
@@ -63,7 +70,7 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-SETS = ("gemm", "serve", "rms_plan", "tokens", "ssd", "norm")
+SETS = ("gemm", "serve", "rms_plan", "tokens", "ssd", "norm", "adamw")
 SSD_SHAPES = {"ssd_train": (128, 4096, 64, 128, 128), "SSDConfig()": (64, 4096, 128, 64, 64)}
 TABLE_DENSE = [1, 37, 128, 129, 500, 1024, 2047, 2048]
 TABLE_PAGED = [0, 1, 128, 129, 256, 300, 777, 1024]
@@ -358,6 +365,45 @@ def _norm(smoke) -> dict:
     return rec
 
 
+def _adamw(smoke) -> dict:
+    """The `adamw` set (see the module docstring)."""
+    import gc
+    import struct
+    import time
+
+    import torch
+    from paddle_tpu_torch.kernels import launch_counts
+    from paddle_tpu_torch.models.presets import build_pretrain_step
+
+    step_fn, ids = build_pretrain_step("base", "cuda")[:2]
+    _, grads = step_fn._grads((ids,))
+    grads = dict(zip(step_fn._params, grads))
+
+    def update():
+        step_fn._update_fn(step_fn._params, grads, step_fn._opt_state, 3e-4, 10)
+
+    before = launch_counts()["adamw"]
+    update()
+    torch.cuda.synchronize()
+    rec = {"update_launches": launch_counts()["adamw"] - before, "leaves": len(grads),
+           "update_ms": smoke.time_ms(update, sleep_cycles=4_000_000)}
+    del step_fn, grads, update
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_fn, ids = build_pretrain_step("base", "cuda")[:2]
+    losses, step_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step_fn(ids)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    rec["base_steps"] = {"losses": losses,
+                         "losses_sha256": hashlib.sha256(struct.pack("5d", *losses)).hexdigest()[:16],
+                         "step_ms": step_ms, "steady_step_ms": sum(step_ms[1:]) / 4}
+    return rec
+
+
 def _run_tree(which: str, tree: str, split_keys: int) -> dict:
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
@@ -374,6 +420,8 @@ def _run_tree(which: str, tree: str, split_keys: int) -> dict:
         return _ssd(smoke)
     if which == "norm":
         return _norm(smoke)
+    if which == "adamw":
+        return _adamw(smoke)
     if which == "rms_plan":
         from paddle_tpu_torch.kernels import rms_norm as rn
 

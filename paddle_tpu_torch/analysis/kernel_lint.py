@@ -69,6 +69,12 @@ Codes (see :mod:`.findings`):
 Index maps are plain callables ``(*grid_idxs) -> block_idxs`` evaluated
 over the grid (at most ``ENUM_CAP`` points), or resolved forms
 ``("affine", dims)`` / ``("table", images)`` / ``("dynamic", reason)``.
+A callable may return None, and a table may leave grid points out: the
+program at that point touches no block of the operand (a Pallas block is
+read at every grid point, so the JAX model has no such form).  A launch
+over a table of arrays (the multi-tensor AdamW) declares one operand an
+array and stream, each mapping the grid points of the other arrays to no
+block; the footprint checks then hold each array to its own points.
 """
 
 from __future__ import annotations
@@ -208,7 +214,8 @@ def tabulated(specs):
         points = list(itertools.product(*map(range, spec.grid)))
         for bu in spec.inputs + spec.outputs:
             if callable(bu.index_map):
-                bu.index_map = ("table", {pt: tuple(bu.index_map(*pt)) for pt in points})
+                images = ((pt, bu.index_map(*pt)) for pt in points)
+                bu.index_map = ("table", {pt: tuple(i) for pt, i in images if i is not None})
     return specs
 
 
@@ -229,6 +236,8 @@ def _resolve_index_map(bu: BlockUse, grid: Tuple[int, ...]):
                 idxs = im(*pt)
             except Exception as e:
                 return ("dynamic", f"index map raised {e!r}")
+            if idxs is None:          # no block of this operand at this point
+                continue
             idxs = tuple(int(i) for i in (idxs if isinstance(idxs, tuple)
                                           else (idxs,)))
             images[pt] = idxs
@@ -459,14 +468,16 @@ def _check_aliases(spec: KernelSpec, rep: Report) -> None:
                     "aliased pair not enumerable; read-after-overwrite "
                     "check skipped", where=where)
             continue
-        bad = next((pt for pt in ii if ii[pt] != io[pt]), None)
+        bad = next((pt for pt in sorted(set(ii) | set(io)) if ii.get(pt) != io.get(pt)), None)
         if bad is not None or tuple(bi.block_shape) != tuple(bo.block_shape):
+            def blk(images):
+                return "no block" if images.get(bad) is None else f"block {_fmt_pt(images[bad])}"
+
             rep.add("krn-alias-raw", "high",
                     "aliased input is not read through the same blocks it "
                     "is overwritten through"
-                    + (f" (grid point {_fmt_pt(bad)} reads block "
-                       f"{_fmt_pt(ii[bad])} but writes "
-                       f"{_fmt_pt(io[bad])})" if bad is not None else
+                    + (f" (grid point {_fmt_pt(bad)} reads {blk(ii)} but writes "
+                       f"{blk(io)})" if bad is not None else
                        " (block shapes differ)")
                     + " — a later grid point reads already-clobbered data",
                     where=where,

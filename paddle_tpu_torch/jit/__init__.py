@@ -34,11 +34,14 @@ class TrainStep:
     the returned loss is the micro-batch mean.  The optimizer's
     ``grad_clip`` is applied before the update.
 
+    :meth:`state_dict` / :meth:`set_state_dict` are the resume surface
+    (``distributed.fleet.CheckpointManager`` saves and loads through them),
+    with the JAX ``TrainStep``'s flat keys.
+
     Not yet ported (they raise ``NotImplementedError``): ``grads_fn`` /
     ``host_grads`` (pipeline schedules) and ``remat`` policies (use
-    ``LlamaConfig.recompute``).  ``state_dict`` is not ported either;
-    ``models.convert`` exchanges the optimizer state by parameter name.
-    ``donate`` is accepted for the JAX signature; updates are in place.
+    ``LlamaConfig.recompute``).  ``donate`` is accepted for the JAX
+    signature; updates are in place.
     """
 
     def __init__(self, model, loss_fn, optimizer, donate: bool = True, grads_fn=None,
@@ -99,3 +102,62 @@ class TrainStep:
         self._update_fn(self._params, dict(zip(self._params, grads)), self._opt_state,
                         lr, self._step)
         return loss
+
+    # -- checkpoint/resume surface (used by fleet.CheckpointManager) --------
+
+    def state_dict(self):
+        """Flat dict of everything a resume needs, keyed as the JAX
+        ``TrainStep.state_dict``: ``param.<name>``; every optimizer slot as
+        ``opt['<name>']['<slot>']`` (``jax.tree_util.keystr``'s form of its
+        path, so a positional shift can never load one layer's moments into
+        another); ``step``; the LR scheduler's numeric fields as
+        ``lr_sched.<field>``.  Values are the live tensors on the step's
+        device (the scheduler's and the step counter's new 0-d ones; floats
+        in float64, so a resume reproduces the schedule's every bit)."""
+        from ..optimizer.lr import LRScheduler
+
+        device = next(iter(self._params.values())).device
+        flat = {f"param.{n}": p.detach() for n, p in self._params.items()}
+        for n, slots in self._opt_state.items():
+            for k, t in slots.items():
+                flat[f"opt{_keystr(n, k)}"] = t
+        flat["step"] = torch.tensor(self._step, dtype=torch.int32, device=device)
+        if isinstance(self.optimizer._lr, LRScheduler):
+            for k, v in self.optimizer._lr.state_dict().items():
+                if isinstance(v, (bool, int, float)):
+                    dt = (torch.bool if isinstance(v, bool) else
+                          torch.int64 if isinstance(v, int) else torch.float64)
+                    flat[f"lr_sched.{k}"] = torch.tensor(v, dtype=dt, device=device)
+        return flat
+
+    @torch.no_grad()
+    def set_state_dict(self, flat):
+        """Load :meth:`state_dict`'s layout (also one the JAX ``TrainStep``
+        wrote): params and slots are copied IN PLACE, each in its own dtype,
+        so the optimizer's kernel table stays valid; a missing key or a
+        shape that differs raises before anything is written."""
+        from ..optimizer.lr import LRScheduler
+
+        pairs = [(p, flat[f"param.{n}"]) for n, p in self._params.items()]
+        pairs += [(t, flat[f"opt{_keystr(n, k)}"]) for n, slots in self._opt_state.items()
+                  for k, t in slots.items()]
+        for dst, src in pairs:
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"state_dict: shape {tuple(src.shape)} != {tuple(dst.shape)}")
+        for dst, src in pairs:
+            dst.copy_(torch.as_tensor(np.asarray(src)) if not isinstance(src, torch.Tensor)
+                      else src)
+        self._step = int(flat["step"])
+        if isinstance(self.optimizer._lr, LRScheduler):
+            sched = self.optimizer._lr
+            for k, cur in sched.state_dict().items():
+                fk = f"lr_sched.{k}"
+                if fk in flat and isinstance(cur, (bool, int, float)):
+                    sched.__dict__[k] = type(cur)(flat[fk].item() if hasattr(flat[fk], "item")
+                                                  else flat[fk])
+
+
+def _keystr(name: str, slot: str) -> str:
+    """``jax.tree_util.keystr`` of the path ``(name, slot)`` through a dict
+    of dicts."""
+    return f"[{name!r}][{slot!r}]"

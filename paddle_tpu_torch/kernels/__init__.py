@@ -35,7 +35,7 @@ WRAPPERS = {
     "decode_attention_paged": decode_attention.paged_decode_attention,
     "flash_attention_fwd": flash_attention.flash_attention_fwd,
     "flash_attention_bwd": flash_attention.flash_attention_bwd,   # one per backward: both passes
-    "adamw": adamw.adamw_update,                                  # one per leaf
+    "adamw": adamw.adamw_update_leaves,                           # one per table of leaves
     "ssd_scan": ssd_scan.ssd_scan,                                # one per forward
     "ssd_scan_bwd": ssd_scan.ssd_scan_bwd,                        # one per backward
     # the fusion sites: one per site forward or backward, whatever it launches

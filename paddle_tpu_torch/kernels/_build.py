@@ -65,9 +65,12 @@ SIGNATURES = {
                                        I, F, I, P),
     },
     "adamw": {
-        # p, g, m, v, out, n, lr, c1, c2, decay, beta1, 1-beta1, beta2, 1-beta2,
-        # eps, wd, coupled, out_dtype, vec, stream
-        "adamw_launch": (P, P, P, P, P, L, F, F, F, F, F, F, F, F, F, F, I, I, I, P),
+        # leaves (a host array of the table's entries), count, chunks, lr,
+        # c1, c2, decay, beta1, 1-beta1, beta2, 1-beta2, eps, wd, gradient
+        # dtype, bf16 copies, stream
+        "adamw_multi_launch": (P, I, I, F, F, F, F, F, F, F, F, F, F, I, I, P),
+        # int out[4]: the table's layout as compiled
+        "adamw_layout": (P,),
     },
     "ssd_scan": {
         # x, b, c, la, y, s, states, tot, G, T, P, N, L, stream
@@ -106,7 +109,13 @@ ATTRIBUTES_SIGNATURE = (I, I, I, I, I, P)
 # the geometry of each source, passed to nvcc as -D<name>=<value>: the one
 # definition the kernels and the verifier's specs both read
 GEOMETRY = {
-    "adamw": {"ADAMW_THREADS": 256, "ADAMW_MAX_BLOCKS": 132 * 16},  # a few waves over the SMs
+    # the multi-tensor update: threads a CTA, elements a chunk (a CTA's work),
+    # elements a slot of its TMA ring and the ring's slots (3 x 36 KB of
+    # shared memory), leaves a launch (the table rides in the 32 KB parameter
+    # space) and the resident CTAs an SM the registers are budgeted for
+    # (chosen by a sweep on an H100; PERF.md)
+    "adamw": {"ADAMW_THREADS": 256, "ADAMW_CHUNK": 8192, "ADAMW_STAGE": 2048,
+              "ADAMW_STAGES": 3, "ADAMW_TABLE_CAP": 480, "ADAMW_MIN_CTAS_PER_SM": 2},
     # the backward's ring kernel: 16-byte vectors of a row a lane owns (a row
     # takes ceil(vectors / (32 x that)) warps), consumer warps a CTA (teams of
     # a row's warps), most row slots and bytes of its ring in shared memory,

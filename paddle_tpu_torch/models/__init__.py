@@ -3,5 +3,6 @@ from .llama import (LlamaConfig, LlamaForCausalLM, LlamaModel,  # noqa: F401
 from .ssd import (SSDConfig, SSDForCausalLM, SSDModel, ssd_8b_config,  # noqa: F401
                   ssd_tiny_config, ssd_tiny_hybrid_config)
 from .convert import (load_paddle_tpu_opt_state, load_paddle_tpu_params,  # noqa: F401
-                      to_paddle_tpu_opt_state, to_paddle_tpu_params)
+                      load_paddle_tpu_train_state, to_paddle_tpu_opt_state,
+                      to_paddle_tpu_params, to_paddle_tpu_train_state)
 from .cache_spec import llama_cache_spec  # noqa: F401

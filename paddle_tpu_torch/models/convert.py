@@ -8,7 +8,10 @@ tables are buffers recomputed from the config, never copied.
 The optimizer state of a training step goes the same way: ``{"step": n,
 "slots": {param name: {"m": array, "v": array, ...}}}``, the layout of the
 JAX ``TrainStep``'s ``_step`` and ``_opt_state`` as numpy, so two trainers
-can start from one mid-run state.
+can start from one mid-run state.  The whole resumable state goes as the
+flat ``TrainStep.state_dict`` layout (``param.*``, ``opt[...]``, ``step``,
+``lr_sched.*``; :func:`load_paddle_tpu_train_state`,
+:func:`to_paddle_tpu_train_state`).
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import torch
 from torch import nn
 
 __all__ = ["load_paddle_tpu_params", "to_paddle_tpu_params",
-           "load_paddle_tpu_opt_state", "to_paddle_tpu_opt_state"]
+           "load_paddle_tpu_opt_state", "to_paddle_tpu_opt_state",
+           "load_paddle_tpu_train_state", "to_paddle_tpu_train_state"]
 
 
 @torch.no_grad()
@@ -74,3 +78,26 @@ def to_paddle_tpu_opt_state(train_step) -> Dict:
             "slots": {name: {k: t.detach().to(device="cpu", dtype=torch.float32).numpy()
                              for k, t in s.items()}
                       for name, s in train_step._opt_state.items()}}
+
+
+def load_paddle_tpu_train_state(train_step, flat: Dict) -> None:
+    """Load ``flat``, the JAX ``TrainStep.state_dict()`` as name -> array
+    (``{k: np.asarray(v) for k, v in jax_step.state_dict().items()}``),
+    into a ``jit.TrainStep``: parameters, optimizer slots, step counter
+    and the scheduler's numeric fields, each array cast to its tensor's
+    dtype.  The parameter and slot keys must match exactly."""
+    own = train_step.state_dict()
+    want = {k for k in own if not k.startswith("lr_sched.")}
+    have = {k for k in flat if not k.startswith("lr_sched.")}
+    if want != have:
+        raise KeyError(f"state keys differ: missing {sorted(want - have)}, "
+                       f"unexpected {sorted(have - want)}")
+    train_step.set_state_dict({k: torch.as_tensor(np.asarray(v)) for k, v in flat.items()})
+
+
+@torch.no_grad()
+def to_paddle_tpu_train_state(train_step) -> Dict[str, np.ndarray]:
+    """The inverse: ``train_step.state_dict()`` as name -> numpy array (bf16
+    widened exactly to float32)."""
+    return {k: (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).cpu().numpy()
+            for k, t in train_step.state_dict().items()}

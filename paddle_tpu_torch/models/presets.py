@@ -71,11 +71,12 @@ def build_config(preset: str, dtype: str) -> LlamaConfig:
 
 
 def build_pretrain_step(preset: str, device=None, batch=None, seq=None, steps=None,
-                        accum: int = 1, grad_dtype=None):
+                        accum: int = 1, grad_dtype=None, seed: int = 0):
     """The pretrain ``TrainStep`` of a tiny/small/base/longctx preset.
 
     ``device`` defaults to CUDA (raising without a card).  Compute is bf16
-    on a card and fp32 on the CPU, as ``bench.py`` picks it.  Returns
+    on a card and fp32 on the CPU, as ``bench.py`` picks it; ``seed`` seeds
+    the weights (the batch is always ``bench.py``'s).  Returns
     ``(step_fn, ids, model, cfg, (batch, seq, steps))``; ``ids`` lie on the
     device, shaped ``[accum, batch, seq]`` when ``accum > 1``."""
     if preset not in DEFAULTS:
@@ -86,7 +87,7 @@ def build_pretrain_step(preset: str, device=None, batch=None, seq=None, steps=No
     batch = batch or d_batch
     seq = min(seq or d_seq, cfg.max_position_embeddings)
     steps = steps or d_steps
-    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    model = LlamaForCausalLM(cfg, device=dev, seed=seed)
     opt = AdamW(learning_rate=3e-4, weight_decay=0.1, parameters=model.parameters())
 
     def loss_fn(m, ids):

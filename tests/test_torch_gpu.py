@@ -274,7 +274,7 @@ def test_adamw_kernel_matches_reference_bitwise(cuda, n, offset, kw, step):
     """The kernel rounds each operation on its own, as the plain version's
     separate kernels do: bit-equal p, m, v and cast copy, vectorised or
     (misaligned by one element) scalar."""
-    from paddle_tpu_torch.kernels.adamw import adamw_reference, adamw_update
+    from paddle_tpu_torch.kernels.adamw import adamw_reference, adamw_update, adamw_update_leaves
 
     g = torch.Generator(device=cuda).manual_seed(4)
 
@@ -286,9 +286,9 @@ def test_adamw_kernel_matches_reference_bitwise(cuda, n, offset, kw, step):
     hyper = dict(beta1=0.9, beta2=0.95, epsilon=1e-8)
     ref = adamw_reference(p, grad, m, v, 3e-4, step, **hyper,
                           **{k: x for k, x in kw.items() if k != "out_dtype"})
-    before = adamw_update.launches
+    before = adamw_update_leaves.launches
     p2, m2, v2, p_out = adamw_update(p, grad, m, v, 3e-4, step, **hyper, **kw)
-    assert adamw_update.launches == before + 1
+    assert adamw_update_leaves.launches == before + 1       # one launch a call
     assert p2 is p and m2 is m and v2 is v                 # in place
     for a, b in zip((p, m, v), ref):
         assert torch.equal(a, b)
@@ -412,6 +412,153 @@ def test_default_shaped_ssd_model_trains_on_the_card(cuda):
     # fp32 on both sides, sums in another order (cuBLAS, the scan kernel)
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
     assert all(np.isfinite(p.detach().cpu().numpy()).all() for p in gpu.parameters())
+
+
+def _adamw_table(cuda, sizes, offset=0, g_dtype=torch.float32, seed=5):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def leaf(n, scale):
+        return scale * torch.randn(n + offset, generator=gen, device=cuda)[offset:]
+
+    return [(leaf(n, 0.02), leaf(n, 1e-3).to(g_dtype), leaf(n, 3e-4), leaf(n, 1e-3) ** 2)
+            for n in sizes]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("copies", [False, True])
+def test_adamw_table_matches_reference_bitwise(cuda, offset, g_dtype, copies):
+    """One launch over a ragged table (sizes 1, 3, 4097, an empty leaf,
+    2048, three chunks and a tail), aligned or at views of offset 1, fp32
+    or bf16 gradients, with or without bf16 copies (a bf16 param over its
+    fp32 master), one leaf undecayed: every leaf bit for bit the plain
+    version on the widened gradient."""
+    from paddle_tpu_torch.kernels import adamw
+
+    sizes = [1, 3, 4097, 0, 2048, 3 * adamw.CHUNK + 5]
+    leaves = _adamw_table(cuda, sizes, offset, g_dtype)
+    apply = [True, False, True, True, True, True]
+    outs = [torch.empty(n, dtype=torch.bfloat16, device=cuda) if copies else None
+            for n in sizes]
+    hyper = dict(beta1=0.9, beta2=0.95, epsilon=1e-8, weight_decay=0.1)
+    ref = [adamw.adamw_reference(p, g.float(), m, v, 3e-4, 7, apply_decay=a, **hyper)
+           for (p, g, m, v), a in zip(leaves, apply)]
+    p, g, m, v = (list(c) for c in zip(*leaves))
+    before = adamw.adamw_update_leaves.launches
+    adamw.adamw_update_leaves(p, g, m, v, outs, 3e-4, 7, apply_decay=apply, **hyper)
+    assert adamw.adamw_update_leaves.launches == before + 1
+    for got, want, o in zip(zip(p, m, v), ref, outs):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        if o is not None:
+            assert torch.equal(o, want[0].to(torch.bfloat16))
+
+
+def test_adamw_table_past_one_launch(cuda):
+    """A table larger than one launch's capacity takes ceil(leaves /
+    TABLE_CAP) launches, still bit for bit."""
+    from paddle_tpu_torch.kernels import adamw
+
+    sizes = [5] * (2 * adamw.TABLE_CAP + 7)
+    leaves = _adamw_table(cuda, sizes)
+    hyper = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, weight_decay=0.01, decoupled=False)
+    ref = [adamw.adamw_reference(*x, 1e-3, 3, **hyper) for x in leaves]
+    before = adamw.adamw_update_leaves.launches
+    adamw.adamw_update_leaves(*(list(c) for c in zip(*leaves)), [None] * len(sizes), 1e-3, 3,
+                              **hyper)
+    assert adamw.adamw_update_leaves.launches == before + 3
+    for (p, _, m, v), want in zip(leaves, ref):
+        assert all(torch.equal(a, b) for a, b in zip((p, m, v), want))
+
+
+def test_adamw_one_launch_a_step(cuda):
+    """The optimizer takes one launch a step over every leaf, in the eager
+    step and through TrainStep (bf16 gradients too), and reuses its launch
+    table."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import adamw
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = LlamaForCausalLM(llama_tiny_config(), device=cuda, seed=0)
+    opt = AdamW(learning_rate=1e-3, weight_decay=0.1, parameters=model.parameters())
+    ids = torch.randint(0, 512, (2, 64), device=cuda)
+    for grad_dtype in (None, "bfloat16"):
+        step = TrainStep(model, lambda m, x: m.compute_loss(m(x), x), opt, grad_dtype=grad_dtype)
+        before = adamw.adamw_update_leaves.launches
+        for _ in range(3):
+            step(ids)
+        assert adamw.adamw_update_leaves.launches == before + 3
+    model.compute_loss(model(ids), ids).backward()
+    before = adamw.adamw_update_leaves.launches
+    opt.step()
+    assert adamw.adamw_update_leaves.launches == before + 1
+    assert len(opt._tables) == 3          # eager, functional fp32, functional bf16
+
+
+def test_adamw_takes_bf16_params_without_masters(cuda):
+    """``multi_precision=False`` bf16 parameters go through the kernel (an
+    fp32 working copy, the parameter written as its bf16 copy): one launch,
+    the plain version's bits; a layout the kernel cannot take (an fp16
+    parameter, a non-contiguous one) raises on the card."""
+    from paddle_tpu_torch.kernels import adamw
+    from paddle_tpu_torch.optimizer import AdamW
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    ps = [torch.nn.Parameter((0.02 * torch.randn(n, generator=gen, device=cuda))
+                             .to(torch.bfloat16)) for n in (3, 4097, 2048)]
+    gs = [(1e-3 * torch.randn(p.shape, generator=gen, device=cuda)).to(torch.bfloat16)
+          for p in ps]
+    start = [p.detach().float() for p in ps]
+    opt = AdamW(learning_rate=1e-3, weight_decay=0.1, parameters=ps, multi_precision=False)
+    for p, g in zip(ps, gs):
+        p.grad = g
+    before = adamw.adamw_update_leaves.launches
+    opt.step()
+    assert adamw.adamw_update_leaves.launches == before + 1
+    for p, g, p0, s in zip(ps, gs, start, opt._state):
+        assert "master" not in s
+        z = torch.zeros_like(p0)
+        want, m, v = adamw.adamw_reference(p0, g.float(), z, z, 1e-3, 1, beta1=0.9,
+                                           beta2=0.999, epsilon=1e-8, weight_decay=0.1)
+        assert torch.equal(p.detach(), want.to(torch.bfloat16))
+        assert torch.equal(s["m"], m) and torch.equal(s["v"], v)
+    for bad, mp in ((torch.zeros(8, dtype=torch.float16, device=cuda), True),
+                    (torch.zeros(8, dtype=torch.float16, device=cuda), False),
+                    (torch.zeros(4, 6, device=cuda).t(), True)):
+        bad = torch.nn.Parameter(bad)
+        bad.grad = torch.zeros_like(bad)
+        with pytest.raises((TypeError, ValueError)):
+            AdamW(parameters=[bad], multi_precision=mp).step()
+
+
+@pytest.mark.parametrize("name,args", [("ClipGradByNorm", (1.0,)),
+                                       ("ClipGradByGlobalNorm", (2.0,)),
+                                       ("clip_grad_norm_", (1.5, 2.0)),
+                                       ("clip_grad_norm_", (1.5, float("inf")))])
+def test_bf16_clips_on_the_card_are_the_cpu_bits(cuda, name, args):
+    """bf16 gradients whose squares sum exactly in any order (multiples of
+    1/8), so the norms are the same bits on both devices: the card's clip
+    rounds each product once from fp32, as the CPU's (and JAX's) does."""
+    from paddle_tpu_torch import nn as tnn
+
+    gen = torch.Generator().manual_seed(13)
+    grads = [(torch.randint(-24, 25, s, generator=gen) / 8).to(torch.bfloat16)
+             for s in ((6, 5), (5,), (3, 2, 4))]
+    out = {}
+    for dev in ("cpu", cuda):
+        gs = [g.to(dev) for g in grads]
+        if name == "clip_grad_norm_":
+            ps = [torch.nn.Parameter(torch.zeros_like(g)) for g in gs]
+            for p, g in zip(ps, gs):
+                p.grad = g
+            tnn.clip_grad_norm_(ps, *args)
+            out[str(dev)] = [p.grad.cpu() for p in ps]
+        else:
+            out[str(dev)] = [g.cpu() for _, g in getattr(tnn, name)(*args)(
+                [(None, g) for g in gs])]
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert b.dtype == torch.bfloat16 and torch.equal(a, b)
 
 
 def test_ssd_scan_gradients_on_the_card(cuda):

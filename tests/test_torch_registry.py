@@ -400,3 +400,47 @@ def test_seeded_kernels_plain_versions():
     x3 = torch.randn(2, 32, 128, generator=torch.Generator().manual_seed(1))
     want = torch.stack([sum(x3[:, 8 * j:8 * j + 8] for j in range(i + 1)) for i in range(4)], 1)
     torch.testing.assert_close(injected.parallel_carry(x3), want.reshape(2, 32, 128))
+
+
+# ---------------------------------------------------------------------------
+# operands a grid point does not touch (the multi-tensor AdamW's table)
+# ---------------------------------------------------------------------------
+
+def _adamw_table_spec():
+    from paddle_tpu_torch.kernels import adamw
+
+    (spec,) = adamw.kernel_spec([3 * adamw.CHUNK, 2 * adamw.CHUNK + 1, 5])
+    return spec
+
+
+def test_table_operands_map_other_leaves_to_no_block():
+    """One operand a leaf and stream: each maps the CTAs of the other
+    leaves' chunks to no block, as a sparse table or as a callable that
+    returns None, and the spec is clean."""
+    spec = _adamw_table_spec()
+    assert spec.grid == (7,) and len(spec.inputs) == 12 and len(spec.outputs) == 9
+    assert spec.inputs[4].index_map[1] == {(3,): (0,), (4,): (1,), (5,): (2,)}
+    assert not tlint.lint_kernel_spec(spec)
+    for bu in spec.inputs + spec.outputs:       # the same maps as callables
+        table = bu.index_map[1]
+        bu.index_map = lambda c, table=table: table.get((c,))
+    assert not tlint.lint_kernel_spec(spec)
+    assert not tlint.lint_kernel_spec(tlint.tabulated([spec])[0])
+
+
+def test_table_operands_seeded_defects_are_refused():
+    """The extension's seeded defects: two chunks mapped to one block of a
+    leaf (a write race, and the block they leave unwritten), and a map that
+    sends another leaf's chunk into its own blocks instead of to no block
+    (out of bounds)."""
+    spec = _adamw_table_spec()
+    p_out = spec.outputs[0]                      # leaf 0's p, written
+    images = dict(p_out.index_map[1])
+    images[(1,)] = (0,)                          # chunks 0 and 1 both to block 0
+    p_out.index_map = ("table", images)
+    codes = {f.code for f in tlint.lint_kernel_spec(spec)}
+    assert {"krn-write-race", "krn-coverage-hole", "krn-alias-raw"} <= codes
+    spec = _adamw_table_spec()
+    first = spec.inputs[4]                       # leaf 1's p, chunks 3 to 5
+    first.index_map = lambda c: (c - 3,)         # forgets the other leaves
+    assert ("krn-oob-read", "high") in _summary(tlint.lint_kernel_spec(spec))
