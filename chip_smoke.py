@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of paddle_tpu_torch on one NVIDIA GPU: build the CUDA kernels,
 hold each against its plain PyTorch version, check the card against the CPU,
-pretrain the `base` preset (stock, and with the fusion sites substituted)
-and the SSD family at `ssd_8b` widths for a few steps through TrainStep,
-and serve Llama-3-8B-shaped and SSD-8B requests through the port's Engine.
+pretrain the `base` preset (stock, and with the fusion sites substituted),
+the `moe` preset and the SSD family at `ssd_8b` widths for a few steps
+through TrainStep, and serve Llama-3-8B-shaped, MoE and SSD-8B requests
+through the port's Engine.
 
     python3 chip_smoke.py                  # every phase, full depth
     python3 chip_smoke.py --layers 8       # cut Llama serving depth (never width)
     python3 chip_smoke.py --phases card,build,kernels,train
+    python3 chip_smoke.py --phases card,build,moe_train,moe_serve
     python3 chip_smoke.py --phases card,build,kernels,longctx_train
     python3 chip_smoke.py --phases card,build,kernels,kernel_gate,parity,fuse_train
     python3 chip_smoke.py --phases card,build,kernels,parity,ssd_train,ssd_serve
@@ -82,7 +84,15 @@ Phases:
              stacks: Engine and generate tokens must be equal; three
              TrainStep steps must agree in losses, step-1 gradients,
              parameters and the optimizer's m and v slots; the Llama steps
-             again with every fusion site verified and activated
+             again with every fusion site verified and activated; the
+             narrow Llama with 4 experts under the switch gate (TF32 off):
+             every layer's routing the same, logits within 1e-4, step-1
+             gradients, Engine and generate tokens equal
+  4a incubate  incubate.nn.functional's fused_rms_norm,
+             masked_multihead_attention and block_multihead_attention (over
+             the JAX package's pool layout) at llama3_8b decode shapes
+             against their plain versions: one RMSNorm and two dense decode
+             launches
   5 train    the `base` preset (12 layers, batch 3, seq 2048, bf16 compute,
              fp32 params) for 5 steps on one batch with the
              launch counters zeroed just before and read just after: every
@@ -111,6 +121,18 @@ Phases:
              no site.
              Losses finite and falling; the fused step-1 loss within a
              limit of the stock one; the stock legs equal
+  5c moe_train  the `moe` preset (bench.py's configs[4] shape: 12 layers,
+             hidden 1024, 8 experts of 1408, top-2 over the gshard gate,
+             bf16, batch 4 x seq 2048; 518.6 M params) for 5 steps on one
+             batch, counters read per step: flash forward and backward
+             once a layer, RMSNorm and its backward twice a layer plus
+             once, AdamW once (inside the update), no fusion site and no
+             decode kernel; losses finite and falling; step 1's loss within
+             MOE_TRAIN_LOSS_TOL of the fp32-activation loss (the same
+             gshard draws); each layer's share of (token, slot) choices
+             dropped by capacity; a sixth step
+             run twice from one state (params, slots, step count, the
+             gshard generator) gives the same loss and every tensor's bits
   6 serve    llama3_8b_config, bf16, random weights from --seed, three
              paths each with the launch counters zeroed just before it and
              read just after it: 16 requests (two share a 256-token prefix)
@@ -130,6 +152,12 @@ Phases:
              weights: losses and params within their limits (OPT_PARITY);
              Adam and AdamW launch the AdamW kernel once a step, the others
              no kernel of the optimizer
+  6c moe_serve  the `moe` preset's model with random bf16 weights: 16
+             greedy requests through an Engine of 8 slots, then generate on
+             two prompts, counters per path (every decode step RMSNorm twice
+             a layer plus once and the path's decode kernel once a layer,
+             nothing else); generated tok/s, and the device's busy share
+             over a profiled drain of 8 requests
 
   7 ssd_train  ssd_8b_config cut to 8 layers, fp32 params, bf16 compute,
              batch 2 x seq 4096, 5 steps on one batch, counters zeroed just
@@ -232,6 +260,10 @@ LONGCTX_STEPS = 3            # steps of the `longctx_train` phase
 # step 1's loss at `base` in bf16 against the same weights and batch with
 # fp32 activations: at most this far apart (prediction in PERF.md)
 TRAIN_LOSS_TOL = 1e-2
+# the same at `moe`, both forwards routing on the same gshard draws: ~10x
+# the card's reading (2.6e-4 on an H100 at 700 W; the bf16 router inputs
+# may still send a near-tied token elsewhere)
+MOE_TRAIN_LOSS_TOL = 3e-3
 # `fuse_train`: the fused leg's step-1 loss against the stock leg's.  Both
 # are bf16 steps on the same weights and batch that differ only in where
 # bf16 rounding lands (sums in another order), so they are held to the same
@@ -319,9 +351,9 @@ OPT_PARITY = {
     "LBFGS": (dict(learning_rate=1.0, max_iter=2), 5e-6, 1e-6),
 }
 OPT_SLOT_RTOL = 1e-4
-ALL_PHASES = ("card", "build", "kernels", "kernel_gate", "parity", "train", "longctx_train",
-              "fuse_train", "ssd_train", "resume_train", "optimizers", "serve", "ssd_serve",
-              "profile")
+ALL_PHASES = ("card", "build", "kernels", "kernel_gate", "parity", "incubate", "train",
+              "longctx_train", "fuse_train", "moe_train", "ssd_train", "resume_train",
+              "optimizers", "serve", "moe_serve", "ssd_serve", "profile")
 REPO = Path(__file__).resolve().parent
 
 
@@ -936,11 +968,11 @@ def _flash_case(gen, B, S, H, Hk, D, heads=None):
     return fwd, bwd
 
 
-def _adamw_leaves(sizes, seed):
+def _adamw_leaves(sizes, seed, g_dtypes=None):
     """fp32 p, g, m, v a leaf of ``sizes`` (1-D) at the size of `base`'s
     step 10 (g ~ 1e-3, m = 0.3 g, v = g^2), each leaf from a generator of
     its own (``seed`` + its index), so any leaf's inputs can be made
-    again."""
+    again; g rounded to ``g_dtypes[i]`` where given."""
     import torch
 
     leaves = []
@@ -948,7 +980,8 @@ def _adamw_leaves(sizes, seed):
         gen = torch.Generator(device="cuda").manual_seed(seed + i)
         g = 1e-3 * torch.randn(n, generator=gen, device="cuda")
         p = 0.02 * torch.randn(n, generator=gen, device="cuda")
-        leaves.append((p, g, 0.3 * g, g * g))
+        g_i = g if g_dtypes is None else g.to(g_dtypes[i])
+        leaves.append((p, g_i, 0.3 * g, g * g))
     return leaves
 
 
@@ -958,40 +991,58 @@ ADAMW_HYPER = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, weight_decay=0.1)
 ADAMW_SLEEP_CYCLES = 4_000_000
 
 
-def _adamw_case(sizes, label, seed):
+def _adamw_case(sizes, label, seed, g_dtypes=None):
     """The AdamW kernel, ONE launch over the table of leaves of ``sizes``
-    (``adamw.TRAIN_TABLES``), on fp32 p, g, m, v at step 10 of `base`'s
-    AdamW, in place; then each leaf against the plain version on its inputs
-    made again (``_adamw_leaves``), which needs no copy of the table
-    (`ssd_train`'s 2.0 B elements fill 32 GB).  Timed: the kernel's one launch, the plain version a leaf, and
-    torch._fused_adamw_ over the same leaves."""
+    (``adamw.TRAIN_TABLES``, ``adamw.MOE_TABLE``), on fp32 p, m, v and
+    gradients at step 10 of `base`'s AdamW, in place; then each leaf against
+    the plain version on its inputs made again (``_adamw_leaves``), which
+    needs no copy of the table (`ssd_train`'s 2.0 B elements fill 32 GB).
+    ``g_dtypes``: each leaf's gradient dtype (default fp32); a leaf with a
+    bf16 gradient is a bf16 param over its fp32 master and also writes its
+    bf16 copy, as in the `moe` step.  Timed: the kernel's one launch, the
+    plain version a leaf, and torch._fused_adamw_ over the same leaves; a
+    table that mixes gradient dtypes also times the two designs it replaces
+    (the bf16 gradients widened to fp32 first, then one launch; one launch
+    a dtype)."""
     import torch
     from paddle_tpu_torch.kernels.adamw import adamw_reference, adamw_update_leaves
 
     lr, step = 3e-4, 10
-    leaves = _adamw_leaves(sizes, seed)
+    bf = torch.bfloat16
+    g_dtypes = g_dtypes or [torch.float32] * len(sizes)
+    leaves = _adamw_leaves(sizes, seed, g_dtypes)
     p, g, m, v = (list(c) for c in zip(*leaves))
+    outs = [torch.empty(n, dtype=bf, device="cuda") if dt == bf else None
+            for n, dt in zip(sizes, g_dtypes)]
     before = adamw_update_leaves.launches
-    table = adamw_update_leaves(p, g, m, v, [None] * len(p), lr, step, **ADAMW_HYPER)
+    table = adamw_update_leaves(p, g, m, v, outs, lr, step, **ADAMW_HYPER)
     launches = adamw_update_leaves.launches - before
     check(launches == 1, f"adamw {label}: {launches} launches for {len(p)} leaves, not one")
     ulps, err = 0, 0.0
     for i, n_i in enumerate(sizes):
-        p0, g0, m0, v0 = _adamw_leaves([n_i], seed + i)[0]
-        ref = adamw_reference(p0, g0, m0, v0, lr, step, **ADAMW_HYPER)
+        p0, g0, m0, v0 = _adamw_leaves([n_i], seed + i, [g_dtypes[i]])[0]
+        ref = adamw_reference(p0, g0.float(), m0, v0, lr, step, **ADAMW_HYPER)
         ulps = max(ulps, *(max_ulps(a, b) for a, b in zip((p[i], m[i], v[i]), ref)))
         err = max(err, *(max_err(a, b) for a, b in zip((p[i], m[i], v[i]), ref)))
+        if outs[i] is not None:
+            ulps = max(ulps, int((outs[i] != ref[0].to(bf)).sum()))
         del p0, g0, m0, v0, ref
     n = sum(x.numel() for x in p)
     check(ulps <= ADAMW_ULPS, f"adamw {label}: {ulps} ulps from the plain version")
-    b_ms, b_by = bound(28 * n, 12 * n)
+    # each input read once, each output written once: p, m, v both ways,
+    # the gradient in its own dtype, the bf16 copies
+    moved = sum(x.numel() * (24 + x.element_size()) for x in g) + sum(
+        2 * o.numel() for o in outs if o is not None)
+    b_ms, b_by = bound(moved, 12 * n)
 
     def kernel():
-        adamw_update_leaves(p, g, m, v, [None] * len(p), lr, step, table=table, **ADAMW_HYPER)
+        adamw_update_leaves(p, g, m, v, outs, lr, step, table=table, **ADAMW_HYPER)
 
     def plain():
-        for leaf in zip(p, g, m, v):
-            adamw_reference(*leaf, lr, step, **ADAMW_HYPER)
+        for pi, gi, mi, vi, o in zip(p, g, m, v, outs):
+            p_new = adamw_reference(pi, gi.float(), mi, vi, lr, step, **ADAMW_HYPER)[0]
+            if o is not None:
+                p_new.to(bf)
 
     steps = [torch.tensor(float(step), device="cuda") for _ in p]
 
@@ -1005,22 +1056,57 @@ def _adamw_case(sizes, label, seed):
     except (RuntimeError, TypeError) as e:   # a yardstick only, never a check
         log(f"adamw {label}: torch._fused_adamw_ not timed: {e}")
         lib_ms = None
+    kinds = sorted({str(dt).replace("torch.", "") for dt in g_dtypes})
     rec = {"shape": {"leaves": len(sizes), "elements": n, "label": label},
-           "dtype": "float32", "max_abs_err": err, "max_ulps": ulps,
+           "dtype": "float32", "grad_dtypes": kinds,
+           "copies": sum(o is not None for o in outs), "max_abs_err": err, "max_ulps": ulps,
            "tol": {"ulps": ADAMW_ULPS}, "launches_a_call": launches,
            "ms": time_ms(kernel, sleep_cycles=sleep), "plain_ms": time_ms(plain),
            "library_ms": lib_ms, "library": "torch._fused_adamw_ over the same leaves",
-           "bound_ms": b_ms, "bound_by": b_by}
+           "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": moved}
+    if len(kinds) > 1:
+        rec["replaced_designs_ms"] = _adamw_mixed_alternatives(p, g, m, v, outs, lr, step,
+                                                               table, sleep)
     rec["ms_again"] = time_ms(kernel, sleep_cycles=sleep)
     log(f"adamw {label}: {json.dumps(rec)}")
     return rec
+
+
+def _adamw_mixed_alternatives(p, g, m, v, outs, lr, step, table, sleep):
+    """The two designs a table of mixed gradient dtypes could take instead
+    of one launch that reads each gradient in its own dtype, timed on the
+    same leaves: ``widened`` (every bf16 gradient copied to fp32, then one
+    launch: the copies are in the interval) and ``one_launch_a_dtype``."""
+    import torch
+    from paddle_tpu_torch.kernels.adamw import adamw_update_leaves
+
+    groups = {}
+    for i, x in enumerate(g):
+        groups.setdefault(x.dtype, []).append(i)
+    tables = {}
+
+    def widened():
+        adamw_update_leaves(p, [x.float() for x in g], m, v, outs, lr, step, table=table,
+                            **ADAMW_HYPER)
+
+    def one_launch_a_dtype():
+        for dt, idx in groups.items():
+            tables[dt] = adamw_update_leaves(
+                *([c[i] for i in idx] for c in (p, g, m, v, outs)), lr, step,
+                table=tables.get(dt), **ADAMW_HYPER)
+
+    one_launch_a_dtype()
+    torch.cuda.synchronize()
+    return {"widened": time_ms(widened, sleep_cycles=sleep),
+            "one_launch_a_dtype": time_ms(one_launch_a_dtype, sleep_cycles=sleep)}
 
 
 def _adamw_ragged(seed):
     """The table's edges, each held to the plain version at 0 ulps: sizes 1,
     3, 4097, an empty leaf, 2048 and three chunks and a tail; the same at
     views of offset 1 (no 16-byte phase: scalar leaves); bf16 gradients
-    (both); bf16 params with fp32 masters (the param the bf16 copy) and a
+    (both); bf16 and fp32 gradients leaf by leaf in one table (both); bf16
+    params with fp32 masters (the param the bf16 copy) and a
     leaf undecayed; 1000 leaves, past one launch's capacity (its launches
     counted).  A planted fault, one entry's size 4 short, must be
     rejected."""
@@ -1036,8 +1122,10 @@ def _adamw_ragged(seed):
         def leaf(n, scale):
             return scale * torch.randn(n + offset, generator=gen, device="cuda")[offset:]
 
-        return [(leaf(n, 0.02), leaf(n, 1e-3).to(g_dtype), leaf(n, 3e-4), leaf(n, 1e-3) ** 2)
-                for n in sizes]
+        dts = ([torch.bfloat16, torch.float32] * len(sizes) if g_dtype == "mixed"
+               else [g_dtype] * len(sizes))
+        return [(leaf(n, 0.02), leaf(n, 1e-3).to(dt), leaf(n, 3e-4), leaf(n, 1e-3) ** 2)
+                for n, dt in zip(sizes, dts)]
 
     def run(leaves, outs=None, apply=None):
         p, g, m, v = (list(c) for c in zip(*leaves))
@@ -1062,6 +1150,8 @@ def _adamw_ragged(seed):
             ("offset 1", table(sizes, 1), {}),
             ("bf16 gradients", table(sizes, 0, torch.bfloat16), {}),
             ("bf16 gradients, offset 1", table(sizes, 1, torch.bfloat16), {}),
+            ("bf16 and fp32 gradients in one table", table(sizes, 0, "mixed"), {}),
+            ("bf16 and fp32 gradients, offset 1", table(sizes, 1, "mixed"), {}),
             ("bf16 params over masters", table(sizes), dict(
                 outs=[torch.empty(n, dtype=torch.bfloat16, device="cuda") for n in sizes],
                 apply=[True, False, True, True, True, True])),
@@ -1076,9 +1166,9 @@ def _adamw_ragged(seed):
     p, g, m, v = (list(c) for c in zip(*leaves))
     ref = [adamw.adamw_reference(*x, lr, step, **ADAMW_HYPER) for x in leaves]
     t = adamw.LeafTable(p, m, v, [None] * len(p), [True] * len(p), [False] * len(p))
-    g_dtype = t.fill(g)
+    t.fill(g)
     t.groups[0][0][3].n -= 4
-    t.launch(adamw.step_scalars(lr, step, 0.9, 0.999, 0.1), (0.9, 0.999, 1e-8, 0.1), g_dtype)
+    t.launch(adamw.step_scalars(lr, step, 0.9, 0.999, 0.1), (0.9, 0.999, 1e-8, 0.1))
     ulps = max(max_ulps(a, b) for got, want in zip(zip(p, m, v), ref)
                for a, b in zip(got, want) if a.numel())
     check(ulps > ADAMW_ULPS, "adamw table: the planted fault (an entry 4 values short) passed")
@@ -1792,6 +1882,10 @@ def phase_kernels():
     torch.cuda.empty_cache()
     cases["adamw"].append(_adamw_case(tables["ssd_train"], "ssd_train, all 43 leaves", 200))
     torch.cuda.empty_cache()
+    cases["adamw"].append(_adamw_case(adamw.MOE_TABLE, "moe, all 87 leaves: bf16 gradients "
+                                      "and copies, the fp32 routers'", 300,
+                                      adamw.MOE_GRAD_DTYPES))
+    torch.cuda.empty_cache()
     # `ssd_train`'s shape: G = batch 2 x 64 heads, T 4096, P 64, N 128, L 128;
     # SSDConfig()'s defaults (hidden 4096 over 32 heads: P 128, N 64, L 64;
     # G = batch 2 x 32 heads, T 4096), two column blocks a recurrence;
@@ -2231,6 +2325,60 @@ def phase_parity(seed):
             "fuse_swiglu_mlp_bwd": L, "fuse_add_rms_norm": L, "fuse_add_rms_norm_bwd": L,
             "fuse_rms_norm_head": 1, "fuse_rms_norm_head_bwd": 1})
     _ssd_parity(seed)
+    _moe_parity(seed)
+
+
+def phase_incubate(seed):
+    """The ``incubate.nn.functional`` ops that reach a kernel, on the card at
+    ``llama3_8b_config`` decode shapes (8 rows, hidden 4096; 32 heads over 8
+    KV heads of 128, a 2048-slot cache, the `serve` phase's lengths) against
+    their plain versions, counters zeroed just before: ``fused_rms_norm``
+    (one RMSNorm launch), ``masked_multihead_attention`` and
+    ``block_multihead_attention`` over the JAX package's pool layout
+    ``[NB, 128, Hk, D]`` (one dense decode launch each)."""
+    import torch
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.kernels.rms_norm import rms_norm_reference
+    from paddle_tpu_torch.models import llama3_8b_config
+
+    cfg = llama3_8b_config()
+    B, H, Hk, D, C, bs = 8, cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim, 2048, 128
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    x, w = randn(B, 1, cfg.hidden_size), randn(cfg.hidden_size)
+    q, k, v = randn(B, 1, H, D), randn(B, C, Hk, D), randn(B, C, Hk, D)
+    lengths = torch.tensor(_serve_lengths(seed, B), dtype=torch.int32, device="cuda")
+    nb = C // bs
+    k_pool, v_pool = randn(B * nb + 1, bs, Hk, D), randn(B * nb + 1, bs, Hk, D)
+    table = (1 + torch.randperm(B * nb, generator=gen, device="cuda")).reshape(B, nb)
+    table = table.to(torch.int32)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    y = IF.fused_rms_norm(x, w, epsilon=cfg.rms_norm_eps)
+    o = IF.masked_multihead_attention(q, k, v, lengths)
+    ob = IF.block_multihead_attention(q, k_pool, v_pool, table, lengths)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    sm = 1.0 / D ** 0.5
+    gathered = [pool[table.long()].reshape(B, -1, Hk, D) for pool in (k_pool, v_pool)]
+    refs = {"fused_rms_norm": (y, rms_norm_reference(x, w, cfg.rms_norm_eps), RMS_TOL),
+            "masked_multihead_attention": (o, da._decode_reference(q, k, v, lengths, sm),
+                                           DECODE_TOL),
+            "block_multihead_attention": (ob, da._decode_reference(q, *gathered, lengths, sm),
+                                          DECODE_TOL)}
+    errs = {name: max_err(got, ref) for name, (got, ref, _) in refs.items()}
+    log(f"incubate: max err against the plain versions {errs}; launches {counts}")
+    for name, (got, ref, tol) in refs.items():
+        check(within(got, ref, tol), f"incubate: {name} disagrees: max err {errs[name]}")
+    want = dict.fromkeys(counts, 0)
+    want.update(rms_norm=1, decode_attention_dense=2)
+    check(counts == want, f"incubate: launches {counts}, expected {want}")
+    return {"launches": counts, "max_abs_err": errs}
 
 
 @contextlib.contextmanager
@@ -2288,6 +2436,70 @@ def _ssd_parity(seed):
         _train_parity(label, cfg, cpu, gpu, seed, {"ssd_scan": kinds.count("ssd"),
                                                    "ssd_scan_bwd": kinds.count("ssd"),
                                                    "flash_attention_fwd": kinds.count("attention")})
+
+
+def _moe_parity(seed):
+    """The card against the CPU in fp32 (TF32 off) on the parity widths with
+    4 experts under the switch gate: every layer's routing (experts and
+    kept slots) the same, logits within 1e-4, step-1 gradients within
+    ``PARITY_GRAD_TOL``, Engine and generate tokens equal."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import (LlamaForCausalLM, llama_tiny_config,
+                                         load_paddle_tpu_params, to_paddle_tpu_params)
+
+    cfg = llama_tiny_config(vocab_size=512, hidden_size=256, intermediate_size=512,
+                            num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                            max_position_embeddings=512, moe_num_experts=4, moe_gate="switch")
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=seed)
+    gpu = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    load_paddle_tpu_params(gpu, to_paddle_tpu_params(cpu))
+    ids = torch.from_numpy(np.random.default_rng(seed + 4).integers(
+        1, cfg.vocab_size, (2, 300)).astype(np.int64))
+    with torch.no_grad():
+        lg_cpu = cpu(ids)
+        lg_gpu = gpu(ids.cuda()).cpu()
+    agree, kept_same, dropped = [], True, 0
+    for lc, lg in zip(cpu.llama.layers, gpu.llama.layers):
+        rc, rg = lc.mlp.last_routing, lg.mlp.last_routing
+        agree.append(float((rc.expert == rg.expert.cpu()).float().mean()))
+        kept_same &= bool(torch.equal(rc.kept, rg.kept.cpu()))
+        dropped += int((~rc.kept).sum())
+    lerr = max_err(lg_gpu, lg_cpu)
+    log(f"parity moe: routing agreement by layer {agree} ({dropped} choices dropped by "
+        f"capacity on the CPU); logits max err card vs cpu {lerr:.3e}")
+    check(all(a == 1.0 for a in agree) and kept_same,
+          f"parity moe: the card routes otherwise: agreement {agree}, kept equal {kept_same}")
+    check(lerr < 1e-4, f"parity moe: fp32 logits differ by {lerr}")
+    grads = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        t = ids.to(model.device)
+        loss = model.compute_loss(model(t), t)
+        grads[name] = dict(zip([n for n, _ in model.named_parameters()],
+                               torch.autograd.grad(loss, list(model.parameters()))))
+    gerr = 0.0
+    for n, g in grads["cuda"].items():
+        ref = grads["cpu"][n]
+        gerr = max(gerr, max_err(g.cpu(), ref))
+        tol = (PARITY_GRAD_TOL * float(ref.abs().max()), PARITY_GRAD_TOL)
+        check(within(g.cpu(), ref, tol),
+              f"parity moe: gradient of {n} differs by {max_err(g.cpu(), ref)}")
+    rng = np.random.default_rng(seed + 1)
+    prefix = rng.integers(1, cfg.vocab_size, size=(128,)).astype(np.int32)
+    lens, news = (17, 100, 130, 250, -40, -90), (24, 16, 20, 12, 16, 8)
+    kw = dict(max_batch=4, num_blocks=32, block_size=128, prefill_buckets=(128, 256),
+              decode_chunk=8)
+    results = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
+        reqs = _requests(np.random.default_rng(seed + 1), cfg.vocab_size, lens, news, prefix)
+        _, outs = _serve(model, reqs, dev, **kw)
+        gen = model.generate(reqs[0].prompt_ids[None], max_new_tokens=16)
+        results[name] = ([o.output_ids for o in outs],
+                         gen[0, len(reqs[0].prompt_ids):].cpu().tolist())
+    log(f"parity moe: step-1 gradient max err {gerr:.3e}; Engine tokens equal "
+        f"{results['cpu'][0] == results['cuda'][0]}, generate tokens equal "
+        f"{results['cpu'][1] == results['cuda'][1]}")
+    check(results["cpu"] == results["cuda"], "parity moe: Engine or generate tokens differ")
 
 
 def _train_parity(label, cfg, cpu, gpu, seed, per_step, steps=3, lr=3e-4):
@@ -2413,10 +2625,14 @@ def _train_leg(label, fused, fp32_loss=False, preset="base", steps=TRAIN_STEPS):
 
     import torch
     from paddle_tpu_torch.kernels import emit, launch_counts
-    from paddle_tpu_torch.models.presets import build_pretrain_step, model_flops_per_token
+    from paddle_tpu_torch.models.presets import (build_moe_step, build_pretrain_step,
+                                                 model_flops_per_token)
 
     t0 = time.perf_counter()
-    step_fn, ids, model, cfg, (B, S, _) = build_pretrain_step(preset, "cuda")
+    if preset == "moe":
+        step_fn, ids, model, cfg, (B, S, _) = build_moe_step("cuda")
+    else:
+        step_fn, ids, model, cfg, (B, S, _) = build_pretrain_step(preset, "cuda")
     torch.cuda.synchronize()
     log(f"{label}: {preset} preset, {cfg.num_hidden_layers} layers, "
         f"{sum(p.numel() for p in model.parameters())} params (dtype {cfg.dtype}, params "
@@ -2441,13 +2657,19 @@ def _train_leg(label, fused, fp32_loss=False, preset="base", steps=TRAIN_STEPS):
     want_update["adamw"] = steps         # one launch over every leaf a step
     loss32 = None
     if fp32_loss:
+        # fp32 activations over the stored params (bf16 ones are cast at use);
+        # the model's generator is put back after, so that step 1 draws the
+        # gshard gate's uniforms this forward drew: both route alike
         torch.backends.cuda.matmul.allow_tf32 = False
+        gen_state = model.generator.get_state()
         with torch.no_grad():
-            saved, cfg.dtype = cfg.dtype, "float32"
+            saved = cfg.dtype, cfg.param_dtype
+            cfg.param_dtype, cfg.dtype = cfg.pdtype, "float32"
             try:
                 loss32 = float(model.compute_loss(model(ids), ids))
             finally:
-                cfg.dtype = saved
+                cfg.dtype, cfg.param_dtype = saved
+                model.generator.set_state(gen_state)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with scope:
@@ -2472,7 +2694,7 @@ def _train_leg(label, fused, fp32_loss=False, preset="base", steps=TRAIN_STEPS):
     check(rec["launches_in_update"] == want_update,
           f"{label}: launches inside the optimizer update {rec['launches_in_update']}, "
           f"expected {want_update}")
-    return rec, (step_fn, ids)
+    return rec, (step_fn, ids, model)
 
 
 def phase_train(profile):
@@ -2481,7 +2703,7 @@ def phase_train(profile):
     docstring."""
     import torch
 
-    rec, (step_fn, ids) = _train_leg("train", False, fp32_loss=True)
+    rec, (step_fn, ids, _) = _train_leg("train", False, fp32_loss=True)
     losses, loss32 = rec["losses"], rec["loss_fp32"]
     log(f"train: fp32-activation loss at step 1's weights {loss32} "
         f"(|bf16 - fp32| {abs(losses[0] - loss32):.6g}, limit {TRAIN_LOSS_TOL})")
@@ -2501,8 +2723,8 @@ def phase_longctx_train(profile):
     steps; see the module docstring."""
     import torch
 
-    rec, (step_fn, ids) = _train_leg("longctx_train", False, preset="longctx",
-                                     steps=LONGCTX_STEPS)
+    rec, (step_fn, ids, _) = _train_leg("longctx_train", False, preset="longctx",
+                                        steps=LONGCTX_STEPS)
     if profile:
         _profile(lambda: step_fn(ids), "longctx_train: one longctx step")
     del step_fn
@@ -2522,8 +2744,8 @@ def phase_fuse_train(profile, stock=None):
     for label, fused in (("stock", False), ("fused", True), ("stock again", False)):
         if label in legs:
             continue
-        legs[label], (step_fn, ids) = _train_leg(f"fuse_train {label} leg", fused,
-                                                 fp32_loss=label == "stock")
+        legs[label], (step_fn, ids, _) = _train_leg(f"fuse_train {label} leg", fused,
+                                                    fp32_loss=label == "stock")
         if fused and profile:
             with emit.activate(emit.verified_activation("cuda")):
                 _profile(lambda: step_fn(ids), "fuse_train: one fused base step")
@@ -2545,6 +2767,60 @@ def phase_fuse_train(profile, stock=None):
     rec.update(stock=legs["stock"], stock_again=legs["stock again"], loss_fp32=loss32,
                step1_fused_minus_stock=fused[0] - stock[0])
     return rec
+
+
+def phase_moe_train(profile):
+    """The `moe` preset (bench.py's configs[4] shape) at full width and depth
+    through the port's entry points, ``TRAIN_STEPS`` steps through
+    ``_train_leg``; then each layer's capacity drops, and a step run twice
+    from one state; see the module docstring."""
+    import torch
+
+    rec, (step_fn, ids, model) = _train_leg("moe_train", False, fp32_loss=True, preset="moe")
+    losses, loss32 = rec["losses"], rec["loss_fp32"]
+    log(f"moe_train: fp32-activation loss at step 1's weights {loss32} "
+        f"(|bf16 - fp32| {abs(losses[0] - loss32):.6g}, limit {MOE_TRAIN_LOSS_TOL})")
+    check(abs(losses[0] - loss32) <= MOE_TRAIN_LOSS_TOL,
+          f"moe_train: step 1's bf16 loss {losses[0]} is {abs(losses[0] - loss32)} from the "
+          f"fp32-activation loss {loss32}, past {TRAIN_LOSS_TOL}")
+    drops = []
+    for layer in model.llama.layers:         # the last step's routing, layer by layer
+        r = layer.mlp.last_routing
+        chosen = int((r.weight > 0).sum())   # gshard's second expert may be drawn away
+        drops.append((chosen - int(r.kept.sum())) / chosen)
+    rec["capacity_drop_share"] = drops
+    log(f"moe_train: capacity {model.llama.layers[0].mlp.last_routing.capacity} a expert; "
+        f"share of (token, slot) choices dropped by capacity, layer by layer {drops}")
+    rec["same_bits"] = _same_bits_twice("moe_train", step_fn, ids, model)
+    if profile:
+        _profile(lambda: step_fn(ids), "moe_train: one moe step")
+    del step_fn, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _same_bits_twice(label, step_fn, ids, model):
+    """One step run twice from the same state (params, optimizer slots, step
+    count, the gshard gate's generator): the losses and every param and
+    slot must be the same bits."""
+    import torch
+
+    start = {k: v.clone() for k, v in step_fn.state_dict().items()}
+    gen = model.generator.get_state()
+    runs = []
+    for _ in range(2):
+        step_fn.set_state_dict(start)
+        model.generator.set_state(gen)
+        loss = step_fn(ids)
+        runs.append((loss.clone(), {k: v.clone() for k, v in step_fn.state_dict().items()}))
+    (l1, s1), (l2, s2) = runs
+    differ = sorted(k for k in s1 if not torch.equal(s1[k], s2[k]))
+    log(f"{label}: a step run twice from one state: losses {float(l1)!r} and {float(l2)!r}; "
+        f"{len(s1) - len(differ)} of {len(s1)} tensors the same bits")
+    check(torch.equal(l1, l2) and not differ,
+          f"{label}: a step repeated from the same state differs: losses {float(l1)!r} "
+          f"{float(l2)!r}, tensors {differ[:8]}")
+    return {"losses": [float(l1), float(l2)], "tensors": len(s1)}
 
 
 def _profile(fn, label, ranges=()):
@@ -2730,6 +3006,64 @@ def phase_serve(seed, layers):
     _first_token_check("serve", model, watch.head, gen_reqs, gens, outs, eng_first)
     watch.restore()
     return paths, model
+
+
+def phase_moe_serve(seed):
+    """The `moe` preset's model, random bf16 weights from ``seed``: 16 greedy
+    requests through an Engine of 8 slots, then generate on two prompts,
+    counters per path; then one profiled Engine drain for the device's busy
+    share.  See the module docstring."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.models.presets import moe_config
+    from paddle_tpu_torch.serving import Engine
+
+    cfg = moe_config(True)
+    L = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    log(f"moe_serve: {L} layers, {cfg.moe_num_experts} experts, top-{cfg.moe_top_k} "
+        f"{cfg.moe_gate}, {sum(p.numel() for p in model.parameters())} params, bf16")
+    watch = _HeadWatch(model)
+    reqs, _ = _serve_requests(cfg.vocab_size, seed)
+    gen_reqs = reqs[:2]
+    kw = dict(max_batch=8, block_size=128, prefill_buckets=(128, 256, 512))
+    Engine(model, device="cuda", num_blocks=16, **kw).warmup()
+    paths = {}
+    t0 = time.perf_counter()
+    (eng, outs), paths["moe_engine"] = _drive_path(model, lambda: _serve(
+        model, reqs, "cuda", num_blocks=512, **kw))
+    wall = time.perf_counter() - t0
+    gens, paths["moe_generate"] = _drive_path(model, lambda: [
+        model.generate(r.prompt_ids[None], max_new_tokens=16) for r in gen_reqs])
+    gen_tokens = sum(len(o.output_ids) for o in outs)
+    log(f"moe_serve: {len(outs)} requests, {gen_tokens} tokens in {wall:.3f} s = "
+        f"{gen_tokens / wall:.1f} generated tok/s (prefill included)")
+    log(f"moe_serve: stats {json.dumps(eng.stats)}")
+    for name, rec in paths.items():
+        log(f"moe_serve: path {name}: {json.dumps(rec)}")
+    for r, o in zip(reqs, outs):
+        check(len(o.output_ids) == r.max_new_tokens,
+              f"moe_serve: {o.request_id} gave {len(o.output_ids)} of {r.max_new_tokens} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in o.output_ids), "moe_serve: token out of range")
+    for r, g in zip(gen_reqs, gens):
+        check(tuple(g.shape) == (1, len(r.prompt_ids) + 16), "moe_serve: generate shape")
+    check(not bool(watch.nan), "moe_serve: NaN logits")
+    check(paths["moe_engine"]["decode_forwards"] == eng.stats["decode_steps"],
+          "moe_serve: Engine decode steps and decode forwards differ")
+    _check_path("moe_engine", paths["moe_engine"], 2 * L + 1, "decode_attention_paged", L)
+    _check_path("moe_generate", paths["moe_generate"], 2 * L + 1, "decode_attention_dense", L)
+    watch.restore()
+    rng = np.random.default_rng(seed + 2)
+    drain = _requests(rng, cfg.vocab_size, [128] * 8, [32] * 8)
+    wall_ms, rows = _profile(lambda: _serve(model, drain, "cuda", num_blocks=64, **kw),
+                             "moe_serve: one Engine drain (8 requests, 32 new tokens each)")
+    busy = sum(r[0] for r in rows) / wall_ms
+    paths["moe_engine"].update(tokens_per_s=gen_tokens / wall, busy_share=busy)
+    log(f"moe_serve: device busy share {busy:.4f} of the profiled drain's wall time")
+    del model
+    torch.cuda.empty_cache()
+    return paths
 
 
 class _HeadWatch:
@@ -3338,29 +3672,47 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(REPO))
 
     t_start = time.perf_counter()
+    laps = [("start", t_start)]             # (phase, time it ended)
     cases, paths = {}, {}
     try:
         phase_card()
+        laps.append(("card", time.perf_counter()))
         if "build" in phases or "kernels" in phases or "kernel_gate" in phases:
             phase_build()
+            laps.append(("build", time.perf_counter()))
         if "kernels" in phases:
             cases = phase_kernels()
+            laps.append(("kernels", time.perf_counter()))
         if "kernel_gate" in phases:
             paths["kernel_gate"] = phase_kernel_gate(args.seed)
+            laps.append(("kernel_gate", time.perf_counter()))
         if "parity" in phases:
             phase_parity(args.seed)
+            laps.append(("parity", time.perf_counter()))
+        if "incubate" in phases:
+            paths["incubate"] = phase_incubate(args.seed)
+            laps.append(("incubate", time.perf_counter()))
         if "train" in phases:
             paths["train"] = phase_train("profile" in phases)
+            laps.append(("train", time.perf_counter()))
         if "longctx_train" in phases:
             paths["longctx_train"] = phase_longctx_train("profile" in phases)
+            laps.append(("longctx_train", time.perf_counter()))
         if "fuse_train" in phases:
             paths["fuse_train"] = phase_fuse_train("profile" in phases, paths.get("train"))
+            laps.append(("fuse_train", time.perf_counter()))
+        if "moe_train" in phases:
+            paths["moe_train"] = phase_moe_train("profile" in phases)
+            laps.append(("moe_train", time.perf_counter()))
         if "ssd_train" in phases:
             paths["ssd_train"] = phase_ssd_train("profile" in phases)
+            laps.append(("ssd_train", time.perf_counter()))
         if "resume_train" in phases:
             phase_resume_train()
+            laps.append(("resume_train", time.perf_counter()))
         if "optimizers" in phases:
             phase_optimizers(args.seed)
+            laps.append(("optimizers", time.perf_counter()))
         if "serve" in phases:
             serve_paths, model = phase_serve(args.seed, args.layers)
             paths.update(serve_paths)
@@ -3368,12 +3720,18 @@ def main(argv=None) -> int:
                 phase_profile(model, args.seed)
             del model
             torch.cuda.empty_cache()
+            laps.append(("serve", time.perf_counter()))
+        if "moe_serve" in phases:
+            paths.update(phase_moe_serve(args.seed))
+            laps.append(("moe_serve", time.perf_counter()))
         if "ssd_serve" in phases:
             paths.update(phase_ssd_serve(args.seed, "profile" in phases))
+            laps.append(("ssd_serve", time.perf_counter()))
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    log(f"chip_smoke: phases {phases} in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases {phases} in {time.perf_counter() - t_start:.1f} s; seconds by "
+        f"phase {json.dumps({b[0]: round(b[1] - a[1], 1) for a, b in zip(laps, laps[1:])})}")
     if cases:
         log(json.dumps({"kernels": kernel_table(cases, paths)}))
     print(json.dumps({"ok": True, "device": {

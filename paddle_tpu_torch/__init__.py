@@ -10,8 +10,11 @@ Covered so far: the serving path — ``serving.Engine`` over
 ``models.llama.LlamaForCausalLM`` with the paged KV cache, and
 ``LlamaForCausalLM.generate`` — and the pretraining path: ``jit.TrainStep``
 over ``compute_loss`` with ``optimizer.AdamW`` and the presets of
-``models.presets``; and the SSD family, ``models.ssd.SSDForCausalLM``, in
-training and through the Engine's recurrent and hybrid paths.
+``models.presets``; the SSD family, ``models.ssd.SSDForCausalLM``, in
+training and through the Engine's recurrent and hybrid paths; the
+Mixture-of-Experts Llama (``incubate.moe``, the ``moe`` preset) in training
+and serving; and the rest of ``incubate`` (fused ops and layers, optimizer
+wrappers).
 
 Device policy: entry points take an explicit ``device``; when none is given
 it is ``"cuda"``, and a missing card raises instead of running on the CPU.
@@ -26,6 +29,7 @@ import torch
 __all__ = ["seed", "default_device", "make_generator", "to_dtype", "DTYPES"]
 
 DTYPES = {
+    "float64": torch.float64,
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
     "float16": torch.float16,

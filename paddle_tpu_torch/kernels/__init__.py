@@ -21,10 +21,10 @@ from __future__ import annotations
 from typing import Dict
 
 from . import (adamw, add_rms_norm, decode_attention, emit, flash_attention, fused_gemm,
-               injected, registry, rms_norm, rope, ssd_scan)
+               injected, registry, rms_norm, rope, ssd_scan, swiglu)
 
 __all__ = ["adamw", "add_rms_norm", "decode_attention", "emit", "flash_attention",
-           "fused_gemm", "injected", "registry", "rms_norm", "rope", "ssd_scan",
+           "fused_gemm", "injected", "registry", "rms_norm", "rope", "ssd_scan", "swiglu",
            "launch_counts", "reset_launch_counts", "GATE_WRAPPERS", "WRAPPERS"]
 
 # kernel name -> wrapper with a ``launches`` counter

@@ -66,9 +66,9 @@ SIGNATURES = {
     },
     "adamw": {
         # leaves (a host array of the table's entries), count, chunks, lr,
-        # c1, c2, decay, beta1, 1-beta1, beta2, 1-beta2, eps, wd, gradient
-        # dtype, bf16 copies, stream
-        "adamw_multi_launch": (P, I, I, F, F, F, F, F, F, F, F, F, F, I, I, P),
+        # c1, c2, decay, beta1, 1-beta1, beta2, 1-beta2, eps, wd, bf16
+        # copies, stream (each entry's flags say its gradient's dtype)
+        "adamw_multi_launch": (P, I, I, F, F, F, F, F, F, F, F, F, F, I, P),
         # int out[4]: the table's layout as compiled
         "adamw_layout": (P,),
     },

@@ -18,8 +18,10 @@ Python's double arithmetic cast to fp32 could differ by an ulp.  The kernel
 rounds every operation on its own, so on the same inputs it gives the plain
 version's bits.
 
-A gradient may be fp32 or bf16 (one dtype a launch): the kernel widens bf16
-exactly in registers, so it reads the bits ``g.float()`` would hold.
+A gradient may be fp32 or bf16, each leaf's its own (a bf16 model's fp32
+MoE router beside bf16 weights is still one launch, with no widened copy):
+the kernel widens bf16 exactly when it reads it, so it reads the bits
+``g.float()`` would hold.
 
 :class:`LeafTable` is the launch table of one set of leaves: pointers,
 sizes, chunk numbering and flags, built once.  Each call fills in only the
@@ -46,13 +48,14 @@ from ..analysis.kernel_lint import BlockUse, KernelSpec, ScratchUse, cuda_semant
 from . import _build, registry
 
 __all__ = ["adamw_reference", "adamw_update", "adamw_update_leaves", "LeafTable",
-           "step_scalars", "kernel_spec", "CHUNK", "TABLE_CAP", "TRAIN_TABLES"]
+           "step_scalars", "kernel_spec", "CHUNK", "TABLE_CAP", "TRAIN_TABLES", "MOE_TABLE",
+           "MOE_GRAD_DTYPES"]
 
 _GEO = _build.GEOMETRY["adamw"]
 CHUNK = _GEO["ADAMW_CHUNK"]            # elements a chunk, a CTA's work
 TABLE_CAP = _GEO["ADAMW_TABLE_CAP"]    # leaves a launch
 # _Leaf.flags, as csrc/adamw.cu reads them
-_VEC, _COUPLED, _DECAY, _HEAD_SHIFT = 1, 2, 4, 3
+_VEC, _COUPLED, _DECAY, _BF16_GRAD, _HEAD_SHIFT = 1, 2, 4, 8, 4
 # the kernel's shared memory: its ring's slots (p, m, v, g as fp32 and the
 # bf16 copy, 128-byte aligned) and their mbarriers
 SMEM_BYTES = (_GEO["ADAMW_STAGES"] * (-(-18 * _GEO["ADAMW_STAGE"] // 128) * 128) + 128)
@@ -195,34 +198,36 @@ class LeafTable:
         now, and these flags."""
         return self._key(params32, ms, vs, outs, decay, coupled) == self.key
 
-    def fill(self, grads) -> torch.dtype:
-        """Point every entry at its leaf's gradient and set its vector flag
-        (an fp32 gradient must share p's 16-byte phase, a bf16 one be 16-byte
-        aligned at p's head: the kernel moves them by TMA); returns the
-        gradients' dtype, one for the table (fp32 or bf16)."""
-        g_dtype = grads[self.groups[0][2][0]].dtype if self.groups else torch.float32
+    def fill(self, grads) -> Tuple[torch.dtype, ...]:
+        """Point every entry at its leaf's gradient, and set its gradient
+        dtype flag and its vector flag (an fp32 gradient must share p's
+        16-byte phase, a bf16 one be 16-byte aligned at p's head: the
+        kernel moves them by TMA); returns the gradients' dtypes, each
+        once, in the order met (fp32 or bf16, mixed at will)."""
         dev = self.device
+        seen = []
         for arr, view, idx, _, heads, able in self.groups:
             gs = [grads[i] for i in idx]
             for i, g, n in zip(idx, gs, view["n"].tolist()):
-                if (g.dtype != g_dtype or g.numel() != n or g.device != dev
-                        or not g.is_contiguous()):
+                if g.dtype not in (torch.float32, torch.bfloat16):
+                    raise TypeError(f"adamw leaf {i}: gradients must be fp32 or bf16, not "
+                                    f"{g.dtype}")
+                if g.numel() != n or g.device != dev or not g.is_contiguous():
                     raise ValueError(f"adamw leaf {i}: the gradient must be a contiguous "
-                                     f"{g_dtype} tensor of {n} values on {dev}, as the "
-                                     f"table's other gradients; got {g.dtype} {g.numel()} on "
+                                     f"tensor of {n} values on {dev}; got {g.numel()} on "
                                      f"{g.device}")
+                if g.dtype not in seen:
+                    seen.append(g.dtype)
             ptrs = np.array([g.data_ptr() for g in gs], np.uint64)
-            if g_dtype == torch.float32:
-                same = (-ptrs.astype(np.int64) % 16) // 4 == heads
-            elif g_dtype == torch.bfloat16:
-                same = (ptrs + 2 * heads) % 16 == 0
-            else:
-                raise TypeError(f"adamw: gradients must be fp32 or bf16, not {g_dtype}")
+            bf16 = np.array([g.dtype == torch.bfloat16 for g in gs])
+            same = np.where(bf16, (ptrs + 2 * heads) % 16 == 0,
+                            (-ptrs.astype(np.int64) % 16) // 4 == heads)
             view["g"] = ptrs
-            view["flags"] = (view["flags"] & ~_VEC) | np.where(able & same, _VEC, 0)
-        return g_dtype
+            view["flags"] = ((view["flags"] & ~(_VEC | _BF16_GRAD))
+                             | np.where(able & same, _VEC, 0) | np.where(bf16, _BF16_GRAD, 0))
+        return tuple(seen)
 
-    def launch(self, scalars, hyper, g_dtype) -> int:
+    def launch(self, scalars, hyper) -> int:
         """Launch the kernel over every group; returns the launches."""
         lr, c1, c2, decay = scalars
         beta1, beta2, eps, wd = hyper
@@ -236,8 +241,7 @@ class LeafTable:
             for arr, _, _, chunks, _, _ in self.groups:
                 err = lib.adamw_multi_launch(
                     ctypes.addressof(arr), len(arr), chunks, lr, c1, c2, decay, beta1,
-                    1 - beta1, beta2, 1 - beta2, eps, wd, _build.dtype_code(g_dtype),
-                    int(self.cast), stream)
+                    1 - beta1, beta2, 1 - beta2, eps, wd, int(self.cast), stream)
                 _build.check(lib, err, "adamw_update_leaves")
                 launches += 1
         return launches
@@ -267,7 +271,7 @@ def adamw_update_leaves(params32: Sequence[torch.Tensor], grads: Sequence[torch.
                         table: Optional[LeafTable] = None) -> Optional[LeafTable]:
     """One Adam/AdamW step over a table of leaves, IN PLACE: every
     ``params32[i]``, ``ms[i]`` and ``vs[i]`` (fp32, contiguous, of one size
-    a leaf) from ``grads[i]`` (fp32 or bf16, one dtype for all); where
+    a leaf) from ``grads[i]`` (fp32 or bf16, each leaf's own); where
     ``outs[i]`` is a bf16 tensor it receives the new value rounded.
     ``apply_decay[i]`` False leaves leaf ``i`` undecayed (default: every
     leaf decays).  ``lr`` and ``step`` are Python numbers or 0-d tensors.
@@ -286,7 +290,8 @@ def adamw_update_leaves(params32: Sequence[torch.Tensor], grads: Sequence[torch.
     with torch.no_grad():
         if dev.type == "cpu":
             cast = any(o is not None for o in outs)
-            registry.ensure_admitted("adamw_fused", dev, dtype_key(grads[0].dtype, cast))
+            for g_dtype in dict.fromkeys(g.dtype for g in grads):
+                registry.ensure_admitted("adamw_fused", dev, dtype_key(g_dtype, cast))
             for p, g, m, v, o, a in zip(params32, grads, ms, vs, outs, apply):
                 p_new, m_new, v_new = adamw_reference(
                     p, g.to(torch.float32), m, v, lr, step, beta1=beta1, beta2=beta2,
@@ -302,11 +307,11 @@ def adamw_update_leaves(params32: Sequence[torch.Tensor], grads: Sequence[torch.
             raise ValueError(f"adamw_update_leaves: unsupported device {dev}")
         if table is None or not table.fits(params32, ms, vs, outs, decay, coupled):
             table = LeafTable(params32, ms, vs, outs, decay, coupled)
-        g_dtype = table.fill(grads)
-        registry.ensure_admitted("adamw_fused", dev, dtype_key(g_dtype, table.cast))
+        for g_dtype in table.fill(grads):
+            registry.ensure_admitted("adamw_fused", dev, dtype_key(g_dtype, table.cast))
         scalars = step_scalars(lr, step, beta1, beta2, weight_decay)
         hyper = (float(beta1), float(beta2), float(epsilon), float(weight_decay))
-        adamw_update_leaves.launches += table.launch(scalars, hyper, g_dtype)
+        adamw_update_leaves.launches += table.launch(scalars, hyper)
         return table
 
 
@@ -400,6 +405,14 @@ TRAIN_TABLES = {
     "ssd_train": _table(128256, 4096, [4096, 4096 * (2 * 64 * 64 + 2 * 64 * 128 + 64), 64, 64,
                                        64 * 64 * 4096], 8),
 }
+# the `moe` training step's leaves (vocab 32000, hidden 1024, 16 query heads
+# of 64 over 8, 8 experts of 1408, 12 layers: a layer's norm, qkv, o, norm,
+# router, w_gate_up, w_down), each with its gradient's dtype: bf16 (a bf16
+# parameter over an fp32 master, written as its bf16 copy) but the fp32
+# routers'; tests/test_torch_moe.py holds it to the model
+MOE_TABLE = _table(32000, 1024, [1024, 1024 * 2048, 1024 * 1024, 1024, 1024 * 8,
+                                 8 * 1024 * 2 * 1408, 8 * 1408 * 1024], 12)
+MOE_GRAD_DTYPES = [torch.float32 if n == 1024 * 8 else torch.bfloat16 for n in MOE_TABLE]
 
 
 def _registry_example(dtype="float32+copy"):

@@ -14,7 +14,9 @@
 //
 // Bound: bytes.  Per element it reads p, g, m, v and writes p, m, v (28 B with
 // an fp32 gradient, 26 with a bf16 one), plus 2 B for a bf16 copy, against
-// ~12 flops: far below the card's flop/byte balance.
+// ~12 flops: far below the card's flop/byte balance.  Each leaf's gradient is
+// read in its own dtype, so a table mixing them (a bf16 model's fp32 MoE
+// routers) moves no widened copy.
 //
 // Design (what holds a per-leaf launch back, and what this does about it):
 // - The table of leaves (pointers, sizes, flags) rides in the kernel's
@@ -42,8 +44,10 @@
 //   rest of the table.  Chunk boundaries follow p's head only, so they stay
 //   fixed while the gradients' pointers (and with them the vector flag)
 //   change from step to step.
-// - Templates on the gradient's dtype (fp32 or bf16, widened exactly when
-//   read from shared memory) and on whether any leaf writes a bf16 copy.
+// - A leaf's gradient dtype (fp32 or bf16, widened exactly when read from
+//   shared memory) is a flag of its own, branched on once a CTA: one launch
+//   takes a table that mixes them.  A template on whether any leaf writes a
+//   bf16 copy.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -62,18 +66,18 @@ static_assert(kStage % (4 * kThreads) == 0 && kChunk % kStage == 0,
               "a slot is whole float4 rounds of the CTA, a chunk whole slots");
 
 // Leaf::flags
-enum : int { kVec = 1, kCoupled = 2, kDecay = 4, kHeadShift = 3 };
+enum : int { kVec = 1, kCoupled = 2, kDecay = 4, kBf16Grad = 8, kHeadShift = 4 };
 
 // One leaf of the table; mirrored by kernels/adamw.py::_Leaf (64 bytes).
 struct Leaf {
   float* p;
-  const void* g;             // fp32 or bf16, as the launch's template says
+  const void* g;             // bf16 where flags has kBf16Grad, else fp32
   float* m;
   float* v;
   __nv_bfloat16* out;        // the bf16 copy of the new p, or null
   long long n;
   int chunk0;                // the leaf's first chunk in the launch's numbering
-  int flags;                 // kVec | kCoupled | kDecay | head << kHeadShift
+  int flags;                 // kVec | kCoupled | kDecay | kBf16Grad | head << kHeadShift
   long long reserved;
 };
 static_assert(sizeof(Leaf) == 64, "kernels/adamw.py::_Leaf mirrors this layout");
@@ -159,22 +163,12 @@ __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// chunk k of leaf L, its gradient of type G
 template <typename G, bool CAST>
-__global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
-adamw_multi_kernel(const __grid_constant__ Table t) {
-  extern __shared__ __align__(128) unsigned char smem[];
+__device__ __forceinline__ void adam_chunk(const Leaf& L, const Scalars& s, long long k,
+                                           unsigned char* smem) {
   Slot* slots = reinterpret_cast<Slot*>(smem);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * sizeof(Slot));
-  const Scalars& s = t.s;
-  const int c = blockIdx.x;
-  int lo = 0, hi = t.count - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (t.leaf[mid].chunk0 <= c) lo = mid;
-    else hi = mid - 1;
-  }
-  const Leaf& L = t.leaf[lo];
-  const long long k = c - L.chunk0;
   const float decay = (L.flags & kDecay) ? s.decay : 1.0f;
   const bool coupled = (L.flags & kCoupled) != 0;
   const long long head = L.flags >> kHeadShift;
@@ -244,25 +238,39 @@ adamw_multi_kernel(const __grid_constant__ Table t) {
   scalar_range<G, CAST>(L, s, decay, coupled, s0 + nb, e0);
 }
 
-template <typename G, bool CAST>
+template <bool CAST>
+__global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
+adamw_multi_kernel(const __grid_constant__ Table t) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int c = blockIdx.x;
+  int lo = 0, hi = t.count - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (t.leaf[mid].chunk0 <= c) lo = mid;
+    else hi = mid - 1;
+  }
+  const Leaf& L = t.leaf[lo];
+  if (L.flags & kBf16Grad) adam_chunk<__nv_bfloat16, CAST>(L, t.s, c - L.chunk0, smem);
+  else adam_chunk<float, CAST>(L, t.s, c - L.chunk0, smem);
+}
+
+template <bool CAST>
 cudaError_t launch(const Table& t, cudaStream_t stream) {
   static bool granted = false;
-  const cudaError_t e = allow_smem(adamw_multi_kernel<G, CAST>, kSmem, granted);
+  const cudaError_t e = allow_smem(adamw_multi_kernel<CAST>, kSmem, granted);
   if (e != cudaSuccess) return e;
-  adamw_multi_kernel<G, CAST><<<t.chunks, kThreads, kSmem, stream>>>(t);
+  adamw_multi_kernel<CAST><<<t.chunks, kThreads, kSmem, stream>>>(t);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// kernel 0: adamw_multi_kernel<dtype = the gradient's code, a = bf16 copies>
+// kernel 0: adamw_multi_kernel<a = bf16 copies>; dtype, a gradient's code
+// (fp32 or bf16), is checked only: one kernel takes both
 extern "C" int kernel_attributes(int kernel, int dtype, int a, int b, int c, int* out) {
   if (kernel != 0 || (dtype != kFloat32 && dtype != kBFloat16)) return cudaErrorInvalidValue;
-  if (dtype == kBFloat16)
-    return a ? func_attributes(adamw_multi_kernel<__nv_bfloat16, true>, kSmem, out)
-             : func_attributes(adamw_multi_kernel<__nv_bfloat16, false>, kSmem, out);
-  return a ? func_attributes(adamw_multi_kernel<float, true>, kSmem, out)
-           : func_attributes(adamw_multi_kernel<float, false>, kSmem, out);
+  return a ? func_attributes(adamw_multi_kernel<true>, kSmem, out)
+           : func_attributes(adamw_multi_kernel<false>, kSmem, out);
 }
 
 // The table's layout as compiled: out[3] = {sizeof(Leaf), leaves a launch,
@@ -276,24 +284,20 @@ extern "C" int adamw_layout(int* out) {
 }
 
 // One launch over `count` leaves (a host array of Leaf, at most kCap) whose
-// chunks number `chunks`, a CTA each.  g_dtype is the gradients' code (fp32
-// or bf16, one for the table); cast = 1 when any leaf has a bf16 copy.
+// chunks number `chunks`, a CTA each; each leaf's flags say its gradient's
+// dtype.  cast = 1 when any leaf has a bf16 copy.
 extern "C" int adamw_multi_launch(const void* leaves, int count, int chunks, float lr,
                                   float c1, float c2, float decay, float beta1,
                                   float one_minus_beta1, float beta2, float one_minus_beta2,
-                                  float eps, float wd, int g_dtype, int cast, void* stream) {
-  if (count < 1 || count > kCap || chunks < 1 ||
-      (g_dtype != kFloat32 && g_dtype != kBFloat16))
-    return cudaErrorInvalidValue;
+                                  float eps, float wd, int cast, void* stream) {
+  if (count < 1 || count > kCap || chunks < 1) return cudaErrorInvalidValue;
   thread_local Table t;  // 30 KB, off the host stack; copied into the launch
   t.s = Scalars{lr, c1, c2, decay, beta1, one_minus_beta1, beta2, one_minus_beta2, eps, wd};
   t.count = count;
   t.chunks = chunks;
   memcpy(t.leaf, leaves, static_cast<size_t>(count) * sizeof(Leaf));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (g_dtype == kBFloat16)
-    return cast ? launch<__nv_bfloat16, true>(t, st) : launch<__nv_bfloat16, false>(t, st);
-  return cast ? launch<float, true>(t, st) : launch<float, false>(t, st);
+  return cast ? launch<true>(t, st) : launch<false>(t, st);
 }
 
 DEFINE_ERROR_STRING

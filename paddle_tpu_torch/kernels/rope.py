@@ -10,7 +10,7 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["rope_freqs", "apply_rope"]
+__all__ = ["rope_freqs", "apply_rope", "fused_rotary_position_embedding"]
 
 
 def rope_freqs(head_dim: int, max_seq_len: int, base: float = 10000.0,
@@ -48,3 +48,17 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
         return (x32 * cos + _rotate_half(x32) * sin).to(x.dtype)
 
     return rot(q), rot(k)
+
+
+def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None, position_ids=None,
+                                    use_neox_rotary_style=True):
+    """The reference-shaped entry: rotates each of q, k, v given (``[B, S,
+    H, D]``) by the tables ``cos``/``sin`` (any shape that squeezes to
+    ``[S_max, D]``; when either is None, tables of ``q``'s head dim and
+    length at base 10000).  Returns the triple, None where none was given."""
+    if cos is None or sin is None:
+        cos, sin = rope_freqs(q.shape[-1], q.shape[1], device=q.device)
+    else:
+        cos, sin = cos.squeeze(), sin.squeeze()
+    return tuple(None if x is None else apply_rope(x, x, cos, sin, position_ids)[0]
+                 for x in (q, k, v))

@@ -27,8 +27,17 @@ layer, and the final RMSNorm + vocab projection of
 seams are off with a cache, so ``generate`` and the Engine keep their stock
 norms and head; ``mlp_fn`` reads the table whatever the cache.
 
-Left to later slices, and refused with ``NotImplementedError`` when a config
-asks for them: MoE and sharding (sequence / context parallel).
+MoE configs (``moe_num_experts > 1``) build :class:`~..incubate.moe.MoELayer`
+as each layer's ``mlp``, as the JAX model does: its experts in
+``config.dtype``, its router in fp32.  The no-cache forward threads each
+layer's aux loss through recompute and keeps the total for
+``compute_loss`` (``moe_aux_loss_weight * aux``); the gshard gate's draws
+are taken before each layer runs, so a recomputed layer routes as its
+forward did.  The cache paths drop the aux (serving never reads it).  None
+of the three seams is taken with MoE, activated or not.
+
+Left to a later slice, and refused with ``NotImplementedError`` when a
+config asks for it: sharding (sequence / context parallel).
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import default_device, make_generator, to_dtype
 from ..distributed.parallel.mp_layers import _ce_no_gather
+from ..incubate.moe import MoELayer
 from ..kernels import decode_attention as da
 from ..kernels import emit
 from ..kernels import rope as rope_mod
@@ -123,9 +133,6 @@ def llama3_70b_config(**overrides) -> LlamaConfig:
 
 
 def _check_supported(cfg: LlamaConfig) -> None:
-    if cfg.moe_num_experts > 1:
-        raise NotImplementedError(
-            "paddle_tpu_torch: MoE (moe_num_experts > 1) comes with the MoE slice")
     if cfg.sequence_parallel or cfg.context_parallel_axis:
         raise NotImplementedError(
             "paddle_tpu_torch: sequence / context parallelism comes with the "
@@ -295,14 +302,25 @@ class LlamaDecoderLayer(nn.Module):
         self.input_layernorm = LlamaRMSNorm(config, device, gen)
         self.self_attn = LlamaAttention(config, device, gen)
         self.post_attention_layernorm = LlamaRMSNorm(config, device, gen)
-        self.mlp = LlamaMLP(config, device, gen)
+        self.is_moe = config.moe_num_experts > 1
+        if self.is_moe:
+            self.mlp = MoELayer(
+                config.hidden_size, config.intermediate_size, config.moe_num_experts,
+                top_k=config.moe_top_k, capacity_factor=config.moe_capacity_factor,
+                gate=config.moe_gate, dtype=config.dtype, device=device, generator=gen,
+                initializer_range=config.initializer_range)
+        else:
+            self.mlp = LlamaMLP(config, device, gen)
 
-    def forward(self, x, cos, sin, position_ids=None, cache=None):
-        """Returns ``x``, or ``(x, (k, v))`` with a cache."""
+    def forward(self, x, cos, sin, position_ids=None, cache=None, uniforms=None):
+        """Returns ``x`` (``(x, aux_loss)`` for MoE), or ``(x, (k, v))`` with
+        a cache.  ``uniforms``: the MoE gshard gate's draws (drawn here when
+        None)."""
         h = self.self_attn(self.input_layernorm(x), cos, sin, position_ids, cache=cache)
         if cache is not None:
             h, new_kv = h
-        fused_arn = None if cache is not None else emit.active("fuse_add_rms_norm")
+        fused_arn = (None if self.is_moe or cache is not None
+                     else emit.active("fuse_add_rms_norm"))
         if fused_arn is not None:
             # residual add + post-attention RMSNorm in one site
             ln = self.post_attention_layernorm
@@ -310,6 +328,10 @@ class LlamaDecoderLayer(nn.Module):
         else:
             x = x + h
             normed = self.post_attention_layernorm(x)
+        if self.is_moe:
+            h, aux = self.mlp.forward_with_aux(normed, uniforms)
+            x = x + h
+            return (x, aux) if cache is None else (x, new_kv)
         x = x + self.mlp(normed)
         return x if cache is None else (x, new_kv)
 
@@ -361,7 +383,9 @@ class LlamaModel(nn.Module):
         """Final hidden states; with ``cache`` also the updated cache.
         ``skip_final_norm`` (no cache) returns the hidden states before the
         final norm, for a caller that applies ``self.norm``'s weight itself
-        (the fused RMSNorm + vocab projection)."""
+        (the fused RMSNorm + vocab projection).  An MoE model without a
+        cache returns ``(hidden, aux)``, the MoE layers' summed aux loss, as
+        the JAX LlamaModel does; with a cache it drops the aux."""
         cfg = self.config
         x = F.embedding(input_ids.long(), self.embed_tokens)
         if cfg.pdtype != cfg.dtype:
@@ -385,12 +409,25 @@ class LlamaModel(nn.Module):
                 x, _ = layer(x, cos, sin, cache=(k_c, v_c, offset))
             return self.norm(x), {"kv": cache["kv"], "offset": offset + seq}
         rl = cfg.recompute_layers
+        is_moe = cfg.moe_num_experts > 1
+        aux_total = None
+        tokens = input_ids.shape[0] * seq
         for i, layer in enumerate(self.layers):
+            # the gshard draws come from the generator here, outside a
+            # checkpoint: its recompute restores only the default generators
+            u = layer.mlp.draw_uniforms(tokens) if layer.is_moe else None
             if cfg.recompute or (rl is not None and i < rl):
-                x = checkpoint(layer, x, cos, sin, position_ids, use_reentrant=False)
+                out = checkpoint(layer, x, cos, sin, position_ids, None, u,
+                                 use_reentrant=False)
             else:
-                x = layer(x, cos, sin, position_ids)
-        return x if skip_final_norm else self.norm(x)
+                out = layer(x, cos, sin, position_ids, uniforms=u)
+            if layer.is_moe:
+                x, aux = out
+                aux_total = aux if aux_total is None else aux_total + aux
+            else:
+                x = out
+        x = x if skip_final_norm else self.norm(x)
+        return (x, aux_total) if is_moe else x
 
 
 class LlamaForCausalLM(nn.Module):
@@ -405,6 +442,7 @@ class LlamaForCausalLM(nn.Module):
         self.config = config
         self.generator = make_generator(seed, device)
         self.llama = LlamaModel(config, device, self.generator)
+        self._moe_aux = None      # the MoE aux loss of the last forward without a cache
         if config.tie_word_embeddings:
             self.lm_head = None
         else:
@@ -437,7 +475,10 @@ class LlamaForCausalLM(nn.Module):
         """Logits; with ``cache`` returns ``(logits, new_cache)``.  The SSD
         family borrows this method and keeps its stock head, as its JAX
         forward does: only a Llama decoder takes the fused head."""
-        fused_head = (None if cache is not None or not isinstance(self.decoder, LlamaModel)
+        is_moe = getattr(self.config, "moe_num_experts", 1) > 1
+        self._moe_aux = None
+        fused_head = (None if cache is not None or is_moe
+                      or not isinstance(self.decoder, LlamaModel)
                       else emit.active("fuse_rms_norm_head"))
         if fused_head is not None:
             # final RMSNorm + vocab projection in one site, on pre-norm rows
@@ -448,7 +489,11 @@ class LlamaForCausalLM(nn.Module):
                                   epsilon=norm.epsilon, transpose=True)
             return fused_head(hidden, norm.weight, self.lm_head, epsilon=norm.epsilon,
                               transpose=False)
-        out = self.decoder(input_ids, position_ids, cache=cache)
+        if is_moe and cache is None:
+            # the routers' aux loss of this forward, for compute_loss
+            out, self._moe_aux = self.decoder(input_ids, position_ids)
+        else:
+            out = self.decoder(input_ids, position_ids, cache=cache)
         if cache is not None:
             hidden, new_cache = out
             return self.head(hidden), new_cache
@@ -457,13 +502,19 @@ class LlamaForCausalLM(nn.Module):
     def compute_loss(self, logits, labels, ignore_index: int = -100):
         """Next-token cross-entropy in fp32: logits at position t against
         label t + 1, averaged over the labels that are not
-        ``ignore_index``."""
+        ``ignore_index``; for MoE plus ``moe_aux_loss_weight`` times the aux
+        loss of the forward that gave ``logits`` (the last one without a
+        cache)."""
         if isinstance(labels, np.ndarray):
             labels = torch.from_numpy(labels)
         lb = labels.to(logits.device)[:, 1:].long()
         nll = _ce_no_gather(logits[:, :-1, :], lb)
         mask = (lb != ignore_index).to(torch.float32)
-        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+        loss = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+        aux = getattr(self, "_moe_aux", None)
+        if aux is not None:
+            loss = loss + self.config.moe_aux_loss_weight * aux
+        return loss
 
     # ------------------------------------------------------------------
     # generation

@@ -1,11 +1,13 @@
 """Pretraining presets (the port's copy of ``bench.py``'s ``build_config``,
-``DEFAULTS``, ``model_flops_per_token`` and ``build_pretrain_step``).
+``DEFAULTS``, ``model_flops_per_token``, ``build_pretrain_step`` and
+``build_moe_step``).
 
 ``build_pretrain_step`` builds the exact step the JAX benchmark measures:
 the preset's ``LlamaConfig``, ``AdamW(learning_rate=3e-4, weight_decay=0.1)``,
 ``TrainStep`` over ``compute_loss`` and ids from
-``np.random.default_rng(0)``.  Weights come from the port's own seeded
-generator.
+``np.random.default_rng(0)``.  ``build_moe_step`` is the ``moe`` preset's
+(``AdamW(learning_rate=3e-4)`` with its default decay, as bench.py has it).
+Weights come from the port's own seeded generator.
 """
 
 from __future__ import annotations
@@ -14,11 +16,13 @@ import numpy as np
 import torch
 
 from .. import default_device
+from ..incubate.moe import effective_top_k
 from ..jit import TrainStep
 from ..optimizer import AdamW
 from .llama import LlamaConfig, LlamaForCausalLM, llama_tiny_config
 
-__all__ = ["DEFAULTS", "build_config", "model_flops_per_token", "build_pretrain_step"]
+__all__ = ["DEFAULTS", "MOE_DEFAULTS", "build_config", "moe_config", "model_flops_per_token",
+           "build_pretrain_step", "build_moe_step"]
 
 DEFAULTS = {  # preset -> (batch, seq, steps)
     "tiny": (4, 128, 5),
@@ -26,19 +30,32 @@ DEFAULTS = {  # preset -> (batch, seq, steps)
     "base": (3, 2048, 10),
     "longctx": (1, 16384, 5),
 }
+MOE_DEFAULTS = {"cuda": (4, 2048, 10), "cpu": (2, 128, 3)}   # device type -> (batch, seq, steps)
 
 
 def model_flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
     """Training FLOPs per token: 6 * matmul-params (fwd 2P + bwd 4P) plus
     attention score/value matmuls (2*2*S*dh*h FLOPs fwd, halved by causal
-    masking, tripled for fwd+bwd)."""
+    masking, tripled for fwd+bwd).
+
+    MoE configs count the routed work: the router, and the three products
+    of ``top_k`` experts a token (one for the switch gate, two for gshard).
+    Dispatch, combine and the empty capacity slots the batched expert
+    products also run are not counted.  bench.py's ``moe`` figure comes from
+    XLA's cost analysis, which also counts the one-hot dispatch and combine
+    einsums, so the two numbers are not comparable."""
     h, d = cfg.num_attention_heads, cfg.head_dim
     hk = cfg.kv_heads
     hidden, inter = cfg.hidden_size, cfg.intermediate_size
     L, V = cfg.num_hidden_layers, cfg.vocab_size
     per_layer = hidden * (h + 2 * hk) * d          # qkv
     per_layer += h * d * hidden                    # o
-    per_layer += hidden * 2 * inter + inter * hidden  # gate_up + down
+    if cfg.moe_num_experts > 1:
+        k = effective_top_k(cfg.moe_gate, cfg.moe_top_k)
+        per_layer += hidden * cfg.moe_num_experts      # router
+        per_layer += k * (hidden * 2 * inter + inter * hidden)
+    else:
+        per_layer += hidden * 2 * inter + inter * hidden  # gate_up + down
     p_matmul = L * per_layer + hidden * V          # + lm_head
     attn = L * (4 * seq_len * d * h) * 0.5         # causal
     return 6.0 * p_matmul + 3.0 * attn
@@ -94,6 +111,44 @@ def build_pretrain_step(preset: str, device=None, batch=None, seq=None, steps=No
         return m.compute_loss(m(ids), ids)
 
     step_fn = TrainStep(model, loss_fn, opt, accumulate_steps=accum, grad_dtype=grad_dtype)
+    rng = np.random.default_rng(0)
+    shape = (accum, batch, seq) if accum > 1 else (batch, seq)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=shape).astype(np.int32))
+    return step_fn, ids.to(dev), model, cfg, (batch, seq, steps)
+
+
+def moe_config(on_card: bool) -> LlamaConfig:
+    """The ``moe`` preset (``bench.py``'s ``build_moe_step``; BASELINE
+    configs[4]'s shape): 12 layers, hidden 1024, 8 experts of 1408, top-2
+    over the gshard gate, in bf16, on a card; the tiny Llama with 4 experts
+    in fp32 on the CPU."""
+    if on_card:
+        return LlamaConfig(vocab_size=32000, hidden_size=1024, intermediate_size=1408,
+                           num_hidden_layers=12, num_attention_heads=16,
+                           num_key_value_heads=8, max_position_embeddings=2048,
+                           dtype="bfloat16", moe_num_experts=8, moe_top_k=2)
+    return llama_tiny_config(dtype="float32", moe_num_experts=4, moe_top_k=2)
+
+
+def build_moe_step(device=None, batch=None, seq=None, steps=None, accum: int = 1,
+                   seed: int = 0):
+    """The ``moe`` preset's ``TrainStep``, line for line after ``bench.py``'s
+    ``build_moe_step``: bf16 at full width on a card, the tiny MoE Llama in
+    fp32 on the CPU; ``AdamW(learning_rate=3e-4)``; ids from
+    ``np.random.default_rng(0)``.  ``seed`` seeds the weights and the gshard
+    draws.  Returns ``(step_fn, ids, model, cfg, (batch, seq, steps))``."""
+    dev = default_device(device)
+    on_card = dev.type == "cuda"
+    cfg = moe_config(on_card)
+    d_batch, d_seq, d_steps = MOE_DEFAULTS["cuda" if on_card else "cpu"]
+    batch, seq, steps = batch or d_batch, seq or d_seq, steps or d_steps
+    model = LlamaForCausalLM(cfg, device=dev, seed=seed)
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters())
+
+    def loss_fn(m, ids):
+        return m.compute_loss(m(ids), ids)
+
+    step_fn = TrainStep(model, loss_fn, opt, accumulate_steps=accum)
     rng = np.random.default_rng(0)
     shape = (accum, batch, seq) if accum > 1 else (batch, seq)
     ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=shape).astype(np.int32))

@@ -75,7 +75,7 @@ class Optimizer:
                                                getattr(weight_decay, "coeff", 0.0)))
         self._step_count = 0
         self._state: Optional[List[Dict[str, torch.Tensor]]] = None
-        self._tables: dict = {}          # (eager | functional, grad dtype) -> LeafTable
+        self._tables: dict = {}          # eager | functional -> LeafTable
 
     # -- lr ------------------------------------------------------------------
     def get_lr(self) -> float:
@@ -127,12 +127,15 @@ class Optimizer:
     @torch.no_grad()
     def _apply(self, leaves, lr, step, site: str):
         """Update every ``(p, g, s, apply_decay)`` of ``leaves`` in place:
-        the Adam family's leaves in one call a gradient dtype, the others
-        one by one.  The kernel updates an fp32 parameter in place, or an
-        fp32 master (or, without one, an fp32 working copy) and writes the
-        parameter as its copy; on CUDA tensors the wrapper raises for what
-        it cannot take (a copy other than bf16, a non-contiguous leaf)."""
-        fused: Dict[torch.dtype, list] = {}
+        the Adam family's leaves in one call, the others one by one.  The
+        kernel reads each leaf's gradient in its own dtype, so a step whose
+        gradients mix bf16 and fp32 (a bf16 model's fp32 MoE router) is
+        one call too, with no widened copy.  The kernel updates an fp32
+        parameter in place, or an fp32 master (or, without one, an fp32
+        working copy) and writes the parameter as its copy; on CUDA tensors
+        the wrapper raises for what it cannot take (a copy other than bf16,
+        a non-contiguous leaf)."""
+        rows = []
         for p, g, s, apply in leaves:
             if not self._fused_slots(s):
                 self._plain_leaf(p, g, s, lr, step, apply)
@@ -147,15 +150,14 @@ class Optimizer:
             if g.dtype not in (torch.float32, torch.bfloat16):
                 g = g.to(torch.float32)
             g = g if g.is_contiguous() else g.contiguous()
-            fused.setdefault(g.dtype, []).append((p32, g, s["m"], s["v"], out, apply))
-        for g_dtype, rows in fused.items():
+            rows.append((p32, g, s["m"], s["v"], out, apply))
+        if rows:
             p32, g, m, v, outs, apply = (list(c) for c in zip(*rows))
-            key = (site, g_dtype)
-            self._tables[key] = adamw_update_leaves(
+            self._tables[site] = adamw_update_leaves(
                 p32, g, m, v, outs, lr, step, beta1=self._beta1, beta2=self._beta2,
                 epsilon=self._epsilon, weight_decay=self._weight_decay,
                 decoupled=self._decoupled_decay(), apply_decay=apply,
-                table=self._tables.get(key))
+                table=self._tables.get(site))
 
     def _plain_leaf(self, p, g, s, lr, step, apply_decay):
         """One leaf through ``_update`` (the JAX update's XLA expressions,

@@ -415,24 +415,28 @@ def test_default_shaped_ssd_model_trains_on_the_card(cuda):
 
 
 def _adamw_table(cuda, sizes, offset=0, g_dtype=torch.float32, seed=5):
+    """p, g, m, v a leaf of ``sizes``; ``g_dtype`` "mixed": bf16 and fp32
+    gradients leaf by leaf in turn."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
+    dtypes = ([torch.bfloat16, torch.float32] * len(sizes) if g_dtype == "mixed"
+              else [g_dtype] * len(sizes))
 
     def leaf(n, scale):
         return scale * torch.randn(n + offset, generator=gen, device=cuda)[offset:]
 
-    return [(leaf(n, 0.02), leaf(n, 1e-3).to(g_dtype), leaf(n, 3e-4), leaf(n, 1e-3) ** 2)
-            for n in sizes]
+    return [(leaf(n, 0.02), leaf(n, 1e-3).to(dt), leaf(n, 3e-4), leaf(n, 1e-3) ** 2)
+            for n, dt in zip(sizes, dtypes)]
 
 
 @pytest.mark.parametrize("offset", [0, 1])
-@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16, "mixed"])
 @pytest.mark.parametrize("copies", [False, True])
 def test_adamw_table_matches_reference_bitwise(cuda, offset, g_dtype, copies):
     """One launch over a ragged table (sizes 1, 3, 4097, an empty leaf,
     2048, three chunks and a tail), aligned or at views of offset 1, fp32
-    or bf16 gradients, with or without bf16 copies (a bf16 param over its
-    fp32 master), one leaf undecayed: every leaf bit for bit the plain
-    version on the widened gradient."""
+    or bf16 gradients or both in one table, with or without bf16 copies
+    (a bf16 param over its fp32 master), one leaf undecayed: every leaf bit
+    for bit the plain version on the widened gradient."""
     from paddle_tpu_torch.kernels import adamw
 
     sizes = [1, 3, 4097, 0, 2048, 3 * adamw.CHUNK + 5]
@@ -493,7 +497,7 @@ def test_adamw_one_launch_a_step(cuda):
     before = adamw.adamw_update_leaves.launches
     opt.step()
     assert adamw.adamw_update_leaves.launches == before + 1
-    assert len(opt._tables) == 3          # eager, functional fp32, functional bf16
+    assert len(opt._tables) == 2          # eager, functional: one whatever the grads' dtype
 
 
 def test_adamw_takes_bf16_params_without_masters(cuda):
@@ -1052,3 +1056,121 @@ def test_every_entry_is_clean_on_the_card(cuda):
             for spec in entry.build(dt)[0] if dt else entry.build()[0]:
                 key = spec.name if dt is None else f"{spec.name}@{dt}"
                 assert rep.meta["smem_bytes_card_by_kernel"][key] == _smem_bytes(spec)
+
+
+# ---------------------------------------------------------------------------
+# the MoE slice and the incubate ops
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tf32", [True, False], ids=["tf32", "fp32"])
+@pytest.mark.parametrize("gate", ["switch", "gshard"])
+def test_moe_layer_on_the_card_matches_the_cpu(cuda, gate, tf32):
+    """The router computes in full fp32 whatever the global TF32 setting, so
+    the card routes as the CPU does; with TF32 off, outputs, aux and
+    gradients within fp32 limits too (with it on, the expert products are
+    TF32's)."""
+    from paddle_tpu_torch.incubate.moe import MoELayer
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        cpu = MoELayer(64, 96, 8, gate=gate, capacity_factor=1.0, device="cpu", seed=2)
+        card = MoELayer(64, 96, 8, gate=gate, capacity_factor=1.0, device=cuda, seed=3)
+        with torch.no_grad():
+            for a, b in zip(card.parameters(), cpu.parameters()):
+                a.copy_(b)
+        g = torch.Generator().manual_seed(4)
+        x = torch.randn(4, 64, 64, generator=g)
+        u = torch.rand(256, generator=g)
+        outs = {}
+        for name, layer in (("cpu", cpu), ("cuda", card)):
+            xi = x.detach().to(layer.gate_weight.device).requires_grad_(True)
+            out, aux = layer.forward_with_aux(xi, u.to(xi.device))
+            (out.square().sum() + aux).backward()
+            outs[name] = (out.detach().cpu(), aux.detach().cpu(), xi.grad.cpu(),
+                          [p.grad.cpu() for p in layer.parameters()], layer.last_routing)
+        assert torch.backends.cuda.matmul.allow_tf32 == tf32   # the router's scope restored it
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    rc, rg = outs["cpu"][4], outs["cuda"][4]
+    assert torch.equal(rc.expert, rg.expert.cpu()) and torch.equal(rc.kept, rg.kept.cpu())
+    assert not bool(rc.kept.all())                    # capacity dropped some
+    if tf32:
+        return
+    for a, b in zip(outs["cuda"][:3], outs["cpu"][:3]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    for a, b in zip(outs["cuda"][3], outs["cpu"][3]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
+def test_moe_dispatch_backward_is_the_same_bits_twice(cuda):
+    from paddle_tpu_torch.incubate.moe import dispatch, top_k_gating
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(4096, 256, generator=g, device=cuda).to(torch.bfloat16).requires_grad_(True)
+    r = top_k_gating(torch.randn(4096, 8, generator=g, device=cuda), 2, 1280, "naive")
+    out = dispatch(x, r)
+    dy = torch.randn(out.shape, generator=g, device=cuda).to(torch.bfloat16)
+    (a,) = torch.autograd.grad(out, x, dy, retain_graph=True)
+    (b,) = torch.autograd.grad(out, x, dy)
+    assert torch.equal(a, b)
+    rows = torch.cat([dy.reshape(-1, 256), torch.zeros(1, 256, dtype=dy.dtype, device=cuda)])
+    want = (rows[r.slot[:, 0]].float() + rows[r.slot[:, 1]].float()).to(torch.bfloat16)
+    assert torch.equal(a, want)
+
+
+def test_bf16_moe_step_launches_adamw_once(cuda):
+    """A bf16 MoE model has fp32 routers beside bf16 weights: one AdamW launch
+    a step all the same, and a step run twice from one state gives the same
+    bits."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import adamw
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = LlamaForCausalLM(llama_tiny_config(moe_num_experts=4, dtype="bfloat16"),
+                             device=cuda, seed=0)
+    step = TrainStep(model, lambda m, x: m.compute_loss(m(x), x),
+                     AdamW(learning_rate=1e-3, parameters=model.parameters()))
+    ids = torch.randint(0, 512, (2, 128), device=cuda)
+    before = adamw.adamw_update_leaves.launches
+    step(ids)
+    assert adamw.adamw_update_leaves.launches == before + 1
+    start = {k: v.clone() for k, v in step.state_dict().items()}
+    gen = model.generator.get_state()
+    ends = []
+    for _ in range(2):
+        step.set_state_dict(start)
+        model.generator.set_state(gen)
+        loss = step(ids)
+        ends.append((loss, {k: v.clone() for k, v in step.state_dict().items()}))
+    assert torch.equal(ends[0][0], ends[1][0])
+    assert all(torch.equal(ends[0][1][k], ends[1][1][k]) for k in start)
+
+
+def test_incubate_ops_launch_their_kernels(cuda):
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.kernels import decode_attention as da
+    from paddle_tpu_torch.kernels.rms_norm import rms_norm, rms_norm_reference
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    B, H, Hk, D, bs, nb = 3, 8, 2, 64, 16, 4
+    x = torch.randn(B, 1, 256, generator=g, device=cuda)
+    w = torch.randn(256, generator=g, device=cuda)
+    before = rms_norm.launches
+    torch.testing.assert_close(IF.fused_rms_norm(x, w), rms_norm_reference(x, w),
+                               rtol=1e-5, atol=1e-5)
+    assert rms_norm.launches == before + 1
+    q = torch.randn(B, 1, H, D, generator=g, device=cuda)
+    kp = torch.randn(B * nb + 2, bs, Hk, D, generator=g, device=cuda)
+    vp = torch.randn(B * nb + 2, bs, Hk, D, generator=g, device=cuda)
+    table = torch.randperm(B * nb + 2, generator=g, device=cuda)[:B * nb].reshape(B, nb)
+    lengths = torch.tensor([1, 30, 64], dtype=torch.int32, device=cuda)
+    before = da.masked_multihead_attention.launches
+    got = IF.block_multihead_attention(q, kp, vp, table.int(), lengths)
+    assert da.masked_multihead_attention.launches == before + 1
+    k, v = (p[table].reshape(B, -1, Hk, D) for p in (kp, vp))
+    torch.testing.assert_close(got, da._decode_reference(q, k, v, lengths, D ** -0.5),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(IF.masked_multihead_attention(q, k, v, lengths), got,
+                               rtol=0, atol=0)

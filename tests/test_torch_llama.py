@@ -111,9 +111,9 @@ def test_sampling_top_k1_is_greedy_and_top_k_set_holds(pair):
 
 
 def test_unported_options_raise():
-    # recompute is ported (tests/test_torch_train.py); the rest comes later
-    for bad in (dict(moe_num_experts=4), dict(sequence_parallel=True),
-                dict(context_parallel_axis="sep")):
+    # recompute (tests/test_torch_train.py) and MoE (tests/test_torch_moe.py)
+    # are ported; the rest comes later
+    for bad in (dict(sequence_parallel=True), dict(context_parallel_axis="sep")):
         with pytest.raises(NotImplementedError):
             LlamaForCausalLM(llama_tiny_config(**bad), device="cpu")
 

@@ -280,13 +280,17 @@ def test_adam_family_sends_every_leaf_to_the_wrapper(monkeypatch, multi_precisio
 # ---------------------------------------------------------------------------
 
 def _table(seed, sizes, g_dtype=torch.float32, offset=0):
+    """p, g, m, v a leaf of ``sizes``; ``g_dtype`` "mixed": bf16 and fp32
+    gradients leaf by leaf in turn."""
     rng = np.random.default_rng(seed)
+    dtypes = ([torch.bfloat16, torch.float32] * len(sizes) if g_dtype == "mixed"
+              else [g_dtype] * len(sizes))
 
     def leaf(n, scale=1.0):
         return torch.tensor(scale * rng.standard_normal(n + offset).astype(np.float32))[offset:]
 
     p = [leaf(n) for n in sizes]
-    g = [leaf(n).to(g_dtype) for n in sizes]
+    g = [leaf(n).to(dt) for n, dt in zip(sizes, dtypes)]
     m = [leaf(n, 0.1) for n in sizes]
     v = [leaf(n).abs() * 0.01 for n in sizes]
     return p, g, m, v
@@ -295,13 +299,13 @@ def _table(seed, sizes, g_dtype=torch.float32, offset=0):
 RAGGED = [1, 3, 4097, 0, 2048, 3 * tadamw.CHUNK + 5]
 
 
-@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16, "mixed"])
 @pytest.mark.parametrize("offset", [0, 1])
 def test_adamw_update_leaves_ragged_table_is_the_reference_bitwise(g_dtype, offset):
     """A ragged table (sizes 1, 3, 4097, an empty leaf, 2048 and three
-    chunks and a tail; views at offset 1; bf16 gradients; bf16 copies; one
-    leaf undecayed): every leaf bit for bit ``adamw_reference`` on the
-    widened gradient."""
+    chunks and a tail; views at offset 1; bf16 gradients, or bf16 and fp32
+    ones in one table; bf16 copies; one leaf undecayed): every leaf bit for
+    bit ``adamw_reference`` on the widened gradient."""
     p, g, m, v = _table(5, RAGGED, g_dtype, offset)
     apply = [True, False, True, True, True, True]
     outs = [torch.empty(n, dtype=torch.bfloat16) if i % 2 else None
@@ -400,8 +404,19 @@ def test_leaf_table_geometry():
     assert [e.chunk0 for e in second[0]] == [0, 1, 2, 3]
     assert not first[0][1].flags & tadamw._DECAY and first[0][0].flags & tadamw._DECAY
     assert second[0][3].out == outs[-1].data_ptr() and second[0][0].out == 0
-    assert t.fill(g) == torch.float32
+    assert t.fill(g) == (torch.float32,)
     assert all(e.g == x.data_ptr() for e, x in zip(first[0], g))
+    assert not any(e.flags & tadamw._BF16_GRAD for arr, *_ in t.groups for e in arr)
+    # each leaf's gradient dtype is a flag of its own: one table takes both
+    mixed = [x.to(torch.bfloat16) if i % 2 else x for i, x in enumerate(g)]
+    assert t.fill(mixed) == (torch.float32, torch.bfloat16)
+    entries = [e for arr, *_ in t.groups for e in arr]
+    assert [bool(e.flags & tadamw._BF16_GRAD) for e in entries] == [
+        bool(i % 2) for i in range(len(sizes))]
+    assert all(e.g == x.data_ptr() for e, x in zip(entries, mixed))
+    with pytest.raises(TypeError):
+        t.fill([x.to(torch.float16) for x in g])
+    t.fill(g)
     # the vector flag: set where the gradient shares p's 16-byte phase
     assert all(bool(e.flags & tadamw._VEC) == (tadamw._head(x.data_ptr()) == tadamw._head(e.p))
                for e, x in zip(first[0], g))
