@@ -3,13 +3,15 @@
 hold each against its plain PyTorch version, check the card against the CPU,
 pretrain the `base` preset (stock, and with the fusion sites substituted),
 the `moe` preset and the SSD family at `ssd_8b` widths for a few steps
-through TrainStep, and serve Llama-3-8B-shaped, MoE and SSD-8B requests
-through the port's Engine.
+through TrainStep, train the ERNIE text classifier at ERNIE-1.0-base
+widths and the PP-OCR detector and recognizer at bench scale, and serve
+Llama-3-8B-shaped, MoE and SSD-8B requests through the port's Engine.
 
     python3 chip_smoke.py                  # every phase, full depth
     python3 chip_smoke.py --layers 8       # cut Llama serving depth (never width)
     python3 chip_smoke.py --phases card,build,kernels,train
     python3 chip_smoke.py --phases card,build,moe_train,moe_serve
+    python3 chip_smoke.py --phases card,build,ernie_train,ocr_train
     python3 chip_smoke.py --phases card,build,kernels,longctx_train
     python3 chip_smoke.py --phases card,build,kernels,kernel_gate,parity,fuse_train
     python3 chip_smoke.py --phases card,build,kernels,parity,ssd_train,ssd_serve
@@ -24,7 +26,9 @@ Phases:
              lengths and at the `serve` phase's own, NaN in the trash block
              and stale tails, with each of its two launches' device time;
              flash attention forward and backward at `base` and at
-             `longctx`, AdamW as one launch over base's 75 leaves and over
+             `longctx`, and fp32 non-causal at ERNIE-base's B 32, S 512,
+             12 heads of 64 (the CUDA-core kernels, timed beside sdpa's
+             fp32 forward and backward alone), AdamW as one launch over base's 75 leaves and over
              ssd_train's 43 (0 ulps, with torch._fused_adamw_ beside it; a
              ragged table: sizes 1, 3, 4097, views at offset 1, bf16
              gradients, bf16 params with masters, a table past one launch's
@@ -87,7 +91,14 @@ Phases:
              again with every fusion site verified and activated; the
              narrow Llama with 4 experts under the switch gate (TF32 off):
              every layer's routing the same, logits within 1e-4, step-1
-             gradients, Engine and generate tokens equal
+             gradients, Engine and generate tokens equal; ERNIE-tiny
+             (configs[0], dropout off) for 5 Adam steps, losses within
+             ERNIE_PARITY_LOSS_RTOL, AdamW once a step and no flash launch
+             (head dim 26); DBNet-tiny and CRNN-tiny with cuDNN's TF32
+             off, step 1's loss within PARITY_LOSS_RTOL, gradients within
+             PARITY_GRAD_TOL, BatchNorm statistics within 1e-5; a tiny
+             Llama and a tiny ERNIE through the HF-transformers layout
+             and back (models.hf_compat): the same logits bits
   4a incubate  incubate.nn.functional's fused_rms_norm,
              masked_multihead_attention and block_multihead_attention (over
              the JAX package's pool layout) at llama3_8b decode shapes
@@ -133,6 +144,26 @@ Phases:
              dropped by capacity; a sixth step
              run twice from one state (params, slots, step count, the
              gshard generator) gives the same loss and every tensor's bits
+  5d ernie_train  ERNIE-1.0-base widths (presets.build_ernie_step: 12
+             layers of 768, 12 heads of 64, intermediate 3072, vocab 18000;
+             fp32, TF32 as torch leaves it: matmul off) for 5 Adam steps on
+             a batch of 32 x 512 from --seed, no padding mask: every step
+             must launch the flash kernels forward and backward once a
+             layer (non-causal) and AdamW once inside the update; losses
+             finite; step ms, examples/s, TFLOP/s, peak memory, the flash
+             kernels' share of a profiled step; then one step with a
+             padding mask (the plain attention: no flash launch); then
+             step 1 of the model cut to 2 layers (batch 2 x 512, dropout
+             off) on the card against the CPU in fp32 with TF32 off: loss
+             within PARITY_LOSS_RTOL, gradients within PARITY_GRAD_TOL
+  5e ocr_train  cuDNN's TF32 on (torch's default), printed: DBNet at
+             bench.py's `ocr` preset (presets.build_ocr_step:
+             ocr_det_base, 640 x 640, batch 32, Momentum(1e-3, 0.9)) and
+             CRNN at ocr_rec_base (6625 classes, 32 x 320, batch 32, CTC
+             over labels of 1-25 characters, Adam(3e-3)), 5 steps each:
+             losses finite and falling, images/s, step ms, peak memory; no
+             kernel of the port but CRNN's AdamW (once a step).  No "same
+             bits twice" check: cuDNN may pick non-deterministic algorithms
   6 serve    llama3_8b_config, bf16, random weights from --seed, three
              paths each with the launch counters zeroed just before it and
              read just after it: 16 requests (two share a 256-token prefix)
@@ -351,9 +382,25 @@ OPT_PARITY = {
     "LBFGS": (dict(learning_rate=1.0, max_iter=2), 5e-6, 1e-6),
 }
 OPT_SLOT_RTOL = 1e-4
+# fp32 flash attention (the CUDA-core kernels, ERNIE-base's non-causal
+# attention) against its plain version: sums in another order, (atol,
+# rtol) with the atol scaled by max(1, max |plain|), as the registry's fp32
+# entries and tests/test_torch_gpu.py hold them
+FLASH_TOL_FP32 = (2e-5, 2e-5)
+# step 1 on the card against the CPU in fp32, TF32 off (`parity`'s tiny
+# recipes, `ernie_train`'s cut model): the loss within this share of itself
+PARITY_LOSS_RTOL = 1e-5
+ERNIE_STEPS = 5              # steps of `ernie_train` and of `parity`'s ERNIE-tiny
+OCR_STEPS = 5                # steps of each `ocr_train` model
+# ERNIE-tiny, ERNIE_STEPS Adam steps card vs CPU in fp32: the losses within
+# this share of the CPU's, ~10x the card's reading (1.415e-6 on an H100 at
+# 700 W: Adam normalises each step, so rounding in tiny gradients moves
+# later losses more than one step's sums do)
+ERNIE_PARITY_LOSS_RTOL = 1.5e-5
 ALL_PHASES = ("card", "build", "kernels", "kernel_gate", "parity", "incubate", "train",
-              "longctx_train", "fuse_train", "moe_train", "ssd_train", "resume_train",
-              "optimizers", "serve", "moe_serve", "ssd_serve", "profile")
+              "longctx_train", "fuse_train", "moe_train", "ernie_train", "ocr_train",
+              "ssd_train", "resume_train", "optimizers", "serve", "moe_serve", "ssd_serve",
+              "profile")
 REPO = Path(__file__).resolve().parent
 
 
@@ -797,24 +844,25 @@ def _paged_case(gen, lengths, label="table"):
     return rec
 
 
-def _flash_bounds(B, S, H, Hk, D, itemsize=2):
-    """(fwd, bwd) bounds of causal flash attention at bf16 tensor-core rate:
-    bytes each input read once and each output written once; operations
-    4 D (fwd: q.k, p.v) and 10 D (bwd: q.k again, do.v, p^T do, ds k, ds^T q)
-    per visible (query, key) pair."""
-    pairs = B * H * S * (S + 1) // 2
+def _flash_bounds(B, S, H, Hk, D, itemsize=2, causal=True, flops_per_s=BF16_FLOPS_PER_S):
+    """(fwd, bwd) bounds of flash attention (by default causal, at the bf16
+    tensor-core rate): bytes each input read once and each output written
+    once; operations 4 D (fwd: q.k, p.v) and 10 D (bwd: q.k again, do.v,
+    p^T do, ds k, ds^T q) per visible (query, key) pair, every pair of the
+    S^2 when not causal."""
+    pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
     q_bytes = B * S * H * D * itemsize
     kv_bytes = B * S * Hk * D * itemsize
     lse_bytes = B * H * S * 4
-    fwd = bound(2 * q_bytes + 2 * kv_bytes + lse_bytes, 4 * D * pairs, BF16_FLOPS_PER_S)
-    bwd = bound(4 * q_bytes + 4 * kv_bytes + lse_bytes, 10 * D * pairs, BF16_FLOPS_PER_S)
+    fwd = bound(2 * q_bytes + 2 * kv_bytes + lse_bytes, 4 * D * pairs, flops_per_s)
+    bwd = bound(4 * q_bytes + 4 * kv_bytes + lse_bytes, 10 * D * pairs, flops_per_s)
     return fwd, bwd
 
 
-def _sdpa_train_ms(q, k, v, do, mode, iters):
-    """The library on the same inputs: causal GQA scaled_dot_product_attention,
-    ``mode`` "fwd" (its forward), "bwd" (its backward alone: torch.autograd.grad
-    over a kept forward) or "fwd+bwd"."""
+def _sdpa_train_ms(q, k, v, do, mode, iters, causal=True):
+    """The library on the same inputs: GQA scaled_dot_product_attention
+    (causal unless told), ``mode`` "fwd" (its forward), "bwd" (its backward
+    alone: torch.autograd.grad over a kept forward) or "fwd+bwd"."""
     import torch
     import torch.nn.functional as F
 
@@ -822,18 +870,69 @@ def _sdpa_train_ms(q, k, v, do, mode, iters):
     dot = do.transpose(1, 2)
     if mode == "fwd":
         return time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), iters)
+            qt, kt, vt, is_causal=causal, enable_gqa=True), iters)
     qg, kg, vg = (x.requires_grad_() for x in (qt.clone(), kt.clone(), vt.clone()))
     if mode == "bwd":
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, enable_gqa=True)
         return time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), dot, retain_graph=True),
                        iters)
 
     def fwd_bwd():
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, enable_gqa=True)
         torch.autograd.grad(out, (qg, kg, vg), dot)
 
     return time_ms(fwd_bwd, iters)
+
+
+def _flash_noncausal_case(gen, B=32, S=512, H=12, D=64, iters=10):
+    """ERNIE-base's attention (``ernie_train``: B 32, S 512, 12 heads of 64,
+    fp32, non-causal, no mask): the CUDA-core flash kernels forward and
+    backward against their plain versions on the same inputs
+    (``FLASH_TOL_FP32``, the atol scaled by max |plain|), timed beside
+    sdpa's forward and its backward alone; bound at the fp32 rate over all
+    S^2 pairs."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device="cuda") for _ in range(4))
+    sm = D ** -0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, False, sm)
+    o_ref, lse_ref = fa._flash_fwd_reference(q, k, v, False, sm)
+    shape = {"B": B, "S": S, "H": H, "Hk": H, "D": D, "causal": False}
+    err_o, err_lse = max_err(o, o_ref), max_err(lse, lse_ref)
+    check(within(o, o_ref, FLASH_TOL_FP32, scaled=True),
+          f"flash fwd {shape} fp32: o disagrees, max err {err_o}")
+    check(within(lse, lse_ref, LSE_TOL), f"flash fwd {shape} fp32: lse disagrees, {err_lse}")
+    grads = fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, False, sm)
+    refs = fa._flash_bwd_reference(q, k, v, o_ref, lse_ref, do, False, sm)
+    errs = {}
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        errs[name] = max_err(g, r)
+        check(within(g, r, FLASH_TOL_FP32, scaled=True), f"flash bwd {shape} fp32: {name} "
+              f"disagrees, max err {errs[name]} (max |ref| {float(r.abs().max())})")
+    del grads, refs
+    (f_ms, f_by), (b_ms, b_by) = _flash_bounds(B, S, H, H, D, itemsize=4, causal=False,
+                                               flops_per_s=FP32_FLOPS_PER_S)
+    tol = {"atol": FLASH_TOL_FP32[0], "rtol": FLASH_TOL_FP32[1], "atol_scaled_by_max_abs": True}
+    fwd = {"shape": shape, "dtype": "float32", "max_abs_err": err_o, "max_abs_err_lse": err_lse,
+           "tol": tol, "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, False, sm), iters),
+           "plain_ms": time_ms(lambda: fa._flash_fwd_reference(q, k, v, False, sm), iters),
+           "library_ms": _sdpa_train_ms(q, k, v, do, "fwd", iters, causal=False),
+           "library": "scaled_dot_product_attention forward, fp32, non-causal",
+           "bound_ms": f_ms, "bound_by": f_by}
+    bwd = {"shape": shape, "dtype": "float32", "max_abs_err": max(errs.values()),
+           "max_abs_err_by_grad": errs, "tol": tol,
+           "ms": time_ms(lambda: fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, False, sm),
+                         iters),
+           "plain_ms": time_ms(lambda: fa._flash_bwd_reference(q, k, v, o_ref, lse_ref, do,
+                                                               False, sm), iters),
+           "library_ms": _sdpa_train_ms(q, k, v, do, "bwd", iters, causal=False),
+           "library": "scaled_dot_product_attention's backward alone, fp32, non-causal",
+           "library_fwd_bwd_ms": _sdpa_train_ms(q, k, v, do, "fwd+bwd", iters, causal=False),
+           "bound_ms": b_ms, "bound_by": b_by}
+    log(f"flash fwd {shape} fp32: {json.dumps(fwd)}")
+    log(f"flash bwd {shape} fp32: {json.dumps(bwd)}")
+    return fwd, bwd
 
 
 def _flash_attributes(D):
@@ -1876,6 +1975,10 @@ def phase_kernels():
     longctx = _flash_case(gen, 1, 16384, 16, 8, 128, heads=2)
     cases["flash_attention_fwd"] = [base[0], longctx[0]]
     cases["flash_attention_bwd"] = [base[1], longctx[1]]
+    ernie = _flash_noncausal_case(gen)
+    cases["flash_attention_fwd_noncausal"] = [ernie[0]]
+    cases["flash_attention_bwd_noncausal"] = [ernie[1]]
+    torch.cuda.empty_cache()
     tables = adamw.TRAIN_TABLES
     cases["adamw"] = [_adamw_case(tables["base"], "base, all 75 leaves", 100)]
     cases["adamw"][0]["table_edges"] = _adamw_ragged(101)
@@ -2326,6 +2429,9 @@ def phase_parity(seed):
             "fuse_rms_norm_head": 1, "fuse_rms_norm_head_bwd": 1})
     _ssd_parity(seed)
     _moe_parity(seed)
+    _ernie_tiny_parity(seed)
+    _ocr_tiny_parity(seed)
+    _hf_roundtrip(seed)
 
 
 def phase_incubate(seed):
@@ -2573,10 +2679,380 @@ def _train_parity(label, cfg, cpu, gpu, seed, per_step, steps=3, lr=3e-4):
           f"{counts['rms_norm']} forwards (one each, nothing recomputed)")
 
 
-def _drive_train(step_fn, ids, steps):
-    """Set every launch count to 0, run ``steps`` training steps on ``ids``,
-    and read the counts just after.  Launches inside the optimizer's update
-    are tallied apart from the rest of each step.  Returns the losses, the
+# ---------------------------------------------------------------------------
+# the stock nn library's recipes: ERNIE text classification, PP-OCR det + rec
+# ---------------------------------------------------------------------------
+
+def _backend_flags():
+    """The TF32 switches a phase ran under (torch's defaults: matmul off,
+    cuDNN on)."""
+    import torch
+
+    return {"matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
+
+
+@contextlib.contextmanager
+def _tf32(matmul, cudnn):
+    """Set both TF32 switches inside, and put back what was there."""
+    import torch
+
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _grads_of(model, loss_fn, *args):
+    import torch
+
+    loss = loss_fn(model, *args)
+    names = [n for n, p in model.named_parameters()]
+    return loss.detach(), dict(zip(names, torch.autograd.grad(loss, list(model.parameters()))))
+
+
+def _step1_parity(label, cpu, gpu, loss_fn, args, vanishing=()):
+    """Step 1 on the card against the CPU from the same weights and batch:
+    the loss within ``PARITY_LOSS_RTOL``, every gradient within
+    ``PARITY_GRAD_TOL`` (rtol, and atol as a share of its max |value|), and
+    every persistent buffer (BatchNorm's running statistics) after the
+    forward within 1e-5.  A gradient that is zero in exact arithmetic (its
+    name ending in one of ``vanishing``: a key bias, whose shift the
+    softmax removes; a bias a training-mode BatchNorm subtracts again) is
+    rounding on both sides, so it is held to zero instead: within
+    ``PARITY_GRAD_TOL`` of the model's largest gradient.  Returns the
+    card's launch counts and the errors."""
+    import torch
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.models import load_paddle_tpu_params, to_paddle_tpu_params
+
+    load_paddle_tpu_params(gpu, to_paddle_tpu_params(cpu))
+    l_cpu, g_cpu = _grads_of(cpu, loss_fn, *args)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    l_gpu, g_gpu = _grads_of(gpu, loss_fn, *(a.cuda() for a in args))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    lerr = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
+    scale = max(float(g.abs().max()) for g in g_cpu.values())
+    gerr, zero = 0.0, 0.0
+    for n, g in g_gpu.items():
+        ref, g = g_cpu[n], g.cpu()
+        if n.endswith(tuple(vanishing)):
+            zero = max(zero, float(g.abs().max()), float(ref.abs().max()))
+            check(zero <= PARITY_GRAD_TOL * scale, f"parity {label}: the gradient of {n}, "
+                  f"zero in exact arithmetic, reads {zero} (largest gradient {scale})")
+            continue
+        gerr = max(gerr, max_err(g, ref) / max(float(ref.abs().max()), 1e-30))
+        check(within(g, ref, (PARITY_GRAD_TOL * float(ref.abs().max()), PARITY_GRAD_TOL)),
+              f"parity {label}: step-1 gradient of {n} differs by {max_err(g, ref)}")
+    berr = max([max_err(b.cpu(), c) for (_, b), (_, c) in
+                zip(gpu.named_buffers(), cpu.named_buffers())], default=0.0)
+    log(f"parity {label}: step-1 loss cpu {float(l_cpu)!r} card {float(l_gpu)!r} (rel "
+        f"{lerr:.3e}, limit {PARITY_LOSS_RTOL:.0e}); gradient max err / max |grad| "
+        f"{gerr:.3e}; vanishing gradients {zero:.3e} of a largest {scale:.3e}; buffers max err "
+        f"{berr:.3e}; card launches {counts}; {_backend_flags()}")
+    check(lerr <= PARITY_LOSS_RTOL, f"parity {label}: step-1 losses differ by {lerr} of the "
+          "loss")
+    check(berr <= 1e-5, f"parity {label}: running statistics differ by {berr}")
+    return counts, {"loss_rel": lerr, "grad_share": gerr, "vanishing": zero, "buffers": berr}
+
+
+def _ernie_batch(rng, vocab, batch, seq, classes=2):
+    """Token ids with the class's marker at position 1 (the recipe's task)."""
+    import torch
+
+    ids = rng.integers(10, vocab, size=(batch, seq)).astype("int64")
+    labels = rng.integers(0, classes, size=(batch,)).astype("int64")
+    ids[:, 1] = labels + 1
+    return torch.from_numpy(ids), torch.from_numpy(labels)
+
+
+def _ernie_loss(m, ids, labels):
+    return m.compute_loss(m(ids), labels)
+
+
+def _ernie_tiny_parity(seed):
+    """The ERNIE-tiny recipe (configs[0], head dim 26: the plain attention),
+    dropout off, ``ERNIE_STEPS`` Adam steps through TrainStep on the card
+    and on the CPU from the same weights (fp32, TF32 off): losses within
+    ``ERNIE_PARITY_LOSS_RTOL``; the card's steps launch AdamW once each and
+    no flash kernel."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.models import (ErnieForSequenceClassification, ernie_tiny_config,
+                                         load_paddle_tpu_params, to_paddle_tpu_params)
+    from paddle_tpu_torch.optimizer import Adam
+
+    cfg = ernie_tiny_config(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    cpu = ErnieForSequenceClassification(cfg, device="cpu", seed=seed)
+    gpu = ErnieForSequenceClassification(cfg, device="cuda", seed=seed)
+    load_paddle_tpu_params(gpu, to_paddle_tpu_params(cpu))
+    ids, labels = _ernie_batch(np.random.default_rng(seed + 5), cfg.vocab_size, 8, 128)
+    losses = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        step = TrainStep(model, _ernie_loss, Adam(learning_rate=2e-3,
+                                                  parameters=model.parameters()))
+        args = (ids.to(model.device), labels.to(model.device))
+        reset_launch_counts()
+        losses[name] = [float(step(*args)) for _ in range(ERNIE_STEPS)]
+    counts = launch_counts()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    log(f"parity ernie-tiny: {ERNIE_STEPS} Adam steps, losses cpu {losses['cpu']} card "
+        f"{losses['cuda']} (max rel {rel:.3e}, limit {ERNIE_PARITY_LOSS_RTOL:.0e}); card "
+        f"launches {({k: v for k, v in counts.items() if v})}")
+    check(rel <= ERNIE_PARITY_LOSS_RTOL, f"parity ernie-tiny: losses differ: {losses}")
+    check(counts["adamw"] == ERNIE_STEPS and counts["flash_attention_fwd"] == 0
+          and counts["flash_attention_fwd_noncausal"] == 0,
+          f"parity ernie-tiny: the card's steps launched {counts}; expected AdamW once a step "
+          f"and no flash kernel (head dim {cfg.hidden_size // cfg.num_attention_heads})")
+
+
+def _ocr_batches(rng, batch, size, rec_w, classes, max_len):
+    """A detection batch (images N(0, 1), a ground-truth map 20% ones) and
+    a recognition batch (images, labels in 1..classes-1 of 1..max_len
+    characters)."""
+    import torch
+
+    img = torch.from_numpy(rng.normal(size=(batch, 3, size, size)).astype("float32"))
+    gt = torch.from_numpy((rng.random(size=(batch, 1, size, size)) < 0.2).astype("float32"))
+    rec = torch.from_numpy(rng.normal(size=(batch, 3, 32, rec_w)).astype("float32"))
+    lab_len = torch.from_numpy(rng.integers(1, max_len + 1, size=(batch,)).astype("int64"))
+    labels = torch.from_numpy(rng.integers(1, classes, size=(batch, max_len)).astype("int64"))
+    return (img, gt), (rec, labels, lab_len)
+
+
+def _db_step_loss(m, img, gt):
+    from paddle_tpu_torch.models.ocr import db_loss
+
+    return db_loss(m(img), gt)
+
+
+def _ctc_step_loss(m, img, labels, lab_len):
+    return m.compute_loss(m(img), labels, lab_len)
+
+
+def _ocr_tiny_parity(seed):
+    """DBNet-tiny and CRNN-tiny, step 1 on the card (cuDNN) against the CPU
+    from the same weights, fp32 with cuDNN's and cuBLAS's TF32 off:
+    ``_step1_parity`` (loss, gradients, BatchNorm statistics)."""
+    import numpy as np
+    from paddle_tpu_torch.models.ocr import ocr_det_tiny, ocr_rec_tiny
+
+    det, rec = _ocr_batches(np.random.default_rng(seed + 6), 2, 64, 64, 64, 6)
+    with _tf32(False, False):
+        _step1_parity("dbnet-tiny", ocr_det_tiny(device="cpu", seed=seed),
+                      ocr_det_tiny(device="cuda", seed=seed), _db_step_loss, det,
+                      vanishing=("head.up1.bias",))
+        _step1_parity("crnn-tiny", ocr_rec_tiny(device="cpu", seed=seed),
+                      ocr_rec_tiny(device="cuda", seed=seed), _ctc_step_loss, rec)
+
+
+def _hf_roundtrip(seed):
+    """A tiny Llama and a tiny ERNIE classifier on the card through the
+    HF-transformers layout and back (``models.hf_compat``, no
+    ``transformers`` needed): the rebuilt model's logits are the same bits."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import (ErnieForSequenceClassification, LlamaForCausalLM,
+                                         ernie_from_transformers, ernie_tiny_config,
+                                         ernie_to_transformers_state_dict, llama_from_transformers,
+                                         llama_tiny_config, llama_to_transformers_state_dict)
+
+    rng = np.random.default_rng(seed + 7)
+    llama = LlamaForCausalLM(llama_tiny_config(), device="cuda", seed=seed)
+    back = llama_from_transformers(llama_to_transformers_state_dict(llama), config=llama.config,
+                                   device="cuda", seed=seed + 1)
+    cfg = ernie_tiny_config(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    ernie = ErnieForSequenceClassification(cfg, num_classes=3, device="cuda", seed=seed).eval()
+    ernie_back = ernie_from_transformers(ernie_to_transformers_state_dict(ernie), config=cfg,
+                                         layer_norm_eps=1e-5, device="cuda",
+                                         seed=seed + 1).eval()
+    ids = torch.from_numpy(rng.integers(0, 512, size=(2, 64))).cuda()
+    with torch.no_grad():
+        same = {"llama": torch.equal(llama(ids), back(ids)),
+                "ernie": torch.equal(ernie(ids), ernie_back(ids))}
+    log(f"parity hf_compat: logits after a round trip through the HF layout, the same bits "
+        f"{same}")
+    check(all(same.values()), f"parity hf_compat: a round trip changed the logits: {same}")
+
+
+def _ernie_step1_parity(seed):
+    """``ernie_train``'s step 1 at ERNIE-base widths cut to 2 layers, batch
+    2 x 512, dropout off: the card (the flash kernels, head dim 64) against
+    the CPU (plain) in fp32 with TF32 off, through ``_step1_parity``; the
+    card must launch flash forward and backward once a layer."""
+    import numpy as np
+    from paddle_tpu_torch.models import ErnieForSequenceClassification
+    from paddle_tpu_torch.models.presets import ernie_base_config
+
+    cfg = ernie_base_config(num_hidden_layers=2, hidden_dropout_prob=0.0,
+                            attention_probs_dropout_prob=0.0)
+    batch = _ernie_batch(np.random.default_rng(seed + 8), cfg.vocab_size, 2, 512)
+    with _tf32(False, False):
+        counts, errs = _step1_parity(
+            "ernie-base, 2 layers, 2 x 512", ErnieForSequenceClassification(cfg, device="cpu",
+                                                                            seed=seed),
+            ErnieForSequenceClassification(cfg, device="cuda", seed=seed), _ernie_loss, batch,
+            vanishing=("k_proj.bias",))
+    want = {"flash_attention_fwd_noncausal": 2, "flash_attention_bwd_noncausal": 2}
+    check(counts == want, f"ernie_train: the cut model's card step launched {counts}, "
+          f"expected {want}")
+    return errs
+
+
+def phase_ernie_train(seed, profile):
+    """ERNIE-1.0-base widths (``presets.build_ernie_step``: 12 layers of 768,
+    12 heads of 64, fp32, batch 32 x 512, Adam) through TrainStep,
+    ``ERNIE_STEPS`` steps with the counters read per step, then one step
+    with a padding mask (the plain attention), then step 1 of a 2-layer cut
+    against the CPU; see the module docstring."""
+    import math
+
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import launch_counts
+    from paddle_tpu_torch.models.presets import build_ernie_step, ernie_flops_per_example
+    from paddle_tpu_torch.optimizer import Adam
+
+    t0 = time.perf_counter()
+    step_fn, batch, model, cfg = build_ernie_step("cuda", seed=seed)
+    B, S = batch[0].shape
+    torch.cuda.synchronize()
+    L = cfg.num_hidden_layers
+    log(f"ernie_train: ERNIE-1.0-base widths, {L} layers of {cfg.hidden_size} "
+        f"({cfg.num_attention_heads} heads of {cfg.hidden_size // cfg.num_attention_heads}), "
+        f"{sum(p.numel() for p in model.parameters())} params fp32, batch {B} x seq {S}, "
+        f"dropout {cfg.hidden_dropout_prob}, built in {time.perf_counter() - t0:.1f} s; "
+        f"{_backend_flags()}")
+    want = dict.fromkeys(launch_counts(), 0)
+    want.update(flash_attention_fwd_noncausal=L, flash_attention_bwd_noncausal=L, adamw=1)
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, rec = _drive_train(step_fn, batch, ERNIE_STEPS)
+    step_ms = [w * 1e3 for w in walls]
+    steady = sum(step_ms[1:]) / (ERNIE_STEPS - 1)
+    flops = ernie_flops_per_example(cfg, S) * B
+    rec.update(losses=losses, step_ms=step_ms, steady_step_ms=steady,
+               examples_per_s=B / steady * 1e3, tflops_per_s=flops / steady / 1e9,
+               peak_bytes=torch.cuda.max_memory_allocated(), flags=_backend_flags())
+    log(f"ernie_train: losses {losses}; step ms {step_ms}; steady {steady:.3f} ms = "
+        f"{rec['examples_per_s']:.2f} examples/s, {rec['tflops_per_s']:.2f} TFLOP/s "
+        f"({flops / 1e12:.3f} TFLOP a step); peak memory {rec['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"ernie_train: launches {json.dumps(rec)}")
+    check(all(math.isfinite(x) for x in losses), f"ernie_train: non-finite loss {losses}")
+    for i, got in enumerate(rec["launches_per_step"]):
+        check(got == want, f"ernie_train: step {i + 1} launched {got}, expected {want}")
+    check(rec["launches_in_update"]["adamw"] == ERNIE_STEPS,
+          f"ernie_train: AdamW launches inside the update {rec['launches_in_update']}")
+    if profile:
+        _, rows = _profile(lambda: step_fn(*batch), "ernie_train: one step")
+        flash_ms = sum(ms for ms, _, key in rows if "flash_" in key)
+        rec["flash_device_ms"] = flash_ms
+        log(f"ernie_train: flash kernels {flash_ms:.3f} ms of the profiled step's device time")
+
+    ids, labels = batch
+    mask = torch.ones(B, S, device=ids.device)
+    mask[::2, S // 2:] = 0.0                       # every other row padded after S / 2
+    masked = TrainStep(model, lambda m, i, y, am: m.compute_loss(m(i, attention_mask=am), y),
+                       Adam(learning_rate=2e-3, parameters=model.parameters()))
+    m_losses, m_walls, m_rec = _drive_train(masked, (ids, labels, mask), 1)
+    m_want = dict.fromkeys(launch_counts(), 0)
+    m_want["adamw"] = 1
+    log(f"ernie_train: a step with a padding mask (the plain attention): loss {m_losses[0]}, "
+        f"{m_walls[0] * 1e3:.3f} ms, launches {m_rec['launches_per_step'][0]}")
+    check(math.isfinite(m_losses[0]), f"ernie_train: the masked step's loss {m_losses[0]}")
+    check(m_rec["launches_per_step"][0] == m_want,
+          f"ernie_train: the masked step launched {m_rec['launches_per_step'][0]}, expected "
+          f"{m_want}")
+    rec["masked_step"] = {"loss": m_losses[0], "ms": m_walls[0] * 1e3}
+    del step_fn, masked, model
+    torch.cuda.empty_cache()
+    rec["step1_parity"] = _ernie_step1_parity(seed)
+    return rec
+
+
+def _ocr_leg(label, step_fn, args, steps, batch, profile):
+    """``steps`` TrainStep steps through ``_drive_train``: losses finite
+    and falling, step ms, images/s, peak memory; the path launches no
+    kernel of the port but AdamW where the optimizer is Adam."""
+    import math
+
+    import torch
+    from paddle_tpu_torch.kernels import launch_counts
+
+    want = dict.fromkeys(launch_counts(), 0)
+    want["adamw"] = int(type(step_fn.optimizer).__name__ in ("Adam", "AdamW"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, rec = _drive_train(step_fn, args, steps)
+    step_ms = [w * 1e3 for w in walls]
+    steady = sum(step_ms[1:]) / (steps - 1)
+    rec.update(losses=losses, step_ms=step_ms, steady_step_ms=steady,
+               images_per_s=batch / steady * 1e3, peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"{label}: losses {losses}; step ms {step_ms}; steady {steady:.3f} ms = "
+        f"{rec['images_per_s']:.2f} images/s; peak memory {rec['peak_bytes'] / 2**30:.2f} GiB; "
+        f"launches a step {rec['launches_per_step'][0]}; {_backend_flags()}")
+    check(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
+    for i, got in enumerate(rec["launches_per_step"]):
+        check(got == want, f"{label}: step {i + 1} launched {got}, expected {want}")
+    if profile:
+        _profile(lambda: step_fn(*args), f"{label}: one step")
+    return rec
+
+
+def phase_ocr_train(seed, profile):
+    """PP-OCR detection and recognition at bench scale through TrainStep
+    (cuDNN's TF32 on, torch's default): DBNet at ``bench.py``'s ``ocr``
+    preset (``presets.build_ocr_step``: ``ocr_det_base``, 640 x 640, batch
+    32, Momentum) and CRNN at ``ocr_rec_base`` (6625 classes, 32 x 320,
+    batch 32, CTC, Adam as ``tests/test_ocr.py``), ``OCR_STEPS`` steps each;
+    see the module docstring."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.ocr import ocr_rec_base
+    from paddle_tpu_torch.models.presets import build_ocr_step
+    from paddle_tpu_torch.optimizer import Adam
+
+    out = {}
+    with _tf32(False, True):
+        t0 = time.perf_counter()
+        step_fn, det, model, (B, size) = build_ocr_step("cuda", seed=seed)
+        log(f"ocr_train: DBNet ocr_det_base, {sum(p.numel() for p in model.parameters())} "
+            f"params, batch {B} x {size} x {size}, Momentum(1e-3, 0.9), built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out["dbnet"] = _ocr_leg("ocr_train dbnet", step_fn, det, OCR_STEPS, B, profile)
+        del step_fn, det, model
+        torch.cuda.empty_cache()
+        model = ocr_rec_base(device="cuda", seed=seed)
+        _, rec = _ocr_batches(np.random.default_rng(seed + 9), 32, 64, 320, 6625, 25)
+        step_fn = TrainStep(model, _ctc_step_loss, Adam(learning_rate=3e-3,
+                                                        parameters=model.parameters()))
+        log(f"ocr_train: CRNN ocr_rec_base, {sum(p.numel() for p in model.parameters())} params, "
+            f"6625 classes, batch 32 x 32 x 320 (80 CTC steps), labels of 1-25 characters")
+        out["crnn"] = _ocr_leg("ocr_train crnn", step_fn, tuple(t.cuda() for t in rec),
+                               OCR_STEPS, 32, profile)
+    del step_fn, model
+    torch.cuda.empty_cache()
+    merged = {k: out["dbnet"][k] for k in ("launches", "launches_in_update")}
+    merged["launches_per_step"] = out["crnn"]["launches_per_step"]
+    for k in merged["launches"]:
+        merged["launches"][k] += out["crnn"]["launches"][k]
+        merged["launches_in_update"][k] += out["crnn"]["launches_in_update"][k]
+    merged.update(out)
+    return merged
+
+
+def _drive_train(step_fn, args, steps):
+    """Set every launch count to 0, run ``steps`` training steps on
+    ``args`` (the tuple of the step's arguments), and read the counts just
+    after.  Launches inside the optimizer's update are tallied apart from
+    the rest of each step.  Returns the losses, the
     wall time of each step (host clock, ending in a synchronise) and the
     record of counts."""
     import torch
@@ -2600,7 +3076,7 @@ def _drive_train(step_fn, ids, steps):
         for _ in range(steps):
             before = launch_counts()
             t0 = time.perf_counter()
-            losses.append(float(step_fn(ids)))
+            losses.append(float(step_fn(*args)))
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             per_step.append({n: c - before[n] for n, c in launch_counts().items()})
@@ -2673,7 +3149,7 @@ def _train_leg(label, fused, fp32_loss=False, preset="base", steps=TRAIN_STEPS):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with scope:
-        losses, walls, rec = _drive_train(step_fn, ids, steps)
+        losses, walls, rec = _drive_train(step_fn, (ids,), steps)
     check(all(emit.active(n) is None for n in emit.SITES), f"{label}: the scope leaked")
     step_ms = [w * 1e3 for w in walls]
     steady = sum(step_ms[1:]) / (steps - 1)      # step 1 includes the warm-up
@@ -3293,7 +3769,7 @@ def phase_ssd_train(profile):
             cfg.dtype = "bfloat16"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    losses, walls, rec = _drive_train(step_fn, ids, TRAIN_STEPS)
+    losses, walls, rec = _drive_train(step_fn, (ids,), TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated()
     L = cfg.num_hidden_layers
     want = dict.fromkeys(launch_counts(), 0)
@@ -3576,6 +4052,11 @@ SOURCES = {
                             "paddle_tpu/kernels/flash_attention.py:210"),
     "flash_attention_bwd": ("paddle_tpu_torch/kernels/csrc/flash_attention.cu",
                             "paddle_tpu/kernels/flash_attention.py:447"),
+    # the same kernels at ERNIE-base's non-causal fp32 attention
+    "flash_attention_fwd_noncausal": ("paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+                                      "paddle_tpu/kernels/flash_attention.py:210"),
+    "flash_attention_bwd_noncausal": ("paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+                                      "paddle_tpu/kernels/flash_attention.py:447"),
     "adamw": ("paddle_tpu_torch/kernels/csrc/adamw.cu", "paddle_tpu/kernels/adamw.py:79"),
     "ssd_scan": ("paddle_tpu_torch/kernels/csrc/ssd_scan.cu",
                  "paddle_tpu/kernels/ssd_scan.py:159"),
@@ -3612,6 +4093,8 @@ ALSO_REPLACES = {
 MAIN_PATH = {"rms_norm": "engine", "rms_norm_bwd": "train",
              "decode_attention_dense": "generate", "decode_attention_paged": "engine",
              "flash_attention_fwd": "train", "flash_attention_bwd": "train", "adamw": "train",
+             "flash_attention_fwd_noncausal": "ernie_train",
+             "flash_attention_bwd_noncausal": "ernie_train",
              "ssd_scan": "ssd_train", "ssd_scan_bwd": "ssd_train",
              **{name: "fuse_train" for name in ("fuse_swiglu_mlp", "fuse_swiglu_mlp_bwd",
                                                 "fuse_add_rms_norm", "fuse_add_rms_norm_bwd",
@@ -3704,6 +4187,12 @@ def main(argv=None) -> int:
         if "moe_train" in phases:
             paths["moe_train"] = phase_moe_train("profile" in phases)
             laps.append(("moe_train", time.perf_counter()))
+        if "ernie_train" in phases:
+            paths["ernie_train"] = phase_ernie_train(args.seed, "profile" in phases)
+            laps.append(("ernie_train", time.perf_counter()))
+        if "ocr_train" in phases:
+            paths["ocr_train"] = phase_ocr_train(args.seed, "profile" in phases)
+            laps.append(("ocr_train", time.perf_counter()))
         if "ssd_train" in phases:
             paths["ssd_train"] = phase_ssd_train("profile" in phases)
             laps.append(("ssd_train", time.perf_counter()))

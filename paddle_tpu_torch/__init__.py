@@ -26,7 +26,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["seed", "default_device", "make_generator", "to_dtype", "DTYPES"]
+__all__ = ["seed", "default_device", "default_generator", "make_generator", "to_dtype", "DTYPES"]
 
 DTYPES = {
     "float64": torch.float64,
@@ -68,9 +68,30 @@ def make_generator(seed_value: int, device: Union[str, torch.device]) -> torch.G
     return g
 
 
-def seed(s: int) -> None:
-    """Seed torch's global generators (the ``paddle.seed`` counterpart).
+_DEFAULT_GENERATORS: dict = {}
 
-    The port's own code draws only from explicit generators; this exists for
-    user code that relies on the global ones."""
+
+def default_generator(device: Union[str, torch.device]) -> torch.Generator:
+    """The one generator of ``device`` that draws advance (the counterpart of
+    the JAX package's framework key): a layer built without ``generator=``
+    draws its parameters and dropout masks from it, so two such layers draw
+    different numbers.  Seeded with 0 when first made; :func:`seed` resets
+    it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    g = _DEFAULT_GENERATORS.get(dev)
+    if g is None:
+        g = _DEFAULT_GENERATORS[dev] = make_generator(0, dev)
+    return g
+
+
+def seed(s: int) -> None:
+    """Seed torch's global generators and every :func:`default_generator`
+    (the ``paddle.seed`` counterpart).
+
+    Models and recipes draw from the generator they are given (or one made
+    from their ``seed``); the defaults serve layers built without one."""
     torch.manual_seed(int(s))
+    for g in _DEFAULT_GENERATORS.values():
+        g.manual_seed(int(s))

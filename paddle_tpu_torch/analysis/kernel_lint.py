@@ -576,10 +576,17 @@ def _wrapper_counts() -> Dict[str, int]:
     return {n: fn.launches for n, fn in _wrappers().items()}
 
 
-def _restore_counts(saved: Dict[str, int]) -> None:
+def _counters() -> Dict[tuple, int]:
+    """Every counter attribute of every wrapper (``launches``, and the flash
+    wrappers' ``launches_noncausal``), by ``(wrapper, attribute)``."""
+    return {(n, a): getattr(fn, a) for n, fn in _wrappers().items()
+            for a in ("launches", "launches_noncausal") if hasattr(fn, a)}
+
+
+def _restore_counts(saved: Dict[tuple, int]) -> None:
     wrappers = _wrappers()
-    for n, v in saved.items():
-        wrappers[n].launches = v
+    for (n, a), v in saved.items():
+        setattr(wrappers[n], a, v)
 
 
 def _dynamic_leg(name: str, specs, launch, plain, make_args, device, tol,
@@ -599,7 +606,7 @@ def _dynamic_leg(name: str, specs, launch, plain, make_args, device, tol,
     from ..kernels import _build
 
     t0 = time.perf_counter()
-    saved = _wrapper_counts()
+    saved, saved_counters = _wrapper_counts(), _counters()
     base = make_args(device)
     ref = [r.detach() for r in _flat(plain(*[a.clone() if isinstance(a, torch.Tensor) else a
                                              for a in base]))]
@@ -613,7 +620,7 @@ def _dynamic_leg(name: str, specs, launch, plain, make_args, device, tol,
                 torch.cuda.synchronize(device)
     finally:
         after = _wrapper_counts()
-        _restore_counts(saved)
+        _restore_counts(saved_counters)
     gate = rep.meta.setdefault("gate_launches", {})
     for n in after:
         if after[n] != saved[n]:

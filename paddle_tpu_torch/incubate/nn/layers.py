@@ -14,21 +14,12 @@ import torch
 from torch import nn
 
 from ... import default_device, make_generator
+from ...nn.initializer import fans
 from . import functional as F
 
 __all__ = ["FusedLinear", "FusedDropoutAdd", "FusedBiasDropoutResidualLayerNorm",
            "FusedMultiHeadAttention", "FusedFeedForward", "FusedTransformerEncoderLayer",
            "FusedMultiTransformer"]
-
-
-def _fans(shape):
-    """The JAX initializer's fans: ``[in, out]`` for 2-D, OIHW past that."""
-    if len(shape) == 1:
-        return shape[0], shape[0]
-    if len(shape) == 2:
-        return shape[0], shape[1]
-    receptive = math.prod(shape[2:])
-    return shape[1] * receptive, shape[0] * receptive
 
 
 class _Fused(nn.Module):
@@ -40,7 +31,7 @@ class _Fused(nn.Module):
         self.generator = make_generator(seed, self._device)
 
     def _xavier(self, shape):
-        fi, fo = _fans(shape)
+        fi, fo = fans(shape)
         limit = math.sqrt(6.0 / (fi + fo))
         t = torch.empty(shape, dtype=torch.float32, device=self._device)
         return nn.Parameter(t.uniform_(-limit, limit, generator=self.generator))

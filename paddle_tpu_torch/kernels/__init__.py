@@ -12,8 +12,11 @@ seeded defects, launched only by the gate.  :mod:`.registry` is the
 admission-gated registry every wrapper checks in with first.
 
 Every wrapper carries a plain integer ``launches`` attribute, raised by one
-exactly where its kernel is launched; :func:`launch_counts` and
-:func:`reset_launch_counts` read and clear them all.
+exactly where its kernel is launched; the flash wrappers also raise
+``launches_noncausal`` at a non-causal launch.  :func:`launch_counts` and
+:func:`reset_launch_counts` read and clear them all; the counts split flash
+by mode, so ``flash_attention_fwd`` is its causal launches and
+``flash_attention_fwd_noncausal`` its non-causal ones.
 """
 
 from __future__ import annotations
@@ -54,10 +57,21 @@ GATE_WRAPPERS = {
 }
 
 
+# wrappers whose non-causal launches are counted apart
+_BY_MODE = ("flash_attention_fwd", "flash_attention_bwd")
+
+
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    counts = {name: fn.launches for name, fn in WRAPPERS.items()}
+    for name in _BY_MODE:
+        noncausal = WRAPPERS[name].launches_noncausal
+        counts[name] -= noncausal
+        counts[name + "_noncausal"] = noncausal
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in (*WRAPPERS.values(), *GATE_WRAPPERS.values()):
         fn.launches = 0
+    for name in _BY_MODE:
+        WRAPPERS[name].launches_noncausal = 0

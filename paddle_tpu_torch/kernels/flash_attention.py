@@ -16,7 +16,8 @@ fewer heads than Q (grouped-query attention), indexed natively: query head
   raises; on a CPU tensor each runs its plain version,
   :func:`_flash_fwd_reference` or :func:`_flash_bwd_reference`, the same
   recompute-from-lse math in fp32.  ``flash_attention_bwd.launches`` counts
-  one per backward call, which launches both passes.
+  one per backward call, which launches both passes; each wrapper's
+  ``launches_noncausal`` counts its non-causal launches apart.
 - :func:`_attention_reference` is the numerics oracle (one-shot softmax over
   KV heads already repeated), as in the JAX package.
 
@@ -207,6 +208,7 @@ def flash_attention_fwd(q, k, v, causal: bool, sm_scale: float
             float(sm_scale), _build.dtype_code(q.dtype), stream)
     _build.check(lib, err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_noncausal += int(not causal)
     return o, lse
 
 
@@ -244,11 +246,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float):
             float(sm_scale), _build.dtype_code(q.dtype), stream)
     _build.check(lib, err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_noncausal += int(not causal)
     return dq, dk, dv
 
 
-flash_attention_fwd.launches = 0
-flash_attention_bwd.launches = 0
+flash_attention_fwd.launches = flash_attention_fwd.launches_noncausal = 0
+flash_attention_bwd.launches = flash_attention_bwd.launches_noncausal = 0
 
 
 class _FlashAttention(torch.autograd.Function):

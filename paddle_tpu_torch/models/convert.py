@@ -2,8 +2,11 @@
 
 ``paddle_tpu`` parameter names (``llama.layers.0.self_attn.qkv_proj``,
 ``lm_head``, ...) are exactly the port's ``named_parameters()`` names, and
-both keep weights as ``[in, out]``, so the exchange is a checked copy.  Rope
-tables are buffers recomputed from the config, never copied.
+both keep weights as ``[in, out]``, so the exchange is a checked copy.  The
+persistent buffers go the same way, by name (BatchNorm's running ``_mean``
+and ``_variance``): the exchanged names are the port's ``state_dict()``
+keys, the JAX side's ``state_dict()`` keys.  Rope tables are
+non-persistent buffers recomputed from the config, never copied.
 
 The optimizer state of a training step goes the same way: ``{"step": n,
 "slots": {param name: {"m": array, "v": array, ...}}}``, the layout of the
@@ -16,7 +19,7 @@ flat ``TrainStep.state_dict`` layout (``param.*``, ``opt[...]``, ``step``,
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Set, Tuple
 
 import numpy as np
 import torch
@@ -27,14 +30,25 @@ __all__ = ["load_paddle_tpu_params", "to_paddle_tpu_params",
            "load_paddle_tpu_train_state", "to_paddle_tpu_train_state"]
 
 
+def _exchanged(model: nn.Module) -> Tuple[Dict[str, torch.Tensor], Set[str]]:
+    """Parameters and persistent buffers by name; the non-persistent
+    buffers (recomputed, never copied) apart."""
+    own = model.state_dict(keep_vars=True)
+    recomputed = {n for n, _ in model.named_buffers()} - set(own)
+    return own, recomputed
+
+
 @torch.no_grad()
 def load_paddle_tpu_params(model: nn.Module, params: Dict[str, np.ndarray]) -> None:
-    """Copy ``params`` (name -> array, e.g. ``{n: np.asarray(p._data) for n, p
-    in jax_model.named_parameters()}``) into ``model``, casting each to the
-    parameter's dtype.  Missing, extra or mis-shaped entries raise."""
-    own = dict(model.named_parameters())
-    missing = sorted(set(own) - set(params))
-    extra = sorted(set(params) - set(own))
+    """Copy ``params`` (name -> array, e.g. ``{n: np.asarray(t._data) for n, t
+    in jax_model.state_dict().items()}``: parameters and persistent buffers)
+    into ``model``, casting each to its tensor's dtype.  Missing, extra or
+    mis-shaped entries raise; entries naming one of the model's
+    non-persistent buffers are skipped."""
+    own, recomputed = _exchanged(model)
+    given = set(params) - recomputed
+    missing = sorted(set(own) - given)
+    extra = sorted(given - set(own))
     if missing or extra:
         raise KeyError(f"parameter names differ: missing {missing}, unexpected {extra}")
     for name, p in own.items():
@@ -46,9 +60,10 @@ def load_paddle_tpu_params(model: nn.Module, params: Dict[str, np.ndarray]) -> N
 
 @torch.no_grad()
 def to_paddle_tpu_params(model: nn.Module) -> Dict[str, np.ndarray]:
-    """The inverse: name -> float32 numpy array (bf16 widened exactly)."""
-    return {name: p.detach().to(device="cpu", dtype=torch.float32).numpy()
-            for name, p in model.named_parameters()}
+    """The inverse: name -> float32 numpy array (bf16 widened exactly), the
+    parameters and the persistent buffers."""
+    return {name: t.detach().to(device="cpu", dtype=torch.float32).numpy()
+            for name, t in _exchanged(model)[0].items()}
 
 
 @torch.no_grad()

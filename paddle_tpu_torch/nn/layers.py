@@ -1,0 +1,122 @@
+"""``nn.Layer`` and the containers (port of ``paddle_tpu/nn/layers.py``).
+
+:class:`Layer` is a ``torch.nn.Module`` that keeps the Paddle surface the
+recipes call: :meth:`Layer.create_parameter` (shape, ``attr``, default
+initializer), :meth:`Layer.set_state_dict` (name -> array or tensor, a
+checked in-place copy) and ``train()`` / ``eval()`` (torch's own).
+Everything else -- registration, ``named_parameters``, ``state_dict``,
+hooks, ``to`` -- is torch's.  Parameter and buffer names are the JAX
+layers' attribute names, so ``models.convert`` carries weights across.
+
+Parameters are drawn from the layer's generator, on its device: pass
+``generator=`` (a model threads one through all its layers), or ``device=``
+and the layer draws from that device's ``default_generator``, which
+advances with every draw, as the JAX package's framework key.  ``device``
+None means CUDA and raises without a card, as every entry point of the
+port.  A layer that holds no parameter and draws nothing never asks.
+"""
+
+from __future__ import annotations
+
+import collections
+import copy
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from .. import default_device, default_generator, to_dtype
+from .initializer import Constant, Initializer, XavierUniform
+
+__all__ = ["Layer", "Sequential", "LayerList", "ParameterList", "deepcopy_sharing_generators"]
+
+
+class Layer(nn.Module):
+    def __init__(self, name_scope: Optional[str] = None, dtype: str = "float32", *,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self._dtype = dtype
+        self._device_arg = device
+        self._generator = generator
+
+    @property
+    def generator(self) -> torch.Generator:
+        """The generator this layer's parameters are drawn from: the one it
+        was given, else its device's shared, advancing default."""
+        if self._generator is None:
+            return default_generator(default_device(self._device_arg))
+        return self._generator
+
+    def create_parameter(self, shape, attr=None, dtype=None, is_bias: bool = False,
+                         default_initializer: Optional[Initializer] = None) -> nn.Parameter:
+        """A new parameter of ``shape``: ``attr.initializer`` when the attr
+        carries one, else ``default_initializer``, else zeros for a bias and
+        Xavier-uniform for a weight, as the JAX ``Layer``."""
+        init = getattr(attr, "initializer", None) or default_initializer
+        if init is None:
+            init = Constant(0.0) if is_bias else XavierUniform()
+        p = nn.Parameter(init(shape, to_dtype(dtype or self._dtype), self.generator))
+        if getattr(attr, "trainable", True) is False:
+            p.requires_grad_(False)
+        return p
+
+    @torch.no_grad()
+    def set_state_dict(self, state_dict, use_structured_name: bool = True):
+        """Copy ``state_dict`` (name -> numpy array or tensor) into this
+        layer's parameters and buffers in place, each cast to its tensor's
+        dtype and device.  A shape that differs raises; returns ``(missing,
+        unexpected)`` names, as the JAX ``Layer``."""
+        own = self.state_dict(keep_vars=True)
+        missing = [n for n in own if n not in state_dict]
+        unexpected = [n for n in state_dict if n not in own]
+        for name, value in state_dict.items():
+            if name not in own:
+                continue
+            target = own[name]
+            src = value if isinstance(value, torch.Tensor) else torch.from_numpy(np.asarray(value))
+            if tuple(src.shape) != tuple(target.shape):
+                raise ValueError(f"shape mismatch for {name}: {tuple(src.shape)} vs "
+                                 f"{tuple(target.shape)}")
+            target.copy_(src.to(device=target.device, dtype=target.dtype))
+        return missing, unexpected
+
+
+def deepcopy_sharing_generators(layer: nn.Module) -> nn.Module:
+    """``copy.deepcopy(layer)`` whose copy draws from the same generators as
+    the original (a copied generator would repeat the original's draws)."""
+    memo = {}
+    for m in layer.modules():
+        g = getattr(m, "_generator", None)
+        if isinstance(g, torch.Generator):
+            memo[id(g)] = g
+    return copy.deepcopy(layer, memo)
+
+
+class Sequential(Layer, nn.Sequential):
+    """Sublayers run in order; given as layers (named "0", "1", ...),
+    ``(name, layer)`` pairs or one ``OrderedDict``."""
+
+    def __init__(self, *layers):
+        Layer.__init__(self)
+        if len(layers) == 1 and isinstance(layers[0], collections.OrderedDict):
+            items = list(layers[0].items())
+        else:
+            items = [layer if isinstance(layer, tuple) else (str(i), layer)
+                     for i, layer in enumerate(layers)]
+        for name, layer in items:
+            self.add_module(str(name), layer)
+
+
+class LayerList(Layer, nn.ModuleList):
+    def __init__(self, sublayers=None):
+        Layer.__init__(self)
+        if sublayers is not None:
+            self.extend(sublayers)
+
+
+class ParameterList(Layer, nn.ParameterList):
+    def __init__(self, parameters=None):
+        Layer.__init__(self)
+        if parameters is not None:
+            self.extend(parameters)

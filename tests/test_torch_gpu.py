@@ -1174,3 +1174,125 @@ def test_incubate_ops_launch_their_kernels(cuda):
                                rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(IF.masked_multihead_attention(q, k, v, lengths), got,
                                rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the stock nn library and its recipes (ERNIE, PP-OCR det + rec)
+# ---------------------------------------------------------------------------
+
+def test_sdpa_runs_the_flash_kernels_unmasked_and_the_plain_path_masked(cuda):
+    """``nn.functional.scaled_dot_product_attention`` on a CUDA tensor: no
+    mask at head dim 64 launches the flash kernels (forward, and backward
+    under autograd) and agrees with the plain reference; with a mask, or
+    at head dim 26, it launches nothing."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.nn import functional as F
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(2, 128, 4, 64, generator=g, device=cuda, requires_grad=True)
+               for _ in range(3))
+    f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    out = F.scaled_dot_product_attention(q, k, v)
+    out.square().sum().backward()
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches) == (f0 + 1, b0 + 1)
+    ref = fa._attention_reference(q, k, v, False, None, 64 ** -0.5)
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    mask = torch.zeros(2, 1, 1, 128, device=cuda)
+    mask[1, ..., 100:] = -1e9
+    F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    q26 = torch.randn(2, 16, 4, 26, device=cuda)
+    F.scaled_dot_product_attention(q26, q26, q26)
+    assert fa.flash_attention_fwd.launches == f0 + 1
+
+
+def _cpu_copy(model_fn, gpu):
+    from paddle_tpu_torch.models import load_paddle_tpu_params, to_paddle_tpu_params
+
+    cpu = model_fn("cpu")
+    load_paddle_tpu_params(cpu, to_paddle_tpu_params(gpu))
+    return cpu
+
+
+@pytest.mark.parametrize("net", ["dbnet", "crnn", "ernie-64", "ernie-tiny"])
+def test_recipe_models_on_the_card_match_the_cpu(cuda, net):
+    """Each recipe's tiny model, fp32 with TF32 off, card against CPU on
+    the same weights: training-mode outputs and BatchNorm statistics within
+    1e-5, parameter gradients within 1e-4 of their scale.  A gradient that
+    is zero in exact arithmetic (a key bias, which the softmax's shift
+    removes; DBNet's ``head.up1.bias``, which its BatchNorm subtracts
+    again) is rounding on both sides and is held to zero: within 1e-4 of
+    the model's largest gradient."""
+    from paddle_tpu_torch.models import ErnieForSequenceClassification, ernie_tiny_config
+    from paddle_tpu_torch.models.ocr import ocr_det_tiny, ocr_rec_tiny
+
+    g = torch.Generator().manual_seed(8)
+    if net == "dbnet":
+        make, x = (lambda d: ocr_det_tiny(device=d)), torch.randn(2, 3, 48, 48, generator=g)
+    elif net == "crnn":
+        make, x = (lambda d: ocr_rec_tiny(device=d)), torch.randn(2, 3, 32, 64, generator=g)
+    else:
+        kw = (dict(hidden_size=128, num_attention_heads=2, intermediate_size=256)
+              if net == "ernie-64" else {})
+        cfg = ernie_tiny_config(num_hidden_layers=2, hidden_dropout_prob=0.0,
+                                attention_probs_dropout_prob=0.0, **kw)
+        make = lambda d: ErnieForSequenceClassification(cfg, device=d)     # noqa: E731
+        x = torch.randint(0, cfg.vocab_size, (2, 96), generator=g)
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        gpu = make(cuda)
+        cpu = _cpu_copy(make, gpu)
+        outs = [m(x.to(d)) for m, d in ((cpu, "cpu"), (gpu, cuda))]
+        torch.testing.assert_close(outs[1].cpu(), outs[0], rtol=1e-5, atol=1e-5)
+        for o in outs:
+            o.square().sum().backward()
+        largest = max(float(p.grad.abs().max()) for p in cpu.parameters())
+        for (n, a), (_, b) in zip(gpu.named_parameters(), cpu.named_parameters()):
+            if n.endswith(("k_proj.bias", "head.up1.bias")):
+                assert max(float(a.grad.abs().max()), float(b.grad.abs().max())) <= 1e-4 * largest
+                continue
+            scale = max(float(b.grad.abs().max()), 1e-30)
+            torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=1e-4, atol=1e-4 * scale,
+                                       msg=lambda m: f"{n}: {m}")
+        for (n, a), (_, b) in zip(gpu.named_buffers(), cpu.named_buffers()):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def test_ctc_loss_on_the_card_matches_the_cpu(cuda):
+    from paddle_tpu_torch.nn import functional as F
+
+    g = torch.Generator().manual_seed(9)
+    logits = torch.randn(20, 3, 11, generator=g)
+    labels = torch.tensor([[1, 2, 2, 3], [4, 0, 0, 0], [5, 6, 7, 8]])
+    in_len, lab_len = torch.tensor([20, 9, 3]), torch.tensor([4, 1, 4])
+    losses = []
+    for d in ("cpu", cuda):
+        lg = logits.detach().clone().to(d).requires_grad_()
+        loss = F.ctc_loss(lg, labels, in_len, lab_len, reduction="none")
+        (loss * torch.tensor([1.0, 1.0, 0.0], device=d)).sum().backward()
+        losses.append((loss.detach().cpu(), lg.grad.cpu()))
+    assert float(losses[1][0][2]) > 1e29                    # row 2 cannot fit: huge, finite
+    torch.testing.assert_close(losses[1][0], losses[0][0], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(losses[1][1], losses[0][1], rtol=1e-5, atol=1e-5)
+
+
+def test_hf_roundtrip_on_the_card_keeps_the_logits_bits(cuda):
+    from paddle_tpu_torch.models import (ErnieForSequenceClassification, LlamaForCausalLM,
+                                         ernie_from_transformers, ernie_tiny_config,
+                                         ernie_to_transformers_state_dict,
+                                         llama_from_transformers, llama_tiny_config,
+                                         llama_to_transformers_state_dict)
+
+    ids = torch.randint(0, 512, (2, 32), device=cuda)
+    llama = LlamaForCausalLM(llama_tiny_config(), device=cuda)
+    back = llama_from_transformers(llama_to_transformers_state_dict(llama),
+                                   config=llama.config, device=cuda, seed=1)
+    cfg = ernie_tiny_config(num_hidden_layers=2)
+    ernie = ErnieForSequenceClassification(cfg, device=cuda).eval()
+    ernie_back = ernie_from_transformers(ernie_to_transformers_state_dict(ernie), config=cfg,
+                                         layer_norm_eps=1e-5, device=cuda, seed=1).eval()
+    with torch.no_grad():
+        assert torch.equal(llama(ids), back(ids))
+        assert torch.equal(ernie(ids), ernie_back(ids))

@@ -216,6 +216,8 @@ def test_cpu_wrappers_run_plain_versions_without_launching():
     assert launch_counts() == {"rms_norm": 0, "rms_norm_bwd": 0, "decode_attention_dense": 0,
                                "decode_attention_paged": 0, "flash_attention_fwd": 0,
                                "flash_attention_bwd": 0, "adamw": 0, "ssd_scan": 0,
+                               "flash_attention_fwd_noncausal": 0,
+                               "flash_attention_bwd_noncausal": 0,
                                "ssd_scan_bwd": 0, "fuse_swiglu_mlp": 0, "fuse_swiglu_mlp_bwd": 0,
                                "fuse_add_rms_norm": 0, "fuse_add_rms_norm_bwd": 0,
                                "fuse_rms_norm_head": 0, "fuse_rms_norm_head_bwd": 0}
