@@ -890,7 +890,8 @@ def _flash_noncausal_case(gen, B=32, S=512, H=12, D=64, iters=10):
     backward against their plain versions on the same inputs
     (``FLASH_TOL_FP32``, the atol scaled by max |plain|), timed beside
     sdpa's forward and its backward alone; bound at the fp32 rate over all
-    S^2 pairs."""
+    S^2 pairs.  The fp32 kernels' registers, spill bytes and shared memory
+    at every head dim ride along; none may spill at D <= 128."""
     import torch
     from paddle_tpu_torch.kernels import flash_attention as fa
 
@@ -911,6 +912,10 @@ def _flash_noncausal_case(gen, B=32, S=512, H=12, D=64, iters=10):
         check(within(g, r, FLASH_TOL_FP32, scaled=True), f"flash bwd {shape} fp32: {name} "
               f"disagrees, max err {errs[name]} (max |ref| {float(r.abs().max())})")
     del grads, refs
+    attrs = {d: _flash_attributes(d, "float32") for d in (32, 64, 128, 256)}
+    spills = {(d, n): a["local_bytes"] for d, at in attrs.items() for n, a in at.items()
+              if d <= 128 and a["local_bytes"]}
+    check(not spills, f"flash fp32 kernels spill: {spills} bytes")
     (f_ms, f_by), (b_ms, b_by) = _flash_bounds(B, S, H, H, D, itemsize=4, causal=False,
                                                flops_per_s=FP32_FLOPS_PER_S)
     tol = {"atol": FLASH_TOL_FP32[0], "rtol": FLASH_TOL_FP32[1], "atol_scaled_by_max_abs": True}
@@ -919,7 +924,9 @@ def _flash_noncausal_case(gen, B=32, S=512, H=12, D=64, iters=10):
            "plain_ms": time_ms(lambda: fa._flash_fwd_reference(q, k, v, False, sm), iters),
            "library_ms": _sdpa_train_ms(q, k, v, do, "fwd", iters, causal=False),
            "library": "scaled_dot_product_attention forward, fp32, non-causal",
-           "bound_ms": f_ms, "bound_by": f_by}
+           "bound_ms": f_ms, "bound_by": f_by,
+           "attributes": {d: {"flash_fwd_kernel": at["flash_fwd_kernel"]}
+                          for d, at in attrs.items()}}
     bwd = {"shape": shape, "dtype": "float32", "max_abs_err": max(errs.values()),
            "max_abs_err_by_grad": errs, "tol": tol,
            "ms": time_ms(lambda: fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, False, sm),
@@ -929,21 +936,27 @@ def _flash_noncausal_case(gen, B=32, S=512, H=12, D=64, iters=10):
            "library_ms": _sdpa_train_ms(q, k, v, do, "bwd", iters, causal=False),
            "library": "scaled_dot_product_attention's backward alone, fp32, non-causal",
            "library_fwd_bwd_ms": _sdpa_train_ms(q, k, v, do, "fwd+bwd", iters, causal=False),
-           "bound_ms": b_ms, "bound_by": b_by}
+           "bound_ms": b_ms, "bound_by": b_by,
+           "attributes": {d: {n: at[n] for n in ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")}
+                          for d, at in attrs.items()}}
     log(f"flash fwd {shape} fp32: {json.dumps(fwd)}")
     log(f"flash bwd {shape} fp32: {json.dumps(bwd)}")
     return fwd, bwd
 
 
-def _flash_attributes(D):
-    """Registers, spill (local) bytes and shared memory of the bf16 flash
-    kernels at head dim ``D``, as the card reports them."""
+def _flash_attributes(D, dtype="bfloat16"):
+    """Registers, spill (local) bytes and shared memory of the flash
+    kernels at head dim ``D``, as the card reports them: the bf16
+    tensor-core ones, or the fp32 CUDA-core ones (the dQ pass being the sum
+    of the dK/dV pass's dQ shares)."""
     from paddle_tpu_torch.kernels import _build
 
-    code = _build.dtype_code("bfloat16")
+    names = (("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel")
+             if dtype == "bfloat16" else
+             ("flash_fwd_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"))
+    code = _build.dtype_code(dtype)
     return {name: _build.kernel_attributes("flash_attention", k, code, D)
-            for k, name in enumerate(("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
-                                      "flash_bwd_dq_tc_kernel"))}
+            for k, name in enumerate(names)}
 
 
 def _planted_faults(q, k, v, o, lse, do, sm, grads, refs):

@@ -3,7 +3,7 @@
 same inputs, each checkout in its own process, in the order given (for a
 comparison on one card: parent, change, change, parent).
 
-    python3 kernel_ab.py SET [--split-keys N] DIR [DIR ...]   # each DIR holds paddle_tpu_torch/
+    python3 kernel_ab.py SET [--geometry NAME=VALUE] DIR [DIR ...]   # each DIR holds paddle_tpu_torch/
 
 Sets:
 
@@ -54,9 +54,20 @@ Sets:
   arithmetic is the same in every checkout, so the losses must be equal
   bits.
 
-``--split-keys N`` builds decode attention with N keys a CTA of its first
-pass instead of ``_build.GEOMETRY``'s (a multiple of 32).  Every launch is
-timed alone by ``chip_smoke.time_ms`` (CUDA events after an L2 flush).
+- ``flash32``: flash attention's fp32 kernels at ERNIE-base's attention
+  (``ernie_train``: B 32, S 512, 12 heads of 64, non-causal), the forward
+  and the backward (from the plain forward's o and lse, the same in every
+  checkout), inputs from seed 0: output hashes, each output's largest
+  error against its plain version (held to ``chip_smoke.FLASH_TOL_FP32``),
+  ms, and the three fp32 kernels' registers, spill bytes and shared
+  memory at D 64.
+
+``--geometry NAME=VALUE`` (repeatable) builds with that ``_build.GEOMETRY``
+constant changed, in whichever source has it (the checkout's specs and
+wrappers read the same table); ``--geometry DECODE_SPLIT_KEYS=N``, for
+example, gives decode attention's first pass N keys a CTA (a multiple of
+32).  Every launch is timed alone by ``chip_smoke.time_ms``
+(CUDA events after an L2 flush).
 Prints one JSON line a checkout: ``{"tree", "card", "set", ...}``.  Needs
 a CUDA card.
 """
@@ -70,7 +81,7 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-SETS = ("gemm", "serve", "rms_plan", "tokens", "ssd", "norm", "adamw")
+SETS = ("gemm", "serve", "rms_plan", "tokens", "ssd", "norm", "adamw", "flash32")
 SSD_SHAPES = {"ssd_train": (128, 4096, 64, 128, 128), "SSDConfig()": (64, 4096, 128, 64, 64)}
 TABLE_DENSE = [1, 37, 128, 129, 500, 1024, 2047, 2048]
 TABLE_PAGED = [0, 1, 128, 129, 256, 300, 777, 1024]
@@ -404,16 +415,54 @@ def _adamw(smoke) -> dict:
     return rec
 
 
-def _run_tree(which: str, tree: str, split_keys: int) -> dict:
+def _flash32(smoke):
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    B, S, H, D = 32, 512, 12, 64
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device="cuda") for _ in range(4))
+    sm = D ** -0.5
+    o_ref, lse_ref = fa._flash_fwd_reference(q, k, v, False, sm)
+    cases = {"forward": lambda: fa.flash_attention_fwd(q, k, v, False, sm),
+             "backward": lambda: fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, False, sm)}
+    plain = {"forward": (o_ref, lse_ref),
+             "backward": fa._flash_bwd_reference(q, k, v, o_ref, lse_ref, do, False, sm)}
+    names = {"forward": ("o", "lse"), "backward": ("dq", "dk", "dv")}
+    for fn in cases.values():      # builds, first launches and the card's clocks
+        for _ in range(5):
+            fn()
+    torch.cuda.synchronize()
+    rec = {"shape": {"B": B, "S": S, "H": H, "D": D, "causal": False}, "ms": {}, "sha256": {},
+           "max_abs_err": {}}
+    for label, fn in cases.items():
+        for name, y, ref in zip(names[label], fn(), plain[label]):
+            rec["sha256"][name] = _digest(y)
+            rec["max_abs_err"][name] = smoke.max_err(y, ref)
+            tol = smoke.LSE_TOL if name == "lse" else smoke.FLASH_TOL_FP32
+            if not smoke.within(y, ref, tol, scaled=name != "lse"):
+                raise SystemExit(f"kernel_ab: flash32 {name} disagrees with its plain version: "
+                                 f"max err {rec['max_abs_err'][name]}")
+        rec["ms"][label] = smoke.time_ms(fn)
+    rec["attributes"] = smoke._flash_attributes(D, "float32")
+    return rec
+
+
+def _run_tree(which: str, tree: str, geometry: dict) -> dict:
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
     from paddle_tpu_torch.kernels import _build
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device")
-    if split_keys:
-        _build.GEOMETRY["decode_attention"]["DECODE_SPLIT_KEYS"] = split_keys
+    for name, value in geometry.items():
+        src = [g for g in _build.GEOMETRY.values() if name in g]
+        if not src:
+            raise SystemExit(f"kernel_ab: no geometry constant {name} in this checkout")
+        src[0][name] = value
     smoke = _smoke()
+    if which == "flash32":
+        return _flash32(smoke)
     if which == "tokens":
         return _tokens(smoke)
     if which == "ssd":
@@ -454,12 +503,13 @@ def _run_tree(which: str, tree: str, split_keys: int) -> dict:
 def main(argv=None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
     if len(args) == 4 and args[0] == "--one":
-        print(json.dumps(_run_tree(args[1], args[3], int(args[2]))), flush=True)
+        print(json.dumps(_run_tree(args[1], args[2], json.loads(args[3]))), flush=True)
         return 0
-    split_keys = 0
-    if "--split-keys" in args:
-        i = args.index("--split-keys")
-        split_keys = int(args[i + 1])
+    geometry = {}
+    while "--geometry" in args:
+        i = args.index("--geometry")
+        name, _, value = args[i + 1].partition("=")
+        geometry[name] = int(value)
         del args[i:i + 2]
     if len(args) < 2 or args[0] not in SETS:
         raise SystemExit(__doc__)
@@ -468,13 +518,13 @@ def main(argv=None) -> int:
                          capture_output=True, text=True)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
     for tree in trees:
-        proc = subprocess.run([sys.executable, __file__, "--one", which, str(split_keys), tree],
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, __file__, "--one", which, tree,
+                               json.dumps(geometry)], capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stderr[-3000:], file=sys.stderr)
             return proc.returncode
         rec = json.loads(proc.stdout.strip().splitlines()[-1])
-        extra = {"split_keys": split_keys} if split_keys else {}
+        extra = {"geometry": geometry} if geometry else {}
         print(json.dumps({"tree": tree, "card": card, "set": which, **extra, **rec}),
               flush=True)
     return 0

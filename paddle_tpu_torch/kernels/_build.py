@@ -59,10 +59,10 @@ SIGNATURES = {
     "flash_attention": {
         # q, k, v, o, lse, strides, B, H, Hk, Sq, Sk, D, causal, scale, dtype, stream
         "flash_attention_fwd_launch": (P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P),
-        # q, k, v, dout, lse, delta, dq, dk, dv, strides, B, H, Hk, Sq, Sk, D,
-        # causal, scale, dtype, stream
-        "flash_attention_bwd_launch": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
-                                       I, F, I, P),
+        # q, k, v, dout, lse, delta, dq, dk, dv, the fp32 dQ workspace, strides,
+        # B, H, Hk, Sq, Sk, D, causal, scale, dtype, stream
+        "flash_attention_bwd_launch": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                                       I, I, F, I, P),
     },
     "adamw": {
         # leaves (a host array of the table's entries), count, chunks, lr,
@@ -130,13 +130,28 @@ GEOMETRY = {
                          # shared memory for the K/V tiles resident at once
                          # (the whole split up to D 128 in bf16)
                          "DECODE_RESIDENT_BYTES": 160 * 1024},
-    # per head_dim: the fp32 kernels' q- and k-tile rows; for bf16 the
-    # forward's query rows (64 a consumer warpgroup) and keys of its k-tiles,
-    # the keys of a dK/dV CTA (64 a warpgroup, or 64 shared by two at D 256)
-    # and query rows of its steps, the query rows of a dQ CTA and keys of its
-    # steps; stages of the forward's and the backward's TMA rings
+    # per head_dim, fp32 (CUDA cores, 8 warps a CTA): the forward's query
+    # rows (BQ / 8 a warp) and keys of its k-tiles (the CTAs an SM its
+    # registers are budgeted for follow from its shared memory); the keys of
+    # a dK/dV CTA (4 a lane) and the query rows of its steps; the stages of a
+    # cp.async ring and the steps of a product's loop each kernel unrolls;
+    # each CTA within the 227 KB of shared memory it may use (chosen
+    # by kernel_ab.py flash32 sweeps on an H100; PERF.md).  The k-tiles whose
+    # dQ shares one workspace holds (a longer Sk runs the dK/dV and dQ
+    # launches once for each group of that many) and the threads of a CTA of
+    # the dQ sum (a float4 of dq each).  For bf16 the forward's query rows (64
+    # a consumer warpgroup) and keys of its k-tiles, the keys of a dK/dV CTA
+    # (64 a warpgroup, or 64 shared by two at D 256) and query rows of its
+    # steps, the query rows of a dQ CTA and keys of its steps; stages of the
+    # forward's and the backward's TMA rings
     "flash_attention": {
-        **{f"FLASH_TILE_ROWS_D{d}": 32 if d == 256 else 64 for d in (32, 64, 128, 256)},
+        **{f"FLASH32_FWD_Q_ROWS_D{d}": 128 if d <= 64 else 64 for d in (32, 64, 128, 256)},
+        **{f"FLASH32_FWD_K_ROWS_D{d}": 64 if d == 128 else 32 for d in (32, 64, 128, 256)},
+        **{f"FLASH32_DKDV_K_ROWS_D{d}": {32: 128, 64: 128, 128: 64, 256: 32}[d]
+           for d in (32, 64, 128, 256)},
+        **{f"FLASH32_DKDV_Q_ROWS_D{d}": 64 if d <= 64 else 32 for d in (32, 64, 128, 256)},
+        "FLASH32_STAGES": 2, "FLASH32_FWD_UNROLL": 4, "FLASH32_DKDV_UNROLL": 8,
+        "FLASH32_DQ_SLOTS": 8, "FLASH32_DQ_THREADS": 256,
         **{f"FLASH_FWD_Q_ROWS_D{d}": 128 for d in (32, 64, 128, 256)},
         **{f"FLASH_FWD_K_ROWS_D{d}": 32 if d == 256 else 64 for d in (32, 64, 128, 256)},
         **{f"FLASH_DKDV_K_ROWS_D{d}": 64 if d == 256 else 128 for d in (32, 64, 128, 256)},

@@ -11,7 +11,7 @@
 //
 // Forward: o = softmax(q k^T * scale) v with the online softmax in fp32, and
 // lse = m + log(max(l, 1e-30)) fp32 [B, H, Sq].
-// Backward, two passes as in _flash_bwd_impl, deterministic (no atomics):
+// Backward (bf16), two passes as in _flash_bwd_impl, deterministic (no atomics):
 //   dK/dV pass, one CTA per (batch, kv-head, k-tile), loops over the H/Hk
 //     query heads of its group and over q-tiles from the causal lower bound,
 //     so the group sum that jnp.repeat's transpose does in the JAX package
@@ -39,13 +39,13 @@
 // ~295 flop/byte balance point; the backward about 2.5x the forward's
 // operations.
 //
-// fp32 inputs (the parity path): tiles of BM x BM (64 for D <= 128, 32 for
-// D = 256) staged in shared memory; 256 threads as a 16 x 16 grid each own a
-// TM x TM block of the score tile and a TM x D/16 block of the output; every
-// product is an fp32 FMA on CUDA cores over tiles with a one-float skew, so
-// fp32 is true fp32 (no TF32).
-// bf16 inputs: register-resident tensor-core kernels; see the second half of
-// this file.
+// fp32 inputs (ERNIE's attention, the parity path): CUDA-core kernels in
+// exact fp32 with register-blocked tiles, float4 operands from padded
+// shared tiles and cp.async loads overlapping the arithmetic; their backward
+// does five products (a dK/dV pass that also forms each k-tile's share of
+// dQ, then a fixed-order sum of the shares).  See the last part of this
+// file.
+// bf16 inputs: register-resident tensor-core kernels; see the second part.
 #include <cuda.h>
 #include <math.h>
 
@@ -57,24 +57,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;       // the fp32 kernels: a 16 x 16 thread grid
 constexpr float kNegInf = -1e30f;   // the Pallas kernels' mask value
-
-template <int D>
-struct Tile {
-  // rows of a q-tile and of a k-tile: -D defines from _build.GEOMETRY
-  static constexpr int BM = D == 32 ? FLASH_TILE_ROWS_D32 : D == 64 ? FLASH_TILE_ROWS_D64
-                          : D == 128 ? FLASH_TILE_ROWS_D128 : FLASH_TILE_ROWS_D256;
-  static constexpr int TM = BM / 16;             // score rows (cols) a thread owns
-  static constexpr int TD = D / 16;              // head-dim columns a thread owns
-  static constexpr int LD = D + 1;               // row stride of a [BM, D] tile (skew)
-  static constexpr int LS = BM + 1;              // row stride of a [BM, BM] tile
-  static constexpr int kRows = BM * LD;          // floats of a [BM, D] tile
-  static constexpr int kScores = BM * LS;        // floats of a [BM, BM] tile
-  static constexpr int kFwdBytes = (3 * kRows + kScores) * 4;
-  static constexpr int kDkdvBytes = (4 * kRows + 2 * kScores + 2 * BM) * 4;
-  static constexpr int kDqBytes = (4 * kRows + kScores) * 4;
-};
 
 struct Params {
   const void* q;
@@ -93,70 +76,6 @@ struct Params {
   int B, H, Hk, Sq, Sk, causal;
   float scale;
 };
-
-// rows r0 .. r0+BM-1 of a [S, D] slab (row stride `rs` elements, rows
-// 16-byte aligned) into a skewed fp32 tile (row stride Tile<D>::LD); rows at
-// or past `rows` read as 0.  Every thread issues all its 16-byte loads
-// before its first store, so the tile's loads are in flight together.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, long long rs, int r0,
-                                          int rows) {
-  constexpr int E = 16 / sizeof(T);                     // elements per 16 bytes
-  constexpr int CPR = D / E;                            // 16-byte chunks a row
-  constexpr int N = Tile<D>::BM * CPR / kThreads;       // chunks a thread
-  static_assert(N >= 1 && Tile<D>::BM * CPR % kThreads == 0, "tile split");
-  uint4 buf[N];
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    const int c = threadIdx.x + n * kThreads;
-    const int r = r0 + c / CPR;
-    buf[n] = r < rows ? *reinterpret_cast<const uint4*>(src + r * rs + (c % CPR) * E)
-                      : make_uint4(0u, 0u, 0u, 0u);
-  }
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    const int c = threadIdx.x + n * kThreads;
-    float* row = dst + (c / CPR) * Tile<D>::LD + (c % CPR) * E;
-    const T* v = reinterpret_cast<const T*>(&buf[n]);
-#pragma unroll
-    for (int j = 0; j < E; ++j) row[j] = to_float(v[j]);
-  }
-}
-
-// s[i][j] = A[ty + 16 i] . B[tx + 16 j] over D, both skewed [BM, D] tiles
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&s)[Tile<D>::TM][Tile<D>::TM],
-                                         const float* A, const float* Bt, int ty, int tx) {
-  using C = Tile<D>;
-#pragma unroll
-  for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-    for (int j = 0; j < C::TM; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[C::TM], b[C::TM];
-#pragma unroll
-    for (int i = 0; i < C::TM; ++i) a[i] = A[(ty + 16 * i) * C::LD + d];
-#pragma unroll
-    for (int j = 0; j < C::TM; ++j) b[j] = Bt[(tx + 16 * j) * C::LD + d];
-#pragma unroll
-    for (int i = 0; i < C::TM; ++i)
-#pragma unroll
-      for (int j = 0; j < C::TM; ++j) s[i][j] += a[i] * b[j];
-  }
-}
-
-// max and sum across the 16 threads (tx = 0..15) that share a score row
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // k-tiles of BK keys a q-tile of BQ rows starting at q0 must visit
 // (_causal_hi); every one when its first row sees no key (Sq > Sk)
@@ -179,308 +98,6 @@ __device__ __forceinline__ float masked(float s, int qr, int kc, const Params& p
   s *= p.scale;
   if (p.causal && qr + (p.Sk - p.Sq) < kc) return kNegInf;
   return s;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
-  using C = Tile<D>;
-  constexpr int BM = C::BM, TM = C::TM, TD = C::TD, LD = C::LD, LS = C::LS;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + C::kRows;
-  float* Vs = Ks + C::kRows;
-  float* Ps = Vs + C::kRows;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * BM;
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y % p.H;
-  const int g = h / (p.H / p.Hk);
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + g * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + g * p.v_sh;
-
-  load_rows<T, D>(Qs, q, p.q_ss, q0, p.Sq);
-  float m[TM], l[TM], acc[TM][TD];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < TD; ++c) acc[i][c] = 0.f;
-  }
-
-  const int nkt = kv_tiles(q0, BM, BM, p);
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * BM;
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    load_rows<T, D>(Ks, k, p.k_ss, k0, p.Sk);
-    load_rows<T, D>(Vs, v, p.v_ss, k0, p.Sk);
-    __syncthreads();
-    float s[TM][TM];
-    tile_dot<D>(s, Qs, Ks, ty, tx);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int qr = q0 + ty + 16 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < TM; ++j) {
-        s[i][j] = masked(s[i][j], qr, k0 + tx + 16 * j, p);
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < TM; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-        Ps[(ty + 16 * i) * LS + tx + 16 * j] = s[i][j];
-      }
-      const float alpha = expf(m[i] - m_new);
-      l[i] = alpha * l[i] + row_sum16(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < TD; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BM; ++kk) {
-      float pv[TM], vv[TD];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) pv[i] = Ps[(ty + 16 * i) * LS + kk];
-#pragma unroll
-      for (int c = 0; c < TD; ++c) vv[c] = Vs[kk * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int c = 0; c < TD; ++c) acc[i][c] += pv[i] * vv[c];
-    }
-  }
-
-  T* o = static_cast<T*>(p.out);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int qr = q0 + ty + 16 * i;
-    if (qr >= p.Sq) continue;
-    const float l_safe = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((static_cast<long long>(b) * p.Sq + qr) * p.H + h) * D;
-#pragma unroll
-    for (int c = 0; c < TD; ++c) orow[tx + 16 * c] = from_float<T>(acc[i][c] / l_safe);
-    if (tx == 0) p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + qr] = m[i] + logf(l_safe);
-  }
-}
-
-// p and ds of one (q-tile, k-tile) pair, each thread its TM x TM block:
-// s = q . k, dp = do . v; p = exp(masked(s) - lse), ds = p (dp - delta) scale;
-// a row that sees no key weighs each key 1 / Sk and has ds = 0
-template <int D>
-__device__ __forceinline__ void probs_and_dscores(
-    float (&pr)[Tile<D>::TM][Tile<D>::TM], float (&ds)[Tile<D>::TM][Tile<D>::TM],
-    const float* Qs, const float* Ks, const float* dOs, const float* Vs,
-    const float* lse_row, const float* delta_row, int q0, int k0, int ty, int tx,
-    const Params& p) {
-  using C = Tile<D>;
-  tile_dot<D>(pr, Qs, Ks, ty, tx);
-  tile_dot<D>(ds, dOs, Vs, ty, tx);
-#pragma unroll
-  for (int i = 0; i < C::TM; ++i) {
-    const int qr = q0 + ty + 16 * i;
-    const bool blind = sees_no_key(qr, p);
-#pragma unroll
-    for (int j = 0; j < C::TM; ++j) {
-      const int kc = k0 + tx + 16 * j;
-      if (blind) {
-        pr[i][j] = kc < p.Sk ? 1.f / p.Sk : 0.f;
-        ds[i][j] = 0.f;
-        continue;
-      }
-      const float pij = expf(masked(pr[i][j], qr, kc, p) - lse_row[i]);
-      pr[i][j] = pij;
-      ds[i][j] = pij * (ds[i][j] - delta_row[i]) * p.scale;
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(Params p) {
-  using C = Tile<D>;
-  constexpr int BM = C::BM, TM = C::TM, TD = C::TD, LD = C::LD, LS = C::LS;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + C::kRows;
-  float* Qs = Vs + C::kRows;
-  float* dOs = Qs + C::kRows;
-  float* Ps = dOs + C::kRows;
-  float* dSs = Ps + C::kScores;
-  float* lse_s = dSs + C::kScores;
-  float* delta_s = lse_s + BM;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int k0 = blockIdx.x * BM;
-  const int b = blockIdx.y / p.Hk;
-  const int g = blockIdx.y % p.Hk;
-  const int rep = p.H / p.Hk;
-  const int off = p.Sk - p.Sq;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + g * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + g * p.v_sh;
-  load_rows<T, D>(Ks, k, p.k_ss, k0, p.Sk);
-  load_rows<T, D>(Vs, v, p.v_ss, k0, p.Sk);
-
-  // key rows ty + 16 a, head-dim columns tx + 16 c
-  float dk[TM][TD], dv[TM][TD];
-#pragma unroll
-  for (int a = 0; a < TM; ++a)
-#pragma unroll
-    for (int c = 0; c < TD; ++c) dk[a][c] = dv[a][c] = 0.f;
-
-  const int n_q = (p.Sq + BM - 1) / BM;
-  const int lo = p.causal && off >= 0 ? max(k0 - off, 0) / BM : 0;  // _causal_lo
-  for (int r = 0; r < rep; ++r) {
-    const int h = g * rep + r;
-    const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-    const float* lse = p.lse + (static_cast<long long>(b) * p.H + h) * p.Sq;
-    const float* delta = p.delta + (static_cast<long long>(b) * p.H + h) * p.Sq;
-    for (int qt = lo; qt < n_q; ++qt) {
-      const int q0 = qt * BM;
-      __syncthreads();  // the previous q-tile's Q, dO, P and dS are consumed
-      load_rows<T, D>(Qs, q, p.q_ss, q0, p.Sq);
-      load_rows<T, D>(dOs, dout, p.do_ss, q0, p.Sq);
-      for (int i = tid; i < BM; i += kThreads) {
-        const bool live = q0 + i < p.Sq;
-        lse_s[i] = live ? lse[q0 + i] : INFINITY;  // rows past Sq weigh 0
-        delta_s[i] = live ? delta[q0 + i] : 0.f;
-      }
-      __syncthreads();
-      float lse_row[TM], delta_row[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        lse_row[i] = lse_s[ty + 16 * i];
-        delta_row[i] = delta_s[ty + 16 * i];
-      }
-      float pr[TM][TM], ds[TM][TM];
-      probs_and_dscores<D>(pr, ds, Qs, Ks, dOs, Vs, lse_row, delta_row, q0, k0, ty, tx, p);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TM; ++j) {
-          Ps[(ty + 16 * i) * LS + tx + 16 * j] = pr[i][j];
-          dSs[(ty + 16 * i) * LS + tx + 16 * j] = ds[i][j];
-        }
-      __syncthreads();
-      // dV += P^T dO, dK += dS^T Q over the tile's rows
-#pragma unroll 2
-      for (int ii = 0; ii < BM; ++ii) {
-        float pa[TM], da[TM], dov[TD], qv[TD];
-#pragma unroll
-        for (int a = 0; a < TM; ++a) {
-          pa[a] = Ps[ii * LS + ty + 16 * a];
-          da[a] = dSs[ii * LS + ty + 16 * a];
-        }
-#pragma unroll
-        for (int c = 0; c < TD; ++c) {
-          dov[c] = dOs[ii * LD + tx + 16 * c];
-          qv[c] = Qs[ii * LD + tx + 16 * c];
-        }
-#pragma unroll
-        for (int a = 0; a < TM; ++a)
-#pragma unroll
-          for (int c = 0; c < TD; ++c) {
-            dv[a][c] += pa[a] * dov[c];
-            dk[a][c] += da[a] * qv[c];
-          }
-      }
-    }
-  }
-
-  T* dkp = static_cast<T*>(p.dk);
-  T* dvp = static_cast<T*>(p.dv);
-#pragma unroll
-  for (int a = 0; a < TM; ++a) {
-    const int kr = k0 + ty + 16 * a;
-    if (kr >= p.Sk) continue;
-    const long long row = ((static_cast<long long>(b) * p.Sk + kr) * p.Hk + g) * D;
-#pragma unroll
-    for (int c = 0; c < TD; ++c) {
-      dkp[row + tx + 16 * c] = from_float<T>(dk[a][c]);
-      dvp[row + tx + 16 * c] = from_float<T>(dv[a][c]);
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
-  using C = Tile<D>;
-  constexpr int BM = C::BM, TM = C::TM, TD = C::TD, LD = C::LD, LS = C::LS;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + C::kRows;
-  float* Ks = dOs + C::kRows;
-  float* Vs = Ks + C::kRows;
-  float* dSs = Vs + C::kRows;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * BM;
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y % p.H;
-  const int g = h / (p.H / p.Hk);
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + g * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + g * p.v_sh;
-  const float* lse = p.lse + (static_cast<long long>(b) * p.H + h) * p.Sq;
-  const float* delta = p.delta + (static_cast<long long>(b) * p.H + h) * p.Sq;
-  load_rows<T, D>(Qs, q, p.q_ss, q0, p.Sq);
-  load_rows<T, D>(dOs, dout, p.do_ss, q0, p.Sq);
-  float lse_row[TM], delta_row[TM], dq[TM][TD];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int qr = q0 + ty + 16 * i;
-    lse_row[i] = qr < p.Sq ? lse[qr] : INFINITY;
-    delta_row[i] = qr < p.Sq ? delta[qr] : 0.f;
-#pragma unroll
-    for (int c = 0; c < TD; ++c) dq[i][c] = 0.f;
-  }
-
-  const int nkt = kv_tiles(q0, BM, BM, p);
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * BM;
-    __syncthreads();  // the previous tile's K, V and dS are consumed
-    load_rows<T, D>(Ks, k, p.k_ss, k0, p.Sk);
-    load_rows<T, D>(Vs, v, p.v_ss, k0, p.Sk);
-    __syncthreads();
-    float pr[TM][TM], ds[TM][TM];
-    probs_and_dscores<D>(pr, ds, Qs, Ks, dOs, Vs, lse_row, delta_row, q0, k0, ty, tx, p);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TM; ++j) dSs[(ty + 16 * i) * LS + tx + 16 * j] = ds[i][j];
-    __syncthreads();
-    // dQ += dS K over the tile's keys
-#pragma unroll 4
-    for (int jj = 0; jj < BM; ++jj) {
-      float dsv[TM], kv[TD];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) dsv[i] = dSs[(ty + 16 * i) * LS + jj];
-#pragma unroll
-      for (int c = 0; c < TD; ++c) kv[c] = Ks[jj * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int c = 0; c < TD; ++c) dq[i][c] += dsv[i] * kv[c];
-    }
-  }
-
-  T* dqp = static_cast<T*>(p.out);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int qr = q0 + ty + 16 * i;
-    if (qr >= p.Sq) continue;
-    T* row = dqp + ((static_cast<long long>(b) * p.Sq + qr) * p.H + h) * D;
-#pragma unroll
-    for (int c = 0; c < TD; ++c) row[tx + 16 * c] = from_float<T>(dq[i][c]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1130,6 +747,609 @@ flash_bwd_dq_tc_kernel(const __grid_constant__ BwdArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// fp32: CUDA-core kernels in exact fp32.  Every product is an fp32 FMA
+// (fmaf) on the CUDA cores: no TF32, no mma or wgmma, no float atomics.
+//
+// What bounds them: the card's fp32 rate (67 TFLOP/s, 128 FMAs a clock on an
+// SM).  Behind it, shared memory serves one 128-byte wavefront a clock while
+// the SM issues four warp-wide FFMAs, and a warp's FFMAs wait on its loads.
+// So each product is register-blocked: a thread owns a block of the output
+// (at D 64, 4 x 4 scores of S and 4 x 8 of O in the forward; 8 x 4 of S
+// and dP, 4 x 8 each of dK and dV and 4 x 4 of the dQ share in the
+// backward) and reads its operands as 16-byte float4, so a load feeds 8 to
+// 16 FMAs, not 2.  Tiles are row-major with each row padded by one 16-byte
+// chunk (at), in place of a one-float skew that would rule float4 out: the
+// rows or the chunks a warp reads at once fall in distinct bank groups, and
+// every operand's address is a base plus a constant.  Products read their
+// operands in one of three orders (gemm_nt: both along the depth, S = Q K^T
+// and dP = dO V^T; gemm_nn: A along the depth, B along its columns, O += P V
+// and dS K; gemm_tn2: both along their columns, dV += P^T dO and dK += dS^T
+// Q), each summing every output in a fixed order, with FLASH32_FWD_UNROLL
+// (FLASH32_DKDV_UNROLL) steps of its loop unrolled so a step's loads are in
+// flight under the last one's FMAs.
+//
+// Loads overlap the arithmetic: the tiles a CTA walks over (K and V in the
+// forward, Q, dO, lse and delta in the backward) come by cp.async, as they
+// are, into a ring of FLASH32_STAGES stages; a tile's loads are issued a
+// stage ahead, right after the barrier that frees its stage, so they land
+// while the current tile is multiplied.  Rows past
+// the sequence are zero-filled by the copy and read nothing.
+//
+// Forward (flash_fwd_kernel): a CTA owns BQ query rows of one (batch,
+// head), 8 warps of BQ / 8 rows; its Q tile stays in shared memory.  Per
+// k-tile of BK keys: S = Q K^T in registers, the online softmax in base 2
+// (the score scaled by scale * log2 e; a row's max across its lanes by
+// shuffles, its sum kept per lane until the end), P into the warp's own
+// rows of a [BQ][BK] tile (a __syncwarp, no CTA barrier), O += P V.  One
+// CTA barrier a k-tile, for the ring.  At D 64: 128 rows, 32-key tiles, 88
+// KB of shared memory and at most 128 registers, so two CTAs share an SM.
+//
+// Backward: five products, against seven for a dK/dV pass beside a dQ pass
+// that recomputes S and dP.  flash_bwd_dkdv_kernel: a CTA owns BK keys of
+// one (batch, kv-head), K and V resident, 8 warps of BK / 8 keys; it walks
+// the group's query heads and the q-tiles from _causal_lo in steps of BQ
+// rows.  Per step: S and dP for the warp's keys, P = exp2(s c - lse c) and
+// dS = P (dP - delta) scale in registers, both into [BQ][BK] tiles, one
+// barrier, then dV += P^T dO and dK += dS^T Q for the warp's keys (the group
+// sum in the accumulators), and the step's share of dQ, dS K over the CTA's
+// keys, stored to its slot of the dQ workspace.  At D 64: 128 keys, steps
+// of 64 rows, 203 KB of shared memory, one CTA an SM.  flash_bwd_dq_kernel
+// then forms dq = the slots' sum, slot by slot in k-tile order: a fixed
+// order, so the result is the same bits on every launch.  The workspace
+// holds FLASH32_DQ_SLOTS k-tiles' shares at most (ERNIE-base's B 32, S 512,
+// H 12, D 64 uses 4, 50 MB each); a longer Sk runs the pair of launches
+// once for each group of that many k-tiles, the later groups adding to dq,
+// still in k-tile order.  The group count, ceil(k-tiles / FLASH32_DQ_SLOTS),
+// is a function of the shape alone.  The slots of q-tiles a causal walk
+// skips (before _causal_lo) are written as zeros.
+// ---------------------------------------------------------------------------
+
+constexpr int kWarps32 = 8;                    // warps of an fp32 CTA
+constexpr int kThreads32 = 32 * kWarps32;
+constexpr int kStages32 = FLASH32_STAGES;      // stages of a cp.async ring
+constexpr int kDqSlots = FLASH32_DQ_SLOTS;     // k-tiles' dQ shares a workspace holds
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInf2 = kNegInf * kLog2e;   // the mask value, base-2 exponent units
+
+// element (r, c) of a [rows][W] fp32 tile whose rows are padded by one
+// 16-byte chunk: row r starts r chunks further round the 32 banks, so eight
+// consecutive rows read at one column fall in eight bank groups, a row's
+// consecutive chunks do too, and a float4 at a column that is a multiple of
+// 4 stays whole.  An operand's address is a base plus a constant offset
+template <int W>
+__device__ __forceinline__ int at(int r, int c) {
+  static_assert(W % 32 == 0, "a row spans a multiple of the 32 banks");
+  return r * (W + 4) + c;
+}
+
+__device__ __forceinline__ float4 ld4(const float* s) {
+  return *reinterpret_cast<const float4*>(s);
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// 16 (4) bytes from global `src` to shared `dst` by cp.async, zero-filled
+// and nothing read when !live
+__device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4_zfill(float* dst, const float* src, bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(live ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows r0 .. r0 + ROWS - 1 of a [S, D] fp32 slab (row stride rs elements,
+// rows 16-byte aligned) into a padded [ROWS][D] tile; rows at or past
+// `rows` are zero-filled
+template <int ROWS, int D>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, long long rs, int r0,
+                                           int rows) {
+  constexpr int CPR = D / 4;  // 16-byte chunks a row
+  static_assert(ROWS * CPR % kThreads32 == 0, "tile split");
+#pragma unroll
+  for (int n = 0; n < ROWS * CPR / kThreads32; ++n) {
+    const int c = threadIdx.x + n * kThreads32;
+    const int r = c / CPR, ch = c % CPR;
+    const bool live = r0 + r < rows;
+    cp_async16_zfill(dst + at<D>(r, 4 * ch), live ? src + (r0 + r) * rs + 4 * ch : src, live);
+  }
+}
+
+// entries r0 .. r0 + ROWS - 1 of a row of statistics; past `rows`, 0
+template <int ROWS>
+__device__ __forceinline__ void stage_stats(float* dst, const float* src, int r0, int rows) {
+  for (int i = threadIdx.x; i < ROWS; i += kThreads32) {
+    const bool live = r0 + i < rows;
+    cp_async4_zfill(dst + i, live ? src + r0 + i : src, live);
+  }
+}
+
+// s[i][j] += A[ra + LA i] . B[rb + LB j] over the D columns of two padded
+// [rows][D] tiles: a step of 4 columns reads TM + TN float4 for 4 TM TN
+// FMAs, holding the smaller side's float4 in registers; U steps unrolled
+template <int D, int TM, int TN, int LA, int LB, int U>
+__device__ __forceinline__ void gemm_nt(float (&s)[TM][TN], const float* A, const float* B,
+                                        int ra, int rb) {
+#pragma unroll (U)
+  for (int c = 0; c < D; c += 4) {
+    if constexpr (TM <= TN) {
+      float4 a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = ld4(A + at<D>(ra + LA * i, c));
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float4 b = ld4(B + at<D>(rb + LB * j, c));
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          s[i][j] = fmaf(a[i].x, b.x, s[i][j]);
+          s[i][j] = fmaf(a[i].y, b.y, s[i][j]);
+          s[i][j] = fmaf(a[i].z, b.z, s[i][j]);
+          s[i][j] = fmaf(a[i].w, b.w, s[i][j]);
+        }
+      }
+    } else {
+      float4 b[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = ld4(B + at<D>(rb + LB * j, c));
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float4 a = ld4(A + at<D>(ra + LA * i, c));
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          s[i][j] = fmaf(a.x, b[j].x, s[i][j]);
+          s[i][j] = fmaf(a.y, b[j].y, s[i][j]);
+          s[i][j] = fmaf(a.z, b[j].z, s[i][j]);
+          s[i][j] = fmaf(a.w, b[j].w, s[i][j]);
+        }
+      }
+    }
+  }
+}
+
+// acc[i][4 t + e] += sum over k < K of A[ra + LA i][k] B[k][4 cb + 4 LB t +
+// e]: A a padded [rows][K] tile (P, dS), B a padded [K][W] tile (V, K)
+template <int K, int W, int TM, int TD, int LA, int LB, int U>
+__device__ __forceinline__ void gemm_nn(float (&acc)[TM][TD], const float* A, const float* B,
+                                        int ra, int cb) {
+#pragma unroll (U)
+  for (int k = 0; k < K; k += 4) {
+    float4 a[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) a[i] = ld4(A + at<K>(ra + LA * i, k));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float4 b[TD / 4];
+#pragma unroll
+      for (int t = 0; t < TD / 4; ++t) b[t] = ld4(B + at<W>(k + e, 4 * cb + 4 * LB * t));
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float x = lane_of(a[i], e);
+#pragma unroll
+        for (int t = 0; t < TD / 4; ++t) {
+          acc[i][4 * t] = fmaf(x, b[t].x, acc[i][4 * t]);
+          acc[i][4 * t + 1] = fmaf(x, b[t].y, acc[i][4 * t + 1]);
+          acc[i][4 * t + 2] = fmaf(x, b[t].z, acc[i][4 * t + 2]);
+          acc[i][4 * t + 3] = fmaf(x, b[t].w, acc[i][4 * t + 3]);
+        }
+      }
+    }
+  }
+}
+
+// dv[a][4 t + e] += sum over rows r < R of P[r][ka + a] dO[r][4 dg + 4 LD t
+// + e], and dk likewise from dS and Q: P, dS padded [R][BK] tiles (ka a
+// multiple of 4), dO, Q padded [R][D] tiles
+template <int R, int BK, int D, int TD, int LD, int U>
+__device__ __forceinline__ void gemm_tn2(float (&dv)[4][TD], float (&dk)[4][TD], const float* P,
+                                         const float* dS, const float* dO, const float* Q,
+                                         int ka, int dg) {
+#pragma unroll (U)
+  for (int r = 0; r < R; ++r) {
+    const float4 pa = ld4(P + at<BK>(r, ka));
+    const float4 da = ld4(dS + at<BK>(r, ka));
+    float4 o[TD / 4], q[TD / 4];
+#pragma unroll
+    for (int t = 0; t < TD / 4; ++t) {
+      o[t] = ld4(dO + at<D>(r, 4 * dg + 4 * LD * t));
+      q[t] = ld4(Q + at<D>(r, 4 * dg + 4 * LD * t));
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const float x = lane_of(pa, a), y = lane_of(da, a);
+#pragma unroll
+      for (int t = 0; t < TD / 4; ++t) {
+        dv[a][4 * t] = fmaf(x, o[t].x, dv[a][4 * t]);
+        dv[a][4 * t + 1] = fmaf(x, o[t].y, dv[a][4 * t + 1]);
+        dv[a][4 * t + 2] = fmaf(x, o[t].z, dv[a][4 * t + 2]);
+        dv[a][4 * t + 3] = fmaf(x, o[t].w, dv[a][4 * t + 3]);
+        dk[a][4 * t] = fmaf(y, q[t].x, dk[a][4 * t]);
+        dk[a][4 * t + 1] = fmaf(y, q[t].y, dk[a][4 * t + 1]);
+        dk[a][4 * t + 2] = fmaf(y, q[t].z, dk[a][4 * t + 2]);
+        dk[a][4 * t + 3] = fmaf(y, q[t].w, dk[a][4 * t + 3]);
+      }
+    }
+  }
+}
+
+// the forward's geometry at head dim D (-D defines from _build.GEOMETRY)
+template <int D>
+struct Fwd32 {
+  static constexpr int BQ = per_d(D, FLASH32_FWD_Q_ROWS_D32, FLASH32_FWD_Q_ROWS_D64,
+                                  FLASH32_FWD_Q_ROWS_D128, FLASH32_FWD_Q_ROWS_D256);
+  static constexpr int BK = per_d(D, FLASH32_FWD_K_ROWS_D32, FLASH32_FWD_K_ROWS_D64,
+                                  FLASH32_FWD_K_ROWS_D128, FLASH32_FWD_K_ROWS_D256);
+  static constexpr int U = FLASH32_FWD_UNROLL;   // steps of a product's loop unrolled
+  static constexpr int WQ = BQ / kWarps32;     // query rows of a warp
+  static constexpr int LR = WQ >= 16 ? 4 : 2;  // its lanes along rows
+  static constexpr int LC = 32 / LR;           // ... and along keys and head-dim columns
+  static constexpr int TM = WQ / LR;           // rows of a thread
+  static constexpr int TN = BK / LC;           // keys of a thread
+  static constexpr int TD = D / LC;            // head-dim columns of a thread
+  static constexpr int kQ = BQ * (D + 4), kKV = BK * (D + 4);   // floats of a padded tile
+  // Q, the ring's K and V tiles, P
+  static constexpr int kBytes = (kQ + 2 * kStages32 * kKV + BQ * (BK + 4)) * 4;
+  // CTAs an SM, its registers budgeted for: two where two fit in the SM's
+  // 228 KB of shared memory (each with the 1 KB the runtime keeps a CTA)
+  static constexpr int CTAS = 2 * (kBytes + 1024) <= 228 * 1024 ? 2 : 1;
+  static_assert(WQ % LR == 0 && BK % LC == 0 && TD % 4 == 0 && BK % 32 == 0 && kStages32 >= 2,
+                "fp32 forward geometry");
+};
+
+// thread (warp w, lane) owns rows w WQ + lane / LC + LR i of the q-tile,
+// keys lane % LC + LC j of each k-tile and head-dim columns 4 (lane % LC) +
+// 4 LC t + e of O
+template <int D>
+__global__ void __launch_bounds__(kThreads32, Fwd32<D>::CTAS) flash_fwd_kernel(Params p) {
+  using G = Fwd32<D>;
+  constexpr int BQ = G::BQ, BK = G::BK, LR = G::LR, LC = G::LC;
+  constexpr int TM = G::TM, TN = G::TN, TD = G::TD;
+  extern __shared__ float4 smem_f32[];
+  float* Qs = reinterpret_cast<float*>(smem_f32);   // [BQ][D]
+  float* ring = Qs + G::kQ;                          // stage s: K, then V, [BK][D] each
+  float* Ps = ring + 2 * kStages32 * G::kKV;         // [BQ][BK], a warp its own rows
+  const int lane = threadIdx.x & 31;
+  const int row0 = (threadIdx.x >> 5) * G::WQ + lane / LC;
+  const int col = lane % LC;
+  const int q0 = blockIdx.x * BQ;
+  const int b = blockIdx.y / p.H;
+  const int h = blockIdx.y % p.H;
+  const int g = h / (p.H / p.Hk);
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + g * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + g * p.v_sh;
+  const int nkt = kv_tiles(q0, BQ, BK, p);
+  const int off = p.Sk - p.Sq;
+  const float c2 = p.scale * kLog2e;   // a raw score to a base-2 exponent
+
+  stage_rows<BQ, D>(Qs, q, p.q_ss, q0, p.Sq);   // lands with the first stage's group
+#pragma unroll
+  for (int s = 0; s < kStages32 - 1; ++s) {
+    if (s < nkt) {
+      stage_rows<BK, D>(ring + 2 * s * G::kKV, k, p.k_ss, s * BK, p.Sk);
+      stage_rows<BK, D>(ring + (2 * s + 1) * G::kKV, v, p.v_ss, s * BK, p.Sk);
+    }
+    cp_async_commit();
+  }
+
+  float m[TM], l[TM], acc[TM][TD];   // m in base-2 units; l this lane's share
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    m[i] = kNegInf2;
+    l[i] = 0.f;
+#pragma unroll
+    for (int d = 0; d < TD; ++d) acc[i][d] = 0.f;
+  }
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_async_wait<kStages32 - 2>();   // this thread's copies of tile kt have landed
+    __syncthreads();                   // ... every thread's; tile kt - 1's stage is free
+    {
+      const int nt = kt + kStages32 - 1;
+      if (nt < nkt) {
+        float* st = ring + 2 * (nt % kStages32) * G::kKV;
+        stage_rows<BK, D>(st, k, p.k_ss, nt * BK, p.Sk);
+        stage_rows<BK, D>(st + G::kKV, v, p.v_ss, nt * BK, p.Sk);
+      }
+      cp_async_commit();
+    }
+    const float* Ks = ring + 2 * (kt % kStages32) * G::kKV;
+    const float* Vs = Ks + G::kKV;
+    const int k0 = kt * BK;
+    float s[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
+    gemm_nt<D, TM, TN, LR, LC, G::U>(s, Qs, Ks, row0, col);
+
+    // a pair of the tile is masked: keys past Sk, or above the diagonal
+    const bool edge = k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > q0 + off);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int qr = q0 + row0 + LR * i;
+      float mx = kNegInf2;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        float t = s[i][j] * c2;
+        if (edge) {
+          const int kc = k0 + col + LC * j;
+          t = kc >= p.Sk ? -INFINITY : (p.causal && kc > qr + off ? kNegInf2 : t);
+        }
+        s[i][j] = t;
+        mx = fmaxf(mx, t);
+      }
+#pragma unroll
+      for (int o = LC / 2; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = exp2f(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float pj = exp2f(s[i][j] - m_new);
+        rs += pj;
+        Ps[at<BK>(row0 + LR * i, col + LC * j)] = pj;
+      }
+      l[i] = l[i] * alpha + rs;
+      m[i] = m_new;
+#pragma unroll
+      for (int d = 0; d < TD; ++d) acc[i][d] *= alpha;
+    }
+    __syncwarp();   // the warp's P rows are written
+    gemm_nn<BK, D, TM, TD, LR, LC, G::U>(acc, Ps, Vs, row0, col);
+  }
+  cp_async_wait<0>();   // no copy outlives the CTA (the empty groups, Q when nkt is 0)
+
+  float lsum[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    lsum[i] = l[i];
+#pragma unroll
+    for (int o = LC / 2; o > 0; o >>= 1) lsum[i] += __shfl_xor_sync(0xffffffffu, lsum[i], o);
+  }
+  float* out = static_cast<float*>(p.out);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int qr = q0 + row0 + LR * i;
+    if (qr >= p.Sq) continue;
+    const float l_safe = fmaxf(lsum[i], 1e-30f);
+    float* orow = out + ((static_cast<long long>(b) * p.Sq + qr) * p.H + h) * D;
+#pragma unroll
+    for (int t = 0; t < TD / 4; ++t)
+      *reinterpret_cast<float4*>(orow + 4 * col + 4 * LC * t) =
+          make_float4(acc[i][4 * t] / l_safe, acc[i][4 * t + 1] / l_safe,
+                      acc[i][4 * t + 2] / l_safe, acc[i][4 * t + 3] / l_safe);
+    if (col == 0)
+      p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + qr] = m[i] * kLn2 + logf(l_safe);
+  }
+}
+
+// the backward's geometry at head dim D
+template <int D>
+struct Bwd32 {
+  static constexpr int BK = per_d(D, FLASH32_DKDV_K_ROWS_D32, FLASH32_DKDV_K_ROWS_D64,
+                                  FLASH32_DKDV_K_ROWS_D128, FLASH32_DKDV_K_ROWS_D256);
+  static constexpr int BQ = per_d(D, FLASH32_DKDV_Q_ROWS_D32, FLASH32_DKDV_Q_ROWS_D64,
+                                  FLASH32_DKDV_Q_ROWS_D128, FLASH32_DKDV_Q_ROWS_D256);
+  static constexpr int U = FLASH32_DKDV_UNROLL;   // steps of a product's loop unrolled
+  static constexpr int WK = BK / kWarps32;     // keys of a warp, 4 a lane
+  static constexpr int LK = WK / 4;           // the warp's lanes along keys
+  // S and dP: [BQ] rows x the warp's keys, LQ lanes along rows, TQ rows a lane
+  static constexpr int LQ = 32 / LK, TQ = BQ / LQ;
+  // dK and dV: the warp's keys x D, LD lanes along columns, TD columns a lane
+  static constexpr int LD = 32 / LK, TD = D / LD;
+  // the step's dQ share: BQ / 8 rows a warp x D, LQ3 lanes along rows, LD3
+  // along columns
+  static constexpr int LD3 = D >= 256 ? 32 : (D / 4 < 16 ? D / 4 : 16);
+  static constexpr int LQ3 = 32 / LD3, TQ3 = BQ / kWarps32 / LQ3, TD3 = D / LD3;
+  static constexpr int kQ = BQ * (D + 4), kKV = BK * (D + 4), kP = BQ * (BK + 4);
+  static constexpr int kStage = 2 * kQ + 2 * BQ;   // Q, dO, lse, delta
+  // K, V, the ring, P, dS
+  static constexpr int kBytes = (2 * kKV + kStages32 * kStage + 2 * kP) * 4;
+  static_assert(WK % 4 == 0 && 32 % LK == 0 && BQ % LQ == 0 && TD % 4 == 0 && TQ3 >= 1 &&
+                    TD3 % 4 == 0 && BK % 32 == 0 && BQ % 4 == 0 && kStages32 >= 2,
+                "fp32 backward geometry");
+};
+
+// the tiles of one backward step (query head h, rows q0 ..) into a stage
+template <int D, int BQ>
+__device__ __forceinline__ void stage_step(float* st, const Params& p, int b, int h, int q0) {
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* dout = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const long long row = (static_cast<long long>(b) * p.H + h) * p.Sq;
+  constexpr int kQ = BQ * (D + 4);
+  stage_rows<BQ, D>(st, q, p.q_ss, q0, p.Sq);
+  stage_rows<BQ, D>(st + kQ, dout, p.do_ss, q0, p.Sq);
+  stage_stats<BQ>(st + 2 * kQ, p.lse + row, q0, p.Sq);
+  stage_stats<BQ>(st + 2 * kQ + BQ, p.delta + row, q0, p.Sq);
+}
+
+// a CTA per (k-tile kt0 + blockIdx.x, batch x kv-head).  Its steps walk the
+// group's heads r and the q-tiles lo .. n_q - 1.  Lanes: S and dP at rows
+// qg + LQ i and keys wk0 + kg + LK c; dK and dV at keys wk0 + 4 kg2 + a
+// and columns 4 dg + 4 LD t + e; the dQ share at rows w BQ / 8 + qg3 + LQ3
+// i and columns 4 dg3 + 4 LD3 t + e.  A row past Sq is zero in Q, dO, lse
+// and delta, so its P is 1 or 0 and every product it enters adds 0.
+template <int D>
+__global__ void __launch_bounds__(kThreads32, 1)
+    flash_bwd_dkdv_kernel(Params p, float* dq_work, int kt0) {
+  using G = Bwd32<D>;
+  constexpr int BK = G::BK, BQ = G::BQ, LK = G::LK, LQ = G::LQ, TQ = G::TQ;
+  constexpr int LD = G::LD, TD = G::TD, LQ3 = G::LQ3, LD3 = G::LD3;
+  extern __shared__ float4 smem_f32[];
+  float* Ks = reinterpret_cast<float*>(smem_f32);   // [BK][D]
+  float* Vs = Ks + G::kKV;
+  float* ring = Vs + G::kKV;                         // stages of Q, dO [BQ][D], lse, delta [BQ]
+  float* Ps = ring + kStages32 * G::kStage;          // [BQ][BK]
+  float* dSs = Ps + G::kP;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wk0 = warp * G::WK;
+  const int qg = lane / LK, kg = lane % LK;
+  const int kg2 = lane / LD, dg = lane % LD;
+  const int qg3 = lane / LD3, dg3 = lane % LD3;
+  const int slot = blockIdx.x;
+  const int k0 = (kt0 + slot) * BK;
+  const int b = blockIdx.y / p.Hk;
+  const int g = blockIdx.y % p.Hk;
+  const int rep = p.H / p.Hk;
+  const int off = p.Sk - p.Sq;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + g * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + g * p.v_sh;
+  const int n_q = (p.Sq + BQ - 1) / BQ;
+  const int lo = p.causal && off >= 0 ? max(k0 - off, 0) / BQ : 0;   // _causal_lo
+  const int walk = n_q - lo;
+  const int steps = rep * walk;
+  const float c2 = p.scale * kLog2e;
+
+  stage_rows<BK, D>(Ks, k, p.k_ss, k0, p.Sk);   // land with the first stage's group
+  stage_rows<BK, D>(Vs, v, p.v_ss, k0, p.Sk);
+#pragma unroll
+  for (int s = 0; s < kStages32 - 1; ++s) {
+    if (s < steps) stage_step<D, BQ>(ring + s * G::kStage, p, b, g * rep + s / walk,
+                                     (lo + s % walk) * BQ);
+    cp_async_commit();
+  }
+
+  float dk[4][TD], dv[4][TD];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int d = 0; d < TD; ++d) dk[a][d] = dv[a][d] = 0.f;
+
+  for (int st = 0; st < steps; ++st) {
+    cp_async_wait<kStages32 - 2>();
+    __syncthreads();   // step st's stage has landed; step st - 1's P, dS and stage are free
+    {
+      const int nx = st + kStages32 - 1;
+      if (nx < steps)
+        stage_step<D, BQ>(ring + (nx % kStages32) * G::kStage, p, b, g * rep + nx / walk,
+                          (lo + nx % walk) * BQ);
+      cp_async_commit();
+    }
+    const int h = g * rep + st / walk;
+    const int q0 = (lo + st % walk) * BQ;
+    const float* Qs = ring + (st % kStages32) * G::kStage;
+    const float* dOs = Qs + G::kQ;
+    const float* lse_s = dOs + G::kQ;
+    const float* delta_s = lse_s + BQ;
+    const bool edge = k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > q0 + off);
+
+    float pr[TQ][4], dp[TQ][4];
+#pragma unroll
+    for (int i = 0; i < TQ; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) pr[i][c] = dp[i][c] = 0.f;
+    gemm_nt<D, TQ, 4, LQ, LK, G::U>(pr, Qs, Ks, qg, wk0 + kg);
+    gemm_nt<D, TQ, 4, LQ, LK, G::U>(dp, dOs, Vs, qg, wk0 + kg);
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) {
+      const int r = qg + LQ * i;
+      const int qr = q0 + r;
+      const float lse2 = lse_s[r] * kLog2e;
+      const float dl = delta_s[r];
+      const bool blind = sees_no_key(qr, p);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kk = wk0 + kg + LK * c;
+        const int kc = k0 + kk;
+        float x = exp2f(fmaf(pr[i][c], c2, -lse2));
+        if (edge && (kc >= p.Sk || (p.causal && kc > qr + off))) x = 0.f;
+        if (blind) x = kc < p.Sk ? 1.f / p.Sk : 0.f;
+        Ps[at<BK>(r, kk)] = x;
+        dSs[at<BK>(r, kk)] = blind ? 0.f : x * (dp[i][c] - dl) * p.scale;
+      }
+    }
+    __syncthreads();   // P and dS of every warp's keys
+    gemm_tn2<BQ, BK, D, TD, LD, G::U>(dv, dk, Ps, dSs, dOs, Qs, wk0 + 4 * kg2, dg);
+
+    // the step's share of dQ over the CTA's keys, into the workspace slot
+    float dq[G::TQ3][G::TD3];
+#pragma unroll
+    for (int i = 0; i < G::TQ3; ++i)
+#pragma unroll
+      for (int d = 0; d < G::TD3; ++d) dq[i][d] = 0.f;
+    const int rq = warp * (BQ / kWarps32) + qg3;
+    gemm_nn<BK, D, G::TQ3, G::TD3, LQ3, LD3, G::U>(dq, dSs, Ks, rq, dg3);
+#pragma unroll
+    for (int i = 0; i < G::TQ3; ++i) {
+      const int qr = q0 + rq + LQ3 * i;
+      if (qr >= p.Sq) continue;
+      float* row = dq_work + (((static_cast<long long>(slot) * p.B + b) * p.Sq + qr) * p.H + h) * D;
+#pragma unroll
+      for (int t = 0; t < G::TD3 / 4; ++t)
+        *reinterpret_cast<float4*>(row + 4 * dg3 + 4 * LD3 * t) =
+            make_float4(dq[i][4 * t], dq[i][4 * t + 1], dq[i][4 * t + 2], dq[i][4 * t + 3]);
+    }
+  }
+  cp_async_wait<0>();   // no copy outlives the CTA
+
+  // the slot's rows of the q-tiles the walk skipped hold no share
+  if (lo > 0) {
+    const int rows = min(lo * BQ, p.Sq);
+    const long long per_head = static_cast<long long>(rows) * (D / 4);
+    for (long long x = threadIdx.x; x < rep * per_head; x += kThreads32) {
+      const int r = static_cast<int>(x / per_head);
+      const int qr = static_cast<int>(x % per_head / (D / 4));
+      const int c4 = static_cast<int>(x % (D / 4));
+      float* row = dq_work +
+                   (((static_cast<long long>(slot) * p.B + b) * p.Sq + qr) * p.H + g * rep + r) * D;
+      *reinterpret_cast<float4*>(row + 4 * c4) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+
+  float* dkp = static_cast<float*>(p.dk);
+  float* dvp = static_cast<float*>(p.dv);
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int kr = k0 + wk0 + 4 * kg2 + a;
+    if (kr >= p.Sk) continue;
+    const long long row = ((static_cast<long long>(b) * p.Sk + kr) * p.Hk + g) * D;
+#pragma unroll
+    for (int t = 0; t < TD / 4; ++t) {
+      const int c = 4 * dg + 4 * LD * t;
+      *reinterpret_cast<float4*>(dkp + row + c) =
+          make_float4(dk[a][4 * t], dk[a][4 * t + 1], dk[a][4 * t + 2], dk[a][4 * t + 3]);
+      *reinterpret_cast<float4*>(dvp + row + c) =
+          make_float4(dv[a][4 * t], dv[a][4 * t + 1], dv[a][4 * t + 2], dv[a][4 * t + 3]);
+    }
+  }
+}
+
+constexpr int kDqThreads = FLASH32_DQ_THREADS;   // a dQ CTA's threads, a float4 each
+
+// dq = (add ? dq : 0) + the workspace's `slots` shares, slot by slot: n4
+// float4 of dq, slot s at work + 4 s n4
+__global__ void __launch_bounds__(kDqThreads)
+    flash_bwd_dq_kernel(float* dq, const float* work, long long n4, int slots, int add) {
+  const long long i = static_cast<long long>(blockIdx.x) * kDqThreads + threadIdx.x;
+  if (i >= n4) return;
+  const float4* w = reinterpret_cast<const float4*>(work);
+  float4* out = reinterpret_cast<float4*>(dq);
+  float4 a = add ? out[i] : w[i];
+  for (int s = add ? 0 : 1; s < slots; ++s) {
+    const float4 x = w[s * n4 + i];
+    a.x += x.x;
+    a.y += x.y;
+    a.z += x.z;
+    a.w += x.w;
+  }
+  out[i] = a;
+}
+
 template <typename K>
 cudaError_t launch_one(K kernel, int threads, int bytes, bool& ready, dim3 grid,
                        const Params& p, cudaStream_t stream) {
@@ -1141,7 +1361,7 @@ cudaError_t launch_one(K kernel, int threads, int bytes, bool& ready, dim3 grid,
 
 // The TMA map of a [B, S, heads, D] bf16 tensor read through its element
 // strides (batch, seq, head; 16-byte multiples), boxes of `rows` rows by SW
-// bytes of columns, SW-byte swizzled; rows past S read as 0
+// bytes of columns, SW-byte padded; rows past S read as 0
 template <int SW>
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D,
                      long long sb, long long ss, long long sh, int rows) {
@@ -1187,10 +1407,10 @@ cudaError_t launch_fwd(const Params& p, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
     return launch_fwd_tc<D>(p, stream);
   } else {
+    using G = Fwd32<D>;
     static bool ready = false;
-    const dim3 grid((p.Sq + Tile<D>::BM - 1) / Tile<D>::BM, p.B * p.H);
-    return launch_one(flash_fwd_kernel<T, D>, kThreads, Tile<D>::kFwdBytes, ready, grid, p,
-                      stream);
+    return launch_one(flash_fwd_kernel<D>, kThreads32, G::kBytes, ready,
+                      dim3((p.Sq + G::BQ - 1) / G::BQ, p.B * p.H), p, stream);
   }
 }
 
@@ -1230,34 +1450,57 @@ cudaError_t launch_bwd_tc(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// fp32: for each group of up to kDqSlots k-tiles, the dK/dV pass (which
+// writes the group's dQ shares into `work`, a slot a k-tile) and then the dQ
+// sum over the group's slots, the later groups adding to dq; with no key, dq
+// is 0
+template <int D>
+cudaError_t launch_bwd_f32(const Params& p, float* work, cudaStream_t stream) {
+  using G = Bwd32<D>;
+  static bool ready = false;
+  if (p.B == 0 || p.H == 0) return cudaGetLastError();
+  const long long n4 = static_cast<long long>(p.B) * p.Sq * p.H * D / 4;   // dq's float4
+  const int n_kt = (p.Sk + G::BK - 1) / G::BK;
+  if (n_kt == 0) return cudaMemsetAsync(p.out, 0, n4 * 16, stream);
+  cudaError_t e = allow_smem(flash_bwd_dkdv_kernel<D>, G::kBytes, ready);
+  if (e != cudaSuccess) return e;
+  for (int kt0 = 0; kt0 < n_kt; kt0 += kDqSlots) {
+    const int slots = n_kt - kt0 < kDqSlots ? n_kt - kt0 : kDqSlots;
+    flash_bwd_dkdv_kernel<D><<<dim3(slots, p.B * p.Hk), kThreads32, G::kBytes, stream>>>(
+        p, work, kt0);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    if (n4 > 0) {
+      flash_bwd_dq_kernel<<<static_cast<unsigned>((n4 + kDqThreads - 1) / kDqThreads),
+                            kDqThreads, 0, stream>>>(static_cast<float*>(p.out), work, n4, slots,
+                                                     kt0 > 0);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    }
+  }
+  return cudaSuccess;
+}
+
 template <typename T, int D>
-cudaError_t launch_bwd(const Params& p, cudaStream_t stream) {
+cudaError_t launch_bwd(const Params& p, float* work, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
     return launch_bwd_tc<D>(p, stream);
   } else {
-    static bool ready_kv = false, ready_q = false;
-    constexpr int BM = Tile<D>::BM;
-    const cudaError_t e = launch_one(flash_bwd_dkdv_kernel<T, D>, kThreads, Tile<D>::kDkdvBytes,
-                                     ready_kv, dim3((p.Sk + BM - 1) / BM, p.B * p.Hk), p, stream);
-    if (e != cudaSuccess) return e;
-    return launch_one(flash_bwd_dq_kernel<T, D>, kThreads, Tile<D>::kDqBytes, ready_q,
-                      dim3((p.Sq + BM - 1) / BM, p.B * p.H), p, stream);
+    return launch_bwd_f32<D>(p, work, stream);
   }
 }
 
 template <typename T>
-cudaError_t dispatch(const Params& p, int D, bool backward, cudaStream_t s) {
+cudaError_t dispatch(const Params& p, int D, bool backward, float* work, cudaStream_t s) {
   switch (D) {
-    case 32: return backward ? launch_bwd<T, 32>(p, s) : launch_fwd<T, 32>(p, s);
-    case 64: return backward ? launch_bwd<T, 64>(p, s) : launch_fwd<T, 64>(p, s);
-    case 128: return backward ? launch_bwd<T, 128>(p, s) : launch_fwd<T, 128>(p, s);
-    case 256: return backward ? launch_bwd<T, 256>(p, s) : launch_fwd<T, 256>(p, s);
+    case 32: return backward ? launch_bwd<T, 32>(p, work, s) : launch_fwd<T, 32>(p, s);
+    case 64: return backward ? launch_bwd<T, 64>(p, work, s) : launch_fwd<T, 64>(p, s);
+    case 128: return backward ? launch_bwd<T, 128>(p, work, s) : launch_fwd<T, 128>(p, s);
+    case 256: return backward ? launch_bwd<T, 256>(p, work, s) : launch_fwd<T, 256>(p, s);
   }
   return cudaErrorInvalidValue;
 }
 
 cudaError_t run(Params& p, const long long* strides, int n_strides, int D, int dtype,
-                bool backward, void* stream) {
+                bool backward, float* work, void* stream) {
   if (p.Hk <= 0 || p.H % p.Hk != 0 || p.Sq < 0 || p.Sk < 0 || p.B < 0)
     return cudaErrorInvalidValue;
   long long* dst[12] = {&p.q_sb, &p.q_ss, &p.q_sh, &p.k_sb, &p.k_ss, &p.k_sh,
@@ -1265,8 +1508,8 @@ cudaError_t run(Params& p, const long long* strides, int n_strides, int D, int d
   for (int i = 0; i < n_strides; ++i) *dst[i] = strides[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kFloat32: return dispatch<float>(p, D, backward, s);
-    case kBFloat16: return dispatch<bf16>(p, D, backward, s);
+    case kFloat32: return dispatch<float>(p, D, backward, work, s);
+    case kBFloat16: return dispatch<bf16>(p, D, backward, work, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -1281,9 +1524,9 @@ int attributes(int kernel, int* out) {
     }
   } else {
     switch (kernel) {
-      case 0: return func_attributes(flash_fwd_kernel<T, D>, Tile<D>::kFwdBytes, out);
-      case 1: return func_attributes(flash_bwd_dkdv_kernel<T, D>, Tile<D>::kDkdvBytes, out);
-      case 2: return func_attributes(flash_bwd_dq_kernel<T, D>, Tile<D>::kDqBytes, out);
+      case 0: return func_attributes(flash_fwd_kernel<D>, Fwd32<D>::kBytes, out);
+      case 1: return func_attributes(flash_bwd_dkdv_kernel<D>, Bwd32<D>::kBytes, out);
+      case 2: return func_attributes(flash_bwd_dq_kernel, 0, out);
     }
   }
   return cudaErrorInvalidValue;
@@ -1303,7 +1546,8 @@ int attributes_d(int kernel, int D, int* out) {
 }  // namespace
 
 // kernel 0: the forward, 1: the dK/dV pass, 2: the dQ pass (the tensor-core
-// kernels for bf16, the CUDA-core ones for fp32); <dtype, a = D>
+// kernels for bf16; for fp32 the CUDA-core ones, the dQ pass being the sum
+// of the dK/dV pass's dQ shares); <dtype, a = D>
 extern "C" int kernel_attributes(int kernel, int dtype, int a, int b, int c, int* out) {
   switch (dtype) {
     case kFloat32: return attributes_d<float>(kernel, a, out);
@@ -1332,18 +1576,20 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const vo
   p.Sk = Sk;
   p.causal = causal;
   p.scale = scale;
-  return run(p, strides, 9, D, dtype, false, stream);
+  return run(p, strides, 9, D, dtype, false, nullptr, stream);
 }
 
 // The two backward passes.  q, k, v and dout through `strides` (12 values:
 // q, k, v, dout); lse and delta [B, H, Sq] fp32.  Writes dq [B, Sq, H, D],
-// dk and dv [B, Sk, Hk, D], all contiguous and of q's dtype.
+// dk and dv [B, Sk, Hk, D], all contiguous and of q's dtype.  fp32 also
+// takes `work`, fp32 [min(k-tiles, FLASH32_DQ_SLOTS), B, Sq, H, D] for the
+// dQ shares (the k-tiles of FLASH32_DKDV_K_ROWS keys); bf16 ignores it.
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* dout, const void* lse,
                                           const void* delta, void* dq, void* dk, void* dv,
-                                          const long long* strides, int B, int H, int Hk,
-                                          int Sq, int Sk, int D, int causal, float scale,
-                                          int dtype, void* stream) {
+                                          void* work, const long long* strides, int B, int H,
+                                          int Hk, int Sq, int Sk, int D, int causal,
+                                          float scale, int dtype, void* stream) {
   Params p{};
   p.q = q;
   p.k = k;
@@ -1361,7 +1607,7 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
   p.Sk = Sk;
   p.causal = causal;
   p.scale = scale;
-  return run(p, strides, 12, D, dtype, true, stream);
+  return run(p, strides, 12, D, dtype, true, static_cast<float*>(work), stream);
 }
 
 DEFINE_ERROR_STRING

@@ -16,8 +16,10 @@ fewer heads than Q (grouped-query attention), indexed natively: query head
   raises; on a CPU tensor each runs its plain version,
   :func:`_flash_fwd_reference` or :func:`_flash_bwd_reference`, the same
   recompute-from-lse math in fp32.  ``flash_attention_bwd.launches`` counts
-  one per backward call, which launches both passes; each wrapper's
-  ``launches_noncausal`` counts its non-causal launches apart.
+  one per backward call, which launches both passes (in fp32 the dK/dV pass
+  and the sum of its dQ shares, once for each :func:`dq_groups` group);
+  each wrapper's ``launches_noncausal`` counts its non-causal launches
+  apart.
 - :func:`_attention_reference` is the numerics oracle (one-shot softmax over
   KV heads already repeated), as in the JAX package.
 
@@ -177,6 +179,18 @@ def _check(q, k, v):
         raise ValueError("flash_attention: q, k, v on different devices")
 
 
+def dq_groups(Sk: int, D: int) -> Tuple[int, int]:
+    """``(slots, groups)`` of the fp32 backward at ``Sk`` keys and head
+    dim ``D``: its dK/dV pass writes each k-tile's share of dQ to a slot of
+    a workspace of ``slots`` slots, and runs (with the dQ sum after it) once
+    for each of ``groups`` groups of up to ``FLASH32_DQ_SLOTS`` k-tiles.  A
+    function of the shape alone, as ``launch_bwd_f32`` in
+    csrc/flash_attention.cu computes it."""
+    n_kt = -(-Sk // _geometry("FLASH32_DKDV_K_ROWS", D))
+    cap = _build.GEOMETRY["flash_attention"]["FLASH32_DQ_SLOTS"]
+    return min(n_kt, cap), -(-n_kt // cap)
+
+
 def _strides(*xs):
     vals = [s for x in xs for s in (x.stride(0), x.stride(1), x.stride(2))]
     return (ctypes.c_longlong * len(vals))(*vals)
@@ -235,13 +249,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float):
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, Hk, D), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, Sk, Hk, D), dtype=q.dtype, device=q.device)
+    slots = dq_groups(Sk, D)[0] if q.dtype == torch.float32 else 0
+    work = torch.empty((slots, B, Sq, H, D), dtype=torch.float32, device=q.device)
     strides = _strides(q, k, v, do)
     lib = _build.load("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), work.data_ptr(),
             ctypes.addressof(strides), B, H, Hk, Sq, Sk, D, int(bool(causal)),
             float(sm_scale), _build.dtype_code(q.dtype), stream)
     _build.check(lib, err, "flash_attention_bwd")
@@ -307,19 +323,29 @@ def _kv_tiles(q0: int, BQ: int, BK: int, Sq: int, Sk: int, causal: bool) -> int:
 
 def _smem_tiles(kind: str, D: int, dtype):
     """The shared memory of one kernel, as csrc/flash_attention.cu lays it
-    out: fp32 tiles with a one-float skew (CUDA-core kernels); for bf16 the
-    slack that aligns the tiles to 1024 bytes, the tiles TMA loads once, the
-    two streamed tiles once per stage of the ring (swizzled in place), and
-    the mbarriers (the tiles loaded once; each stage's two tiles and its
-    release) (tensor-core kernels)."""
+    out.  fp32 (CUDA-core kernels; tiles row-major, each row padded by 4
+    floats): the forward's Q tile, the K and V tiles of each stage of its
+    ring and the P tile; the dK/dV pass's K and V tiles, each stage's Q, dO,
+    lse and delta, and the P and dS tiles; the dQ sum none.
+    bf16 (tensor-core kernels): the slack that aligns the tiles to 1024
+    bytes, the tiles TMA loads once, the two streamed tiles once per stage
+    of the ring (swizzled in place), and the mbarriers (the tiles loaded
+    once; each stage's two tiles and its release)."""
     f32 = torch.float32
-    if dtype == torch.float32:
-        BM = _geometry("FLASH_TILE_ROWS", D)
-        rows, scores = ScratchUse((BM, D + 1), f32), ScratchUse((BM, BM + 1), f32)
-        n_rows, n_scores, extra = {"fwd": (3, 1, 0), "dkdv": (4, 2, 2), "dq": (4, 1, 0)}[kind]
-        return [rows] * n_rows + [scores] * n_scores + [ScratchUse((BM,), f32)] * extra
-    bf = torch.bfloat16
     geo = _build.GEOMETRY["flash_attention"]
+    if dtype == torch.float32:
+        if kind == "fwd":
+            BQ, BK = _geometry("FLASH32_FWD_Q_ROWS", D), _geometry("FLASH32_FWD_K_ROWS", D)
+            return ([ScratchUse((BQ, D + 4), f32)]
+                    + [ScratchUse((BK, D + 4), f32)] * (2 * geo["FLASH32_STAGES"])
+                    + [ScratchUse((BQ, BK + 4), f32)])
+        if kind == "dkdv":
+            BK, BQ = _geometry("FLASH32_DKDV_K_ROWS", D), _geometry("FLASH32_DKDV_Q_ROWS", D)
+            step = [ScratchUse((BQ, D + 4), f32)] * 2 + [ScratchUse((BQ,), f32)] * 2
+            return ([ScratchUse((BK, D + 4), f32)] * 2 + step * geo["FLASH32_STAGES"]
+                    + [ScratchUse((BQ, BK + 4), f32)] * 2)
+        return []
+    bf = torch.bfloat16
     if kind == "fwd":       # Q once; K and V streamed
         once, streamed, stages = ((_geometry("FLASH_FWD_Q_ROWS", D),),
                                   _geometry("FLASH_FWD_K_ROWS", D), geo["FLASH_FWD_STAGES"])
@@ -346,7 +372,18 @@ def kernel_specs(B: int, Sq: int, Sk: int, H: int, Hk: int, D: int, causal: bool
     new), as the JAX kernels' index map is.  fp32 runs the CUDA-core kernels
     (grid (q-tiles, batch x heads)), bf16 the tensor-core ones (grid
     (batch x heads, q-tiles), the q-tiles with the longest causal walks
-    first).  Every tile load is masked past the sequence."""
+    first).  Every tile load is masked past the sequence.
+
+    The fp32 backward's second launch is the dQ sum, not a walk: the dK/dV
+    pass writes each (k-tile, q-tile, head)'s share of dQ to a slot of a
+    workspace, zeros for the q-tiles a causal walk skips, and
+    ``flash_bwd_dq_kernel`` sums the shares slot by slot, 1024 values of dq
+    a CTA.  The pair runs once for each :func:`dq_groups` group of k-tiles,
+    in k-tile order: a group's dK/dV launch reads and writes its own rows
+    of k, v, dk and dv (the view from its first k-tile) and fills a slot a
+    k-tile, and every group's sum after the first reads dq and adds to it
+    (dq an input aliased to the output).  So the fp32 backward is a list of
+    (dK/dV, dQ sum) specs, one pair a group."""
     rep, off = H // Hk, Sk - Sq
     code = _build.dtype_code(dtype)
     f32 = torch.float32
@@ -356,7 +393,8 @@ def kernel_specs(B: int, Sq: int, Sk: int, H: int, Hk: int, D: int, causal: bool
         vk, vq = _geometry("FLASH_DKDV_K_ROWS", D), _geometry("FLASH_DKDV_Q_ROWS", D)
         qq, qk = _geometry("FLASH_DQ_Q_ROWS", D), _geometry("FLASH_DQ_K_ROWS", D)
     else:
-        fq = fk = vk = vq = qq = qk = _geometry("FLASH_TILE_ROWS", D)
+        fq, fk = _geometry("FLASH32_FWD_Q_ROWS", D), _geometry("FLASH32_FWD_K_ROWS", D)
+        vk, vq = _geometry("FLASH32_DKDV_K_ROWS", D), _geometry("FLASH32_DKDV_Q_ROWS", D)
 
     def rows(name, S, heads, rows_, at):
         return BlockUse((B, S, heads, D), dtype, (1, rows_, 1, D), at, name=name, masked=True)
@@ -414,46 +452,79 @@ def kernel_specs(B: int, Sq: int, Sk: int, H: int, Hk: int, D: int, causal: bool
     # heads and the q-tiles from the causal lower bound (every q-tile when
     # rows that see no key, Sq > Sk, see every key)
     nkv, nqv = -(-Sk // vk), -(-Sq // vq)
+    dkdv_tiles = _smem_tiles("dkdv", D, dtype)
+    kv_acc = ScratchUse((vk, D), f32, "registers")
 
     def lo(j):
         return max(j * vk - off, 0) // vq if causal and off >= 0 else 0
 
-    def kv_at(*pt):
-        j, bg = (pt[1], pt[0]) if tc else (pt[0], pt[1])
-        r, qt = pt[2], pt[3]
-        return j, bg, r, max(qt, lo(j))
+    def dkdv_spec(kt0, n_kt):
+        """The dK/dV launch over k-tiles kt0 .. kt0 + n_kt - 1: its k, v, dk
+        and dv are the rows of those k-tiles, its workspace n_kt slots."""
+        kv_len = min(Sk, (kt0 + n_kt) * vk) - kt0 * vk
 
-    def kv_tile(name):
-        def m(*pt):
-            j, bg, _, _ = kv_at(*pt)
-            return (bg // Hk, j, bg % Hk, 0)
-        return rows(name, Sk, Hk, vk, m)
+        def kv_at(*pt):
+            j, bg = (pt[1], pt[0]) if tc else (pt[0], pt[1])
+            r, qt = pt[2], pt[3]
+            return j, bg, r, max(qt, lo(kt0 + j))
 
-    def q_tile(name):
-        def m(*pt):
-            _, bg, r, qt = kv_at(*pt)
-            return (bg // Hk, qt, bg % Hk * rep + r, 0)
-        return rows(name, Sq, H, vq, m)
+        def kv_tile(name):
+            def m(*pt):
+                j, bg, _, _ = kv_at(*pt)
+                return (bg // Hk, j, bg % Hk, 0)
+            return rows(name, kv_len, Hk, vk, m)
 
-    def q_stat(name):
-        def m(*pt):
-            _, bg, r, qt = kv_at(*pt)
-            return (bg // Hk, bg % Hk * rep + r, qt)
-        return stats(name, vq, m)
+        def q_tile(name):
+            def m(*pt):
+                _, bg, r, qt = kv_at(*pt)
+                return (bg // Hk, qt, bg % Hk * rep + r, 0)
+            return rows(name, Sq, H, vq, m)
 
-    tiles = _smem_tiles("dkdv", D, dtype)
-    kv_acc = ScratchUse((vk, D), f32, "registers")
-    dkdv = KernelSpec(
-        "flash_bwd_dkdv_tc_kernel" if tc else "flash_bwd_dkdv_kernel",
-        grid=(B * Hk, nkv, rep, nqv) if tc else (nkv, B * Hk, rep, nqv),
-        inputs=[kv_tile("k"), kv_tile("v"), q_tile("q"), q_tile("do"), q_stat("lse"),
-                q_stat("delta")],
-        outputs=[kv_tile("dk"), kv_tile("dv")],
-        scratch=tiles + [kv_acc, kv_acc],
-        dimension_semantics=cuda_semantics(2, 2),
-        # dK and dV sum over the group's heads and the q-tiles, inside the CTA
-        carried_scratch=[(len(tiles), frozenset({2, 3})), (len(tiles) + 1, frozenset({2, 3}))],
-        cuda=("flash_attention", 1, code, D, 0))
+        def q_stat(name):
+            def m(*pt):
+                _, bg, r, qt = kv_at(*pt)
+                return (bg // Hk, bg % Hk * rep + r, qt)
+            return stats(name, vq, m)
+
+        outputs = [kv_tile("dk"), kv_tile("dv")]
+        if not tc:  # fp32: each (k-tile, q-tile, head)'s share of dQ, skipped ones zero
+            def share(j, bg, r, qt):
+                return (j, bg // Hk, qt, bg % Hk * rep + r, 0)
+            outputs.append(BlockUse((n_kt, B, Sq, H, D), f32, (1, 1, vq, 1, D), share,
+                                    name="dq_shares", masked=True))
+        return KernelSpec(
+            "flash_bwd_dkdv_tc_kernel" if tc else "flash_bwd_dkdv_kernel",
+            grid=(B * Hk, n_kt, rep, nqv) if tc else (n_kt, B * Hk, rep, nqv),
+            inputs=[kv_tile("k"), kv_tile("v"), q_tile("q"), q_tile("do"), q_stat("lse"),
+                    q_stat("delta")],
+            outputs=outputs,
+            scratch=dkdv_tiles + [kv_acc, kv_acc],
+            dimension_semantics=cuda_semantics(2, 2),
+            # dK and dV sum over the group's heads and the q-tiles, inside the CTA
+            carried_scratch=[(len(dkdv_tiles), frozenset({2, 3})),
+                             (len(dkdv_tiles) + 1, frozenset({2, 3}))],
+            cuda=("flash_attention", 1, code, D, 0))
+
+    if not tc:
+        n, per = B * Sq * H * D, 4 * _build.GEOMETRY["flash_attention"]["FLASH32_DQ_THREADS"]
+        slots, groups = dq_groups(Sk, D)
+        specs = []
+        for g in range(groups):
+            kt0 = g * slots
+            n_kt = min(slots, nkv - kt0)
+            dq_block = BlockUse((n,), dtype, (per,), lambda x: (x,), name="dq", masked=True)
+            inputs = [BlockUse((n_kt, n), f32, (n_kt, per), lambda x: (0, x),
+                               name="dq_shares", masked=True)]
+            if g:   # a later group adds its shares to dq
+                inputs.append(BlockUse((n,), dtype, (per,), lambda x: (x,), name="dq",
+                                       masked=True))
+            specs += [dkdv_spec(kt0, n_kt), KernelSpec(
+                "flash_bwd_dq_kernel", grid=(-(-n // per),), inputs=inputs,
+                outputs=[dq_block], aliases={1: 0} if g else {},
+                dimension_semantics=cuda_semantics(1),
+                cuda=("flash_attention", 2, code, D, 0))]
+        return specs
+    dkdv = dkdv_spec(0, nkv)
 
     grid, at = walk(qq, qk, tc)
     tiles = _smem_tiles("dq", D, dtype)
@@ -473,9 +544,18 @@ def kernel_specs(B: int, Sq: int, Sk: int, H: int, Hk: int, D: int, causal: bool
 # also in bf16, which runs the tensor-core kernels; the causal entries also
 # at `base`'s shape in bf16 ("bfloat16@base": B 3, S 2048, H 16 over Hk 8),
 # the launches the training path makes, so the card's leg checks them at a
-# production shape (B, S, H, Hk, D)
-_EXAMPLES = {"": (1, 256, 2, 2, 128), "base": (3, 2048, 16, 8, 128)}
+# production shape; the non-causal forward and the backward also at
+# ERNIE-base's attention in fp32 ("float32@ernie": S 512, 12 heads of 64,
+# non-causal, as `ernie_train` launches it, with B cut from 32 to 1 so the
+# dynamic leg stays a small part of the kernel_gate phase); the fp32
+# backward also at 9 k-tiles of 128 keys ("float32@groups": S 1152, D 64,
+# causal), one more than a dQ workspace holds, so both legs check a second
+# group of launches, the one that adds to dq (B, S, H, Hk, D)
+_EXAMPLES = {"": (1, 256, 2, 2, 128), "base": (3, 2048, 16, 8, 128),
+             "ernie": (1, 512, 12, 12, 64), "groups": (1, 1152, 2, 2, 64)}
+_NONCAUSAL_EXAMPLES = ("ernie",)    # the backward's examples are causal but these
 _EX_DTYPES = ("float32", "bfloat16")
+_RESIDENT_DTYPES = _EX_DTYPES + ("float32@ernie",)
 _STREAM_DTYPES = _EX_DTYPES + ("bfloat16@base",)
 # the output against the plain version: fp32 sums in another order, bf16 two
 # bf16 ulps; lse fp32 in both; the gradients' atol scaled by their largest
@@ -485,6 +565,7 @@ _FWD_TOL = {"float32": ((2e-5, 2e-5, None), (1e-5, 1e-5, None)),
 _BWD_TOL = {"float32": (2e-5, 2e-5, 1.0), "bfloat16": (1e-3, 1.6e-2, 1.0)}
 for _tol in (_FWD_TOL, _BWD_TOL):
     _tol["bfloat16@base"] = _tol["bfloat16"]
+    _tol["float32@ernie"] = _tol["float32@groups"] = _tol["float32"]
 
 
 def _example(dtype: str):
@@ -515,26 +596,28 @@ def _bwd_example(dtype="float32"):
     dt, shape = _example(dtype)
     B, S, H, Hk, D = shape
     scale = 1.0 / math.sqrt(D)
+    causal = dtype.partition("@")[2] not in _NONCAUSAL_EXAMPLES
 
     def args(device):
         q, k, v = _example_qkv(device, shape, dtype=dt)
-        o, lse = _flash_fwd_reference(q, k, v, True, scale)
+        o, lse = _flash_fwd_reference(q, k, v, causal, scale)
         do = _example_qkv(device, shape, seed=1, dtype=dt)[0]
         return q, k, v, o, lse, do
 
-    return (tabulated(kernel_specs(B, S, S, H, Hk, D, True, dt, backward=True)),
-            lambda q, k, v, o, lse, do: flash_attention_bwd(q, k, v, o, lse, do, True, scale),
-            lambda q, k, v, o, lse, do: _flash_bwd_reference(q, k, v, o, lse, do, True, scale),
+    return (tabulated(kernel_specs(B, S, S, H, Hk, D, causal, dt, backward=True)),
+            lambda q, k, v, o, lse, do: flash_attention_bwd(q, k, v, o, lse, do, causal, scale),
+            lambda q, k, v, o, lse, do: _flash_bwd_reference(q, k, v, o, lse, do, causal,
+                                                             scale),
             args)
 
 
 _FLASH_PRESETS = ("tiny", "small", "base", "longctx", "moe", "ocr")
 registry.register("flash_fwd_resident", _fwd_example(False), presets=_FLASH_PRESETS,
                   description="flash attention forward, full-KV residency", tol=_FWD_TOL,
-                  dtypes=_EX_DTYPES)
+                  dtypes=_RESIDENT_DTYPES)
 registry.register("flash_fwd_stream", _fwd_example(True), presets=_FLASH_PRESETS,
                   description="streaming flash forward: causal KV paging + "
                               "online-softmax VMEM carry", tol=_FWD_TOL, dtypes=_STREAM_DTYPES)
 registry.register("flash_bwd_stream", _bwd_example, presets=_FLASH_PRESETS,
                   description="streaming flash backward (dk/dv + dq passes)", tol=_BWD_TOL,
-                  dtypes=_STREAM_DTYPES)
+                  dtypes=_STREAM_DTYPES + ("float32@ernie", "float32@groups"))

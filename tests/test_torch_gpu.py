@@ -264,6 +264,85 @@ def test_flash_attention_autograd_on_strided_qkv(cuda):
         fa.flash_attention(q, k, v, mask=torch.ones(S, S, dtype=torch.bool, device=cuda))
 
 
+def _flash_fp32_case(cuda, B, sq, sk, H, Hk, d, causal, seed):
+    """q, k, v, do fp32 on the card from ``seed`` and the softmax scale."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, sq, H, d, generator=g, device=cuda)
+    k = torch.randn(B, sk, Hk, d, generator=g, device=cuda)
+    v = torch.randn(B, sk, Hk, d, generator=g, device=cuda)
+    do = torch.randn(B, sq, H, d, generator=g, device=cuda)
+    return q, k, v, do, d ** -0.5
+
+
+def _assert_flash_fp32_matches_plain(q, k, v, do, causal, sm):
+    """The fp32 kernels forward and backward against the plain versions,
+    held as test_flash_kernels_match_plain holds them."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, sm)
+    o_ref, lse_ref = fa._flash_fwd_reference(q, k, v, causal, sm)
+    torch.testing.assert_close(o, o_ref, **FLASH_TOL[torch.float32])
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
+    grads = fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal, sm)
+    refs = fa._flash_bwd_reference(q, k, v, o_ref, lse_ref, do, causal, sm)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, refs):
+        tol = dict(FLASH_TOL[torch.float32])
+        tol["atol"] *= max(float(b.abs().max()), 1.0)
+        torch.testing.assert_close(a, b, **tol, msg=lambda m: f"{name}: {m}")
+        assert _tile_rel_err(a, b) <= FLASH_TILE_RTOL[torch.float32], name
+
+
+def test_flash_fp32_at_ernie_geometry(cuda):
+    """ERNIE-base's attention as `ernie_train` launches it (S 512, 12 heads
+    of 64, non-causal, fp32), at B 2, against the plain versions, one
+    launch of each wrapper."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v, do, sm = _flash_fp32_case(cuda, 2, 512, 512, 12, 12, 64, False, seed=7)
+    f0, b0 = fa.flash_attention_fwd.launches_noncausal, fa.flash_attention_bwd.launches_noncausal
+    _assert_flash_fp32_matches_plain(q, k, v, do, False, sm)
+    assert (fa.flash_attention_fwd.launches_noncausal,
+            fa.flash_attention_bwd.launches_noncausal) == (f0 + 1, b0 + 1)
+
+
+@pytest.mark.parametrize("causal,sq,sk,H,Hk,d", [(False, 512, 512, 12, 12, 64),
+                                                 (True, 150, 1100, 4, 2, 64),
+                                                 (True, 300, 200, 4, 2, 128)])
+def test_flash_fp32_gives_the_same_bits_on_every_launch(cuda, causal, sq, sk, H, Hk, d):
+    """No float atomics and a fixed order for every sum (the dQ shares
+    slot by slot, in k-tile order, across groups too): two launches of the
+    forward and of the backward give the same bits, at ERNIE's geometry,
+    over two dQ groups, and with rows that see no key."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v, do, sm = _flash_fp32_case(cuda, 2, sq, sk, H, Hk, d, causal, seed=8)
+    o1, lse1 = fa.flash_attention_fwd(q, k, v, causal, sm)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, causal, sm)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+    g1 = fa.flash_attention_bwd(q, k, v, o1, lse1, do, causal, sm)
+    g2 = fa.flash_attention_bwd(q, k, v, o1, lse1, do, causal, sm)
+    for name, a, b in zip(("dq", "dk", "dv"), g1, g2):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("extra", [0, 37])
+def test_flash_fp32_backward_on_both_sides_of_the_group_rule(cuda, d, causal, extra):
+    """The fp32 backward's dQ workspace holds FLASH32_DQ_SLOTS k-tiles'
+    shares: at that many k-tiles one group of launches, past it two, the
+    second adding to dq.  Both against the plain versions, 150 causal rows
+    over the keys (the later k-tiles skip q-tiles and zero their slots)."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    geo = _build.GEOMETRY["flash_attention"]
+    sk = geo["FLASH32_DQ_SLOTS"] * geo[f"FLASH32_DKDV_K_ROWS_D{d}"] + extra
+    assert fa.dq_groups(sk, d) == (geo["FLASH32_DQ_SLOTS"], 1 if extra == 0 else 2)
+    q, k, v, do, sm = _flash_fp32_case(cuda, 1, 150, sk, 4, 2, d, causal, seed=9)
+    _assert_flash_fp32_matches_plain(q, k, v, do, causal, sm)
+
+
 @pytest.mark.parametrize("n,offset", [(4096 * 3 + 5, 0), (1000, 1)])
 @pytest.mark.parametrize("kw", [dict(weight_decay=0.1, decoupled=True, out_dtype=None),
                                 dict(weight_decay=0.1, decoupled=True, apply_decay=False,
