@@ -12,6 +12,7 @@ Llama-3-8B-shaped, MoE and SSD-8B requests through the port's Engine.
     python3 chip_smoke.py --phases card,build,kernels,train
     python3 chip_smoke.py --phases card,build,moe_train,moe_serve
     python3 chip_smoke.py --phases card,build,ernie_train,ocr_train
+    python3 chip_smoke.py --phases card,build,eager_train
     python3 chip_smoke.py --phases card,build,kernels,longctx_train
     python3 chip_smoke.py --phases card,build,kernels,kernel_gate,parity,fuse_train
     python3 chip_smoke.py --phases card,build,kernels,parity,ssd_train,ssd_serve
@@ -28,7 +29,9 @@ Phases:
              flash attention forward and backward at `base` and at
              `longctx`, and fp32 non-causal at ERNIE-base's B 32, S 512,
              12 heads of 64 (the CUDA-core kernels, timed beside sdpa's
-             fp32 forward and backward alone), AdamW as one launch over base's 75 leaves and over
+             fp32 forward and backward alone) and bf16 at the same shape
+             (`eager_train` leg 2's O1 attention, the bf16 kernels, beside
+             sdpa in bf16), AdamW as one launch over base's 75 leaves and over
              ssd_train's 43 (0 ulps, with torch._fused_adamw_ beside it; a
              ragged table: sizes 1, 3, 4097, views at offset 1, bf16
              gradients, bf16 params with masters, a table past one launch's
@@ -121,6 +124,30 @@ Phases:
              layer plus once and its backward twice a layer plus once, AdamW
              once (inside the update); losses
              finite and falling; step time, tokens/s and MFU are printed
+  5f eager_train  the eager Paddle API only (`import paddle_tpu_torch as
+             paddle`, set_device("gpu"), seed, to_tensor, io.DataLoader over
+             io.TensorDataset, optimizer.AdamW, loss.backward(); opt.step();
+             opt.clear_grad()), two legs.  Leg 1: the `base` preset's
+             LlamaForCausalLM at full width and depth with the `train`
+             phase's config and AdamW, EAGER_STEPS steps on seeded batches
+             of 3 x 2048, counters zeroed just before and read per step:
+             every step must launch what a `train` step launches (flash
+             forward and backward once a layer, RMSNorm and its backward
+             twice a layer plus once, AdamW once); then TrainStep on the
+             same weights, batches and optimizer: every step's loss must be
+             the same bits (only where step 1 already differs, which can
+             come only from a kernel giving other bits on a second run,
+             every step within TRAIN_LOSS_TOL, the reason logged); steady
+             step ms beside the `train` phase's.  Leg 2: ERNIE-base
+             widths (build_ernie_step's config, fp32 params, 32 x 512, Adam)
+             under amp.auto_cast(level="O1", dtype="bfloat16") with a
+             GradScaler, EAGER_AMP_STEPS steps: finite losses, each step
+             the bf16 flash kernels non-causal once a layer forward and
+             backward and AdamW once; step 1 of a 2-layer cut (dropout off,
+             2 x 512) against the same O1 program on the CPU: the loss
+             within EAGER_AMP_LOSS_RTOL, and the cut run on the card
+             without auto_cast (fp32) past that limit, so that the check
+             can tell whether O1 ran
   5b fuse_train  `base` in three legs, stock -> fused -> stock, each a fresh
              build_pretrain_step("base", "cuda") with the same seed, 5
              steps, counters read per step (the first stock leg is the
@@ -397,8 +424,21 @@ OCR_STEPS = 5                # steps of each `ocr_train` model
 # 700 W: Adam normalises each step, so rounding in tiny gradients moves
 # later losses more than one step's sums do)
 ERNIE_PARITY_LOSS_RTOL = 1.5e-5
+EAGER_STEPS = 5              # leg 1 of `eager_train`: base through the eager API
+EAGER_AMP_STEPS = 3          # leg 2: ERNIE-base under auto_cast O1
+# leg 2's step 1 of a 2-layer cut, card against CPU under the same O1
+# program: the loss within this share of the CPU's.  On an NVIDIA H100 80GB
+# HBM3 at 700.00 W the card's O1 read 1.093e-3 (bf16 products on both sides
+# summed in other orders, the card's bf16 flash kernel against the CPU's
+# plain attention in fp32 rounded to bf16 once) and the control, the same
+# cut on the card without auto_cast, 7.213e-3; the limit sits between, and
+# the control must land past it.  (The logits themselves come out of O1 in
+# bf16, so one ulp of rounding, 2^-8, hides the difference there: the
+# card's O1 logits read 6.6e-3 from the CPU's, the control's 4.5e-3.)
+EAGER_AMP_LOSS_RTOL = 3e-3
 ALL_PHASES = ("card", "build", "kernels", "kernel_gate", "parity", "incubate", "train",
-              "longctx_train", "fuse_train", "moe_train", "ernie_train", "ocr_train",
+              "eager_train", "longctx_train", "fuse_train", "moe_train", "ernie_train",
+              "ocr_train",
               "ssd_train", "resume_train", "optimizers", "serve", "moe_serve", "ssd_serve",
               "profile")
 REPO = Path(__file__).resolve().parent
@@ -959,15 +999,16 @@ def _flash_attributes(D, dtype="bfloat16"):
             for k, name in enumerate(names)}
 
 
-def _planted_faults(q, k, v, o, lse, do, sm, grads, refs):
-    """Faults planted in the kernel's own causal gradients, each of which the
+def _planted_faults(q, k, v, o, lse, do, sm, grads, refs, causal=True):
+    """Faults planted in the kernel's own gradients, each of which the
     gradient checks must reject: the diagonal tiles' (query, key) pairs left
     out of dK/dV, one query head left out of its kv-head's dK/dV sum, and
     the last 64 keys' dV 1% off.  The removed parts come from the plain
     backward (it is linear in ``do``, and the diagonal tiles alone are the
-    causal backward of each tile's own rows).  Returns, for each fault, each
-    faulted gradient's tile error and whether the max-scaled elementwise
-    check alone would have passed it."""
+    backward, causal or not as the case is, of each tile's own rows over the
+    whole rows' o and lse).  Returns, for each fault, each faulted
+    gradient's tile error and whether the max-scaled elementwise check
+    alone would have passed it."""
     import torch
     from paddle_tpu_torch.kernels import flash_attention as fa
 
@@ -977,15 +1018,15 @@ def _planted_faults(q, k, v, o, lse, do, sm, grads, refs):
     for t in range(0, S, T):
         r = slice(t, t + T)
         _, gk, gv = fa._flash_bwd_reference(q[:, r], k[:, r], v[:, r], o[:, r], lse[:, :, r],
-                                            do[:, r], True, sm)
+                                            do[:, r], causal, sm)
         diag_dk[:, r], diag_dv[:, r] = gk.float(), gv.float()
     do_one = torch.zeros_like(do)
-    do_one[:, :, 1] = do[:, :, 1]            # query head 1, the second of kv-head 0's group
-    _, head_dk, head_dv = fa._flash_bwd_reference(q, k, v, o, lse, do_one, True, sm)
+    do_one[:, :, 1] = do[:, :, 1]            # query head 1 (under GQA, of kv-head 0's group)
+    _, head_dk, head_dv = fa._flash_bwd_reference(q, k, v, o, lse, do_one, causal, sm)
     late_dv = dv.clone()
     late_dv[:, -T:] *= 1.01
     faulted = {"diagonal tiles dropped from dK/dV": {"dk": dk - diag_dk, "dv": dv - diag_dv},
-               "query head 1 dropped from kv-head 0's dK/dV sum":
+               "query head 1 dropped from its kv-head's dK/dV sum":
                    {"dk": dk - head_dk.float(), "dv": dv - head_dv.float()},
                "last 64 keys' dV 1% off": {"dv": late_dv}}
     ref = dict(zip(("dq", "dk", "dv"), refs))
@@ -1001,9 +1042,9 @@ def _planted_faults(q, k, v, o, lse, do, sm, grads, refs):
     return out
 
 
-def _flash_case(gen, B, S, H, Hk, D, heads=None):
+def _flash_case(gen, B, S, H, Hk, D, heads=None, causal=True):
     """Flash forward and backward kernels against their plain versions on
-    the same bf16 inputs (causal).  ``heads``: hold only the first that many
+    the same bf16 inputs (causal unless told).  ``heads``: hold only the first that many
     query heads (and their kv-heads) against the plain version, which
     cannot run whole at `longctx`; plain times are then not taken.  The
     backward of both gets the plain forward's o and lse for those heads."""
@@ -1018,10 +1059,10 @@ def _flash_case(gen, B, S, H, Hk, D, heads=None):
     hq = heads or H
     hk = hq * Hk // H
     sub = (q[:, :, :hq], k[:, :, :hk], v[:, :, :hk])
-    o, lse = fa.flash_attention_fwd(q, k, v, True, sm)
-    o_ref, lse_ref = fa._flash_fwd_reference(*sub, True, sm)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, sm)
+    o_ref, lse_ref = fa._flash_fwd_reference(*sub, causal, sm)
     torch.cuda.synchronize()
-    shape = {"B": B, "S": S, "H": H, "Hk": Hk, "D": D, "causal": True}
+    shape = {"B": B, "S": S, "H": H, "Hk": Hk, "D": D, "causal": causal}
     if heads:
         shape["checked_heads"] = hq
     err_o = max_err(o[:, :, :hq], o_ref)
@@ -1033,8 +1074,8 @@ def _flash_case(gen, B, S, H, Hk, D, heads=None):
     o_in, lse_in = o.clone(), lse.clone()
     o_in[:, :, :hq] = o_ref
     lse_in[:, :hq] = lse_ref
-    grads = fa.flash_attention_bwd(q, k, v, o_in, lse_in, do, True, sm)
-    refs = fa._flash_bwd_reference(*sub, o_ref, lse_ref, do[:, :, :hq], True, sm)
+    grads = fa.flash_attention_bwd(q, k, v, o_in, lse_in, do, causal, sm)
+    refs = fa._flash_bwd_reference(*sub, o_ref, lse_ref, do[:, :, :hq], causal, sm)
     torch.cuda.synchronize()
     errs, tile_errs = {}, {}
     for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
@@ -1045,33 +1086,34 @@ def _flash_case(gen, B, S, H, Hk, D, heads=None):
               f"max err {errs[name]} (max |ref| {float(r.float().abs().max())})")
         check(tile_errs[name] <= FLASH_GRAD_RTOL, f"flash bwd {shape}: {name} disagrees in "
               f"a {FLASH_GRAD_TILE}-row tile by {tile_errs[name]} of its norm")
-    faults = None if heads else _planted_faults(q, k, v, o_in, lse_in, do, sm, grads, refs)
+    faults = None if heads else _planted_faults(q, k, v, o_in, lse_in, do, sm, grads, refs,
+                                                   causal)
     del o_ref, lse_ref, refs
     iters = 20 if heads is None else 3
     attrs = _flash_attributes(D)
-    (f_ms, f_by), (b_ms, b_by) = _flash_bounds(B, S, H, Hk, D)
+    (f_ms, f_by), (b_ms, b_by) = _flash_bounds(B, S, H, Hk, D, causal=causal)
     tol = {"atol": FLASH_TOL[0], "rtol": FLASH_TOL[1], "atol_scaled_by_max_abs": True,
            "grad_tile_rows": FLASH_GRAD_TILE, "grad_tile_norm_rtol": FLASH_GRAD_RTOL}
     fwd = {"shape": shape, "dtype": "bfloat16", "max_abs_err": err_o,
            "max_abs_err_lse": err_lse, "tol": tol,
-           "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, True, sm), iters),
+           "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal, sm), iters),
            "plain_ms": None if heads else time_ms(
-               lambda: fa._flash_fwd_reference(q, k, v, True, sm), iters),
-           "library_ms": _sdpa_train_ms(q, k, v, do, "fwd", iters),
-           "library": "scaled_dot_product_attention(is_causal, enable_gqa) forward",
+               lambda: fa._flash_fwd_reference(q, k, v, causal, sm), iters),
+           "library_ms": _sdpa_train_ms(q, k, v, do, "fwd", iters, causal),
+           "library": f"scaled_dot_product_attention(is_causal={causal}, enable_gqa) forward",
            "attributes": {"flash_fwd_tc_kernel": attrs["flash_fwd_tc_kernel"]},
            "bound_ms": f_ms, "bound_by": f_by}
     bwd = {"shape": shape, "dtype": "bfloat16", "max_abs_err": max(errs.values()),
            "max_abs_err_by_grad": errs, "tile_norm_err_by_grad": tile_errs,
            "planted_faults": faults, "tol": tol,
-           "ms": time_ms(lambda: fa.flash_attention_bwd(q, k, v, o_in, lse_in, do, True, sm),
+           "ms": time_ms(lambda: fa.flash_attention_bwd(q, k, v, o_in, lse_in, do, causal, sm),
                          iters),
            "plain_ms": None if heads else time_ms(
-               lambda: fa._flash_bwd_reference(q, k, v, o_in, lse_in, do, True, sm), iters),
-           "library_ms": _sdpa_train_ms(q, k, v, do, "bwd", iters),
+               lambda: fa._flash_bwd_reference(q, k, v, o_in, lse_in, do, causal, sm), iters),
+           "library_ms": _sdpa_train_ms(q, k, v, do, "bwd", iters, causal),
            "library": "scaled_dot_product_attention's backward alone (torch.autograd.grad "
                       "over a kept forward)",
-           "library_fwd_bwd_ms": _sdpa_train_ms(q, k, v, do, "fwd+bwd", iters),
+           "library_fwd_bwd_ms": _sdpa_train_ms(q, k, v, do, "fwd+bwd", iters, causal),
            "attributes": {n: attrs[n] for n in ("flash_bwd_dkdv_tc_kernel",
                                                 "flash_bwd_dq_tc_kernel")},
            "bound_ms": b_ms, "bound_by": b_by}
@@ -1989,8 +2031,11 @@ def phase_kernels():
     cases["flash_attention_fwd"] = [base[0], longctx[0]]
     cases["flash_attention_bwd"] = [base[1], longctx[1]]
     ernie = _flash_noncausal_case(gen)
-    cases["flash_attention_fwd_noncausal"] = [ernie[0]]
-    cases["flash_attention_bwd_noncausal"] = [ernie[1]]
+    # the same under amp.auto_cast O1, where the white-listed linears hand
+    # the attention bf16 q, k, v (`eager_train` leg 2)
+    ernie_o1 = _flash_case(gen, 32, 512, 12, 12, 64, causal=False)
+    cases["flash_attention_fwd_noncausal"] = [ernie[0], ernie_o1[0]]
+    cases["flash_attention_bwd_noncausal"] = [ernie[1], ernie_o1[1]]
     torch.cuda.empty_cache()
     tables = adamw.TRAIN_TABLES
     cases["adamw"] = [_adamw_case(tables["base"], "base, all 75 leaves", 100)]
@@ -3206,6 +3251,254 @@ def phase_train(profile):
     return rec
 
 
+def _eager_steps(step, batches, steps):
+    """``steps`` calls of ``step(*batch)`` (one training step that returns
+    its loss) over the batches ``batches`` yields, the launch counts set to
+    0 just before the first and read after each; a step's wall time holds
+    the batch's fetch and ends in a synchronise.  Returns the losses, the
+    ms of each step and the record of counts."""
+    import torch
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    losses, walls, per_step = [], [], []
+    it = iter(batches)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for _ in range(steps):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        losses.append(float(step(*next(it))))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({n: c - before[n] for n, c in launch_counts().items()})
+    return losses, walls, {"launches": launch_counts(), "launches_per_step": per_step}
+
+
+def _eager_base_leg(seed, train):
+    """Leg 1 of `eager_train`: the `base` LlamaForCausalLM through the eager
+    API, then TrainStep on the same weights, batches and AdamW; see the
+    module docstring."""
+    import math
+
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    import torch
+    from paddle_tpu_torch.kernels import launch_counts
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.models.presets import DEFAULTS, build_config
+
+    paddle.set_device("gpu")
+    paddle.seed(seed)
+    cfg = build_config("base", "bfloat16")       # the `train` phase's config and batch shape
+    B, S, _ = DEFAULTS["base"]
+    tokens = np.random.default_rng(seed + 20).integers(
+        0, cfg.vocab_size, size=(EAGER_STEPS * B, S)).astype(np.int32)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, seed=seed)
+    opt = paddle.optimizer.AdamW(learning_rate=3e-4, weight_decay=0.1,
+                                 parameters=model.parameters())
+    loader = paddle.io.DataLoader(paddle.io.TensorDataset([paddle.to_tensor(tokens)]),
+                                  batch_size=B)
+
+    def step(ids):
+        loss = model.compute_loss(model(ids), ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    torch.cuda.synchronize()
+    log(f"eager_train leg 1: base preset through the eager API, {cfg.num_hidden_layers} layers, "
+        f"{sum(p.numel() for p in model.parameters())} params (params {cfg.pdtype}, compute "
+        f"{cfg.dtype}), {EAGER_STEPS} batches of {B} x {S} from a DataLoader, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, rec = _eager_steps(step, loader, EAGER_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_hidden_layers
+    want = dict.fromkeys(launch_counts(), 0)
+    want.update(flash_attention_fwd=L, flash_attention_bwd=L, rms_norm=2 * L + 1,
+                rms_norm_bwd=2 * L + 1, adamw=1)
+    if train is not None:
+        check(train["launches_per_step"][0] == want,
+              f"eager_train: the `train` phase's step launched {train['launches_per_step'][0]}, "
+              f"expected {want}")
+    del model, opt, loader, step
+    torch.cuda.empty_cache()
+
+    # the same weights, batches and AdamW through TrainStep
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    opt = paddle.optimizer.AdamW(learning_rate=3e-4, weight_decay=0.1,
+                                 parameters=model.parameters())
+    step_fn = paddle.jit.TrainStep(model, lambda m, ids: m.compute_loss(m(ids), ids), opt)
+    batches = [(torch.from_numpy(tokens[i * B:(i + 1) * B]).cuda(),) for i in range(EAGER_STEPS)]
+    ts_losses, ts_walls, ts_rec = _eager_steps(step_fn, batches, EAGER_STEPS)
+    del model, opt, step_fn, batches
+    torch.cuda.empty_cache()
+
+    steady = sum(walls[1:]) / (EAGER_STEPS - 1)
+    ts_steady = sum(ts_walls[1:]) / (EAGER_STEPS - 1)
+    train_steady = None if train is None else train["steady_step_ms"]
+    same_bits = losses == ts_losses
+    d = max(abs(a - b) for a, b in zip(losses, ts_losses))
+    rec.update(losses=losses, step_ms=walls, steady_step_ms=steady, peak_bytes=peak,
+               train_step=dict(losses=ts_losses, step_ms=ts_walls, steady_step_ms=ts_steady,
+                               launches_per_step=ts_rec["launches_per_step"]),
+               train_phase_steady_step_ms=train_steady, same_bits=same_bits)
+    log(f"eager_train leg 1: losses {losses}; TrainStep {ts_losses}; "
+        f"{'the same bits' if same_bits else f'differ by up to {d!r}'}; step ms {walls} (TrainStep "
+        f"{ts_walls}); steady {steady:.3f} ms, fastest {min(walls[1:]):.3f} (TrainStep in this "
+        f"phase {ts_steady:.3f}, fastest {min(ts_walls[1:]):.3f}; the `train` phase "
+        f"{train_steady}); peak memory {peak / 2**30:.2f} GiB")
+    log(f"eager_train leg 1: launches {json.dumps(rec['launches_per_step'])}")
+    check(all(math.isfinite(x) for x in losses), f"eager_train: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"eager_train: loss did not fall: {losses}")
+    for i, got in enumerate(rec["launches_per_step"]):
+        check(got == want, f"eager_train: eager step {i + 1} launched {got}, expected {want}")
+    for i, got in enumerate(ts_rec["launches_per_step"]):
+        check(got == want, f"eager_train: TrainStep step {i + 1} launched {got}, expected {want}")
+    if not same_bits:
+        # the same weights and batch give step 1 the same autograd graph and
+        # the same update: a later step may differ only where step 1 did
+        check(losses[0] != ts_losses[0], f"eager_train: step 1's losses are the same bits but "
+              f"a later step's are not ({losses} against TrainStep's {ts_losses}): the eager "
+              f"update differs from TrainStep's")
+        log("eager_train: step 1's losses are not the same bits: the eager and TrainStep "
+            "forwards ran on the same weights and batch, so a kernel gave other bits on a "
+            "second run; every step held within TRAIN_LOSS_TOL")
+        check(d <= TRAIN_LOSS_TOL, f"eager_train: the eager losses {losses} are up to {d} "
+              f"from TrainStep's {ts_losses}, past {TRAIN_LOSS_TOL}")
+    return rec
+
+
+def _ernie_o1_step(paddle, model, ids, labels, opt, scaler, amp=True):
+    """One dygraph step of ERNIE under ``auto_cast`` O1 bf16 (without it
+    where ``amp`` is False) with loss scaling (the `eager_train` leg 2
+    program).  Returns the loss and the logits."""
+    with paddle.amp.auto_cast(enable=amp, level="O1", dtype="bfloat16"):
+        logits = model(ids)
+        loss = model.compute_loss(logits, labels)
+    scaler.scale(loss).backward()
+    scaler.step(opt)
+    scaler.update()
+    opt.clear_grad()
+    return loss, logits
+
+
+def _eager_amp_leg(seed):
+    """Leg 2 of `eager_train`: ERNIE-base widths under ``auto_cast`` O1 with
+    a GradScaler, then step 1 of a 2-layer cut against the CPU; see the
+    module docstring."""
+    import math
+
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    import torch
+    from paddle_tpu_torch.kernels import launch_counts
+    from paddle_tpu_torch.models import (ErnieForSequenceClassification,
+                                         load_paddle_tpu_params, to_paddle_tpu_params)
+    from paddle_tpu_torch.models.presets import ERNIE_BATCH, ERNIE_SEQ, ernie_base_config
+
+    paddle.set_device("gpu")
+    cfg = ernie_base_config()
+    ids, labels = _ernie_batch(np.random.default_rng(seed), cfg.vocab_size, ERNIE_BATCH,
+                               ERNIE_SEQ)
+    model = ErnieForSequenceClassification(cfg, seed=seed)
+    opt = paddle.optimizer.Adam(learning_rate=2e-3, parameters=model.parameters())
+    scaler = paddle.amp.GradScaler()
+    seen = {}
+
+    def note_dtype(mod, args):
+        seen.setdefault("attention_output", str(args[0].dtype))
+
+    hook = model.ernie.encoder.layers[0].self_attn.out_proj.register_forward_pre_hook(
+        note_dtype)
+    batch = (paddle.to_tensor(ids.numpy()), paddle.to_tensor(labels.numpy()))
+    L = cfg.num_hidden_layers
+    losses, walls, rec = _eager_steps(
+        lambda i, y: _ernie_o1_step(paddle, model, i, y, opt, scaler)[0],
+        [batch] * EAGER_AMP_STEPS, EAGER_AMP_STEPS)
+    hook.remove()
+    want = dict.fromkeys(launch_counts(), 0)
+    want.update(flash_attention_fwd_noncausal=L, flash_attention_bwd_noncausal=L, adamw=1)
+    steady = sum(walls[1:]) / (EAGER_AMP_STEPS - 1)
+    rec.update(losses=losses, step_ms=walls, steady_step_ms=steady,
+               loss_scale=float(scaler.get_loss_scaling()), **seen)
+    log(f"eager_train leg 2: ERNIE-base widths, {L} layers, fp32 params, batch {ERNIE_BATCH} "
+        f"x {ERNIE_SEQ}, auto_cast O1 bf16, GradScaler: losses {losses}; step ms {walls}; "
+        f"steady {steady:.3f} ms; attention output (the flash kernels' dtype) "
+        f"{seen.get('attention_output')}; loss scale {rec['loss_scale']}; launches "
+        f"{json.dumps(rec['launches_per_step'])}")
+    del model, opt, scaler, batch
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(x) for x in losses), f"eager_train leg 2: non-finite loss {losses}")
+    check(seen.get("attention_output") == "torch.bfloat16",
+          f"eager_train leg 2: attention ran in {seen.get('attention_output')}, not bf16")
+    for i, got in enumerate(rec["launches_per_step"]):
+        check(got == want, f"eager_train leg 2: step {i + 1} launched {got}, expected {want}")
+
+    # step 1 of a 2-layer cut, card against CPU, under the same O1 program;
+    # the control runs the card without auto_cast
+    cut = ernie_base_config(num_hidden_layers=2, hidden_dropout_prob=0.0,
+                            attention_probs_dropout_prob=0.0)
+    ids2, labels2 = _ernie_batch(np.random.default_rng(seed + 8), cut.vocab_size, 2, 512)
+    cpu = ErnieForSequenceClassification(cut, device="cpu", seed=seed)
+    start = {k: v.copy() for k, v in to_paddle_tpu_params(cpu).items()}   # CPU steps in place
+    step1 = {}
+    for run, dev, amp in (("cpu", "cpu", True), ("card", "gpu", True),
+                          ("card_fp32", "gpu", False)):
+        paddle.set_device(dev)
+        m = cpu if dev == "cpu" else ErnieForSequenceClassification(cut, device="cuda",
+                                                                    seed=seed)
+        if m is not cpu:
+            load_paddle_tpu_params(m, start)
+        loss, logits = _ernie_o1_step(
+            paddle, m, paddle.to_tensor(ids2.numpy()), paddle.to_tensor(labels2.numpy()),
+            paddle.optimizer.Adam(learning_rate=2e-3, parameters=m.parameters()),
+            paddle.amp.GradScaler(), amp=amp)
+        step1[run] = {"loss": float(loss), "logits": logits.numpy().astype(np.float64),
+                      "logits_dtype": str(logits.dtype)}
+        del m
+    paddle.set_device("gpu")
+    ref = step1["cpu"]
+
+    def gap(run):
+        return abs(step1[run]["loss"] - ref["loss"]) / abs(ref["loss"])
+
+    rel, ctl = gap("card"), gap("card_fp32")
+    rec["step1_cut"] = {run: {"loss": r["loss"], "logits": r["logits"].tolist(),
+                              "logits_dtype": r["logits_dtype"]} for run, r in step1.items()}
+    rec["step1_cut"].update(rel=rel, control_rel=ctl, limit=EAGER_AMP_LOSS_RTOL)
+    log(f"eager_train leg 2: 2-layer cut, step 1's loss under O1, card against CPU: rel "
+        f"{rel:.3e}; the control, the card without auto_cast: rel {ctl:.3e}; limit "
+        f"{EAGER_AMP_LOSS_RTOL:.3e}; {json.dumps(rec['step1_cut'])}")
+    check(rel <= EAGER_AMP_LOSS_RTOL, f"eager_train leg 2: the cut's step-1 loss on the card "
+          f"{step1['card']['loss']} is {rel} of the CPU's {ref['loss']} away, past "
+          f"{EAGER_AMP_LOSS_RTOL}")
+    check(ctl > EAGER_AMP_LOSS_RTOL, f"eager_train leg 2: the cut run on the card without "
+          f"auto_cast is only {ctl} of the CPU's O1 loss away, within the limit "
+          f"{EAGER_AMP_LOSS_RTOL}: the check cannot tell whether O1 ran")
+    return rec
+
+
+def phase_eager_train(seed, train=None):
+    """The eager Paddle API on the card (`base` dygraph, then ERNIE-base
+    under O1); ``train``, the record of the `train` phase run just before,
+    when it ran.  See the module docstring."""
+    import paddle_tpu_torch as paddle
+
+    try:
+        base = _eager_base_leg(seed, train)
+        amp = _eager_amp_leg(seed)
+    finally:
+        paddle.set_device(None)
+    merged = {"launches": dict(base["launches"]), "launches_per_step": base["launches_per_step"],
+              "base": base, "amp": amp}
+    for k, n in amp["launches"].items():
+        merged["launches"][k] += n
+    return merged
+
+
 def phase_longctx_train(profile):
     """`longctx` pretraining (the `base` model at seq 16384, batch 1, every
     layer recomputed) through the port's entry points, ``LONGCTX_STEPS``
@@ -3271,7 +3564,7 @@ def phase_moe_train(profile):
         f"(|bf16 - fp32| {abs(losses[0] - loss32):.6g}, limit {MOE_TRAIN_LOSS_TOL})")
     check(abs(losses[0] - loss32) <= MOE_TRAIN_LOSS_TOL,
           f"moe_train: step 1's bf16 loss {losses[0]} is {abs(losses[0] - loss32)} from the "
-          f"fp32-activation loss {loss32}, past {TRAIN_LOSS_TOL}")
+          f"fp32-activation loss {loss32}, past {MOE_TRAIN_LOSS_TOL}")
     drops = []
     for layer in model.llama.layers:         # the last step's routing, layer by layer
         r = layer.mlp.last_routing
@@ -4191,6 +4484,9 @@ def main(argv=None) -> int:
         if "train" in phases:
             paths["train"] = phase_train("profile" in phases)
             laps.append(("train", time.perf_counter()))
+        if "eager_train" in phases:
+            paths["eager_train"] = phase_eager_train(args.seed, paths.get("train"))
+            laps.append(("eager_train", time.perf_counter()))
         if "longctx_train" in phases:
             paths["longctx_train"] = phase_longctx_train("profile" in phases)
             laps.append(("longctx_train", time.perf_counter()))

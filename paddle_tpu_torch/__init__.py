@@ -6,92 +6,73 @@ against its JAX original on identical weights.  Plain tensor code is
 PyTorch; every Pallas kernel on a ported path becomes a CUDA kernel written
 for Hopper (``kernels/csrc``), built with ``nvcc`` at first use.
 
-Covered so far: the serving path — ``serving.Engine`` over
+Covered so far: the eager Paddle API — ``Tensor`` / ``to_tensor``, the op
+namespace (``paddle_tpu_torch.add``, ``.matmul``, ...; the same ops as
+Tensor methods), autograd on torch's tape (``backward``, ``grad``,
+``no_grad``, ``autograd.PyLayer``), ``amp`` (``auto_cast``, ``decorate``,
+``GradScaler``), ``io`` (datasets, samplers, ``DataLoader``) and
+``save`` / ``load`` — so ``import paddle_tpu_torch as paddle`` runs a
+dygraph program; the serving path — ``serving.Engine`` over
 ``models.llama.LlamaForCausalLM`` with the paged KV cache, and
 ``LlamaForCausalLM.generate`` — and the pretraining path: ``jit.TrainStep``
 over ``compute_loss`` with ``optimizer.AdamW`` and the presets of
 ``models.presets``; the SSD family, ``models.ssd.SSDForCausalLM``, in
 training and through the Engine's recurrent and hybrid paths; the
 Mixture-of-Experts Llama (``incubate.moe``, the ``moe`` preset) in training
-and serving; and the rest of ``incubate`` (fused ops and layers, optimizer
-wrappers).
+and serving; the rest of ``incubate``; the stock ``nn`` library with the
+ERNIE and PP-OCR recipes.
 
 Device policy: entry points take an explicit ``device``; when none is given
-it is ``"cuda"``, and a missing card raises instead of running on the CPU.
+it is the one ``set_device`` chose, else ``"cuda"``, and a missing card
+raises instead of running on the CPU.  ``set_device("cpu")`` asks for the
+CPU.
+
+The boundary: a ``Tensor`` is unwrapped where user code enters the port
+(``nn.Layer.__call__``, the models' ``__call__``, ``compute_loss`` and
+``generate``, the op namespace) and results come back as Tensors; inside,
+layers, models, kernels, optimizers and ``TrainStep`` work on plain
+``torch.Tensor`` / ``nn.Parameter``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+__version__ = "0.1.0"
 
-import torch
+# framework core: these names come first (the submodules import them from
+# the package)
+from .framework.dtype import DTYPES, to_dtype  # noqa: F401
+from .framework.dtype import (  # noqa: F401
+    bool_ as bool,  # noqa: A001
+    bfloat16, complex128, complex64, float16, float32, float64, int16, int32, int64, int8,
+    uint8, get_default_dtype, set_default_dtype,
+)
+from .framework.device import (  # noqa: F401
+    default_device, device_count, get_device, set_device,
+)
+from .framework.random import default_generator, make_generator, seed  # noqa: F401
+from .framework.tensor import Parameter, Tensor, create_parameter, to_tensor  # noqa: F401
+from .framework.autograd import (  # noqa: F401
+    enable_grad, grad, is_grad_enabled, no_grad, set_grad_enabled,
+)
+from .framework.flags import get_flags, set_flags  # noqa: F401
 
-__all__ = ["seed", "default_device", "default_generator", "make_generator", "to_dtype", "DTYPES"]
+# the op namespace (this also installs the Tensor's methods)
+from .ops import *  # noqa: F401,F403
+from . import ops  # noqa: F401
 
-DTYPES = {
-    "float64": torch.float64,
-    "float32": torch.float32,
-    "bfloat16": torch.bfloat16,
-    "float16": torch.float16,
-    "int32": torch.int32,
-    "int64": torch.int64,
-}
+# subsystems
+from . import nn  # noqa: F401
+from . import optimizer  # noqa: F401
+from . import amp  # noqa: F401
+from . import io  # noqa: F401
+from . import jit  # noqa: F401
+from . import autograd  # noqa: F401
+from . import incubate  # noqa: F401
+from . import linalg  # noqa: F401
+from .framework.io import load, save  # noqa: F401
 
-
-def to_dtype(name: Union[str, torch.dtype]) -> torch.dtype:
-    """``paddle_tpu`` dtype string (``"bfloat16"``) -> ``torch.dtype``."""
-    if isinstance(name, torch.dtype):
-        return name
-    try:
-        return DTYPES[str(name)]
-    except KeyError:
-        raise ValueError(f"unsupported dtype {name!r}; known: {sorted(DTYPES)}")
-
-
-def default_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """Resolve an entry point's ``device`` argument.
-
-    ``None`` means ``"cuda"``.  A CUDA device without a usable card raises:
-    nothing falls back to the CPU unless the caller asked for it."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "paddle_tpu_torch: CUDA is not available; pass device='cpu' "
-            "explicitly to run the plain PyTorch path on the CPU")
-    return dev
-
-
-def make_generator(seed_value: int, device: Union[str, torch.device]) -> torch.Generator:
-    """An explicit ``torch.Generator`` on ``device`` seeded with ``seed_value``."""
-    g = torch.Generator(device=torch.device(device))
-    g.manual_seed(int(seed_value))
-    return g
+dtype = type(float32)
 
 
-_DEFAULT_GENERATORS: dict = {}
-
-
-def default_generator(device: Union[str, torch.device]) -> torch.Generator:
-    """The one generator of ``device`` that draws advance (the counterpart of
-    the JAX package's framework key): a layer built without ``generator=``
-    draws its parameters and dropout masks from it, so two such layers draw
-    different numbers.  Seeded with 0 when first made; :func:`seed` resets
-    it."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    g = _DEFAULT_GENERATORS.get(dev)
-    if g is None:
-        g = _DEFAULT_GENERATORS[dev] = make_generator(0, dev)
-    return g
-
-
-def seed(s: int) -> None:
-    """Seed torch's global generators and every :func:`default_generator`
-    (the ``paddle.seed`` counterpart).
-
-    Models and recipes draw from the generator they are given (or one made
-    from their ``seed``); the defaults serve layers built without one."""
-    torch.manual_seed(int(s))
-    for g in _DEFAULT_GENERATORS.values():
-        g.manual_seed(int(s))
+def in_dynamic_mode() -> bool:
+    return True

@@ -12,7 +12,7 @@ import threading
 from dataclasses import dataclass
 from typing import Any, Dict
 
-__all__ = ["define_flag", "get_flag", "set_flags"]
+__all__ = ["define_flag", "get_flag", "get_flags", "set_flags"]
 
 _LOCK = threading.RLock()
 
@@ -44,6 +44,17 @@ def define_flag(name: str, default: Any, help: str = "") -> None:
         _REGISTRY[name] = _Flag(name=name, default=default, type=ty, help=help, value=value)
 
 
+def get_flags(names=None) -> Dict[str, Any]:
+    """``{name: value}`` of ``names`` (one name, a list, or every flag)."""
+    with _LOCK:
+        if names is None:
+            return {k: f.value for k, f in _REGISTRY.items()}
+        if isinstance(names, str):
+            names = [names]
+        return {n: _REGISTRY[n[len("FLAGS_"):] if n.startswith("FLAGS_") else n].value
+                for n in names}
+
+
 def get_flag(name: str) -> Any:
     with _LOCK:
         return _REGISTRY[name].value
@@ -64,3 +75,8 @@ define_flag("kernel_admission", False,
             "Refuse a registered CUDA kernel that fails the kernel verifier "
             "(analysis.kernel_lint: the static leg, and on a CUDA tensor the "
             "dynamic leg too) before its first launch")
+define_flag("check_nan_inf", False,
+            "Check every output of the op namespace, of nn.functional and of "
+            "the Llama model's seams for NaN/Inf (raises FloatingPointError)")
+define_flag("check_nan_inf_level", 0,
+            "0 raises on a NaN/Inf found by check_nan_inf; > 0 prints a warning")

@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from .. import default_device, make_generator
+from ..framework.tensor import boundary
 from .. import nn
 from ..nn import functional as F
 
@@ -125,5 +126,6 @@ class ErnieForSequenceClassification(nn.Layer):
         _, pooled = self.ernie(input_ids, token_type_ids, attention_mask)
         return self.classifier(self.dropout(pooled))
 
+    @boundary
     def compute_loss(self, logits, labels):
         return F.cross_entropy(logits, labels)

@@ -53,6 +53,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import default_device, make_generator, to_dtype
+from ..framework.dispatch import amp_cast, checked
+from ..framework.tensor import boundary, call_unwrapped
 from ..distributed.parallel.mp_layers import _ce_no_gather
 from ..incubate.moe import MoELayer
 from ..kernels import decode_attention as da
@@ -250,7 +252,8 @@ class LlamaRMSNorm(nn.Module):
         self.epsilon = config.rms_norm_eps
 
     def forward(self, x):
-        return rms_norm(x, self.weight, self.epsilon)
+        x, w = amp_cast("rms_norm", (x, self.weight))
+        return checked("rms_norm", rms_norm(x, w, self.epsilon))
 
 
 class LlamaAttention(nn.Module):
@@ -265,19 +268,30 @@ class LlamaAttention(nn.Module):
         self.o_proj = _param([h * d, config.hidden_size], config, device, gen, std)
 
     def forward(self, x, cos, sin, position_ids=None, cache=None):
+        """Under ``amp.auto_cast`` the inputs are cast by the JAX op names
+        (``block_multihead_attention``, ``masked_multihead_attention``,
+        ``scaled_dot_product_attention``); a KV cache is written in place
+        and never cast."""
         cfg = self.config
         if isinstance(cache, tuple) and len(cache) == 4:
             k_p, v_p, tbl, lengths = cache
+            x, w_qkv, w_o = amp_cast("block_multihead_attention",
+                                     (x, self.qkv_proj, self.o_proj))
             fn = paged_chunk_attention_fn if x.shape[1] > 1 else paged_attention_fn
-            out, nk, nv = fn(x, self.qkv_proj, self.o_proj, k_p, v_p, tbl,
-                             lengths, cos, sin, cfg)
+            out, nk, nv = checked("block_multihead_attention",
+                                  fn(x, w_qkv, w_o, k_p, v_p, tbl, lengths, cos, sin, cfg))
             return out, (nk, nv)
         if cache is not None:
             k_c, v_c, offset = cache
-            out, nk, nv = cached_attention_fn(x, self.qkv_proj, self.o_proj,
-                                              k_c, v_c, cos, sin, offset, cfg)
+            x, w_qkv, w_o, cos, sin = amp_cast("masked_multihead_attention",
+                                               (x, self.qkv_proj, self.o_proj, cos, sin))
+            out, nk, nv = checked("masked_multihead_attention", cached_attention_fn(
+                x, w_qkv, w_o, k_c, v_c, cos, sin, offset, cfg))
             return out, (nk, nv)
-        return attention_fn(x, self.qkv_proj, self.o_proj, cos, sin, cfg, position_ids)
+        x, w_qkv, w_o, cos, sin = amp_cast("scaled_dot_product_attention",
+                                           (x, self.qkv_proj, self.o_proj, cos, sin))
+        return checked("scaled_dot_product_attention",
+                       attention_fn(x, w_qkv, w_o, cos, sin, cfg, position_ids))
 
 
 class LlamaMLP(nn.Module):
@@ -293,7 +307,8 @@ class LlamaMLP(nn.Module):
         self.intermediate_size = config.intermediate_size
 
     def forward(self, x):
-        return mlp_fn(x, self.gate_up_proj, self.down_proj, self.intermediate_size)
+        x, w_gu, w_d = amp_cast("swiglu_mlp", (x, self.gate_up_proj, self.down_proj))
+        return checked("swiglu_mlp", mlp_fn(x, w_gu, w_d, self.intermediate_size))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -324,7 +339,8 @@ class LlamaDecoderLayer(nn.Module):
         if fused_arn is not None:
             # residual add + post-attention RMSNorm in one site
             ln = self.post_attention_layernorm
-            x, normed = fused_arn(x, h, ln.weight, epsilon=ln.epsilon)
+            x, h, w = amp_cast("fuse_add_rms_norm", (x, h, ln.weight))
+            x, normed = checked("fuse_add_rms_norm", fused_arn(x, h, w, epsilon=ln.epsilon))
         else:
             x = x + h
             normed = self.post_attention_layernorm(x)
@@ -387,7 +403,8 @@ class LlamaModel(nn.Module):
         cache returns ``(hidden, aux)``, the MoE layers' summed aux loss, as
         the JAX LlamaModel does; with a cache it drops the aux."""
         cfg = self.config
-        x = F.embedding(input_ids.long(), self.embed_tokens)
+        input_ids, emb = amp_cast("embedding", (input_ids, self.embed_tokens))
+        x = checked("embedding", F.embedding(input_ids.long(), emb))
         if cfg.pdtype != cfg.dtype:
             x = x.to(to_dtype(cfg.dtype))
         cos, sin = self.rope_cos, self.rope_sin
@@ -465,11 +482,17 @@ class LlamaForCausalLM(nn.Module):
     def init_paged_pools(self, num_blocks: int, block_size: int = 128, dtype=None):
         return self.llama.init_paged_pools(num_blocks, block_size, dtype)
 
+    def __call__(self, *args, **kwargs):
+        """The user's entry: Tensors in, Tensors out; plain torch inside."""
+        return call_unwrapped(super().__call__, args, kwargs)
+
     def head(self, hidden):
-        """Vocab projection of final hidden states."""
+        """Vocab projection of final hidden states (``lm_head`` under AMP)."""
         if self.lm_head is None:
-            return hidden @ self.decoder.embed_tokens.to(hidden.dtype).T
-        return hidden @ self.lm_head.to(hidden.dtype)
+            hidden, w = amp_cast("lm_head", (hidden, self.decoder.embed_tokens))
+            return checked("lm_head", hidden @ w.to(hidden.dtype).T)
+        hidden, w = amp_cast("lm_head", (hidden, self.lm_head))
+        return checked("lm_head", hidden @ w.to(hidden.dtype))
 
     def forward(self, input_ids, position_ids=None, cache=None):
         """Logits; with ``cache`` returns ``(logits, new_cache)``.  The SSD
@@ -484,11 +507,11 @@ class LlamaForCausalLM(nn.Module):
             # final RMSNorm + vocab projection in one site, on pre-norm rows
             hidden = self.decoder(input_ids, position_ids, skip_final_norm=True)
             norm = self.decoder.norm
-            if self.lm_head is None:
-                return fused_head(hidden, norm.weight, self.decoder.embed_tokens,
-                                  epsilon=norm.epsilon, transpose=True)
-            return fused_head(hidden, norm.weight, self.lm_head, epsilon=norm.epsilon,
-                              transpose=False)
+            tied = self.lm_head is None
+            hidden, wn, w = amp_cast("lm_head", (hidden, norm.weight, self.decoder.embed_tokens
+                                                 if tied else self.lm_head))
+            return checked("lm_head", fused_head(hidden, wn, w, epsilon=norm.epsilon,
+                                                 transpose=tied))
         if is_moe and cache is None:
             # the routers' aux loss of this forward, for compute_loss
             out, self._moe_aux = self.decoder(input_ids, position_ids)
@@ -499,6 +522,7 @@ class LlamaForCausalLM(nn.Module):
             return self.head(hidden), new_cache
         return self.head(out)
 
+    @boundary
     def compute_loss(self, logits, labels, ignore_index: int = -100):
         """Next-token cross-entropy in fp32: logits at position t against
         label t + 1, averaged over the labels that are not
@@ -507,10 +531,12 @@ class LlamaForCausalLM(nn.Module):
         cache)."""
         if isinstance(labels, np.ndarray):
             labels = torch.from_numpy(labels)
+        (logits,) = amp_cast("cross_entropy", (logits,))
         lb = labels.to(logits.device)[:, 1:].long()
         nll = _ce_no_gather(logits[:, :-1, :], lb)
         mask = (lb != ignore_index).to(torch.float32)
-        loss = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+        loss = checked("cross_entropy",
+                       torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0))
         aux = getattr(self, "_moe_aux", None)
         if aux is not None:
             loss = loss + self.config.moe_aux_loss_weight * aux
@@ -543,6 +569,7 @@ class LlamaForCausalLM(nn.Module):
             tok = torch.where(done, torch.full_like(tok, eos), tok)
         return tok
 
+    @boundary
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: int = 32, do_sample: bool = False,
                  temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,

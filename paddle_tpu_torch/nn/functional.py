@@ -35,6 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import to_dtype
+from ..framework.dispatch import amp_cast, checked_op
+from ..framework.tensor import boundary
 from ..incubate.nn.functional import dropout as _dropout
 from ..kernels import flash_attention as _fa
 
@@ -54,27 +56,33 @@ NEG = -1e30
 # ---------------------------------------------------------------------------
 
 def relu(x, name=None):
+    (x,) = amp_cast("relu", (x,))
     return torch.relu(x)
 
 
 def gelu(x, approximate=False, name=None):
     """Exact erf GELU; ``approximate=True`` the tanh form."""
+    (x,) = amp_cast("gelu", (x,))
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
 def tanh(x, name=None):
+    (x,) = amp_cast("tanh", (x,))
     return torch.tanh(x)
 
 
 def sigmoid(x, name=None):
+    (x,) = amp_cast("sigmoid", (x,))
     return torch.sigmoid(x)
 
 
 def softmax(x, axis=-1, dtype=None, name=None):
+    (x,) = amp_cast("softmax", (x,))
     return torch.softmax(x if dtype is None else x.to(to_dtype(dtype)), dim=axis)
 
 
 def log_softmax(x, axis=-1, dtype=None, name=None):
+    (x,) = amp_cast("log_softmax", (x,))
     return torch.log_softmax(x if dtype is None else x.to(to_dtype(dtype)), dim=axis)
 
 
@@ -84,6 +92,7 @@ def log_softmax(x, axis=-1, dtype=None, name=None):
 
 def linear(x, weight, bias=None, name=None):
     """``x @ weight (+ bias)``, the weight ``[in_features, out_features]``."""
+    x, weight, bias = amp_cast("linear", (x, weight, bias))
     out = torch.matmul(x, weight)
     return out if bias is None else out + bias
 
@@ -91,6 +100,7 @@ def linear(x, weight, bias=None, name=None):
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     """Rows of ``weight`` at ``x``; zeros where ``x == padding_idx`` (so that
     row gets no gradient), as the JAX package."""
+    x, weight = amp_cast("embedding", (x, weight))
     idx = x.long()
     out = weight[idx]
     if padding_idx is not None:
@@ -105,6 +115,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train", name=No
     ported."""
     if axis is not None:
         raise NotImplementedError("paddle_tpu_torch: dropout over chosen axes is not ported")
+    (x,) = amp_cast("dropout", (x,))
     return _dropout(x, p, training=training, mode=mode, generator=generator)
 
 
@@ -116,6 +127,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05, name=
     """Over the last ``len(normalized_shape)`` axes, in fp32, cast back."""
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
+    x, weight, bias = amp_cast("layer_norm", (x, weight, bias))
     f32 = torch.float32
     out = F.layer_norm(x.to(f32), list(normalized_shape),
                        None if weight is None else weight.to(f32),
@@ -139,6 +151,7 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None, training=Fa
     as the JAX package: ``momentum * old + (1 - momentum) * batch``, the
     batch variance biased (torch's own update would take the unbiased one
     and weigh the new value by ``momentum``)."""
+    x, weight, bias = amp_cast("batch_norm", (x, weight, bias))
     x, back = _channel_first(x, data_format)
     use_batch = training and not use_global_stats
     f32 = torch.float32
@@ -199,6 +212,7 @@ def _conv_pads(padding, nd, spatial, kernel, stride, dilation):
 
 
 def _conv(x, weight, bias, stride, padding, dilation, groups, nd, data_format):
+    x, weight, bias = amp_cast("conv", (x, weight, bias))
     x, back = _channel_first(x, data_format)
     st, dl = _ntuple(stride, nd), _ntuple(dilation, nd)
     sym, pairs = _conv_pads(padding, nd, x.shape[2:], weight.shape[2:], st, dl)
@@ -230,6 +244,7 @@ def conv2d_transpose(x, weight, bias=None, stride=1, padding=0, output_padding=0
     pad = _ntuple(padding, 2)
     if len(pad) != 2:
         raise NotImplementedError("paddle_tpu_torch: asymmetric conv2d_transpose padding")
+    x, weight, bias = amp_cast("conv", (x, weight, bias))
     x, back = _channel_first(x, data_format)
     return back(F.conv_transpose2d(x, weight, bias, _ntuple(stride, 2), pad,
                                    _ntuple(output_padding, 2), groups, _ntuple(dilation, 2)))
@@ -248,6 +263,7 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False, ceil_m
     """Max over windows, padding at -inf."""
     if return_mask:
         raise NotImplementedError("paddle_tpu_torch: max_pool2d(return_mask=True)")
+    (x,) = amp_cast("max_pool2d", (x,))
     x, back = _channel_first(x, data_format)
     ks, st, pd = _pool_args(kernel_size, stride, padding)
     return back(F.max_pool2d(x, ks, st, pd, ceil_mode=ceil_mode))
@@ -256,6 +272,7 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False, ceil_m
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False, exclusive=True,
                divisor_override=None, data_format="NCHW", name=None):
     """Mean over windows; ``exclusive`` leaves the padding out of the count."""
+    (x,) = amp_cast("avg_pool2d", (x,))
     x, back = _channel_first(x, data_format)
     ks, st, pd = _pool_args(kernel_size, stride, padding)
     return back(F.avg_pool2d(x, ks, st, pd, ceil_mode=ceil_mode,
@@ -265,6 +282,7 @@ def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False, exclusiv
 
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
     """Window i of n over a side of h: rows floor(i h / n) to ceil((i + 1) h / n)."""
+    (x,) = amp_cast("adaptive_avg_pool2d", (x,))
     x, back = _channel_first(x, data_format)
     return back(F.adaptive_avg_pool2d(x, _ntuple(output_size, 2)))
 
@@ -276,6 +294,7 @@ def interpolate(x, size=None, scale_factor=None, mode="nearest", align_corners=F
     (half-pixel rule); ``"bilinear"`` / ``"linear"`` interpolate between
     half-pixel centres (antialiased when shrinking), or between corners with
     ``align_corners``."""
+    (x,) = amp_cast("interpolate", (x,))
     x, back = _channel_first(x, data_format)
     spatial = x.shape[2:]
     if size is not None:
@@ -318,6 +337,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100, reduction="mean"
     """Softmax cross-entropy in fp32 with hard (class index) or soft labels,
     ``ignore_index``, class ``weight`` and label smoothing; ``"mean"`` over
     hard labels divides by the kept labels (their weights)."""
+    (input,) = amp_cast("cross_entropy", (input,))
     logits = input.to(torch.float32)
     axis = axis % logits.dim()
     lp = (torch.log_softmax(logits, dim=axis) if use_softmax
@@ -351,6 +371,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100, reduction="mean"
 
 
 def binary_cross_entropy(input, label, weight=None, reduction="mean", name=None):
+    input, label = amp_cast("bce", (input, label))
     p, y = input.to(torch.float32), label.to(torch.float32)
     loss = -(y * torch.log(p.clamp(1e-12, 1.0)) + (1 - y) * torch.log((1 - p).clamp(1e-12, 1.0)))
     if weight is not None:
@@ -359,6 +380,7 @@ def binary_cross_entropy(input, label, weight=None, reduction="mean", name=None)
 
 
 def mse_loss(input, label, reduction="mean", name=None):
+    input, label = amp_cast("mse_loss", (input, label))
     return _reduce((input.to(torch.float32) - label.to(torch.float32)).square(), reduction)
 
 
@@ -368,6 +390,7 @@ def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0, reduction
     dynamic program op for op.  ``log_probs`` ``[T, B, C]`` are raw logits
     (log-softmaxed here); ``labels`` ``[B, S]``; the recursion freezes each
     row past its input length."""
+    (log_probs,) = amp_cast("ctc_loss", (log_probs,))
     lp = torch.log_softmax(log_probs.to(torch.float32), dim=-1)
     T, B, _ = lp.shape
     dev = lp.device
@@ -419,6 +442,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None, dropout_p=0.
     ``kernels.flash_attention``; otherwise the plain reference (a boolean
     mask keeps, a float one adds).  ``dropout_p`` is ignored, as in the JAX
     package."""
+    query, key, value, attn_mask = amp_cast("scaled_dot_product_attention",
+                                            (query, key, value, attn_mask))
     if _takes_kernel(query, attn_mask):
         return _fa.flash_attention(query, key, value, causal=is_causal)
     rep = query.shape[2] // key.shape[2]
@@ -432,3 +457,15 @@ def flash_attention(query, key, value, dropout=0.0, causal=False, return_softmax
     """``(out, None)``, as the JAX package's."""
     return scaled_dot_product_attention(query, key, value, None, dropout, causal,
                                         training), None
+
+
+# the JAX op name of each function whose name is not its op's
+_OP_NAMES = {"conv1d": "conv", "conv2d": "conv", "conv2d_transpose": "conv",
+             "binary_cross_entropy": "bce", "upsample": "interpolate",
+             "flash_attention": "scaled_dot_product_attention"}
+
+# the user's entry: Tensors in, Tensors out (plain torch tensors pass as they
+# are); the outputs checked under FLAGS_check_nan_inf by the op's JAX name
+for _name in __all__:
+    globals()[_name] = boundary(checked_op(_OP_NAMES.get(_name, _name), globals()[_name]))
+del _name

@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from .. import default_device, default_generator, to_dtype
+from ..framework.tensor import Tensor, call_unwrapped
 from .initializer import Constant, Initializer, XavierUniform
 
 __all__ = ["Layer", "Sequential", "LayerList", "ParameterList", "deepcopy_sharing_generators"]
@@ -39,6 +40,12 @@ class Layer(nn.Module):
         self._dtype = dtype
         self._device_arg = device
         self._generator = generator
+
+    def __call__(self, *args, **kwargs):
+        """The user's entry: Tensor arguments are unwrapped to their torch
+        tensors, and the outputs wrapped back when any was a Tensor; inside
+        the layer everything is plain torch."""
+        return call_unwrapped(super().__call__, args, kwargs)
 
     @property
     def generator(self) -> torch.Generator:
@@ -74,6 +81,7 @@ class Layer(nn.Module):
             if name not in own:
                 continue
             target = own[name]
+            value = value._data if isinstance(value, Tensor) else value
             src = value if isinstance(value, torch.Tensor) else torch.from_numpy(np.asarray(value))
             if tuple(src.shape) != tuple(target.shape):
                 raise ValueError(f"shape mismatch for {name}: {tuple(src.shape)} vs "

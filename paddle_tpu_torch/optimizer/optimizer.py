@@ -36,6 +36,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..framework.tensor import Tensor
 from ..kernels.adamw import adamw_update_leaves
 from .lr import LRScheduler
 
@@ -54,7 +55,8 @@ def _named(parameters):
         else:
             names.append(getattr(item, "name", "") or "")
             params.append(item)
-    return names, params
+    # a Parameter of the eager API is updated through its storage
+    return names, [p._data if isinstance(p, Tensor) else p for p in params]
 
 
 class Optimizer:

@@ -27,7 +27,19 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.optimizer, paddle_tpu_torch.nn, "
             "paddle_tpu_torch.models.presets, paddle_tpu_torch.analysis.kernel_lint, "
             "paddle_tpu_torch.framework.flags, paddle_tpu_torch.kernels.registry, "
-            "paddle_tpu_torch.kernels.injected\n"
+            "paddle_tpu_torch.kernels.injected, paddle_tpu_torch.ops, paddle_tpu_torch.amp, "
+            "paddle_tpu_torch.io, paddle_tpu_torch.autograd, paddle_tpu_torch.linalg, "
+            "paddle_tpu_torch.framework.tensor, paddle_tpu_torch.framework.autograd, "
+            "paddle_tpu_torch.framework.dispatch, paddle_tpu_torch.framework.io, "
+            "paddle_tpu_torch.framework.device, paddle_tpu_torch.framework.dtype, "
+            "paddle_tpu_torch.framework.random\n"
+            "import paddle_tpu_torch as paddle\n"
+            "paddle.set_device('cpu')\n"
+            "x = paddle.to_tensor([1.0, 2.0], stop_gradient=False)\n"
+            "(paddle.matmul(x, x) * 2).backward()\n"
+            "with paddle.amp.auto_cast():\n"
+            "    paddle.nn.functional.linear(x[None], paddle.ones([2, 2]))\n"
+            "list(paddle.io.DataLoader(paddle.io.TensorDataset([x]), batch_size=1))\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"
             "print(bad)")
