@@ -4,8 +4,9 @@ hold each against its plain PyTorch version, check the card against the CPU,
 pretrain the `base` preset (stock, and with the fusion sites substituted),
 the `moe` preset and the SSD family at `ssd_8b` widths for a few steps
 through TrainStep, train the ERNIE text classifier at ERNIE-1.0-base
-widths and the PP-OCR detector and recognizer at bench scale, and serve
-Llama-3-8B-shaped, MoE and SSD-8B requests through the port's Engine.
+widths and the PP-OCR detector and recognizer at bench scale, train
+ResNet-50 and ERNIE-base through the high-level API (`hapi.Model`), and
+serve Llama-3-8B-shaped, MoE and SSD-8B requests through the port's Engine.
 
     python3 chip_smoke.py                  # every phase, full depth
     python3 chip_smoke.py --layers 8       # cut Llama serving depth (never width)
@@ -13,6 +14,7 @@ Llama-3-8B-shaped, MoE and SSD-8B requests through the port's Engine.
     python3 chip_smoke.py --phases card,build,moe_train,moe_serve
     python3 chip_smoke.py --phases card,build,ernie_train,ocr_train
     python3 chip_smoke.py --phases card,build,eager_train
+    python3 chip_smoke.py --phases card,build,hapi_train
     python3 chip_smoke.py --phases card,build,kernels,longctx_train
     python3 chip_smoke.py --phases card,build,kernels,kernel_gate,parity,fuse_train
     python3 chip_smoke.py --phases card,build,kernels,parity,ssd_train,ssd_serve
@@ -191,6 +193,37 @@ Phases:
              losses finite and falling, images/s, step ms, peak memory; no
              kernel of the port but CRNN's AdamW (once a step).  No "same
              bits twice" check: cuDNN may pick non-deterministic algorithms
+  5g hapi_train  the high-level API on the card, two legs, under torch's
+             TF32 defaults (matmul off, cuDNN on; printed).  Leg 1:
+             vision.models.resnet50() (1000 classes) at PaddleClas's
+             ImageNet/ResNet/ResNet50.yaml recipe: Momentum(0.1, 0.9) with
+             L2Decay(1e-4), batch 64, RandomResizedCrop(224) + flip +
+             normalise + CHW for training, Resize(256) + CenterCrop(224)
+             for eval, over vision.datasets.FakeData (384 + 128 HWC float
+             images of 256 x 256 x 3 from --seed), through
+             hapi.Model(net).prepare(opt, nn.CrossEntropyLoss(),
+             metric.Accuracy(topk=(1, 5))).fit(num_iters=6, num_workers=2)
+             after one forward and backward of a copy at these shapes (so
+             that cuDNN's first calls stay out of fit's steps), evaluate
+             over 2 batches and predict over 1.  Counters read per
+             fit step (a hapi callback): no kernel of the port; losses
+             finite; step 1's loss the same bits as a jit.TrainStep's over a
+             copy of the starting weights, with the model's loss function,
+             on the batch fit's step 1 ran; BatchNorm statistics moved;
+             evaluate gives finite `loss` and `acc` in [0, 1] (top-1, the
+             metric's one name; top-5 from its accumulate()); predict a
+             [64, 1000] array.  Printed: fit's images/s with the loader, each
+             step's wait for the loader and its own ms, the loader alone,
+             train_batch's steady ms on a batch on the card beside the same
+             TrainStep queued without the loss read (the sync a step costs),
+             evaluate's images/s, peak memory, the card's name and power
+             limit.  Leg 2: ERNIE-base (ernie_base_config, 2 classes, fp32,
+             32 x 512, AdamW(5e-5)) through fit for 3 steps over an
+             io.TensorDataset of build_ernie_step's kind of batch: each step
+             the fp32 flash kernels non-causal 12 + 12 and AdamW once,
+             nothing else; step 1's bits as leg 1's (the dropout generator's
+             state put back first); the steady step beside ernie_train's;
+             evaluate over one batch
   6 serve    llama3_8b_config, bf16, random weights from --seed, three
              paths each with the launch counters zeroed just before it and
              read just after it: 16 requests (two share a 256-token prefix)
@@ -438,7 +471,7 @@ EAGER_AMP_STEPS = 3          # leg 2: ERNIE-base under auto_cast O1
 EAGER_AMP_LOSS_RTOL = 3e-3
 ALL_PHASES = ("card", "build", "kernels", "kernel_gate", "parity", "incubate", "train",
               "eager_train", "longctx_train", "fuse_train", "moe_train", "ernie_train",
-              "ocr_train",
+              "ocr_train", "hapi_train",
               "ssd_train", "resume_train", "optimizers", "serve", "moe_serve", "ssd_serve",
               "profile")
 REPO = Path(__file__).resolve().parent
@@ -3106,17 +3139,19 @@ def phase_ocr_train(seed, profile):
     return merged
 
 
-def _drive_train(step_fn, args, steps):
+def _drive_train(step_fn, args, steps, train_step=None):
     """Set every launch count to 0, run ``steps`` training steps on
     ``args`` (the tuple of the step's arguments), and read the counts just
     after.  Launches inside the optimizer's update are tallied apart from
-    the rest of each step.  Returns the losses, the
-    wall time of each step (host clock, ending in a synchronise) and the
-    record of counts."""
+    the rest of each step (the update of ``train_step``, the TrainStep that
+    ``step_fn`` runs, ``step_fn`` itself by default).  Returns the losses,
+    the wall time of each step (host clock, ending in a synchronise) and
+    the record of counts."""
     import torch
     from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
 
-    update = step_fn._update_fn
+    owner = step_fn if train_step is None else train_step
+    update = owner._update_fn
     in_update = dict.fromkeys(launch_counts(), 0)
 
     def counted_update(*a, **kw):
@@ -3126,7 +3161,7 @@ def _drive_train(step_fn, args, steps):
             in_update[name] += n - before[name]
         return out
 
-    step_fn._update_fn = counted_update
+    owner._update_fn = counted_update
     losses, walls, per_step = [], [], []
     try:
         torch.cuda.synchronize()
@@ -3140,7 +3175,7 @@ def _drive_train(step_fn, args, steps):
             per_step.append({n: c - before[n] for n, c in launch_counts().items()})
         counts = launch_counts()
     finally:
-        step_fn._update_fn = update
+        owner._update_fn = update
     return losses, walls, {"launches": counts, "launches_in_update": in_update,
                            "launches_per_step": per_step}
 
@@ -3249,6 +3284,338 @@ def phase_train(profile):
     del step_fn
     torch.cuda.empty_cache()
     return rec
+
+
+# ---------------------------------------------------------------------------
+# hapi_train: the high-level API (hapi.Model) with paddle.vision
+# ---------------------------------------------------------------------------
+
+HAPI_BATCH = 64              # PaddleClas ResNet50.yaml: batch 64 a card
+HAPI_TRAIN_SAMPLES = 384     # FakeData 256 x 256 x 3 float32: 302 MB on the host
+HAPI_FIT_STEPS = 6           # fit's num_iters: one pass over the samples
+HAPI_DRIVE_STEPS = 5         # train_batch on one batch already on the card
+HAPI_EVAL_SAMPLES = 128      # evaluate: 2 batches; predict: 1
+HAPI_ERNIE_STEPS = 3
+IMAGENET_MEAN, IMAGENET_STD = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+
+
+def _fit_probe():
+    """A hapi callback that records each fit step: the host time from the
+    previous step's end (or the epoch's start) to this step's start (the
+    wait for the loader's batch), the step's own time (``train_batch``,
+    which ends by reading the loss: a synchronise), its loss and its
+    launch counts."""
+    from paddle_tpu_torch import hapi
+    from paddle_tpu_torch.kernels import launch_counts
+
+    class FitProbe(hapi.Callback):
+        def __init__(self):
+            super().__init__()
+            self.steps = []
+
+        def on_epoch_begin(self, epoch, logs=None):
+            self._mark = time.perf_counter()
+
+        def on_train_batch_begin(self, step, logs=None):
+            now = time.perf_counter()
+            self._wait, self._begin, self._before = now - self._mark, now, launch_counts()
+
+        def on_train_batch_end(self, step, logs=None):
+            now = time.perf_counter()
+            self.steps.append({"wait_ms": self._wait * 1e3, "step_ms": (now - self._begin) * 1e3,
+                               "loss": logs["loss"],
+                               "launches": {n: c - self._before[n]
+                                            for n, c in launch_counts().items()}})
+            self._mark = now
+
+    return FitProbe()
+
+
+def _first_batch_recorder(model):
+    """Wrap ``model.train_batch`` so that the first batch fit hands it is
+    kept (cloned onto the model's device); returns the dict it lands in."""
+    first = {}
+    inner = model.train_batch
+
+    def recording(inputs, labels=None):
+        if not first:
+            dev = model._device()
+            first["args"] = tuple(getattr(t, "_data", t).to(dev).clone()
+                                  for t in (*inputs, *labels))
+        return inner(inputs, labels)
+
+    model.train_batch = recording
+    return first
+
+
+def _hapi_fit(label, model, data, steps, probe, **fit_kw):
+    """``model.fit`` for ``steps`` steps with the launch counts zeroed just
+    before and read just after; every step's counts are the probe's."""
+    import math
+
+    import torch
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = model.fit(data, epochs=1, num_iters=steps, verbose=0, callbacks=[probe], **fit_kw)
+    fit_s = time.perf_counter() - t0
+    counts = launch_counts()
+    losses = [s["loss"] for s in probe.steps]
+    check(len(losses) == steps, f"{label}: fit ran {len(losses)} steps, not {steps}")
+    check(all(math.isfinite(x) for x in losses), f"{label}: non-finite fit loss {losses}")
+    check(len(hist["loss"]) == 1 and math.isfinite(hist["loss"][0]),
+          f"{label}: fit's history {hist}")
+    return {"fit_s": fit_s, "losses": losses, "launches": counts,
+            "launches_per_step": [s["launches"] for s in probe.steps],
+            "wait_ms": [s["wait_ms"] for s in probe.steps],
+            "step_ms": [s["step_ms"] for s in probe.steps]}
+
+
+def _step1_same_bits(label, model, ref_net, ref_opt, args, fit_loss, before=None):
+    """Step 1 of fit against a ``jit.TrainStep`` over ``ref_net`` (a copy of
+    the weights fit started from), the model's own loss function, on the
+    batch fit's step 1 ran: the losses must be the same bits.  ``before``
+    runs first (it puts back the dropout generator's state)."""
+    from paddle_tpu_torch.jit import TrainStep
+
+    ref_net.train()
+    ref = TrainStep(ref_net, lambda m, *a: model._loss(m(*a[:-1]), a[-1]), ref_opt)
+    if before is not None:
+        before()
+    ref_loss = float(ref(*args))
+    log(f"{label}: step 1 loss {fit_loss!r} through fit, {ref_loss!r} through TrainStep")
+    check(ref_loss == fit_loss,
+          f"{label}: step 1's loss {fit_loss!r} through fit is not {ref_loss!r}, a "
+          f"TrainStep's on the same weights and batch")
+    return ref_loss
+
+
+def _sync_cost(label, model, args, steps):
+    """``train_batch`` on a batch already on the card, ``steps`` steps
+    through ``_drive_train`` (the loss read each step: train_batch's host
+    sync), then as many ``TrainStep`` calls queued with one synchronise at
+    the end; the difference of the two steady means is what the sync a
+    step costs."""
+    import torch
+
+    def train_batch(*a):
+        return model.train_batch(a[:-1], a[-1:])
+
+    losses, walls, rec = _drive_train(train_batch, args, steps, model._train_step)
+    synced = sum(walls[1:]) / (steps - 1) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        model._train_step(*args)
+    torch.cuda.synchronize()
+    queued = (time.perf_counter() - t0) / steps * 1e3
+    log(f"{label}: train_batch on a batch on the card {synced:.3f} ms a step (steady over "
+        f"steps 2-{steps}); TrainStep queued {queued:.3f} ms; the loss read a step costs "
+        f"{synced - queued:.3f} ms")
+    return {"train_batch_ms": synced, "queued_step_ms": queued, "drive_losses": losses,
+            "drive_launches_per_step": rec["launches_per_step"],
+            "drive_launches_in_update": rec["launches_in_update"]}
+
+
+def _hapi_resnet_leg(seed, card):
+    """Leg 1: ResNet-50 at PaddleClas's ImageNet recipe width through
+    ``Model.fit`` / ``evaluate`` / ``predict``; see the module docstring."""
+    import math
+    import random
+
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import io, metric, nn, vision
+    from paddle_tpu_torch.kernels import launch_counts
+    from paddle_tpu_torch.nn.layers import deepcopy_sharing_generators
+    from paddle_tpu_torch.optimizer import L2Decay, Momentum
+
+    T = vision.transforms
+    paddle.seed(seed)
+    random.seed(seed)
+    np.random.seed(seed)
+    t0 = time.perf_counter()
+    train_tf = T.Compose([T.RandomResizedCrop(224), T.RandomHorizontalFlip(),
+                          T.Normalize(IMAGENET_MEAN, IMAGENET_STD, data_format="HWC"),
+                          T.Transpose()])
+    eval_tf = T.Compose([T.Resize(256), T.CenterCrop(224),
+                         T.Normalize(IMAGENET_MEAN, IMAGENET_STD, data_format="HWC"),
+                         T.Transpose()])
+    train_ds = vision.datasets.FakeData(HAPI_TRAIN_SAMPLES, (256, 256, 3), 1000, train_tf,
+                                        seed=seed)
+    eval_ds = vision.datasets.FakeData(HAPI_EVAL_SAMPLES, (256, 256, 3), 1000, eval_tf,
+                                       seed=seed + 1)
+    data_s = time.perf_counter() - t0
+    net = vision.models.resnet50()
+    ref_net = deepcopy_sharing_generators(net)
+
+    def momentum(params):
+        return Momentum(learning_rate=0.1, momentum=0.9, parameters=params,
+                        weight_decay=L2Decay(1e-4))
+
+    model = paddle.Model(net)
+    model.prepare(momentum(net.parameters()), nn.CrossEntropyLoss(),
+                  metric.Accuracy(topk=(1, 5)))
+    torch.cuda.synchronize()
+    log(f"hapi_train: ResNet-50, {sum(p.numel() for p in net.parameters())} params fp32, "
+        f"1000 classes, batch {HAPI_BATCH} at 224 x 224, Momentum(0.1, 0.9) + L2Decay(1e-4); "
+        f"FakeData {HAPI_TRAIN_SAMPLES} + {HAPI_EVAL_SAMPLES} images 256 x 256 x 3 made in "
+        f"{data_s:.1f} s, built in {time.perf_counter() - t0:.1f} s; {_backend_flags()}")
+    # cuDNN's and cuBLAS's first calls at these shapes (algorithm choice,
+    # handles) on the copy, so that fit's steps show the loader, not them;
+    # the copy's BatchNorm statistics move, which step 1's loss (batch
+    # statistics) does not read
+    t0 = time.perf_counter()
+    x0 = torch.zeros(HAPI_BATCH, 3, 224, 224, device=net.bn1._mean.device)
+    y0 = torch.zeros(HAPI_BATCH, dtype=torch.int64, device=x0.device)
+    ref_net.train()
+    torch.autograd.grad(model._loss(ref_net(x0), y0), list(ref_net.parameters()))
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    bn = net.bn1._mean.clone()
+    first = _first_batch_recorder(model)
+    probe = _fit_probe()
+    torch.cuda.reset_peak_memory_stats()
+    rec = _hapi_fit("hapi_train resnet50", model, train_ds, HAPI_FIT_STEPS, probe,
+                    batch_size=HAPI_BATCH, num_workers=2)
+    rec["fit_peak_bytes"] = torch.cuda.max_memory_allocated()
+    del model.train_batch                                  # the recorder
+    none = dict.fromkeys(launch_counts(), 0)
+    for i, got in enumerate(rec["launches_per_step"]):
+        check(got == none, f"hapi_train resnet50: fit step {i + 1} launched {got}")
+    check(not torch.equal(net.bn1._mean, bn), "hapi_train resnet50: BatchNorm statistics "
+          "did not move")
+    loader = io.DataLoader(train_ds, batch_size=HAPI_BATCH, shuffle=True)
+    t0 = time.perf_counter()
+    for i, _ in enumerate(loader):
+        if i == 2:
+            break
+    torch.cuda.synchronize()
+    rec["loader_ms_per_batch"] = (time.perf_counter() - t0) / 3 * 1e3
+    wait, step = rec["wait_ms"], rec["step_ms"]
+    n = HAPI_FIT_STEPS
+    rec.update(
+        warm_up_ms=warm_ms,
+        images_per_s=n * HAPI_BATCH / rec["fit_s"],
+        steady_images_per_s=(n - 1) * HAPI_BATCH / (sum(wait[1:]) + sum(step[1:])) * 1e3,
+        loader_share=sum(wait[1:]) / (sum(wait[1:]) + sum(step[1:])))
+    log(f"hapi_train resnet50: a forward and backward at these shapes first (the copy's): "
+        f"{warm_ms:.1f} ms")
+    log(f"hapi_train resnet50: fit losses {rec['losses']}; wait ms {wait}; step ms {step}; "
+        f"{rec['images_per_s']:.2f} images/s over the fit ({rec['fit_s']:.2f} s, loader "
+        f"included), {rec['steady_images_per_s']:.2f} images/s over steps 2-{n}, of which "
+        f"{rec['loader_share']:.3f} waited on the loader; the loader alone, in this thread, "
+        f"{rec['loader_ms_per_batch']:.3f} ms a batch; peak memory "
+        f"{rec['fit_peak_bytes'] / 2**30:.2f} GiB; {card}")
+    rec["step1_fit_loss"] = rec["losses"][0]
+    _step1_same_bits("hapi_train resnet50", model, ref_net, momentum(ref_net.parameters()),
+                     first["args"], rec["losses"][0])
+    del ref_net
+    rec.update(_sync_cost("hapi_train resnet50", model, first["args"], HAPI_DRIVE_STEPS))
+    for i, got in enumerate(rec["drive_launches_per_step"]):
+        check(got == none, f"hapi_train resnet50: train_batch {i + 1} launched {got}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logs = model.evaluate(eval_ds, batch_size=HAPI_BATCH, verbose=0, num_workers=2)
+    eval_s = time.perf_counter() - t0
+    top1, top5 = model._metrics[0].accumulate()
+    rec.update(eval_logs=logs, eval_top5=top5, eval_images_per_s=HAPI_EVAL_SAMPLES / eval_s,
+               eval_peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"hapi_train resnet50: evaluate {logs} (top-5 {top5}) over {HAPI_EVAL_SAMPLES} images "
+        f"in {eval_s:.3f} s = {rec['eval_images_per_s']:.2f} images/s, peak memory "
+        f"{rec['eval_peak_bytes'] / 2**30:.2f} GiB; {card}")
+    check(sorted(logs) == ["acc", "loss"], f"hapi_train resnet50: evaluate's logs {logs}")
+    check(math.isfinite(logs["loss"]) and 0.0 <= logs["acc"] <= 1.0 and logs["acc"] == top1
+          and 0.0 <= top5 <= 1.0, f"hapi_train resnet50: evaluate's values {logs}, top-5 {top5}")
+    pred = model.predict(io.Subset(eval_ds, range(HAPI_BATCH)), batch_size=HAPI_BATCH)
+    check(len(pred) == 1 and len(pred[0]) == 1 and pred[0][0].shape == (HAPI_BATCH, 1000)
+          and bool(np.isfinite(pred[0][0]).all()),
+          f"hapi_train resnet50: predict gave {[[a.shape for a in o] for o in pred]}")
+    log(f"hapi_train resnet50: predict {pred[0][0].shape} {pred[0][0].dtype}")
+    del model, net
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _hapi_ernie_leg(seed, ernie_rec):
+    """Leg 2: ERNIE-base text classification through ``Model.fit``; see the
+    module docstring."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import io, metric, nn
+    from paddle_tpu_torch.kernels import launch_counts
+    from paddle_tpu_torch.models.ernie import ErnieForSequenceClassification
+    from paddle_tpu_torch.models.presets import ERNIE_BATCH, ERNIE_SEQ, ernie_base_config
+    from paddle_tpu_torch.nn.layers import deepcopy_sharing_generators
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = ernie_base_config()
+    L = cfg.num_hidden_layers
+    net = ErnieForSequenceClassification(cfg, num_classes=2, seed=seed)
+    ref_net = deepcopy_sharing_generators(net)
+    ids, labels = _ernie_batch(np.random.default_rng(seed), cfg.vocab_size,
+                               ERNIE_BATCH * HAPI_ERNIE_STEPS, ERNIE_SEQ)
+    data = io.TensorDataset([paddle.to_tensor(ids), paddle.to_tensor(labels)])
+
+    def adamw(params):
+        return AdamW(learning_rate=5e-5, parameters=params, weight_decay=0.01)
+
+    model = paddle.Model(net)
+    model.prepare(adamw(net.parameters()), nn.CrossEntropyLoss(), metric.Accuracy())
+    gen = net._generator                    # weights and dropout masks, shared with ref_net
+    state = gen.get_state()
+    first = _first_batch_recorder(model)
+    probe = _fit_probe()
+    rec = _hapi_fit("hapi_train ernie", model, data, HAPI_ERNIE_STEPS, probe,
+                    batch_size=ERNIE_BATCH)
+    del model.train_batch
+    want = dict.fromkeys(launch_counts(), 0)
+    want.update(flash_attention_fwd_noncausal=L, flash_attention_bwd_noncausal=L, adamw=1)
+    for i, got in enumerate(rec["launches_per_step"]):
+        check(got == want, f"hapi_train ernie: fit step {i + 1} launched {got}, expected {want}")
+    steady = sum(rec["step_ms"][1:]) / (HAPI_ERNIE_STEPS - 1)
+    ernie_ms = ernie_rec["steady_step_ms"] if ernie_rec else None
+    rec["steady_step_ms"] = steady
+    log(f"hapi_train ernie: ERNIE-1.0-base widths, batch {ERNIE_BATCH} x {ERNIE_SEQ}, AdamW(5e-5), "
+        f"fit losses {rec['losses']}; wait ms {rec['wait_ms']}; step ms {rec['step_ms']}; "
+        f"steady {steady:.3f} ms a step through fit, "
+        + (f"{ernie_ms:.3f} ms through ernie_train's TrainStep (Adam)" if ernie_ms
+           else "ernie_train not run"))
+    _step1_same_bits("hapi_train ernie", model, ref_net, adamw(ref_net.parameters()),
+                     first["args"], rec["losses"][0], before=lambda: gen.set_state(state))
+    del ref_net
+    rec.update(_sync_cost("hapi_train ernie", model, first["args"], HAPI_ERNIE_STEPS))
+    for i, got in enumerate(rec["drive_launches_per_step"]):
+        check(got == want, f"hapi_train ernie: train_batch {i + 1} launched {got}")
+    logs = model.evaluate(io.Subset(data, range(ERNIE_BATCH)), batch_size=ERNIE_BATCH,
+                          verbose=0)
+    log(f"hapi_train ernie: evaluate over one batch {logs}")
+    check(sorted(logs) == ["acc", "loss"] and np.isfinite(logs["loss"])
+          and 0.0 <= logs["acc"] <= 1.0, f"hapi_train ernie: evaluate's logs {logs}")
+    rec["eval_logs"] = logs
+    del model, net
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_hapi_train(seed, card, ernie_rec=None):
+    """The high-level API on the card: ResNet-50 and ERNIE-base through
+    ``hapi.Model``; see the module docstring.  Returns the record whose
+    launches the kernel table reads (both fits' counts; the ERNIE fit's
+    per step).  Both legs run under torch's TF32 defaults (matmul off,
+    cuDNN on), whatever an earlier phase left set, as ``ocr_train``."""
+    with _tf32(False, True):
+        resnet = _hapi_resnet_leg(seed, card)
+        ernie = _hapi_ernie_leg(seed, ernie_rec)
+    launches = {n: c + ernie["launches"][n] for n, c in resnet["launches"].items()}
+    return {"launches": launches, "launches_per_step": ernie["launches_per_step"],
+            "resnet50": resnet, "ernie": ernie}
 
 
 def _eager_steps(step, batches, steps):
@@ -4464,7 +4831,7 @@ def main(argv=None) -> int:
     laps = [("start", t_start)]             # (phase, time it ended)
     cases, paths = {}, {}
     try:
-        phase_card()
+        card = phase_card()
         laps.append(("card", time.perf_counter()))
         if "build" in phases or "kernels" in phases or "kernel_gate" in phases:
             phase_build()
@@ -4502,6 +4869,9 @@ def main(argv=None) -> int:
         if "ocr_train" in phases:
             paths["ocr_train"] = phase_ocr_train(args.seed, "profile" in phases)
             laps.append(("ocr_train", time.perf_counter()))
+        if "hapi_train" in phases:
+            paths["hapi_train"] = phase_hapi_train(args.seed, card, paths.get("ernie_train"))
+            laps.append(("hapi_train", time.perf_counter()))
         if "ssd_train" in phases:
             paths["ssd_train"] = phase_ssd_train("profile" in phases)
             laps.append(("ssd_train", time.perf_counter()))

@@ -20,7 +20,9 @@ over ``compute_loss`` with ``optimizer.AdamW`` and the presets of
 training and through the Engine's recurrent and hybrid paths; the
 Mixture-of-Experts Llama (``incubate.moe``, the ``moe`` preset) in training
 and serving; the rest of ``incubate``; the stock ``nn`` library with the
-ERNIE and PP-OCR recipes.
+ERNIE and PP-OCR recipes; the high-level API (``Model`` fit / evaluate /
+predict, ``callbacks``, ``metric``, ``summary``, ``flops``) and
+``vision`` (models, transforms, datasets; not yet ``vision.ops``).
 
 Device policy: entry points take an explicit ``device``; when none is given
 it is the one ``set_device`` chose, else ``"cuda"``, and a missing card
@@ -69,6 +71,11 @@ from . import jit  # noqa: F401
 from . import autograd  # noqa: F401
 from . import incubate  # noqa: F401
 from . import linalg  # noqa: F401
+from . import metric  # noqa: F401
+from . import vision  # noqa: F401
+from . import callbacks  # noqa: F401
+from . import hapi  # noqa: F401
+from .hapi import Model, flops, summary  # noqa: F401
 from .framework.io import load, save  # noqa: F401
 
 dtype = type(float32)

@@ -7,8 +7,9 @@ ops under them), and the gradient clips."""
 from . import clip, functional, initializer  # noqa: F401
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,  # noqa: F401
                    clip_grad_norm_, clip_grad_value_)
-from .common_layers import (GELU, Dropout, Embedding, Flatten, Identity,  # noqa: F401
-                            Linear, ReLU, Sigmoid, Tanh, Upsample)
+from .common_layers import (GELU, ChannelShuffle, Dropout, Embedding, Flatten,  # noqa: F401
+                            Hardsigmoid, Hardswish, Identity, Linear, ReLU, ReLU6, Sigmoid,
+                            Swish, Tanh, Upsample)
 from .conv import (AdaptiveAvgPool2D, AvgPool2D, Conv1D, Conv2D,  # noqa: F401
                    Conv2DTranspose, MaxPool2D)
 from .layers import Layer, LayerList, ParameterList, Sequential  # noqa: F401

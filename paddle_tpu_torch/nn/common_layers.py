@@ -2,7 +2,7 @@
 recipes use): ``Identity``, ``Linear`` (weight ``[in, out]``, Xavier-uniform,
 zero bias), ``Embedding`` (N(0, 1), the ``padding_idx`` row zeroed),
 ``Dropout`` (its masks from the layer's generator), ``Flatten``,
-``Upsample`` and the activation layers."""
+``Upsample``, ``ChannelShuffle`` and the activation layers."""
 
 from __future__ import annotations
 
@@ -14,7 +14,8 @@ from .initializer import Normal, XavierUniform
 from .layers import Layer
 
 __all__ = ["Identity", "Linear", "Embedding", "Dropout", "Flatten", "Upsample",
-           "ReLU", "GELU", "Sigmoid", "Tanh"]
+           "ChannelShuffle", "ReLU", "ReLU6", "GELU", "Sigmoid", "Tanh", "Swish", "Hardswish",
+           "Hardsigmoid"]
 
 
 class Identity(Layer):
@@ -104,6 +105,15 @@ class Upsample(Layer):
                              self.align_mode, self.data_format)
 
 
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self.groups = groups
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self.groups)
+
+
 def _act_layer(name, fn):
     class _Act(Layer):
         def __init__(self, **kwargs):
@@ -122,4 +132,7 @@ ReLU = _act_layer("ReLU", F.relu)
 GELU = _act_layer("GELU", F.gelu)
 Sigmoid = _act_layer("Sigmoid", F.sigmoid)
 Tanh = _act_layer("Tanh", F.tanh)
-
+ReLU6 = _act_layer("ReLU6", F.relu6)
+Swish = _act_layer("Swish", F.swish)
+Hardswish = _act_layer("Hardswish", F.hardswish)
+Hardsigmoid = _act_layer("Hardsigmoid", F.hardsigmoid)

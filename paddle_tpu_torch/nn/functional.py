@@ -41,8 +41,8 @@ from ..incubate.nn.functional import dropout as _dropout
 from ..kernels import flash_attention as _fa
 
 __all__ = [
-    "linear", "embedding", "dropout", "relu", "gelu", "tanh", "sigmoid", "softmax",
-    "log_softmax", "layer_norm", "batch_norm", "conv1d", "conv2d", "conv2d_transpose",
+    "linear", "embedding", "dropout", "relu", "relu6", "gelu", "tanh", "sigmoid", "swish",
+    "hardswish", "hardsigmoid", "softmax", "log_softmax", "channel_shuffle", "layer_norm", "batch_norm", "conv1d", "conv2d", "conv2d_transpose",
     "max_pool2d", "avg_pool2d", "adaptive_avg_pool2d", "interpolate", "upsample",
     "cross_entropy", "binary_cross_entropy", "mse_loss", "ctc_loss",
     "scaled_dot_product_attention", "flash_attention",
@@ -58,6 +58,12 @@ NEG = -1e30
 def relu(x, name=None):
     (x,) = amp_cast("relu", (x,))
     return torch.relu(x)
+
+
+def relu6(x, name=None):
+    """``min(max(x, 0), 6)``."""
+    (x,) = amp_cast("relu6", (x,))
+    return torch.clamp(x, 0.0, 6.0)
 
 
 def gelu(x, approximate=False, name=None):
@@ -76,6 +82,25 @@ def sigmoid(x, name=None):
     return torch.sigmoid(x)
 
 
+def swish(x, name=None):
+    """``x * sigmoid(x)`` (SiLU)."""
+    (x,) = amp_cast("swish", (x,))
+    return x * torch.sigmoid(x)
+
+
+def hardswish(x, name=None):
+    """``x * clip(x + 3, 0, 6) / 6``."""
+    (x,) = amp_cast("hardswish", (x,))
+    return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+
+
+def hardsigmoid(x, slope=0.1666667, offset=0.5, name=None):
+    """Paddle's ``clip(slope * x + offset, 0, 1)``: its default slope is
+    0.1666667, not torch's 1/6, so this is not ``F.hardsigmoid``."""
+    (x,) = amp_cast("hardsigmoid", (x,))
+    return torch.clamp(slope * x + offset, 0.0, 1.0)
+
+
 def softmax(x, axis=-1, dtype=None, name=None):
     (x,) = amp_cast("softmax", (x,))
     return torch.softmax(x if dtype is None else x.to(to_dtype(dtype)), dim=axis)
@@ -84,6 +109,13 @@ def softmax(x, axis=-1, dtype=None, name=None):
 def log_softmax(x, axis=-1, dtype=None, name=None):
     (x,) = amp_cast("log_softmax", (x,))
     return torch.log_softmax(x if dtype is None else x.to(to_dtype(dtype)), dim=axis)
+
+
+def channel_shuffle(x, groups, data_format="NCHW", name=None):
+    """NCHW channels ``[g0 c0, g0 c1, ..., g1 c0, ...]`` reordered to
+    ``[g0 c0, g1 c0, ..., g0 c1, ...]``."""
+    n, c, h, w = x.shape
+    return x.reshape(n, groups, c // groups, h, w).transpose(1, 2).reshape(n, c, h, w)
 
 
 # ---------------------------------------------------------------------------

@@ -1375,3 +1375,42 @@ def test_hf_roundtrip_on_the_card_keeps_the_logits_bits(cuda):
     with torch.no_grad():
         assert torch.equal(llama(ids), back(ids))
         assert torch.equal(ernie(ids), ernie_back(ids))
+
+
+def test_model_fit_on_the_card_matches_the_cpu(cuda):
+    """``hapi.Model.fit`` of an MLP under Adam (the AdamW kernel on the
+    card, its plain version on the CPU): the history within 1e-5, then
+    ``evaluate`` and ``predict`` too."""
+    import numpy as np
+
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch.framework import device as tp_device
+
+    rng = np.random.default_rng(0)
+    w = rng.normal(size=(8, 3))
+    x = rng.normal(size=(128, 8)).astype(np.float32)
+    y = (x @ w).argmax(-1).astype(np.int64)
+    out = {}
+    prev = tp_device._CURRENT
+    try:
+        for dev in ("cpu", "gpu"):
+            tp.set_device(dev)
+            tp.seed(0)
+            torch.manual_seed(0)
+            net = tp.nn.Sequential(tp.nn.Linear(8, 32, device="cpu"), tp.nn.ReLU(),
+                                   tp.nn.Linear(32, 3, device="cpu")).to(tp.get_device()
+                                                                         .replace("gpu", "cuda"))
+            model = tp.Model(net)
+            model.prepare(tp.optimizer.Adam(learning_rate=1e-2, parameters=net.parameters()),
+                          tp.nn.CrossEntropyLoss(), tp.metric.Accuracy())
+            ds = tp.io.TensorDataset([tp.to_tensor(x), tp.to_tensor(y)])
+            hist = model.fit(ds, epochs=3, batch_size=32, shuffle=False, verbose=0)
+            logs = model.evaluate(ds, batch_size=32, verbose=0)
+            pred = model.predict(ds, batch_size=32, stack_outputs=True)[0]
+            out[dev] = (hist["loss"], logs, pred)
+    finally:
+        tp.set_device(prev)
+    np.testing.assert_allclose(out["gpu"][0], out["cpu"][0], rtol=1e-5)
+    np.testing.assert_allclose(out["gpu"][1]["loss"], out["cpu"][1]["loss"], rtol=1e-5)
+    assert out["gpu"][1]["acc"] == out["cpu"][1]["acc"]
+    np.testing.assert_allclose(out["gpu"][2], out["cpu"][2], atol=1e-5, rtol=0)
