@@ -15,6 +15,7 @@ serve Llama-3-8B-shaped, MoE and SSD-8B requests through the port's Engine.
     python3 chip_smoke.py --phases card,build,ernie_train,ocr_train
     python3 chip_smoke.py --phases card,build,eager_train
     python3 chip_smoke.py --phases card,build,hapi_train
+    python3 chip_smoke.py --phases card,build,nn_tail
     python3 chip_smoke.py --phases card,build,kernels,longctx_train
     python3 chip_smoke.py --phases card,build,kernels,kernel_gate,parity,fuse_train
     python3 chip_smoke.py --phases card,build,kernels,parity,ssd_train,ssd_serve
@@ -224,6 +225,36 @@ Phases:
              nothing else; step 1's bits as leg 1's (the dropout generator's
              state put back first); the steady step beside ernie_train's;
              evaluate over one batch
+  5h nn_tail  the rest of paddle.nn, ops.extras, fft and signal (the
+             slice that ports them), two legs.  Leg 1, the entries that
+             reach kernels, each with the counters zeroed just before it:
+             nn.RMSNorm and F.rms_norm at `base`'s rows (3 x 2048 x 2048
+             bf16, fp32 weight) forward and backward, one rms_norm and one
+             rms_norm_bwd launch each, held to the plain versions within
+             RMS_TOL (dw within RMS_DW_ATOL), and at width 2000 none;
+             F.flash_attn_qkvpacked at `base`'s attention (qkv 3 x 2048 x 3 x
+             16 x 128 bf16, causal) forward and the backward of a sum, one
+             flash forward and one backward, held within FLASH_TOL and tile
+             by tile (whether the q/k/v views were copied is logged, with the
+             forward's ms from the views and from contiguous copies);
+             F.flash_attn_unpadded over an ERNIE-base packed batch (32
+             sequences of 64-512 tokens from --seed, 12 heads of 64, bf16),
+             non-causal and causal: one forward and one backward launch a
+             segment, held to the JAX function's masked attention over the
+             packed length (segment mask, causal rows bottom-right), and
+             flash_attn_varlen_qkvpacked the same bits; the call's host ms
+             beside its device ms and bound.  Leg 2, every other name the
+             slice added to nn.functional and nn, and ops.extras, fft and
+             signal, once on the card (ERNIE-base activations 32 x 512 x
+             768, ImageNet logits 256 x 1000, ResNet-50's stage-1 map 64 x
+             256 x 56 x 56, 3-D 8 x 64 x 16 x 56 x 56, 32 clips of 10 s at
+             16 kHz for stft / istft at n_fft 512, hop 160, FFTs over 64 x
+             4096) against the same call on the CPU in fp32 with TF32 off,
+             forward and the backward of a fixed weighted sum, within the
+             limit of its group (NN_TAIL_TOL; where NN_TAIL_SAMPLES says so
+             the CPU recomputes the batch's first samples only); random
+             names held to their support; every added name must be in the
+             table
   6 serve    llama3_8b_config, bf16, random weights from --seed, three
              paths each with the launch counters zeroed just before it and
              read just after it: 16 requests (two share a 256-token prefix)
@@ -289,7 +320,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
+import random
 import subprocess
 import sys
 import time
@@ -471,7 +504,7 @@ EAGER_AMP_STEPS = 3          # leg 2: ERNIE-base under auto_cast O1
 EAGER_AMP_LOSS_RTOL = 3e-3
 ALL_PHASES = ("card", "build", "kernels", "kernel_gate", "parity", "incubate", "train",
               "eager_train", "longctx_train", "fuse_train", "moe_train", "ernie_train",
-              "ocr_train", "hapi_train",
+              "ocr_train", "hapi_train", "nn_tail",
               "ssd_train", "resume_train", "optimizers", "serve", "moe_serve", "ssd_serve",
               "profile")
 REPO = Path(__file__).resolve().parent
@@ -528,7 +561,7 @@ def bound(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S):
 
 
 def max_err(a, b):
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
 
 
 def within(a, b, tol, scaled=False, slack=None):
@@ -4711,6 +4744,1010 @@ def phase_profile(model, seed):
         f"({wall_ms / steps:.3f} ms wall a step incl. prefill)")
 
 
+# ---------------------------------------------------------------------------
+# nn_tail: the rest of paddle.nn, ops.extras, fft and signal on the card
+# ---------------------------------------------------------------------------
+
+# leg 2: each group's limit on the card against the CPU, fp32 with TF32 off:
+# (atol as a share of max(1, max |CPU|), rtol), values and gradients alike
+NN_TAIL_TOL = {
+    # CUDA's and the CPU's libm differ by an ulp or two in exp/log/tanh/erf
+    "elementwise": ((1e-5, 1e-5), "fp32 transcendental functions, a few ulps apart"),
+    # sums over a row, a window, a batch or a channel taken in another order
+    "reduction": ((1e-4, 1e-4), "sums in another order (norms, pools, losses, softmax)"),
+    # cuDNN's and oneDNN's convolution algorithms (implicit GEMM, Winograd,
+    # FFT) round differently; the resampling and attention matmuls too
+    "matmul": ((1e-3, 1e-3), "cuDNN / cuBLAS against the CPU's fp32 algorithms"),
+    # cuFFT against pocketfft: errors grow with log2(n) and the norm
+    "fft": ((1e-4, 1e-4), "cuFFT against pocketfft, error ~ log2(n) eps |x|"),
+    "exact": ((0.0, 0.0), "integer, boolean and data-movement results: the same bits"),
+}
+NN_TAIL_SAMPLES = {"map": 2, "map3d": 1, "clip": 2}   # samples the CPU recomputes
+
+
+def _nn_tail_kernels(seed):
+    """Leg 1: the slice's entries that reach kernels, at full width, each
+    with the counters zeroed just before it; every result held against its
+    plain version."""
+    import torch
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.kernels.rms_norm import rms_norm_backward_reference, rms_norm_reference
+    from paddle_tpu_torch.nn import functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out, total, labels = {}, {}, []
+
+    def counted(label, fn, want):
+        labels.append(label)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        check(counts == want, f"nn_tail {label}: launches {counts}, expected {want}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return res
+
+    # RMSNorm at `base`'s rows: bf16 x, fp32 weight, forward and backward
+    x = torch.randn(3, 2048, 2048, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(2048, generator=gen, device="cuda")
+    dy = torch.randn(3, 2048, 2048, generator=gen, device="cuda").to(torch.bfloat16)
+    layer = nn.RMSNorm(2048, device="cuda")
+    with torch.no_grad():
+        layer.weight.copy_(w)
+    y_ref = rms_norm_reference(x, w)
+    dx_ref, dw_ref = rms_norm_backward_reference(x, w, dy)
+    for label, call, weight in (("nn.RMSNorm", lambda xx: layer(xx), layer.weight),
+                                ("F.rms_norm", None, None)):
+        if call is None:
+            weight = w.clone().requires_grad_()
+            call = lambda xx, ww=weight: F.rms_norm(xx, ww)   # noqa: E731
+        xg = x.clone().requires_grad_()
+
+        def run(xg=xg, call=call, weight=weight):
+            y = call(xg)
+            dx, dw = torch.autograd.grad(y, (xg, weight), dy)
+            return y, dx, dw
+
+        y, dx, dw = counted(label, run, {"rms_norm": 1, "rms_norm_bwd": 1})
+        errs = {"y": max_err(y, y_ref), "dx": max_err(dx, dx_ref), "dw": max_err(dw, dw_ref)}
+        check(within(y, y_ref, RMS_TOL) and within(dx, dx_ref, RMS_TOL),
+              f"nn_tail {label} disagrees with the plain RMSNorm: {errs}")
+        check(errs["dw"] <= RMS_DW_ATOL * float(dw_ref.abs().max()),
+              f"nn_tail {label}: dw disagrees: {errs}")
+        out[label] = {"shape": [3, 2048, 2048], "max_abs_err": errs}
+        log(f"nn_tail {label}: {json.dumps(out[label])}")
+    z = torch.randn(3, 2048, 2000, generator=gen, device="cuda").to(torch.bfloat16)
+    counted("F.rms_norm at width 2000", lambda: F.rms_norm(z, w[:2000]), {})
+    del x, dy, y_ref, dx_ref, y, dx
+
+    # flash_attn_qkvpacked at `base`'s attention: the q, k, v views of qkv
+    B, S, H, D = 3, 2048, 16, 128
+    qkv = torch.randn(B, S, 3, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+    views = [qkv[:, :, i] for i in range(3)]
+    copied = [fa._aligned_rows(t).data_ptr() != t.data_ptr() for t in views]
+    qkv_g = qkv.clone().requires_grad_()
+    sm = D ** -0.5
+
+    def packed():
+        o = F.flash_attn_qkvpacked(qkv_g, causal=True)[0]
+        return o, torch.autograd.grad(o.float().sum(), qkv_g)[0]
+
+    o, dqkv = counted("flash_attn_qkvpacked", packed,
+                      {"flash_attention_fwd": 1, "flash_attention_bwd": 1})
+    o = o.detach()
+    o_ref, lse_ref = fa._flash_fwd_reference(*views, True, sm)
+    refs = fa._flash_bwd_reference(*views, o_ref, lse_ref, torch.ones_like(o_ref), True, sm)
+    errs = {"o": max_err(o, o_ref)}
+    check(within(o, o_ref, FLASH_TOL, scaled=True), f"nn_tail qkvpacked: o disagrees {errs}")
+    for i, (name, r) in enumerate(zip(("dq", "dk", "dv"), refs)):
+        g = dqkv[:, :, i]
+        errs[name] = max_err(g, r)
+        check(within(g, r, FLASH_TOL, scaled=True) and tile_rel_err(g, r) <= FLASH_GRAD_RTOL,
+              f"nn_tail qkvpacked: {name} disagrees {errs}")
+    contiguous = [t.contiguous() for t in views]
+    packed_ms = time_ms(lambda: F.flash_attn_qkvpacked(qkv, causal=True), 10)
+    dense_ms = time_ms(lambda: fa.flash_attention_fwd(*contiguous, True, sm), 10)
+    out["flash_attn_qkvpacked"] = {
+        "shape": [B, S, 3, H, D], "dtype": "bfloat16", "max_abs_err": errs,
+        "views_copied": dict(zip("qkv", copied)), "fwd_ms_from_views": packed_ms,
+        "fwd_ms_contiguous": dense_ms}
+    log(f"nn_tail flash_attn_qkvpacked: {json.dumps(out['flash_attn_qkvpacked'])}")
+    del qkv, qkv_g, views, contiguous, o, dqkv, o_ref, lse_ref, refs
+
+    # flash_attn_unpadded over an ERNIE-base packed batch: 32 sequences of
+    # 64-512 tokens from the seed, 12 heads of 64, bf16, non-causal and
+    # causal; then causal with the query boundaries apart from the keys'
+    # (each sequence's query count drawn on its own, one sequence without
+    # keys): segments with more queries than keys, whose first rows see no key
+    rng = random.Random(seed)
+    lengths = [rng.randint(64, 512) for _ in range(32)]
+    q_lengths = [rng.randint(64, 512) for _ in range(32)]
+    k_lengths = list(lengths)
+    k_lengths[rng.randrange(32)] = 0
+    H, D, sc = 12, 64, 64 ** -0.5
+
+    def bounds(lens):
+        return torch.tensor([0] + list(itertools.accumulate(lens)), dtype=torch.int32,
+                            device="cuda")
+
+    def rows(n):
+        return torch.randn(n, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+
+    cu = bounds(lengths)
+    Tn = sum(lengths)
+    q, k, v = rows(Tn), rows(Tn), rows(Tn)
+    modes = [("noncausal", False, q, k, v, lengths, lengths),
+             ("causal", True, q, k, v, lengths, lengths),
+             ("causal, query boundaries apart", True, rows(sum(q_lengths)),
+              rows(sum(k_lengths)), rows(sum(k_lengths)), q_lengths, k_lengths)]
+    for mode, causal, q, k, v, lq, lk in modes:
+        cq, ck = bounds(lq), bounds(lk)
+        Tq = q.shape[0]
+        ct = (torch.cos(torch.arange(Tq * H * D, device="cuda", dtype=torch.float32) * 0.7)
+              + 0.5).reshape(Tq, H, D)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+
+        def varlen(qg=qg, kg=kg, vg=vg, cq=cq, ck=ck, causal=causal, ct=ct):
+            o = F.flash_attn_unpadded(qg, kg, vg, cq, ck, 512, 512, sc, causal=causal)[0]
+            return o, torch.autograd.grad((o.float() * ct).sum(), (qg, kg, vg))
+
+        # a launch each way for every sequence with keys
+        n_seg = sum(1 for n in lk if n)
+        kind = "" if causal else "_noncausal"
+        want = {f"flash_attention_fwd{kind}": n_seg, f"flash_attention_bwd{kind}": n_seg}
+        o, grads = counted(f"flash_attn_unpadded {mode}", varlen, want)
+        o = o.detach()
+        # the forward against the JAX function's masked attention over the
+        # packed length (fp32 from the bf16 inputs)
+        o_ref = F._varlen_reference(q.float(), k.float(), v.float(), cq.tolist(), ck.tolist(),
+                                    causal, sc)
+        errs = {"o": max_err(o, o_ref)}
+        check(within(o, o_ref.to(torch.bfloat16), FLASH_TOL, scaled=True),
+              f"nn_tail varlen {mode}: o disagrees {errs}")
+        del o_ref
+        tiles = {}
+        g_ref = _varlen_grads_reference(q, k, v, ct.to(torch.bfloat16), cq.tolist(),
+                                        ck.tolist(), causal, sc)
+        for name, g, r in zip(("dq", "dk", "dv"), grads, g_ref):
+            errs[name], tiles[name] = max_err(g, r), tile_rel_err(g[None], r[None])
+            check(within(g, r, FLASH_TOL, scaled=True) and tiles[name] <= FLASH_GRAD_RTOL,
+                  f"nn_tail varlen {mode}: {name} disagrees {errs}, tile errors {tiles} "
+                  f"(max |plain| {float(r.float().abs().max())})")
+        del g_ref, grads
+        rec = {"sequences": 32, "query_tokens": Tq, "key_tokens": k.shape[0], "heads": H,
+               "head_dim": D, "dtype": "bfloat16", "max_abs_err": errs,
+               "grad_tile_norm_err": tiles}
+        if lq == lk:
+            qkv = torch.stack([q, k, v], dim=1)
+            o_packed = counted(f"flash_attn_varlen_qkvpacked {mode}",
+                               lambda: F.flash_attn_varlen_qkvpacked(
+                                   qkv, cu, cu, 512, 512, sc, causal=causal)[0],
+                               {name: cnt for name, cnt in want.items() if "fwd" in name})
+            check(torch.equal(o_packed, o),
+                  f"nn_tail varlen {mode}: the packed form differs from flash_attn_unpadded")
+            del qkv, o_packed
+            rec.update(_varlen_times(q, k, v, cu, lengths, causal, sc, o))
+        out[f"flash_attn_unpadded {mode}"] = rec
+        log(f"nn_tail flash_attn_unpadded {mode}: {json.dumps(rec)}")
+    return out, total, labels
+
+
+def _varlen_grads_reference(q, k, v, ct16, cu_q, cu_k, causal, scale):
+    """The gradients ``F.flash_attn_unpadded`` should give: each segment's
+    rows that see a key by the plain flash backward (from the plain
+    forward's o and lse and the bf16 cotangent, as ``kernels`` holds the
+    kernel's backward), and the rows that see none (their output the mean
+    of every packed value row, as in the JAX function) spreading their
+    cotangent over every row of v; fp32."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    dq, dk, dv = (torch.zeros(t.shape, device=t.device) for t in (q, k, v))
+    blind = torch.zeros(v.shape[1:], device=v.device)
+    for (q0, q1), (k0, k1) in zip(zip(cu_q, cu_q[1:]), zip(cu_k, cu_k[1:])):
+        nb = q1 - q0 if k1 == k0 else (max(0, (q1 - q0) - (k1 - k0)) if causal else 0)
+        blind += ct16[q0:q0 + nb].float().sum(0)
+        if q1 - q0 > nb:
+            seg = [q[q0 + nb:q1][None], k[k0:k1][None], v[k0:k1][None]]
+            o_s, lse_s = fa._flash_fwd_reference(*seg, causal, scale)
+            gq, gk, gv = fa._flash_bwd_reference(*seg, o_s, lse_s, ct16[q0 + nb:q1][None],
+                                                 causal, scale)
+            dq[q0 + nb:q1] = gq[0].float()
+            dk[k0:k1] += gk[0].float()
+            dv[k0:k1] += gv[0].float()
+    dv += blind / max(v.shape[0], 1)
+    return dq, dk, dv
+
+
+def _varlen_times(q, k, v, cu, lengths, causal, scale, o):
+    """A ``flash_attn_unpadded`` forward's host time (its python, the
+    ``cu_seqlens`` read, the launches enqueued, with the device idle;
+    ``cu_seqlens`` on the card and on the host), its device time, its
+    bound, and the device time of torch's one-call varlen flash attention
+    (``aten::_flash_attention_forward`` with ``cu_seqlens``) on the same
+    inputs, with its largest difference from ``o``."""
+    import torch
+    from paddle_tpu_torch.nn import functional as F
+
+    cu_host = cu.cpu()
+    host_ms = {}
+    for where, c in (("cu_on_card", cu), ("cu_on_host", cu_host)):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            F.flash_attn_unpadded(q, k, v, c, c, 512, 512, scale, causal=causal)
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        host_ms[where] = sum(times[1:]) / len(times[1:])
+    dev_ms = time_ms(lambda: F.flash_attn_unpadded(q, k, v, cu_host, cu_host, 512, 512, scale,
+                                                   causal=causal), 10,
+                     sleep_cycles=20_000_000)
+    T, H, D = q.shape
+    pairs = sum(n * (n + 1) // 2 if causal else n * n for n in lengths) * H
+    bnd, by = bound(4 * T * H * D * 2 + T * H * 4, 4 * D * pairs, BF16_FLOPS_PER_S)
+
+    def library():
+        return torch.ops.aten._flash_attention_forward(
+            q, k, v, cu, cu, max(lengths), max(lengths), 0.0, causal, False, scale=scale)[0]
+
+    try:
+        lib_err = max_err(library(), o)
+        lib_ms = time_ms(library, 10)
+    except (RuntimeError, TypeError) as e:       # an aten build without it
+        lib_err, lib_ms = None, None
+        log(f"nn_tail varlen: no library varlen attention: {e}")
+    return {"fwd_device_ms": dev_ms, "fwd_host_ms": host_ms, "fwd_bound_ms": bnd,
+            "bound_by": by, "library_ms": lib_ms,
+            "library": "aten::_flash_attention_forward with cu_seqlens",
+            "library_max_abs_diff": lib_err}
+
+
+# leg 2's sizes on the card, and the tiny ones of a CPU rehearsal
+NN_TAIL_SIZES = {
+    "card": dict(E=(32, 512, 768), NB=256, NC=1000, D=768, M=(64, 256, 56, 56),
+                 M3=(8, 64, 16, 56, 56), SEQ=3136, CLIP=(32, 160000), NFFT=512, HOP=160,
+                 SIG=(64, 4096), CUBE=64, MAT=512, BIL=256, RNNT=(8, 100, 21, 64)),
+    "tiny": dict(E=(2, 8, 16), NB=8, NC=12, D=16, M=(3, 8, 8, 8), M3=(2, 4, 4, 8, 8), SEQ=64,
+                 CLIP=(2, 2000), NFFT=64, HOP=16, SIG=(4, 64), CUBE=8, MAT=16, BIL=8,
+                 RNNT=(2, 5, 4, 6)),
+}
+
+
+def _nn_tail_cases(gen, dev="cuda", size="card"):
+    """Leg 2's table: (name, group, inputs on ``dev``, fn, samples) where
+    ``samples`` is the key of NN_TAIL_SAMPLES when the CPU recomputes only
+    the first samples of the batch (the op treats samples apart), else
+    None (the whole call).  A layer's fn is ("layer", ctor, call): built on
+    the CPU, copied to the card."""
+    import torch
+    import paddle_tpu_torch as ex
+    from paddle_tpu_torch import fft, nn, signal
+    from paddle_tpu_torch.nn import functional as F
+
+    z = NN_TAIL_SIZES[size]
+    E, NB, NC, D, M, M3 = z["E"], z["NB"], z["NC"], z["D"], z["M"], z["M3"]
+    N, C, HW = M[0], M[1], M[2]
+    N3, C3, DP = M3[0], M3[1], M3[2]
+    HALF = NC // 2
+
+    def R(*shape, lo=None, hi=None):
+        if lo is None:
+            return torch.randn(*shape, generator=gen, device=dev)
+        return lo + (hi - lo) * torch.rand(*shape, generator=gen, device=dev)
+
+    def I(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev)
+
+    act = R(*E)
+    logits, labels = R(NB, NC), I(0, NC, NB)
+    probs = torch.softmax(R(NB, NC), -1)
+    pos = R(NB, NC, lo=0.2, hi=2.0)
+    bits = I(0, 2, NB, NC).float()
+    pm = bits * 2 - 1
+    signs = I(0, 2, NB).float() * 2 - 1
+    vec, vec2, vec3 = R(NB, D), R(NB, D), R(NB, D)
+    fmap, fmap3 = R(*M), R(*M3)
+    fmap_c = R(N, C, HW // 2, HW // 2)
+    seq1 = R(N, C, z["SEQ"])
+    half3 = fmap3[:, :, :DP // 2, :HW // 2, :HW // 2]
+    b_c = R(C)
+    log_p = torch.log_softmax(logits, -1)
+    rt_b, rt_t, rt_u1, rt_v = z["RNNT"]
+    rnnt_in = [R(rt_b, rt_t, rt_u1, rt_v), I(1, rt_v, rt_b, rt_u1 - 1),
+               torch.full((rt_b,), rt_t, device=dev), torch.full((rt_b,), rt_u1 - 1, device=dev)]
+    cases = []
+
+    def add(name, group, inputs, fn, samples=None):
+        cases.append((name, group, inputs, fn, samples))
+
+    # nn.functional
+    for n in ("relu", "relu6", "gelu", "tanh", "sigmoid", "swish", "hardswish", "hardsigmoid"):
+        add(n, "elementwise", [act], getattr(F, n))
+    for n in ("softmax", "log_softmax"):
+        add(n, "reduction", [act], getattr(F, n))
+    add("linear", "matmul", [act, R(D, D // 2) * 0.05, R(D // 2)], F.linear)
+    add("embedding", "reduction", [I(0, NC, NB, 16), R(NC, D)], F.embedding)
+    add("conv2d", "matmul", [fmap, R(C, C, 3, 3) * 0.02, b_c],
+        lambda x, w, b: F.conv2d(x, w, b, padding=1), "map")
+    add("adaptive_avg_pool2d", "reduction", [fmap], lambda x: F.adaptive_avg_pool2d(x, 7), "map")
+    add("batch_norm", "reduction", [fmap, b_c, b_c.abs() + 0.5, b_c, b_c],
+        lambda x, m, v, w, b: F.batch_norm(x, m.detach(), v.detach(), w, b), "map")
+    add("layer_norm", "reduction", [act, R(D), R(D)], lambda x, w, b: F.layer_norm(x, D, w, b))
+    add("channel_shuffle", "exact", [fmap], lambda x: F.channel_shuffle(x, 4), "map")
+    add("upsample", "exact", [fmap], lambda x: F.upsample(x, scale_factor=2), "map")
+    add("cross_entropy", "reduction", [logits, labels], F.cross_entropy)
+    add("binary_cross_entropy", "reduction", [torch.sigmoid(logits), bits],
+        F.binary_cross_entropy)
+    add("mse_loss", "reduction", [act, act.flip(0)], F.mse_loss)
+    ctc_b = max(NB // 8, 2)
+    ctc_in = [R(50, ctc_b, 30), I(1, 30, ctc_b, 10), torch.full((ctc_b,), 50, device=dev),
+              torch.full((ctc_b,), 10, device=dev)]
+    add("ctc_loss", "reduction", ctc_in, F.ctc_loss)
+    for n in ("silu", "leaky_relu", "elu", "selu", "celu", "mish", "softplus", "softsign",
+              "tanhshrink", "softshrink", "hardshrink", "log_sigmoid", "thresholded_relu",
+              "hardtanh", "glu"):
+        add(n, "elementwise", [act], getattr(F, n))
+    add("prelu", "elementwise", [fmap, R(C)], F.prelu, "map")
+    add("rrelu(eval)", "elementwise", [act], lambda x: F.rrelu(x, training=False))
+    add("gumbel_softmax", "random", [logits], lambda x: F.gumbel_softmax(x, 0.5))
+    add("rrelu", "random", [act], F.rrelu)
+    add("conv1d", "matmul", [seq1, R(C // 2, C, 5) * 0.05, R(C // 2)],
+        lambda x, w, b: F.conv1d(x, w, b, padding="SAME"), "map")
+    add("conv3d", "matmul", [fmap3, R(C3, C3, 3, 3, 3) * 0.02, R(C3)],
+        lambda x, w, b: F.conv3d(x, w, b, padding=1), "map3d")
+    add("conv1d_transpose", "matmul", [seq1, R(C, C // 4, 4) * 0.05],
+        lambda x, w: F.conv1d_transpose(x, w, stride=2, padding=1), "map")
+    add("conv2d_transpose(asymmetric)", "matmul", [fmap_c, R(C, C // 2, 3, 3) * 0.02,
+                                                   R(C // 2)],
+        lambda x, w, b: F.conv2d_transpose(x, w, b, stride=2, padding=[1, 0, 0, 1],
+                                           output_padding=1), "map")
+    add("conv3d_transpose", "matmul", [half3, R(C3, C3 // 2, 3, 3, 3) * 0.02],
+        lambda x, w: F.conv3d_transpose(x, w, stride=2, padding=1), "map3d")
+    add("avg_pool1d", "reduction", [seq1], lambda x: F.avg_pool1d(x, 3, 2, 1), "map")
+    add("avg_pool2d(SAME)", "reduction", [fmap], lambda x: F.avg_pool2d(x, 3, 2, "SAME"), "map")
+    add("avg_pool3d", "reduction", [fmap3], lambda x: F.avg_pool3d(x, 2, 2), "map3d")
+    add("max_pool1d", "exact", [seq1], lambda x: F.max_pool1d(x, 3, 2, 1), "map")
+    add("max_pool2d(mask)", "exact", [fmap],
+        lambda x: F.max_pool2d(x, 3, 2, [0, 1, 1, 0], return_mask=True), "map")
+    add("max_pool3d", "exact", [fmap3], lambda x: F.max_pool3d(x, 2), "map3d")
+    add("adaptive_avg_pool1d", "reduction", [seq1], lambda x: F.adaptive_avg_pool1d(x, 10),
+        "map")
+    add("adaptive_avg_pool3d", "reduction", [fmap3],
+        lambda x: F.adaptive_avg_pool3d(x, [DP // 4, HW // 8, HW // 8]), "map3d")
+    add("adaptive_max_pool1d", "exact", [seq1], lambda x: F.adaptive_max_pool1d(x, 10), "map")
+    add("adaptive_max_pool2d", "exact", [fmap], lambda x: F.adaptive_max_pool2d(x, 5), "map")
+    add("group_norm", "reduction", [fmap, b_c, b_c], lambda x, w, b: F.group_norm(x, 4, w, b),
+        "map")
+    add("instance_norm", "reduction", [fmap, b_c, b_c],
+        lambda x, w, b: F.instance_norm(x, weight=w, bias=b), "map")
+    add("rms_norm(width D)", "reduction", [act, R(D)], F.rms_norm)
+    add("local_response_norm", "reduction", [fmap], lambda x: F.local_response_norm(x, 5),
+        "map")
+    add("normalize", "reduction", [act], lambda x: F.normalize(x, axis=-1))
+    add("dropout(axis)", "random", [fmap], lambda x: F.dropout(x, 0.5, axis=[0, 1]))
+    add("dropout2d", "random", [fmap], F.dropout2d)
+    add("dropout3d", "random", [fmap3], F.dropout3d)
+    add("alpha_dropout", "random", [fmap], F.alpha_dropout)
+    add("one_hot", "exact", [labels], lambda y: F.one_hot(y, NC))
+    add("softmax_with_cross_entropy", "reduction", [logits, labels[:, None]],
+        lambda x, y: F.softmax_with_cross_entropy(x, y, return_softmax=True))
+    add("binary_cross_entropy_with_logits", "reduction", [logits, bits, pos[0]],
+        lambda x, y, pw: F.binary_cross_entropy_with_logits(x, y, pos_weight=pw))
+    for n in ("l1_loss", "smooth_l1_loss", "square_error_cost"):
+        add(n, "reduction", [act, act.flip(0)], getattr(F, n))
+    add("nll_loss", "reduction", [log_p, labels], F.nll_loss)
+    add("kl_div", "reduction", [log_p, probs], lambda a, b: F.kl_div(a, b, "batchmean"))
+    add("margin_ranking_loss", "reduction", [vec[:, 0], vec2[:, 0], signs],
+        F.margin_ranking_loss)
+    add("sigmoid_focal_loss", "reduction", [logits, bits], F.sigmoid_focal_loss)
+    add("cosine_embedding_loss", "reduction", [vec, vec2, signs], F.cosine_embedding_loss)
+    add("triplet_margin_loss", "reduction", [vec, vec2, vec3], F.triplet_margin_loss)
+    add("hinge_embedding_loss", "reduction", [logits, pm], F.hinge_embedding_loss)
+    add("poisson_nll_loss", "reduction", [logits, bits * 3], F.poisson_nll_loss)
+    add("gaussian_nll_loss", "reduction", [logits, probs, pos], F.gaussian_nll_loss)
+    add("multi_label_soft_margin_loss", "reduction", [logits, bits],
+        F.multi_label_soft_margin_loss)
+    add("soft_margin_loss", "reduction", [logits, pm], F.soft_margin_loss)
+    add("npair_loss", "reduction", [vec, vec2, I(0, NB // 4, NB)], F.npair_loss)
+    add("interpolate(bicubic)", "matmul", [fmap],
+        lambda x: F.interpolate(x, size=[2 * HW, 2 * HW], mode="bicubic"), "map")
+    add("interpolate(area)", "matmul", [fmap],
+        lambda x: F.interpolate(x, size=[HW // 2, HW // 2], mode="area"), "map")
+    add("interpolate(trilinear)", "matmul", [fmap3],
+        lambda x: F.interpolate(x, size=[DP // 2, HW // 2, HW // 2], mode="trilinear"), "map3d")
+    add("pixel_shuffle", "exact", [fmap], lambda x: F.pixel_shuffle(x, 2), "map")
+    add("pixel_unshuffle", "exact", [fmap], lambda x: F.pixel_unshuffle(x, 2), "map")
+    add("cosine_similarity", "reduction", [act, act.flip(0)], F.cosine_similarity)
+    add("pad(reflect)", "exact", [fmap], lambda x: F.pad(x, [1, 2, 3, 0], "reflect"), "map")
+    add("zeropad2d", "exact", [fmap], lambda x: F.zeropad2d(x, [1, 2, 3, 0]), "map")
+    add("pairwise_distance", "reduction", [vec, vec2], F.pairwise_distance)
+    add("label_smooth", "elementwise", [F.one_hot(labels, NC)], F.label_smooth)
+    add("sequence_mask", "exact", [I(1, E[1], E[0])], lambda n: F.sequence_mask(n, E[1]))
+    add("unfold", "exact", [fmap], lambda x: F.unfold(x, 3, 2, [1, 0, 0, 1]), "map")
+    add("temporal_shift", "exact", [fmap], lambda x: F.temporal_shift(x, N))
+    add("affine_grid", "matmul", [R(N, 2, 3)], lambda t: F.affine_grid(t, [N, C, HW, HW]))
+    add("grid_sample", "matmul", [fmap, R(N, HW, HW, 2, lo=-1.05, hi=1.05)], F.grid_sample,
+        "map")
+    cols = R(N, 4 * C, (HW // 2 + 1) ** 2)
+    add("fold", "reduction", [cols], lambda x: F.fold(x, [HW, HW], 2, 2, 1), "map")
+    pooled, idx = F.max_pool2d(fmap, 2, return_mask=True)
+    add("max_unpool2d", "exact", [pooled, idx], lambda x, i: F.max_unpool2d(x, i, 2), "map")
+    p1, i1 = (t[..., 0] for t in F.max_pool2d(seq1[..., None], [2, 1], return_mask=True))
+    add("max_unpool1d", "exact", [p1, i1], lambda x, i: F.max_unpool1d(x, i, 2), "map")
+    p3 = fmap3[:, :, ::2, ::2, ::2].contiguous()
+    idx3 = torch.arange(DP * HW * HW, device=dev).reshape(DP, HW, HW)[::2, ::2, ::2].expand(
+        N3, C3, DP // 2, HW // 2, HW // 2).contiguous()
+    add("max_unpool3d", "exact", [p3, idx3], lambda x, i: F.max_unpool3d(x, i, 2), "map3d")
+    add("lp_pool1d", "reduction", [seq1], lambda x: F.lp_pool1d(x, 2, 3, 2), "map")
+    add("lp_pool2d", "reduction", [fmap], lambda x: F.lp_pool2d(x, 3, 2), "map")
+    add("fractional_max_pool2d", "exact", [fmap],
+        lambda x: F.fractional_max_pool2d(x, HW * 2 // 3), "map")
+    add("fractional_max_pool3d", "exact", [fmap3],
+        lambda x: F.fractional_max_pool3d(x, [DP * 2 // 3, HW * 2 // 3, HW * 2 // 3]), "map3d")
+    add("adaptive_max_pool3d", "exact", [fmap3],
+        lambda x: F.adaptive_max_pool3d(x, [DP // 3, HW // 6, HW // 6]), "map3d")
+    add("maxout", "exact", [fmap], lambda x: F.maxout(x, 4), "map")
+    add("dice_loss", "reduction", [torch.softmax(fmap_c[:, :8].movedim(1, -1), -1),
+                                   I(0, 8, N, HW // 2, HW // 2, 1)], F.dice_loss)
+    add("log_loss", "elementwise", [probs, bits], F.log_loss)
+    add("multi_margin_loss", "reduction", [logits, labels], F.multi_margin_loss)
+    add("triplet_margin_with_distance_loss", "reduction", [vec, vec2, vec3],
+        F.triplet_margin_with_distance_loss)
+    add("hsigmoid_loss", "reduction", [vec, labels, R(NC - 1, D) * 0.05, R(NC - 1)],
+        lambda x, y, w, b: F.hsigmoid_loss(x, y, NC, w, b))
+    add("rnnt_loss", "reduction", rnnt_in, F.rnnt_loss)
+    cut = [HALF, HALF + NC // 4]
+    als = [vec, labels, R(D, HALF + 2) * 0.05, R(D, D // 4) * 0.05,
+           R(D // 4, cut[1] - cut[0]) * 0.05, R(D, D // 16) * 0.05,
+           R(D // 16, NC - cut[1]) * 0.05]
+    add("adaptive_log_softmax_with_loss", "matmul", als,
+        lambda x, y, h, a, b, c, d: F.adaptive_log_softmax_with_loss(
+            x, y, h, [(a, b), (c, d)], cut))
+    S_, H_ = E[1], 12 if size == "card" else 2
+    fq = R(4, S_, H_, 64)
+    add("flashmask_attention", "matmul", [fq, fq.flip(1), fq * 0.5,
+                                          I(S_ // 2, S_ + 1, 4, 1, S_, 1)],
+        lambda q, k, v, se: F.flashmask_attention(q, k, v, se, causal=True))
+    add("scaled_dot_product_attention", "matmul", [fq, fq.flip(1), fq * 0.5],
+        lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    add("flash_attention", "matmul", [fq, fq.flip(1), fq * 0.5],
+        lambda q, k, v: F.flash_attention(q, k, v, causal=True)[0])
+    sq = R(2, H_, S_, 64)
+    per = 32 if size == "card" else 4
+    offs = torch.arange(0, S_ * per + 1, per, device=dev).expand(2, H_, S_ + 1).contiguous()
+    add("sparse_attention", "matmul", [sq, sq.flip(2), sq * 0.5, offs, I(0, S_, 2, H_, S_ * per)],
+        F.sparse_attention)
+    add("gather_tree", "exact", [I(0, NC, 50, 32, 4), I(0, 4, 50, 32, 4)], F.gather_tree)
+    add("feature_alpha_dropout", "random", [fmap], lambda x: F.feature_alpha_dropout(x, 0.3))
+    bil = z["BIL"]
+    add("bilinear", "matmul", [vec[:, :bil], vec2[:, :bil], R(64, bil, bil) * 0.01, R(1, 64)],
+        F.bilinear)
+    add("class_center_sample", "random", [labels],
+        lambda y: F.class_center_sample(y, NC, NC * 3 // 5))
+    add("margin_cross_entropy", "reduction", [R(NB, NC, lo=-0.95, hi=0.95), labels],
+        F.margin_cross_entropy)
+    for n in ("softmax_", "tanh_", "elu_", "leaky_relu_", "hardtanh_", "thresholded_relu_"):
+        add(n, "elementwise", [act], lambda x, n=n: getattr(F, n)(x.detach().clone()))
+
+    # layers
+    def layer(name, group, ctor, inputs, samples=None, call=None):
+        add(f"nn.{name}", group, inputs, ("layer", ctor, call), samples)
+
+    for n in ("ReLU", "ReLU6", "GELU", "Tanh", "Sigmoid", "Swish", "Hardswish", "Hardsigmoid",
+              "Identity"):
+        layer(n, "elementwise", lambda n=n: getattr(nn, n)(), [act])
+    layer("Dropout", "exact", lambda: nn.Dropout().eval(), [act])
+    layer("Flatten", "exact", lambda: nn.Flatten(), [fmap], "map")
+    layer("ChannelShuffle", "exact", lambda: nn.ChannelShuffle(4), [fmap], "map")
+    layer("Upsample", "exact", lambda: nn.Upsample(scale_factor=2), [fmap], "map")
+    layer("AvgPool2D", "reduction", lambda: nn.AvgPool2D(3, 2, 1), [fmap], "map")
+    layer("MaxPool2D", "exact", lambda: nn.MaxPool2D(3, 2, 1), [fmap], "map")
+    layer("AdaptiveAvgPool2D", "reduction", lambda: nn.AdaptiveAvgPool2D(7), [fmap], "map")
+    layer("Linear", "matmul", lambda: nn.Linear(D, D // 2, device="cpu"), [act])
+    layer("Embedding", "exact", lambda: nn.Embedding(NC, D, device="cpu"), [I(0, NC, NB, 16)])
+    layer("Conv1D", "matmul", lambda: nn.Conv1D(C, C // 2, 5, padding=2, device="cpu"), [seq1],
+          "map")
+    layer("Conv2D", "matmul", lambda: nn.Conv2D(C, C, 3, padding=1, device="cpu"), [fmap],
+          "map")
+    layer("Conv2DTranspose", "matmul", lambda: nn.Conv2DTranspose(C, C // 2, 3, 2, 1,
+                                                                  device="cpu"), [fmap_c], "map")
+    layer("LayerNorm", "reduction", lambda: nn.LayerNorm(D, device="cpu"), [act])
+    for n, x in (("BatchNorm", fmap), ("BatchNorm1D", seq1), ("BatchNorm2D", fmap)):
+        layer(n, "reduction", lambda n=n: getattr(nn, n)(C, device="cpu"), [x])
+    layer("CrossEntropyLoss", "reduction", lambda: nn.CrossEntropyLoss(), [logits, labels])
+    layer("BCELoss", "reduction", lambda: nn.BCELoss(), [torch.sigmoid(logits), bits])
+    layer("MSELoss", "reduction", lambda: nn.MSELoss(), [act, act.flip(0)])
+    layer("CTCLoss", "reduction", lambda: nn.CTCLoss(), ctc_in)
+    steps = act[:, :16]
+    for n in ("SimpleRNN", "GRU", "LSTM"):
+        layer(n, "matmul", lambda n=n: getattr(nn, n)(D, 64, device="cpu"), [steps],
+              call=lambda m, x: m(x)[0])
+    layer("RNN", "matmul", lambda: nn.RNN(nn.GRUCell(D, 64, device="cpu")), [steps],
+          call=lambda m, x: m(x)[0])
+    for n in ("SimpleRNNCell", "GRUCell", "LSTMCell"):
+        layer(n, "matmul", lambda n=n: getattr(nn, n)(D, 64, device="cpu"), [vec],
+              call=lambda m, x: m(x)[0])
+    # GELU in the stacks: with ReLU, a pre-activation that rounds to the
+    # other side of 0 on the card than on the CPU moves that row's input
+    # gradient by a whole term (fp32 only; in fp64 the two agree)
+    heads = 12 if size == "card" else 2
+    kw = dict(dropout=0.0, activation="gelu", device="cpu")
+
+    def enc():
+        return nn.TransformerEncoderLayer(D, heads, 4 * D, **kw)
+
+    def dec():
+        return nn.TransformerDecoderLayer(D, heads, 4 * D, **kw)
+
+    layer("MultiHeadAttention", "matmul", lambda: nn.MultiHeadAttention(D, heads, device="cpu"),
+          [act], "map")
+    layer("TransformerEncoderLayer", "matmul", enc, [act], "map")
+    layer("TransformerEncoder", "matmul", lambda: nn.TransformerEncoder(enc(), 2), [act], "map")
+    layer("TransformerDecoderLayer", "matmul", dec, [act, act.flip(1)], "map")
+    layer("TransformerDecoder", "matmul", lambda: nn.TransformerDecoder(dec(), 2),
+          [act, act.flip(1)], "map")
+    layer("Transformer", "matmul", lambda: nn.Transformer(D, heads, 1, 1, 4 * D, **kw),
+          [act, act.flip(1)], "map")
+    layer("Layer", "matmul", lambda: _holding(nn.Layer(), fc=nn.Linear(D, 8, device="cpu")),
+          [vec], call=lambda m, x: m.fc(x))
+    layer("LayerList", "matmul", lambda: nn.LayerList(
+        [nn.Linear(D, D, device="cpu"), nn.Linear(D, 8, device="cpu")]), [vec],
+          call=lambda m, x: m[1](m[0](x)))
+    layer("Sequential", "matmul", lambda: nn.Sequential(
+        nn.Linear(D, D, device="cpu"), nn.ReLU(), nn.Linear(D, 8, device="cpu")), [vec])
+    layer("ParameterList", "elementwise", lambda: nn.ParameterList(
+        [nn.Layer(device="cpu").create_parameter([D])]), [vec], call=lambda m, x: x * m[0])
+    for n, ctor in (("ClipGradByGlobalNorm", lambda: nn.ClipGradByGlobalNorm(1.0)),
+                    ("ClipGradByNorm", lambda: nn.ClipGradByNorm(1.0)),
+                    ("ClipGradByValue", lambda: nn.ClipGradByValue(0.5))):
+        add(f"nn.{n}", "reduction", [act, vec],
+            lambda a, b, c=ctor: [g for _, g in c()([(None, a), (None, b)])])
+    add("nn.clip_grad_norm_", "reduction", [act, vec],
+        lambda a, b: _clip_run(nn.clip_grad_norm_, 1.0, a, b))
+    add("nn.clip_grad_value_", "exact", [act, vec],
+        lambda a, b: _clip_run(nn.clip_grad_value_, 0.5, a, b))
+    for n in ("Silu", "Mish", "Softsign", "Tanhshrink", "LogSigmoid", "Softmax", "LogSoftmax",
+              "LeakyReLU", "ELU", "SELU", "CELU", "Softplus", "GLU", "Hardtanh", "Softshrink",
+              "Hardshrink", "ThresholdedReLU"):
+        layer(n, "elementwise", lambda n=n: getattr(nn, n)(), [act])
+    layer("RReLU", "elementwise", lambda: nn.RReLU().eval(), [act])
+    layer("PReLU", "elementwise", lambda: nn.PReLU(C, device="cpu"), [fmap], "map")
+    for n in ("Dropout2D", "Dropout3D", "AlphaDropout", "FeatureAlphaDropout"):
+        layer(n, "exact", lambda n=n: getattr(nn, n)().eval(), [fmap])
+    layer("Pad1D", "exact", lambda: nn.Pad1D([1, 2], "replicate"), [seq1], "map")
+    layer("Pad2D", "exact", lambda: nn.Pad2D([1, 2, 0, 1], "reflect"), [fmap], "map")
+    layer("Pad3D", "exact", lambda: nn.Pad3D([1, 1, 0, 1, 1, 0]), [fmap3], "map3d")
+    layer("ZeroPad1D", "exact", lambda: nn.ZeroPad1D([1, 2]), [seq1], "map")
+    layer("ZeroPad2D", "exact", lambda: nn.ZeroPad2D([1, 2, 0, 1]), [fmap], "map")
+    layer("ZeroPad3D", "exact", lambda: nn.ZeroPad3D([1, 1, 0, 1, 1, 0]), [fmap3], "map3d")
+    layer("UpsamplingBilinear2D", "matmul", lambda: nn.UpsamplingBilinear2D(size=[2 * HW,
+                                                                                  2 * HW]),
+          [fmap], "map")
+    layer("UpsamplingNearest2D", "exact", lambda: nn.UpsamplingNearest2D(scale_factor=2),
+          [fmap], "map")
+    layer("PixelShuffle", "exact", lambda: nn.PixelShuffle(2), [fmap], "map")
+    layer("PixelUnshuffle", "exact", lambda: nn.PixelUnshuffle(2), [fmap], "map")
+    layer("CosineSimilarity", "reduction", lambda: nn.CosineSimilarity(), [fmap, fmap.flip(0)],
+          "map")
+    layer("PairwiseDistance", "reduction", lambda: nn.PairwiseDistance(), [vec, vec2])
+    layer("Unflatten", "exact", lambda: nn.Unflatten(1, [2, C // 2]), [fmap], "map")
+    layer("Bilinear", "matmul", lambda: nn.Bilinear(bil, bil, 64, device="cpu"),
+          [vec[:, :bil], vec2[:, :bil]])
+    layer("Unfold", "exact", lambda: nn.Unfold(3, 2, 1), [fmap], "map")
+    layer("Fold", "reduction", lambda: nn.Fold([HW, HW], 2, 2, 1), [cols], "map")
+    layer("BatchNorm3D", "reduction", lambda: nn.BatchNorm3D(C3, device="cpu"), [fmap3])
+    layer("SyncBatchNorm", "reduction", lambda: nn.SyncBatchNorm(C, device="cpu"), [fmap])
+    layer("RMSNorm", "reduction", lambda: nn.RMSNorm(D, device="cpu"), [act])
+    layer("GroupNorm", "reduction", lambda: nn.GroupNorm(4, C, device="cpu"), [fmap], "map")
+    layer("InstanceNorm1D", "reduction", lambda: nn.InstanceNorm1D(C, device="cpu"), [seq1],
+          "map")
+    layer("InstanceNorm2D", "reduction", lambda: nn.InstanceNorm2D(C, device="cpu"), [fmap],
+          "map")
+    layer("InstanceNorm3D", "reduction", lambda: nn.InstanceNorm3D(C3, device="cpu"), [fmap3],
+          "map3d")
+    layer("LocalResponseNorm", "reduction", lambda: nn.LocalResponseNorm(5), [fmap], "map")
+    layer("SpectralNorm", "matmul", lambda: nn.SpectralNorm([C, C, 3, 3], power_iters=2,
+                                                            device="cpu"),
+          [R(C, C, 3, 3) * 0.02])
+    layer("Conv3D", "matmul", lambda: nn.Conv3D(C3, C3, 3, padding=1, device="cpu"), [fmap3],
+          "map3d")
+    layer("Conv1DTranspose", "matmul", lambda: nn.Conv1DTranspose(C, C // 4, 4, 2, 1,
+                                                                  device="cpu"), [seq1], "map")
+    layer("Conv3DTranspose", "matmul", lambda: nn.Conv3DTranspose(C3, C3 // 2, 3, 2, 1,
+                                                                  device="cpu"), [half3], "map3d")
+    for n, args, x, s in (("AvgPool1D", (3, 2, 1), seq1, "map"),
+                          ("AvgPool3D", (2,), fmap3, "map3d"),
+                          ("MaxPool1D", (3, 2, 1), seq1, "map"),
+                          ("MaxPool3D", (2,), fmap3, "map3d"),
+                          ("AdaptiveAvgPool1D", (10,), seq1, "map"),
+                          ("AdaptiveAvgPool3D", ([DP // 4, HW // 8, HW // 8],), fmap3, "map3d"),
+                          ("AdaptiveMaxPool1D", (10,), seq1, "map"),
+                          ("AdaptiveMaxPool2D", (5,), fmap, "map"),
+                          ("AdaptiveMaxPool3D", ([DP // 3, HW // 6, HW // 6],), fmap3, "map3d"),
+                          ("LPPool1D", (2, 3, 2), seq1, "map"),
+                          ("LPPool2D", (3, 2), fmap, "map"),
+                          ("FractionalMaxPool2D", (HW * 2 // 3,), fmap, "map"),
+                          ("FractionalMaxPool3D", ([DP * 2 // 3, HW * 2 // 3, HW * 2 // 3],),
+                           fmap3, "map3d"),
+                          ("Maxout", (4,), fmap, "map")):
+        group = "exact" if "Max" in n else "reduction"
+        layer(n, group, lambda n=n, args=args: getattr(nn, n)(*args), [x], s)
+    layer("MaxUnPool1D", "exact", lambda: nn.MaxUnPool1D(2), [p1, i1], "map")
+    layer("MaxUnPool2D", "exact", lambda: nn.MaxUnPool2D(2), [pooled, idx], "map")
+    layer("MaxUnPool3D", "exact", lambda: nn.MaxUnPool3D(2), [p3, idx3], "map3d")
+    layer("Softmax2D", "reduction", lambda: nn.Softmax2D(), [fmap], "map")
+    for n, inputs in (("BCEWithLogitsLoss", [logits, bits]), ("L1Loss", [act, act.flip(0)]),
+                      ("SmoothL1Loss", [act, act.flip(0)]), ("NLLLoss", [log_p, labels]),
+                      ("KLDivLoss", [log_p, probs]),
+                      ("MarginRankingLoss", [vec[:, 0], vec2[:, 0], signs]),
+                      ("CosineEmbeddingLoss", [vec, vec2, signs]),
+                      ("TripletMarginLoss", [vec, vec2, vec3]),
+                      ("HingeEmbeddingLoss", [logits, pm]), ("PoissonNLLLoss", [logits, bits * 3]),
+                      ("GaussianNLLLoss", [logits, probs, pos]),
+                      ("MultiLabelSoftMarginLoss", [logits, bits]),
+                      ("SoftMarginLoss", [logits, pm]), ("MultiMarginLoss", [logits, labels]),
+                      ("TripletMarginWithDistanceLoss", [vec, vec2, vec3]),
+                      ("RNNTLoss", rnnt_in)):
+        layer(n, "reduction", lambda n=n: getattr(nn, n)(), inputs)
+    layer("HSigmoidLoss", "reduction", lambda: nn.HSigmoidLoss(D, NC, device="cpu"),
+          [vec, labels])
+    layer("AdaptiveLogSoftmaxWithLoss", "matmul",
+          lambda: nn.AdaptiveLogSoftmaxWithLoss(D, NC, cut, device="cpu"), [vec, labels])
+    layer("LayerDict", "matmul",
+          lambda: nn.LayerDict({"proj": nn.Linear(D, D // 2, device="cpu")}), [vec],
+          call=lambda m, x: m["proj"](x))
+    layer("ParameterDict", "elementwise",
+          lambda: nn.ParameterDict({"scale": nn.Layer(device="cpu").create_parameter([D])}),
+          [vec], call=lambda m, x: x * m["scale"])
+    layer("ParamAttr", "matmul", lambda: nn.Linear(D, D // 2, weight_attr=nn.ParamAttr(
+        initializer=nn.initializer.Orthogonal()), device="cpu"), [vec])
+    layer("Parameter", "elementwise", lambda: nn.ParameterList(
+        [torch.nn.Parameter(nn.Parameter(torch.linspace(-1, 1, D))._data.detach().cpu())]),
+        [vec], call=lambda m, x: x * m[0])
+    layer("BiRNN", "matmul", lambda: nn.BiRNN(nn.GRUCell(D, 64, device="cpu"),
+                                              nn.GRUCell(D, 64, device="cpu")),
+          [act[:, :16]], call=lambda m, x: m(x)[0])
+    layer("RNNCellBase", "matmul", lambda: nn.LSTMCell(D, 64, device="cpu"), [vec],
+          call=lambda m, x: m(x)[0])
+    layer("BeamSearchDecoder", "reduction", lambda: nn.GRUCell(16, 64, device="cpu"),
+          [R(NB // 8, 64)], call=_beam_search_run)
+    layer("dynamic_decode", "reduction", lambda: nn.GRUCell(16, 64, device="cpu"),
+          [R(NB // 8, 64) * 2], call=_beam_search_run)
+
+    # ops.extras, fft and signal
+    mat, mat2 = R(z["MAT"], z["MAT"]), R(z["MAT"], z["MAT"])
+    add("addmm", "matmul", [mat, mat2, mat.T], lambda i, a, b: ex.addmm(i, a, b, 0.5, 2.0))
+    add("mm", "matmul", [mat, mat2], ex.mm)
+    add("block_diag", "exact", [mat[:10], mat2[:5, :7], vec[:3]],
+        lambda *m: ex.block_diag(list(m)))
+    add("cdist", "reduction", [vec[:NB // 2], vec2], ex.cdist)
+    add("pdist", "reduction", [vec[:NB // 2]], ex.pdist)
+    add("vander", "reduction", [R(NB, lo=-1.0, hi=1.0)], lambda x: ex.vander(x, 8))
+    add("logcumsumexp", "reduction", [act[:4]], lambda x: ex.logcumsumexp(x, axis=1))
+    add("reduce_as", "reduction", [act], lambda x: ex.reduce_as(x, act[:1, :, :1]))
+    add("trapezoid", "reduction", [act], lambda x: ex.trapezoid(x, dx=0.5))
+    add("cumulative_trapezoid", "reduction", [act[:4]], ex.cumulative_trapezoid)
+    # (away from 0, where sinc's derivative cancels to noise)
+    add("sinc", "elementwise", [act.abs() + 0.25], ex.sinc)
+    add("frexp", "exact", [act], ex.frexp)
+    add("isin", "exact", [labels, I(0, NC, NB)], ex.isin)
+    add("gammaln", "elementwise", [act.abs() + 0.1], ex.gammaln)
+    # (torch has no derivative in the shape argument a)
+    add("gammainc", "elementwise", [pos, probs * 3], lambda a, x: ex.gammainc(a.detach(), x))
+    add("gammaincc", "elementwise", [pos, probs * 3], lambda a, x: ex.gammaincc(a.detach(), x))
+    add("multigammaln", "elementwise", [pos + 2], lambda x: ex.multigammaln(x, 3))
+    add("i0e", "elementwise", [act], ex.i0e)
+    add("i1e", "elementwise", [act], ex.i1e)
+    for n in ("hstack", "vstack", "dstack", "column_stack", "row_stack"):
+        add(n, "exact", [vec, vec2], lambda a, b, n=n: getattr(ex, n)([a, b]))
+    for n, t in (("hsplit", vec), ("vsplit", vec), ("dsplit", act)):
+        add(n, "exact", [t], lambda x, n=n: getattr(ex, n)(x, 4))
+    add("cartesian_prod", "exact", [labels[:8].float(), vec[0, :6]],
+        lambda a, b: ex.cartesian_prod([a, b]))
+    add("combinations", "exact", [vec[0, :12]], lambda x: ex.combinations(x, 2))
+    add("reverse", "exact", [act], lambda x: ex.reverse(x, [0, 2]))
+    add("diagonal_scatter", "exact", [mat, mat2[0]], ex.diagonal_scatter)
+    add("slice_scatter", "exact", [act, act[:, ::4, :]],
+        lambda a, v: ex.slice_scatter(a, v, [1], [0], [E[1]], [4]))
+    add("take", "exact", [act, I(-NB, act.numel(), 512)], ex.take)
+    for n in ("isneginf", "isposinf", "isreal"):
+        add(n, "exact", [act / (act > 1).float()], getattr(ex, n))
+    add("is_complex", "exact", [act], ex.is_complex)
+    add("is_floating_point", "exact", [act], ex.is_floating_point)
+    add("is_integer", "exact", [labels], ex.is_integer)
+    add("broadcast_shape", "exact", [], lambda: ex.broadcast_shape([E[0], 1, D], [E[1], 1]))
+    add("histogram_bin_edges", "reduction", [act], lambda x: ex.histogram_bin_edges(x, 64))
+    add("rank", "exact", [act], ex.rank)
+    add("shape", "exact", [act], ex.shape)
+    add("tolist", "exact", [labels[:16]], ex.tolist)
+    add("finfo", "exact", [], lambda: vars(ex.finfo("bfloat16")))
+    add("iinfo", "exact", [], lambda: vars(ex.iinfo("int32")))
+    add("increment", "exact", [labels[:1]], lambda x: ex.increment(ex.Tensor(x), 3))
+    add("shard_index", "exact", [labels], lambda x: ex.shard_index(x, NC, 4, 1))
+    add("floor_mod", "exact", [labels, I(1, 50, NB)], ex.floor_mod)
+    add("set_printoptions", "exact", [], lambda: ex.set_printoptions(precision=8))
+    add("set_grad_enabled", "exact", [act], lambda x: _grad_mode_run(ex, x))
+    add("where_", "exact", [act, act.flip(0)], lambda a, b: ex.where_(a > 0, ex.Tensor(a), b))
+    for n, args, group in (("sinc_", [act.abs() + 0.25], "elementwise"),
+                           ("gammaln_", [act.abs() + 0.1], "elementwise"),
+                           ("gammainc_", [pos, probs * 3], "elementwise"),
+                           ("gammaincc_", [pos, probs * 3], "elementwise"),
+                           ("multigammaln_", [pos + 2, 3], "elementwise"),
+                           ("floor_mod_", [labels, I(1, 9, NB)], "exact"),
+                           ("addmm_", [mat, mat2, mat.T], "matmul")):
+        add(n, group, [a for a in args if torch.is_tensor(a)],
+            lambda *a, n=n, args=args: getattr(ex, n)(
+                ex.Tensor(a[0].detach()), *(t.detach() for t in a[1:]),
+                *[v for v in args if not torch.is_tensor(v)]))
+    sig, cube = R(*z["SIG"]), R(4, z["CUBE"], z["CUBE"])
+    for n in ("fft", "ifft", "rfft", "ihfft"):
+        add(f"fft.{n}", "fft", [sig], lambda x, n=n: getattr(fft, n)(x))
+    add("fft.hfft", "fft", [fft.ihfft(sig)._data], fft.hfft)
+    add("fft.irfft", "fft", [fft.rfft(sig)._data], fft.irfft)
+    for n in ("fft2", "ifft2", "rfft2", "fftn", "ifftn", "rfftn", "ihfft2", "ihfftn"):
+        add(f"fft.{n}", "fft", [cube], lambda x, n=n: getattr(fft, n)(x))
+    for n, src in (("irfft2", "rfft2"), ("irfftn", "rfftn"), ("hfft2", "ihfft2"),
+                   ("hfftn", "ihfftn")):
+        add(f"fft.{n}", "fft", [getattr(fft, src)(cube)._data], lambda x, n=n: getattr(fft, n)(x))
+    add("fft.fftshift", "exact", [sig], fft.fftshift)
+    add("fft.ifftshift", "exact", [sig], fft.ifftshift)
+    add("fft.fftfreq", "exact", [], lambda: fft.fftfreq(4096, 0.5))
+    add("fft.rfftfreq", "exact", [], lambda: fft.rfftfreq(4096, 0.5))
+    clips = R(*z["CLIP"])
+    window = torch.hann_window(z["NFFT"], device=dev)
+    add("signal.stft", "fft", [clips, window],
+        lambda x, w: signal.stft(x, z["NFFT"], z["HOP"], window=w), "clip")
+    spec = signal.stft(clips, z["NFFT"], z["HOP"], window=window)._data
+    add("signal.istft", "fft", [spec, window],
+        lambda s, w: signal.istft(s, z["NFFT"], z["HOP"], window=w, length=z["CLIP"][1]),
+        "clip")
+    return cases
+
+
+def _beam_search_run(cell, init):
+    """dynamic_decode of a BeamSearchDecoder (4 beams, 12 steps) over
+    ``cell``, a GRU over one-hot tokens whose states a fixed matrix
+    projects to the vocabulary: ids and scores."""
+    import torch
+    from paddle_tpu_torch import nn
+
+    vocab, hidden = cell.weight_ih.shape[1], cell.weight_hh.shape[1]
+    proj = torch.linspace(-1, 1, hidden * vocab, device=init.device).reshape(hidden, vocab)
+    dec = nn.BeamSearchDecoder(cell, 1, 0, 4,
+                               embedding_fn=lambda t: nn.functional.one_hot(t, vocab),
+                               output_fn=lambda h: h @ proj)
+    return nn.dynamic_decode(dec, init, max_step_num=12)
+
+
+def _holding(layer, **sublayers):
+    """``layer`` with ``sublayers`` set as its attributes."""
+    for name, sub in sublayers.items():
+        setattr(layer, name, sub)
+    return layer
+
+
+def _clip_run(fn, limit, *grads):
+    """``fn`` (``nn.clip_grad_norm_`` / ``clip_grad_value_``) on parameters
+    whose ``.grad`` are ``grads``: the clipped gradients and what it
+    returns."""
+    import torch
+
+    params = [torch.nn.Parameter(torch.zeros_like(g)) for g in grads]
+    for p, g in zip(params, grads):
+        p.grad = g.detach().clone()
+    total = fn(params, limit)
+    return [p.grad for p in params] + ([] if total is None else [total])
+
+
+def _grad_mode_run(ex, x):
+    import torch
+
+    with ex.set_grad_enabled(False):
+        off = (x.requires_grad and (x * 2).requires_grad)
+    return [off, torch.is_grad_enabled()]
+
+
+def _to_cpu(v, n):
+    """A card value on the CPU (its first ``n`` samples when ``n``)."""
+    import torch
+    from paddle_tpu_torch.framework.tensor import unwrap
+
+    v = unwrap(v)
+    if isinstance(v, torch.Tensor):
+        v = v.detach()
+        return (v[:n] if n and v.dim() else v).cpu()
+    if isinstance(v, (list, tuple)):
+        return type(v)(_to_cpu(x, n) for x in v)
+    if isinstance(v, dict):
+        return {k: _to_cpu(x, n) for k, x in v.items()}
+    return v
+
+
+def _tensors(v):
+    import torch
+    from paddle_tpu_torch.framework.tensor import unwrap
+
+    v = unwrap(v)
+    if isinstance(v, torch.Tensor):
+        return [v]
+    if isinstance(v, (list, tuple)):
+        return [t for x in v for t in _tensors(x)]
+    if isinstance(v, dict):
+        return [t for x in v.values() for t in _tensors(x)]
+    return []
+
+
+def _weighted_sum(outs, n=None):
+    """A fixed non-constant weighting of the float outputs (first ``n``
+    samples when ``n``), for the backward."""
+    import torch
+
+    total = 0.0
+    for k, t in enumerate(outs):
+        if not (t.is_floating_point() or t.is_complex()) or not t.requires_grad:
+            continue
+        t = torch.view_as_real(t.resolve_conj()) if t.is_complex() else t
+        t = t[:n] if n and t.dim() else t
+        c = torch.cos(torch.arange(t.numel(), device=t.device, dtype=torch.float32) * 0.7
+                      + k) + 0.5
+        total = total + (t.float() * c.reshape(t.shape)).sum()
+    return total
+
+
+def _agree(got, want, tol):
+    """``got`` (card, already on the CPU) within ``tol`` of ``want``: the
+    largest error, or None where they disagree in kind, shape or value."""
+    import torch
+
+    g_t, w_t = _tensors(got), _tensors(want)
+    if len(g_t) != len(w_t):
+        return None
+    if not g_t:
+        return 0.0 if got == want else None
+    worst = 0.0
+    for a, b in zip(g_t, w_t):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return None
+        if a.is_complex():
+            a, b = torch.view_as_real(a.resolve_conj()), torch.view_as_real(b.resolve_conj())
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                return None
+            continue
+        err = float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+        if not within(a, b, tol, scaled=True):
+            return None
+        worst = max(worst, err)
+    return worst
+
+
+def _random_checks(name, out):
+    """The draws of a random case: support and moments."""
+    import torch
+    from paddle_tpu_torch.framework.tensor import unwrap
+
+    if name == "class_center_sample":
+        remapped, sampled = (unwrap(t) for t in out)
+        return bool((torch.diff(sampled) > 0).all()) and int(remapped.min()) >= 0
+    t = unwrap(out).float()
+    finite = bool(torch.isfinite(t).all())
+    if name == "gumbel_softmax":
+        return finite and bool(torch.allclose(t.sum(-1), torch.ones_like(t[..., 0]), atol=1e-5))
+    if name.startswith("dropout"):          # a draw a (sample, channel), p 0.5
+        units = t.shape[0] * t.shape[1]
+        zeros = float((t == 0).float().mean())
+        return finite and abs(zeros - 0.5) <= max(0.15, 5 * (0.25 / units) ** 0.5)
+    return finite and t.numel() > 0
+
+
+def _nn_tail_surface(seed, dev="cuda", size="card", leg1=()):
+    """Leg 2: every name the slice added, once on ``dev``, against the same
+    call on the CPU in fp32 (TF32 off), forward and the backward of a fixed
+    weighted sum of its float outputs; where the CPU recomputes only the
+    first samples, the gradients of the batch's inputs are compared.
+    ``size`` "tiny" (with ``dev`` "cpu") rehearses the table here."""
+    import copy
+
+    import torch
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.nn as tnn
+    from paddle_tpu_torch import fft, signal
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import extras
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 18)
+    checked, errors, worst = [], [], {}
+    t0 = time.perf_counter()
+    with _tf32(False, False):
+        for name, group, inputs, fn, samples in _nn_tail_cases(gen, dev, size):
+            n = NN_TAIL_SAMPLES.get(samples)
+            # the batch's inputs: the first and those of its rank and batch
+            lead = inputs[0].shape[:1] if inputs and inputs[0].dim() else None
+            per_sample = [n is not None and isinstance(t, torch.Tensor)
+                          and t.dim() == inputs[0].dim() and t.shape[:1] == lead
+                          for t in inputs]
+            if isinstance(fn, tuple):                    # ("layer", ctor, call)
+                _, ctor, call = fn
+                layer_cpu = ctor()
+                layer_dev = copy.deepcopy(layer_cpu).to(dev)
+                fn_dev = (lambda *a, m=layer_dev, c=call: c(m, *a) if c else m(*a))
+                fn_cpu = (lambda *a, m=layer_cpu, c=call: c(m, *a) if c else m(*a))
+            else:
+                fn_dev = fn_cpu = fn
+            diff = group not in ("exact", "random")
+            dev_in = [t.detach().clone().requires_grad_(diff and t.is_floating_point())
+                      if isinstance(t, torch.Tensor) else t for t in inputs]
+            paddle.seed(seed)
+            got = fn_dev(*dev_in)
+            checked.append(name)
+            if group == "random":
+                if not _random_checks(name.split("(")[0], got):
+                    errors.append(f"{name}: draws outside their support or moments")
+                continue
+            cpu_in = [_to_cpu(t, n if ps else None).requires_grad_(diff and t.is_floating_point())
+                      if isinstance(t, torch.Tensor) else t for t, ps in zip(inputs, per_sample)]
+            want = fn_cpu(*cpu_in)
+            err = _agree(_to_cpu(got, n), _to_cpu(want, None), NN_TAIL_TOL[group][0])
+            if err is None:
+                errors.append(f"{name}: values disagree")
+                continue
+            worst[name] = err
+            leaves = [i for i, t in enumerate(dev_in) if isinstance(t, torch.Tensor)
+                      and t.requires_grad and (n is None or per_sample[i])]
+            g_loss, w_loss = _weighted_sum(_tensors(got), n), _weighted_sum(_tensors(want))
+            if not (leaves and torch.is_tensor(g_loss) and g_loss.requires_grad):
+                continue
+            g_grads = torch.autograd.grad(g_loss, [dev_in[i] for i in leaves],
+                                          allow_unused=True)
+            w_grads = torch.autograd.grad(w_loss, [cpu_in[i] for i in leaves], allow_unused=True)
+            for i, gg, wg in zip(leaves, g_grads, w_grads):
+                gg = torch.zeros_like(dev_in[i]) if gg is None else gg
+                wg = torch.zeros_like(cpu_in[i]) if wg is None else wg
+                gerr = _agree(_to_cpu(gg, n), wg, NN_TAIL_TOL[group][0])
+                if gerr is None:
+                    errors.append(f"{name}: gradient of input {i} disagrees")
+                else:
+                    worst[name] = max(worst[name], gerr)
+    seconds = time.perf_counter() - t0
+    # every public name of nn.functional, nn, ops.extras, fft and signal is
+    # in the table or in leg 1 (``leg1``: the labels of its runs)
+    want_names = (set(F.__all__) | {n for n, v in vars(tnn).items() if n[:1].isupper()
+                                    or (callable(v) and not n.startswith("_"))}
+                  | set(extras.__all__) | {f"fft.{n}" for n in fft.__all__}
+                  | {f"signal.{n}" for n in signal.__all__})
+    have = {c.split("(")[0] for c in checked} | {c.split("(")[0][3:] for c in checked
+                                                  if c.startswith("nn.")}
+    have |= {label.split()[0].split(".")[-1] for label in leg1}
+    missing = sorted(n for n in want_names if n not in have)
+    return {"names_checked": len(checked), "missing": missing, "errors": errors,
+            "max_abs_err": worst, "seconds": seconds}
+
+
+def phase_nn_tail(seed):
+    """The rest of ``nn``, ``ops.extras``, ``fft`` and ``signal``: leg 1
+    the entries that reach kernels (``nn.RMSNorm`` / ``F.rms_norm``,
+    ``F.flash_attn_qkvpacked``, ``F.flash_attn_unpadded``) at full width
+    with their launches counted; leg 2 every other name once against the
+    CPU."""
+    kernels, launches, leg1 = _nn_tail_kernels(seed)
+    surface = _nn_tail_surface(seed, leg1=leg1)
+    worst = sorted(surface["max_abs_err"].items(), key=lambda kv: -kv[1])
+    log(f"nn_tail: leg 2 checked {surface['names_checked']} names against the CPU in "
+        f"{surface['seconds']:.1f} s; limits "
+        f"{json.dumps({g: t for g, (t, _) in NN_TAIL_TOL.items()})}; max errors, largest "
+        f"first {json.dumps(dict(worst))}")
+    log(f"nn_tail: launches {json.dumps(launches)}")
+    check(not surface["missing"], f"nn_tail: names not run on the card: {surface['missing']}")
+    check(not surface["errors"], f"nn_tail: {surface['errors']}")
+    return {"launches": launches, "kernels": kernels,
+            "names_checked": surface["names_checked"], "max_abs_err": surface["max_abs_err"]}
+
+
 SOURCES = {
     "rms_norm": ("paddle_tpu_torch/kernels/csrc/rms_norm.cu",
                  "paddle_tpu/kernels/rms_norm.py:38"),
@@ -4872,6 +5909,9 @@ def main(argv=None) -> int:
         if "hapi_train" in phases:
             paths["hapi_train"] = phase_hapi_train(args.seed, card, paths.get("ernie_train"))
             laps.append(("hapi_train", time.perf_counter()))
+        if "nn_tail" in phases:
+            paths["nn_tail"] = phase_nn_tail(args.seed)
+            laps.append(("nn_tail", time.perf_counter()))
         if "ssd_train" in phases:
             paths["ssd_train"] = phase_ssd_train("profile" in phases)
             laps.append(("ssd_train", time.perf_counter()))

@@ -22,7 +22,9 @@ Mixture-of-Experts Llama (``incubate.moe``, the ``moe`` preset) in training
 and serving; the rest of ``incubate``; the stock ``nn`` library with the
 ERNIE and PP-OCR recipes; the high-level API (``Model`` fit / evaluate /
 predict, ``callbacks``, ``metric``, ``summary``, ``flops``) and
-``vision`` (models, transforms, datasets; not yet ``vision.ops``).
+``vision`` (models, transforms, datasets; not yet ``vision.ops``); the
+whole of ``nn`` (``functional``, the layers, ``initializer``, ``utils``,
+``ParamAttr``) with ``regularizer``, ``fft`` and ``signal``.
 
 Device policy: entry points take an explicit ``device``; when none is given
 it is the one ``set_device`` chose, else ``"cuda"``, and a missing card
@@ -57,6 +59,7 @@ from .framework.autograd import (  # noqa: F401
     enable_grad, grad, is_grad_enabled, no_grad, set_grad_enabled,
 )
 from .framework.flags import get_flags, set_flags  # noqa: F401
+from .framework.param_attr import ParamAttr  # noqa: F401
 
 # the op namespace (this also installs the Tensor's methods)
 from .ops import *  # noqa: F401,F403
@@ -71,6 +74,9 @@ from . import jit  # noqa: F401
 from . import autograd  # noqa: F401
 from . import incubate  # noqa: F401
 from . import linalg  # noqa: F401
+from . import regularizer  # noqa: F401
+from . import fft  # noqa: F401
+from . import signal  # noqa: F401
 from . import metric  # noqa: F401
 from . import vision  # noqa: F401
 from . import callbacks  # noqa: F401

@@ -256,7 +256,7 @@ class Tensor:
     def numpy(self) -> np.ndarray:
         """A writable host copy (bfloat16 widens to float32: numpy has no
         bfloat16)."""
-        d = self._data.detach()
+        d = self._data.detach().resolve_conj()
         if d.dtype in (torch.bfloat16, dtype_mod.float8_e4m3fn, dtype_mod.float8_e5m2):
             d = d.to(torch.float32)
         return np.array(d.cpu().numpy(), copy=True)
@@ -432,18 +432,7 @@ def to_tensor(data, dtype=None, place=None, stop_gradient: bool = True) -> Tenso
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
                      default_initializer=None) -> Parameter:
-    """``paddle.create_parameter``: a :class:`Parameter` of ``shape``, drawn
-    from ``attr.initializer`` or ``default_initializer``, else zeros for a
-    bias and Xavier-uniform for a weight (the JAX ``create_parameter``'s
-    rule), on the current device from its default generator."""
-    from ..nn.initializer import Constant, XavierUniform
-    from .random import default_generator
+    """``paddle.create_parameter`` (:func:`.param_attr.create_parameter`)."""
+    from .param_attr import create_parameter as create
 
-    init = getattr(attr, "initializer", None) or default_initializer
-    if init is None:
-        init = Constant(0.0) if is_bias else XavierUniform()
-    dev = default_device()
-    data = init(list(shape), dtype_mod.convert_dtype(dtype), default_generator(dev))
-    trainable = getattr(attr, "trainable", True) is not False
-    return Parameter(data.to(dev), name=name or getattr(attr, "name", None),
-                     trainable=trainable)
+    return create(shape, dtype, name, attr, is_bias, default_initializer)

@@ -1,21 +1,21 @@
-"""``paddle_tpu_torch.nn``: the stock layer library of ``paddle_tpu.nn``
-that the ported recipes stand on (the base ``Layer`` and containers,
-linear, embedding, dropout, norms, convolutions and pools, the transformer
-and recurrent families, the losses, their initializers and the functional
-ops under them), and the gradient clips."""
+"""``paddle_tpu_torch.nn`` (port of ``paddle_tpu.nn``): the base ``Layer``
+and containers, the layer library (linear, embedding, dropouts,
+activations, padding and resampling, norms, convolutions and pools, the
+transformer and recurrent families, the losses, the long tail of
+``layers_extras``), ``functional``, ``initializer``, ``utils``, the
+gradient clips, ``ParamAttr`` and ``Parameter``."""
 
-from . import clip, functional, initializer  # noqa: F401
+from . import clip, functional, initializer, utils  # noqa: F401
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,  # noqa: F401
                    clip_grad_norm_, clip_grad_value_)
-from .common_layers import (GELU, ChannelShuffle, Dropout, Embedding, Flatten,  # noqa: F401
-                            Hardsigmoid, Hardswish, Identity, Linear, ReLU, ReLU6, Sigmoid,
-                            Swish, Tanh, Upsample)
-from .conv import (AdaptiveAvgPool2D, AvgPool2D, Conv1D, Conv2D,  # noqa: F401
-                   Conv2DTranspose, MaxPool2D)
 from .layers import Layer, LayerList, ParameterList, Sequential  # noqa: F401
-from .loss import BCELoss, CrossEntropyLoss, CTCLoss, MSELoss  # noqa: F401
-from .norm import BatchNorm, BatchNorm1D, BatchNorm2D, LayerNorm  # noqa: F401
-from .rnn import GRU, LSTM, RNN, GRUCell, LSTMCell, SimpleRNN, SimpleRNNCell  # noqa: F401
-from .transformer import (MultiHeadAttention, Transformer,  # noqa: F401
-                          TransformerDecoder, TransformerDecoderLayer, TransformerEncoder,
-                          TransformerEncoderLayer)
+from .common_layers import *  # noqa: F401,F403
+from .conv import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
+from .loss import *  # noqa: F401,F403
+from .transformer import *  # noqa: F401,F403
+from .rnn import *  # noqa: F401,F403
+from .layers_extras import *  # noqa: F401,F403
+
+from ..framework.param_attr import ParamAttr  # noqa: F401
+from ..framework.tensor import Parameter  # noqa: F401

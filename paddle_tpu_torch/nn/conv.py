@@ -1,8 +1,8 @@
-"""Convolution and pooling layers (port of the part of
-``paddle_tpu/nn/conv.py`` the recipes use).  Weights are OIHW (a transposed
-conv's ``[in, out // groups, kH, kW]``), Kaiming-uniform over the fan-in
-``in // groups * prod(kernel)``; a bias uniform in +-1/sqrt(fan-in) unless
-its attr says otherwise, as the JAX layers."""
+"""Convolution and pooling layers (port of ``paddle_tpu/nn/conv.py``).
+Weights are OI* (a transposed conv's ``[in, out // groups, *kernel]``),
+Kaiming-uniform over the fan-in ``in // groups * prod(kernel)``; a bias
+uniform in +-1/sqrt(fan-in) unless its attr says otherwise, as the JAX
+layers.  The pools hold their options over :mod:`.functional`."""
 
 from __future__ import annotations
 
@@ -12,8 +12,12 @@ from . import functional as F
 from .initializer import KaimingUniform, Uniform
 from .layers import Layer
 
-__all__ = ["Conv1D", "Conv2D", "Conv2DTranspose", "MaxPool2D", "AvgPool2D",
-           "AdaptiveAvgPool2D"]
+__all__ = [
+    "Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose", "Conv2DTranspose", "Conv3DTranspose",
+    "AvgPool1D", "AvgPool2D", "AvgPool3D", "MaxPool1D", "MaxPool2D", "MaxPool3D",
+    "AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D", "AdaptiveMaxPool1D",
+    "AdaptiveMaxPool2D",
+]
 
 
 def _ntuple(v, n):
@@ -71,41 +75,84 @@ class Conv2D(_ConvNd):
                         self.groups, self.data_format)
 
 
-class Conv2DTranspose(_ConvNd):
+class Conv3D(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0, dilation=1,
+                 groups=1, padding_mode="zeros", weight_attr=None, bias_attr=None,
+                 data_format="NCDHW", *, device=None, generator=None):
+        super().__init__(in_channels, out_channels, kernel_size, 3, stride, padding, dilation,
+                         groups, weight_attr, bias_attr, data_format, device=device,
+                         generator=generator)
+
+    def forward(self, x):
+        return F.conv3d(x, self.weight, self.bias, self.stride, self.padding, self.dilation,
+                        self.groups, self.data_format)
+
+
+class _ConvTransposeNd(_ConvNd):
+    _nd = 2
+    _fn = None
+    _format = "NCHW"
+
     def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding=0,
                  output_padding=0, groups=1, dilation=1, weight_attr=None, bias_attr=None,
-                 data_format="NCHW", *, device=None, generator=None):
-        super().__init__(in_channels, out_channels, kernel_size, 2, stride, padding, dilation,
-                         groups, weight_attr, bias_attr, data_format, transpose=True,
-                         output_padding=output_padding, device=device, generator=generator)
+                 data_format=None, *, device=None, generator=None):
+        super().__init__(in_channels, out_channels, kernel_size, self._nd, stride, padding,
+                         dilation, groups, weight_attr, bias_attr, data_format or self._format,
+                         transpose=True, output_padding=output_padding, device=device,
+                         generator=generator)
 
     def forward(self, x, output_size=None):
-        return F.conv2d_transpose(x, self.weight, self.bias, self.stride, self.padding,
-                                  self.output_padding, self.groups, self.dilation, output_size,
-                                  self.data_format)
+        return type(self)._fn(x, self.weight, self.bias, self.stride, self.padding,
+                              self.output_padding, self.groups, self.dilation, output_size,
+                              self.data_format)
 
 
-class _Pool2D(Layer):
+class Conv1DTranspose(_ConvTransposeNd):
+    _nd, _fn, _format = 1, F.conv1d_transpose, "NCL"
+
+
+class Conv2DTranspose(_ConvTransposeNd):
+    _nd, _fn, _format = 2, F.conv2d_transpose, "NCHW"
+
+
+class Conv3DTranspose(_ConvTransposeNd):
+    _nd, _fn, _format = 3, F.conv3d_transpose, "NCDHW"
+
+
+def _pool_layer(name, fn):
     def __init__(self, kernel_size, stride=None, padding=0, **kwargs):
-        super().__init__()
-        self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
-        self.kwargs = kwargs
-
-
-class MaxPool2D(_Pool2D):
-    def forward(self, x):
-        return F.max_pool2d(x, self.kernel_size, self.stride, self.padding, **self.kwargs)
-
-
-class AvgPool2D(_Pool2D):
-    def forward(self, x):
-        return F.avg_pool2d(x, self.kernel_size, self.stride, self.padding, **self.kwargs)
-
-
-class AdaptiveAvgPool2D(Layer):
-    def __init__(self, output_size, data_format="NCHW", name=None):
-        super().__init__()
-        self.output_size, self.data_format = output_size, data_format
+        Layer.__init__(self)
+        kwargs.pop("name", None)
+        self.kernel_size, self.stride, self.padding, self.kwargs = (kernel_size, stride, padding,
+                                                                    kwargs)
 
     def forward(self, x):
-        return F.adaptive_avg_pool2d(x, self.output_size, self.data_format)
+        return fn(x, self.kernel_size, self.stride, self.padding, **self.kwargs)
+
+    return type(name, (Layer,), {"__init__": __init__, "forward": forward})
+
+
+AvgPool1D = _pool_layer("AvgPool1D", F.avg_pool1d)
+AvgPool2D = _pool_layer("AvgPool2D", F.avg_pool2d)
+AvgPool3D = _pool_layer("AvgPool3D", F.avg_pool3d)
+MaxPool1D = _pool_layer("MaxPool1D", F.max_pool1d)
+MaxPool2D = _pool_layer("MaxPool2D", F.max_pool2d)
+MaxPool3D = _pool_layer("MaxPool3D", F.max_pool3d)
+
+
+def _adaptive_layer(name, fn):
+    def __init__(self, output_size, *args, name=None, **kwargs):
+        Layer.__init__(self)
+        self.output_size = output_size
+
+    def forward(self, x):
+        return fn(x, self.output_size)
+
+    return type(name, (Layer,), {"__init__": __init__, "forward": forward})
+
+
+AdaptiveAvgPool1D = _adaptive_layer("AdaptiveAvgPool1D", F.adaptive_avg_pool1d)
+AdaptiveAvgPool2D = _adaptive_layer("AdaptiveAvgPool2D", F.adaptive_avg_pool2d)
+AdaptiveAvgPool3D = _adaptive_layer("AdaptiveAvgPool3D", F.adaptive_avg_pool3d)
+AdaptiveMaxPool1D = _adaptive_layer("AdaptiveMaxPool1D", F.adaptive_max_pool1d)
+AdaptiveMaxPool2D = _adaptive_layer("AdaptiveMaxPool2D", F.adaptive_max_pool2d)

@@ -3,9 +3,12 @@
 :class:`Layer` is a ``torch.nn.Module`` that keeps the Paddle surface the
 recipes call: :meth:`Layer.create_parameter` (shape, ``attr``, default
 initializer), :meth:`Layer.set_state_dict` (name -> array or tensor, a
-checked in-place copy) and ``train()`` / ``eval()`` (torch's own).
+checked in-place copy), Paddle's forward hooks
+(:meth:`Layer.register_forward_pre_hook` /
+:meth:`Layer.register_forward_post_hook`, each returning a
+:class:`HookRemoveHelper`) and ``train()`` / ``eval()`` (torch's own).
 Everything else -- registration, ``named_parameters``, ``state_dict``,
-hooks, ``to`` -- is torch's.  Parameter and buffer names are the JAX
+``to`` -- is torch's.  Parameter and buffer names are the JAX
 layers' attribute names, so ``models.convert`` carries weights across.
 
 Parameters are drawn from the layer's generator, on its device: pass
@@ -25,12 +28,19 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.hooks import RemovableHandle
 
 from .. import default_device, default_generator, to_dtype
+from ..framework.param_attr import WeightNormParamAttr, apply_attr, refuse_weight_norm_attr
 from ..framework.tensor import Tensor, call_unwrapped
-from .initializer import Constant, Initializer, XavierUniform
+from .initializer import Constant, Initializer, XavierUniform, global_initializer
 
-__all__ = ["Layer", "Sequential", "LayerList", "ParameterList", "deepcopy_sharing_generators"]
+__all__ = ["Layer", "Sequential", "LayerList", "ParameterList", "HookRemoveHelper",
+           "deepcopy_sharing_generators"]
+
+
+# the handle a hook registration returns: ``remove()`` takes the hook off
+HookRemoveHelper = RemovableHandle
 
 
 class Layer(nn.Module):
@@ -57,16 +67,31 @@ class Layer(nn.Module):
 
     def create_parameter(self, shape, attr=None, dtype=None, is_bias: bool = False,
                          default_initializer: Optional[Initializer] = None) -> nn.Parameter:
-        """A new parameter of ``shape``: ``attr.initializer`` when the attr
-        carries one, else ``default_initializer``, else zeros for a bias and
-        Xavier-uniform for a weight, as the JAX ``Layer``."""
-        init = getattr(attr, "initializer", None) or default_initializer
+        """A new parameter of ``shape``, as the JAX ``Layer`` makes it: drawn
+        by ``attr.initializer`` when the attr carries one, else the global
+        initializer (``initializer.set_global_initializer``), else
+        ``default_initializer``, else zeros for a bias and Xavier-uniform for
+        a weight; the attr's learning rate, regularizer and ``trainable``
+        recorded on it.  A ``WeightNormParamAttr`` raises (static mode
+        only)."""
+        init = getattr(attr, "initializer", None)
+        if init is None:
+            init = global_initializer(is_bias) or default_initializer
         if init is None:
             init = Constant(0.0) if is_bias else XavierUniform()
+        if isinstance(attr, WeightNormParamAttr):
+            refuse_weight_norm_attr()
         p = nn.Parameter(init(shape, to_dtype(dtype or self._dtype), self.generator))
-        if getattr(attr, "trainable", True) is False:
-            p.requires_grad_(False)
-        return p
+        return apply_attr(p, attr)
+
+    def register_forward_post_hook(self, hook) -> HookRemoveHelper:
+        """``hook(layer, inputs, output)`` after each forward, in
+        registration order; a result other than None replaces the output.
+        Its pre-forward twin is torch's ``register_forward_pre_hook``, whose
+        rules are Paddle's (a result other than None replaces the inputs, a
+        non-tuple being the one input).  Hooks see the layer's torch
+        tensors."""
+        return self.register_forward_hook(hook)
 
     @torch.no_grad()
     def set_state_dict(self, state_dict, use_structured_name: bool = True):
@@ -88,6 +113,21 @@ class Layer(nn.Module):
                                  f"{tuple(target.shape)}")
             target.copy_(src.to(device=target.device, dtype=target.dtype))
         return missing, unexpected
+
+
+def option_layer(name: str, fn, *options):
+    """A layer class ``name`` holding ``options`` ((name, default) pairs,
+    set positionally in this order or by keyword) and calling ``fn(*inputs,
+    *values)``: the activation and loss layers over :mod:`.functional`."""
+    def __init__(self, *args, name=None, **kwargs):
+        Layer.__init__(self)
+        for i, (opt, default) in enumerate(options):
+            setattr(self, opt, args[i] if i < len(args) else kwargs.get(opt, default))
+
+    def forward(self, *inputs):
+        return fn(*inputs, *(getattr(self, opt) for opt, _ in options))
+
+    return type(name, (Layer,), {"__init__": __init__, "forward": forward})
 
 
 def deepcopy_sharing_generators(layer: nn.Module) -> nn.Module:
@@ -124,7 +164,13 @@ class LayerList(Layer, nn.ModuleList):
 
 
 class ParameterList(Layer, nn.ParameterList):
+    """A list of parameters (a port ``Parameter`` is stored as its
+    ``torch.nn.Parameter``)."""
+
     def __init__(self, parameters=None):
         Layer.__init__(self)
         if parameters is not None:
             self.extend(parameters)
+
+    def append(self, value):
+        return nn.ParameterList.append(self, value._data if isinstance(value, Tensor) else value)

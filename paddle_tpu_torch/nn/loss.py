@@ -1,12 +1,17 @@
-"""Loss layers (port of the part of ``paddle_tpu/nn/loss.py`` the recipes
-use), each a holder of its options over :mod:`.functional`."""
+"""Loss layers (port of ``paddle_tpu/nn/loss.py``), each a holder of its
+options over :mod:`.functional`."""
 
 from __future__ import annotations
 
 from . import functional as F
-from .layers import Layer
+from .layers import Layer, option_layer
 
-__all__ = ["CrossEntropyLoss", "BCELoss", "MSELoss", "CTCLoss"]
+__all__ = [
+    "CrossEntropyLoss", "BCELoss", "BCEWithLogitsLoss", "MSELoss", "L1Loss",
+    "SmoothL1Loss", "NLLLoss", "KLDivLoss", "MarginRankingLoss", "CTCLoss",
+    "CosineEmbeddingLoss", "TripletMarginLoss", "HingeEmbeddingLoss",
+    "PoissonNLLLoss", "GaussianNLLLoss", "MultiLabelSoftMarginLoss", "SoftMarginLoss",
+]
 
 
 class CrossEntropyLoss(Layer):
@@ -50,3 +55,30 @@ class CTCLoss(Layer):
     def forward(self, log_probs, labels, input_lengths, label_lengths, norm_by_times=False):
         return F.ctc_loss(log_probs, labels, input_lengths, label_lengths, self.blank,
                           self.reduction, norm_by_times)
+
+
+BCEWithLogitsLoss = option_layer("BCEWithLogitsLoss", F.binary_cross_entropy_with_logits,
+                                ("weight", None), ("reduction", "mean"), ("pos_weight", None))
+L1Loss = option_layer("L1Loss", F.l1_loss, ("reduction", "mean"))
+SmoothL1Loss = option_layer("SmoothL1Loss", F.smooth_l1_loss, ("reduction", "mean"),
+                           ("delta", 1.0))
+NLLLoss = option_layer("NLLLoss", F.nll_loss, ("weight", None), ("ignore_index", -100),
+                      ("reduction", "mean"))
+KLDivLoss = option_layer("KLDivLoss", F.kl_div, ("reduction", "mean"), ("log_target", False))
+MarginRankingLoss = option_layer("MarginRankingLoss", F.margin_ranking_loss, ("margin", 0.0),
+                                ("reduction", "mean"))
+CosineEmbeddingLoss = option_layer("CosineEmbeddingLoss", F.cosine_embedding_loss,
+                                  ("margin", 0.0), ("reduction", "mean"))
+TripletMarginLoss = option_layer("TripletMarginLoss", F.triplet_margin_loss, ("margin", 1.0),
+                                ("p", 2.0), ("epsilon", 1e-06), ("swap", False),
+                                ("reduction", "mean"))
+HingeEmbeddingLoss = option_layer("HingeEmbeddingLoss", F.hinge_embedding_loss, ("margin", 1.0),
+                                 ("reduction", "mean"))
+PoissonNLLLoss = option_layer("PoissonNLLLoss", F.poisson_nll_loss, ("log_input", True),
+                             ("full", False), ("epsilon", 1e-8), ("reduction", "mean"))
+GaussianNLLLoss = option_layer("GaussianNLLLoss", F.gaussian_nll_loss, ("full", False),
+                              ("epsilon", 1e-6), ("reduction", "mean"))
+MultiLabelSoftMarginLoss = option_layer("MultiLabelSoftMarginLoss",
+                                       F.multi_label_soft_margin_loss, ("weight", None),
+                                       ("reduction", "mean"))
+SoftMarginLoss = option_layer("SoftMarginLoss", F.soft_margin_loss, ("reduction", "mean"))

@@ -1,21 +1,21 @@
 """The op namespace and the Tensor's methods (port of
 ``paddle_tpu/ops/__init__.py``).
 
-The functional ops of ``creation``, ``math``, ``manipulation``,
-``reduction``, ``logic``, ``search``, ``random`` and ``linalg`` are
+The functional ops of ``creation``, ``extras``, ``linalg``, ``logic``,
+``manipulation``, ``math``, ``random``, ``reduction`` and ``search`` are
 attached to the port's own :class:`~..framework.tensor.Tensor` as methods
 and dunders, as the JAX package attaches them to its Tensor (``torch.Tensor``
 is never patched), with the reference's trailing-underscore in-place
-variants over every base op present.  ``extras`` (stacking and splitting
-helpers, special functions, ``take``, ...) waits for a later slice.
+variants over every base op present.
 """
 
 from __future__ import annotations
 
 from typing import List
 
-from . import creation, linalg, logic, manipulation, math, random, reduction, search
+from . import creation, extras, linalg, logic, manipulation, math, random, reduction, search
 from .creation import *  # noqa: F401,F403
+from .extras import *  # noqa: F401,F403
 from .linalg import *  # noqa: F401,F403
 from .logic import *  # noqa: F401,F403
 from .manipulation import *  # noqa: F401,F403
@@ -27,12 +27,13 @@ from .search import *  # noqa: F401,F403
 
 from ..framework.tensor import Tensor
 
-MODULES = (creation, linalg, logic, manipulation, math, random, reduction, search)
+MODULES = (creation, extras, linalg, logic, manipulation, math, random, reduction, search)
 
 __all__ = [n for m in MODULES for n in m.__all__]
 
-# the reference's in-place API over these base ops (the JAX package's
-# ``extras._INPLACE_BASES``; bases this namespace lacks are skipped)
+# the reference's in-place API over these base ops, then over extras' own
+# (the JAX package's ``extras._INPLACE_BASES``; bases this namespace lacks
+# are skipped)
 _INPLACE_BASES = [
     "abs", "acos", "asin", "atan", "cos", "cosh", "sin", "sinh", "tan",
     "tanh", "ceil", "floor", "round", "trunc", "exp", "expm1", "erf",
@@ -49,7 +50,7 @@ _INPLACE_BASES = [
     "index_fill", "index_put", "scale", "clip", "lerp", "erfinv",
     "polygamma", "renorm", "ldexp", "copysign", "hypot",
     "transpose", "t", "fill_diagonal",
-]
+] + list(extras.INPLACE_BASES)
 
 
 def _make_inplace(base_name, base_fn):

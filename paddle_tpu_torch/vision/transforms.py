@@ -24,6 +24,7 @@ from typing import List, Sequence
 
 import numpy as np
 
+from ..framework.resample import resize_weights
 from ..framework.tensor import Tensor
 
 __all__ = ["Compose", "ToTensor", "Normalize", "Resize", "CenterCrop", "RandomCrop",
@@ -93,23 +94,6 @@ class Normalize:
         return normalize(img, self.mean, self.std, self.data_format)
 
 
-def _triangle_weights(in_size: int, out_size: int) -> np.ndarray:
-    """``[in_size, out_size]`` float32 weights of ``jax.image.resize``'s
-    bilinear scale-and-translate (``compute_weight_mat`` with the triangle
-    kernel and antialiasing): each output column sums to 1."""
-    f32 = np.float32
-    inv_scale = 1.0 / (out_size / in_size)
-    kernel_scale = f32(max(inv_scale, 1.0))
-    sample = (np.arange(out_size, dtype=f32) + f32(0.5)) * f32(inv_scale) - f32(0.5)
-    x = np.abs(sample[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
-    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
-    total = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
-    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
-    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
-
-
 def _resize_np(arr, size):
     h, w = (size, size) if isinstance(size, int) else size
     if arr.ndim == 2:
@@ -125,7 +109,7 @@ def _resize_np(arr, size):
 def _resample_axis(a, axis, out_size):
     """``a`` resampled to ``out_size`` along ``axis``: output i is the sum
     over its filter's band of input rows, weights in band order."""
-    w = _triangle_weights(a.shape[axis], out_size)          # [in, out]
+    w = resize_weights(a.shape[axis], out_size)             # [in, out]
     nz = w != 0
     first = nz.argmax(axis=0)
     band = max(1, int(nz.sum(axis=0).max()))

@@ -1414,3 +1414,139 @@ def test_model_fit_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(out["gpu"][1]["loss"], out["cpu"][1]["loss"], rtol=1e-5)
     assert out["gpu"][1]["acc"] == out["cpu"][1]["acc"]
     np.testing.assert_allclose(out["gpu"][2], out["cpu"][2], atol=1e-5, rtol=0)
+
+
+def _launches(fn):
+    """(result of ``fn()``, the kernel launches it made)."""
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in launch_counts().items() if v}
+
+
+@pytest.mark.parametrize("entry", ["F.rms_norm", "nn.RMSNorm"])
+def test_rms_norm_entries_launch_the_kernels_where_jax_does(cuda, entry):
+    """A width divisible by 128: one forward and one backward launch,
+    values and gradients as the plain versions'; width 200: the plain
+    version, no launch (the JAX function's rule)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.kernels.rms_norm import (rms_norm_backward_reference,
+                                                   rms_norm_reference)
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for d, want in ((256, {"rms_norm": 1, "rms_norm_bwd": 1}), (200, {})):
+        x = torch.randn(37, d, generator=g, device=cuda).to(torch.bfloat16).requires_grad_()
+        dy = torch.randn(37, d, generator=g, device=cuda).to(torch.bfloat16)
+        if entry == "nn.RMSNorm":
+            layer = nn.RMSNorm(d, device=cuda)
+            w = layer.weight
+            with torch.no_grad():
+                w.normal_(generator=g)
+            call = layer
+        else:
+            w = torch.randn(d, generator=g, device=cuda).requires_grad_()
+            call = lambda t, w=w: nn.functional.rms_norm(t, w)   # noqa: E731
+
+        def run(x=x, dy=dy, w=w, call=call):
+            y = call(x)
+            return (y, *torch.autograd.grad(y, (x, w), dy))
+
+        (y, dx, dw), counts = _launches(run)
+        assert counts == want, (d, counts)
+        ref_dx, ref_dw = rms_norm_backward_reference(x.detach(), w.detach(), dy)
+        tol = dict(rtol=1.6e-2, atol=1e-3)
+        torch.testing.assert_close(y, rms_norm_reference(x.detach(), w.detach()), **tol)
+        torch.testing.assert_close(dx, ref_dx, **tol)
+        torch.testing.assert_close(dw, ref_dw, rtol=1e-4, atol=1e-4 * float(ref_dw.abs().max()))
+
+
+def test_flash_attn_qkvpacked_launches_one_forward_and_one_backward(cuda):
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.nn import functional as F
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    qkv = torch.randn(2, 96, 3, 4, 64, generator=g, device=cuda).to(torch.bfloat16)
+    qkv.requires_grad_()
+
+    def run():
+        o = F.flash_attn_qkvpacked(qkv, causal=True)[0]
+        return o, torch.autograd.grad(o.float().sum(), qkv)[0]
+
+    (o, dqkv), counts = _launches(run)
+    assert counts == {"flash_attention_fwd": 1, "flash_attention_bwd": 1}
+    q, k, v = (qkv.detach()[:, :, i] for i in range(3))
+    o_ref, lse_ref = fa._flash_fwd_reference(q, k, v, True, 64 ** -0.5)
+    refs = fa._flash_bwd_reference(q, k, v, o_ref, lse_ref, torch.ones_like(o_ref), True,
+                                   64 ** -0.5)
+    tol = dict(rtol=1.6e-2, atol=2e-2)
+    torch.testing.assert_close(o, o_ref, **tol)
+    for i, r in enumerate(refs):
+        torch.testing.assert_close(dqkv[:, :, i], r, **tol)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attn_unpadded_launches_once_a_segment(cuda, causal):
+    """Four packed sequences: four forward and four backward launches, the
+    output and gradients as the masked attention over the packed length;
+    the varlen packed form gives the same bits."""
+    from paddle_tpu_torch.nn import functional as F
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    lengths = [17, 64, 5, 40]
+    cu = torch.tensor([0, 17, 81, 86, 126], dtype=torch.int32, device=cuda)
+    q, k, v = (torch.randn(126, 4, 32, generator=g, device=cuda).to(torch.bfloat16)
+               .requires_grad_() for _ in range(3))
+
+    def run():
+        o = F.flash_attn_unpadded(q, k, v, cu, cu, 64, 64, 0.2, causal=causal)[0]
+        return o, torch.autograd.grad(o.float().sum(), (q, k, v))
+
+    (o, grads), counts = _launches(run)
+    mode = "" if causal else "_noncausal"
+    assert counts == {f"flash_attention_fwd{mode}": 4, f"flash_attention_bwd{mode}": 4}
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    o_ref = F._varlen_reference(qf, kf, vf, cu.tolist(), cu.tolist(), causal, 0.2)
+    g_ref = torch.autograd.grad(o_ref.sum(), (qf, kf, vf))
+    tol = dict(rtol=1.6e-2, atol=2e-2)
+    torch.testing.assert_close(o.float(), o_ref, **tol)
+    for a, b in zip(grads, g_ref):
+        torch.testing.assert_close(a.float(), b, **tol)
+    packed, counts = _launches(lambda: F.flash_attn_varlen_qkvpacked(
+        torch.stack([q.detach(), k.detach(), v.detach()], 1), cu, cu, 64, 64, 0.2,
+        causal=causal)[0])
+    assert counts == {f"flash_attention_fwd{mode}": 4} and torch.equal(packed, o.detach())
+    assert sum(lengths) == 126
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attn_unpadded_with_query_boundaries_apart(cuda, causal):
+    """Query boundaries apart from the keys': a segment with more keys, two
+    with more queries (causal: rows that see no key), one without keys.
+    One forward and one backward launch for each segment with keys, none
+    for the key-less one; values and gradients as the masked attention
+    over the packed length."""
+    from paddle_tpu_torch.nn import functional as F
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    cu_q = torch.tensor([0, 17, 81, 86, 126, 135], dtype=torch.int32, device=cuda)
+    cu_k = torch.tensor([0, 20, 68, 68, 108, 111], dtype=torch.int32, device=cuda)
+    q, k, v = (torch.randn(n, 4, 32, generator=g, device=cuda).to(torch.bfloat16)
+               .requires_grad_() for n in (135, 111, 111))
+
+    def run():
+        o = F.flash_attn_unpadded(q, k, v, cu_q, cu_k, 64, 48, 0.2, causal=causal)[0]
+        return o, torch.autograd.grad(o.float().sum(), (q, k, v))
+
+    (o, grads), counts = _launches(run)
+    mode = "" if causal else "_noncausal"
+    assert counts == {f"flash_attention_fwd{mode}": 4, f"flash_attention_bwd{mode}": 4}
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    o_ref = F._varlen_reference(qf, kf, vf, cu_q.tolist(), cu_k.tolist(), causal, 0.2)
+    g_ref = torch.autograd.grad(o_ref.sum(), (qf, kf, vf))
+    tol = dict(rtol=1.6e-2, atol=2e-2)
+    torch.testing.assert_close(o.float(), o_ref, **tol)
+    for a, b in zip(grads, g_ref):
+        torch.testing.assert_close(a.float(), b, **tol)

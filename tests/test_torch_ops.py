@@ -2,8 +2,9 @@
 
 Every name of the ported op modules' ``__all__`` (``creation``, ``math``,
 ``manipulation``, ``reduction``, ``logic``, ``search``, ``random``,
-``linalg``) runs on the same numpy inputs made from a seed through both
-packages.  Tolerances:
+``linalg``; ``extras`` is held in ``test_torch_extras_fft_signal.py``)
+runs on the same numpy inputs made from a seed through both packages.
+Tolerances:
 
 - integer and bool results, and every dtype and shape: exact;
 - fp32 results: rtol 1e-6, with an atol of 1e-6 of the reference's largest
@@ -551,7 +552,8 @@ RANDOM = {
 
 
 def test_cases_cover_every_name_of_the_ported_modules():
-    names = {n for m in tp_ops.MODULES for n in m.__all__}
+    # extras' names are held in tests/test_torch_extras_fft_signal.py
+    names = {n for m in tp_ops.MODULES if m is not tp_ops.extras for n in m.__all__}
     assert names == set(CASES) | set(RANDOM)
     for m in tp_ops.MODULES:
         jm = __import__(f"paddle_tpu.ops.{m.__name__.rsplit('.', 1)[1]}", fromlist=["x"])
@@ -615,7 +617,8 @@ def test_randomized_lowrank_recovers_the_jax_spectrum(name):
 
 
 INPLACE = sorted(n for n in tp_ops.__all__ if n.endswith("_") and n not in CASES
-                 and n not in RANDOM)
+                 and n not in RANDOM and n not in tp_ops.extras.__all__
+                 and n[:-1] not in tp_ops.extras.INPLACE_BASES)
 
 _INPLACE_ARGS = {
     "cast_": ("int32",), "clip_": (-0.5, 0.5), "scale_": (2.0, 1.0), "lerp_": (B, 0.3),
@@ -668,8 +671,8 @@ def test_tensor_methods_and_dunders_match_the_jax_install():
     from paddle_tpu import ops as jax_ops
     from paddle_tpu.framework.tensor import Tensor as JT
 
-    jax_from_modules = {n for m in ("creation", "linalg", "logic", "manipulation", "math",
-                                    "random", "reduction", "search")
+    jax_from_modules = {n for m in ("creation", "extras", "linalg", "logic", "manipulation",
+                                    "math", "random", "reduction", "search")
                         for n in getattr(jax_ops, m).__all__}
     written = {n for m in ("creation", "extras", "linalg", "logic", "manipulation", "math",
                            "random", "reduction", "search") for n in getattr(jax_ops, m).__all__}
