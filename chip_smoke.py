@@ -16,6 +16,7 @@ serve Llama-3-8B-shaped, MoE and SSD-8B requests through the port's Engine.
     python3 chip_smoke.py --phases card,build,eager_train
     python3 chip_smoke.py --phases card,build,hapi_train
     python3 chip_smoke.py --phases card,build,nn_tail
+    python3 chip_smoke.py --phases card,build,static_graph
     python3 chip_smoke.py --phases card,build,kernels,longctx_train
     python3 chip_smoke.py --phases card,build,kernels,kernel_gate,parity,fuse_train
     python3 chip_smoke.py --phases card,build,kernels,parity,ssd_train,ssd_serve
@@ -255,6 +256,27 @@ Phases:
              the CPU recomputes the batch's first samples only); random
              names held to their support; every added name must be in the
              table
+  5i static_graph  the compiled-graph layer at `base` (the `train` phase's
+             config, 12 layers, batch 3 x 2048), three legs.  Leg 1: the
+             model, compute_loss and AdamW(3e-4, decay 0.1).minimize under
+             static.program_guard over static.data("ids", [None, 2048],
+             "int32"), STATIC_STEPS Executor(place="gpu").run calls on
+             seeded batches, counters zeroed just before and read per run:
+             every run must launch what a `train` step launches; then
+             TrainStep on the same weights, batches and optimizer: step 1's
+             loss the same bits, every step within TRAIN_LOSS_TOL; steady
+             ms beside TrainStep's.  Leg 2: jit.to_static of the forward
+             under no_grad (the recorded program replayed: the eager
+             logits' bits, 12 flash forwards and 25 RMSNorm launches a
+             call); jit.save with an InputSpec (ms, bytes) and a Predictor
+             from inference.Config(prefix) reading only the artifact (load
+             ms, run ms, the eager logits' bits, the same launches); a
+             to_static function with a data-dependent branch: its
+             fragments and break site, the same on a second call, another
+             fragment on the other branch.  Leg 3: amp.debugging's
+             operator stats over one more static step (rms_norm and
+             scaled_dot_product_attention counted as the model's seams
+             run), and check_numerics raising on a NaN in abort mode
   6 serve    llama3_8b_config, bf16, random weights from --seed, three
              paths each with the launch counters zeroed just before it and
              read just after it: 16 requests (two share a 256-token prefix)
@@ -326,6 +348,7 @@ import random
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory bandwidth (data sheet)
@@ -502,8 +525,10 @@ EAGER_AMP_STEPS = 3          # leg 2: ERNIE-base under auto_cast O1
 # bf16, so one ulp of rounding, 2^-8, hides the difference there: the
 # card's O1 logits read 6.6e-3 from the CPU's, the control's 4.5e-3.)
 EAGER_AMP_LOSS_RTOL = 3e-3
+STATIC_STEPS = 5             # runs of the `static_graph` Program (and TrainStep's steps)
 ALL_PHASES = ("card", "build", "kernels", "kernel_gate", "parity", "incubate", "train",
-              "eager_train", "longctx_train", "fuse_train", "moe_train", "ernie_train",
+              "eager_train", "static_graph", "longctx_train", "fuse_train", "moe_train",
+              "ernie_train",
               "ocr_train", "hapi_train", "nn_tail",
               "ssd_train", "resume_train", "optimizers", "serve", "moe_serve", "ssd_serve",
               "profile")
@@ -3674,25 +3699,53 @@ def _eager_steps(step, batches, steps):
     return losses, walls, {"launches": launch_counts(), "launches_per_step": per_step}
 
 
+def _base_tokens(seed, steps):
+    """The `base` preset's config and ``steps`` seeded batches of 3 x 2048
+    (the `train` phase's config and batch shape), as one int32 array."""
+    import numpy as np
+    from paddle_tpu_torch.models.presets import DEFAULTS, build_config
+
+    cfg = build_config("base", "bfloat16")
+    B, S, _ = DEFAULTS["base"]
+    tokens = np.random.default_rng(seed + 20).integers(
+        0, cfg.vocab_size, size=(steps * B, S)).astype(np.int32)
+    return cfg, B, S, tokens
+
+
+def _base_trainstep_leg(cfg, seed, tokens, B):
+    """`base` from ``seed`` through TrainStep with AdamW(3e-4, decay 0.1),
+    a step a batch of ``tokens`` (``_eager_steps``): the yardstick of the
+    legs that run the same model, batches and optimizer another way."""
+    import paddle_tpu_torch as paddle
+    import torch
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    opt = paddle.optimizer.AdamW(learning_rate=3e-4, weight_decay=0.1,
+                                 parameters=model.parameters())
+    step_fn = paddle.jit.TrainStep(model, lambda m, ids: m.compute_loss(m(ids), ids), opt)
+    steps = len(tokens) // B
+    batches = [(torch.from_numpy(tokens[i * B:(i + 1) * B]).cuda(),) for i in range(steps)]
+    out = _eager_steps(step_fn, batches, steps)
+    del model, opt, step_fn, batches
+    torch.cuda.empty_cache()
+    return out
+
+
 def _eager_base_leg(seed, train):
     """Leg 1 of `eager_train`: the `base` LlamaForCausalLM through the eager
     API, then TrainStep on the same weights, batches and AdamW; see the
     module docstring."""
     import math
 
-    import numpy as np
     import paddle_tpu_torch as paddle
     import torch
     from paddle_tpu_torch.kernels import launch_counts
     from paddle_tpu_torch.models import LlamaForCausalLM
-    from paddle_tpu_torch.models.presets import DEFAULTS, build_config
 
     paddle.set_device("gpu")
     paddle.seed(seed)
-    cfg = build_config("base", "bfloat16")       # the `train` phase's config and batch shape
-    B, S, _ = DEFAULTS["base"]
-    tokens = np.random.default_rng(seed + 20).integers(
-        0, cfg.vocab_size, size=(EAGER_STEPS * B, S)).astype(np.int32)
+    cfg, B, S, tokens = _base_tokens(seed, EAGER_STEPS)
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, seed=seed)
     opt = paddle.optimizer.AdamW(learning_rate=3e-4, weight_decay=0.1,
@@ -3727,14 +3780,7 @@ def _eager_base_leg(seed, train):
     torch.cuda.empty_cache()
 
     # the same weights, batches and AdamW through TrainStep
-    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
-    opt = paddle.optimizer.AdamW(learning_rate=3e-4, weight_decay=0.1,
-                                 parameters=model.parameters())
-    step_fn = paddle.jit.TrainStep(model, lambda m, ids: m.compute_loss(m(ids), ids), opt)
-    batches = [(torch.from_numpy(tokens[i * B:(i + 1) * B]).cuda(),) for i in range(EAGER_STEPS)]
-    ts_losses, ts_walls, ts_rec = _eager_steps(step_fn, batches, EAGER_STEPS)
-    del model, opt, step_fn, batches
-    torch.cuda.empty_cache()
+    ts_losses, ts_walls, ts_rec = _base_trainstep_leg(cfg, seed, tokens, B)
 
     steady = sum(walls[1:]) / (EAGER_STEPS - 1)
     ts_steady = sum(ts_walls[1:]) / (EAGER_STEPS - 1)
@@ -3897,6 +3943,203 @@ def phase_eager_train(seed, train=None):
     for k, n in amp["launches"].items():
         merged["launches"][k] += n
     return merged
+
+
+def _static_base_leg(seed, card):
+    """Leg 1 of `static_graph`: `base` as a static Program (static.data,
+    the model, compute_loss and AdamW.minimize under program_guard), run
+    by an Executor on the card, against TrainStep on the same weights,
+    batches and optimizer.  Returns the record and the trained model, the
+    Program, its Executor and its loss variable."""
+    import math
+
+    import paddle_tpu_torch as paddle
+    import torch
+    from paddle_tpu_torch.kernels import launch_counts
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    cfg, B, S, tokens = _base_tokens(seed, STATIC_STEPS)
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paddle.enable_static()
+    try:
+        main, startup = paddle.static.Program(), paddle.static.Program()
+        with paddle.static.program_guard(main, startup):
+            ids = paddle.static.data("ids", [None, S], "int32")
+            loss = model.compute_loss(model(ids), ids)
+            paddle.optimizer.AdamW(learning_rate=3e-4, weight_decay=0.1).minimize(loss)
+    finally:
+        paddle.disable_static()
+    record_s = time.perf_counter() - t0
+    exe = paddle.static.Executor(place="gpu")
+    exe.run(startup)
+    batches = [(tokens[i * B:(i + 1) * B],) for i in range(STATIC_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, rec = _eager_steps(
+        lambda b: exe.run(main, feed={"ids": b}, fetch_list=[loss])[0], batches, STATIC_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    ts_losses, ts_walls, ts_rec = _base_trainstep_leg(cfg, seed, tokens, B)
+    L = cfg.num_hidden_layers
+    want = dict.fromkeys(launch_counts(), 0)
+    want.update(flash_attention_fwd=L, flash_attention_bwd=L, rms_norm=2 * L + 1,
+                rms_norm_bwd=2 * L + 1, adamw=1)
+    steady = sum(walls[1:]) / (STATIC_STEPS - 1)
+    ts_steady = sum(ts_walls[1:]) / (STATIC_STEPS - 1)
+    d = max(abs(a - b) for a, b in zip(losses, ts_losses))
+    rec.update(losses=losses, step_ms=walls, steady_step_ms=steady, peak_bytes=peak,
+               record_s=record_s, recorded_ops=len(main.ops),
+               train_step=dict(losses=ts_losses, step_ms=ts_walls, steady_step_ms=ts_steady))
+    log(f"static_graph leg 1 ({card}): base as a static Program, {len(main.ops)} recorded "
+        f"ops, recorded in {record_s * 1e3:.1f} ms; losses {losses}; TrainStep {ts_losses} "
+        f"(largest difference {d!r}); step ms {walls} (TrainStep {ts_walls}); steady "
+        f"{steady:.3f} ms against TrainStep's {ts_steady:.3f}; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"static_graph leg 1: launches {json.dumps(rec['launches_per_step'])}")
+    check(all(math.isfinite(x) for x in losses), f"static_graph: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"static_graph: loss did not fall: {losses}")
+    check(losses[0] == ts_losses[0], f"static_graph: step 1's loss {losses[0]!r} is not "
+          f"TrainStep's {ts_losses[0]!r}")
+    check(d <= TRAIN_LOSS_TOL, f"static_graph: the Program's losses {losses} are up to {d} "
+          f"from TrainStep's {ts_losses}, past {TRAIN_LOSS_TOL}")
+    for i, got in enumerate(rec["launches_per_step"]):
+        check(got == want, f"static_graph: run {i + 1} launched {got}, expected {want}")
+    for i, got in enumerate(ts_rec["launches_per_step"]):
+        check(got == want, f"static_graph: TrainStep step {i + 1} launched {got}, "
+              f"expected {want}")
+    return rec, (model, main, exe, loss, tokens[:B])
+
+
+def _branchy(x):
+    """A function with a data-dependent branch (the fragment fallback)."""
+    y = x * 2
+    if float(y.sum()) > 0:
+        return y + 1
+    return y - 1
+
+
+def _static_export_leg(model, ids, card, tmpdir):
+    """Leg 2 of `static_graph`: to_static of the forward, jit.save with an
+    InputSpec, a Predictor reading only the artifact; each output against
+    the eager forward's bits, the Predictor's launches counted; then a
+    to_static function whose branch reads a value (fragments, break site)."""
+    import paddle_tpu_torch as paddle
+    import torch
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    B, S = ids.shape
+    t = torch.from_numpy(ids).cuda()
+    with torch.no_grad():
+        eager = model(t)
+        static = paddle.jit.to_static(model)
+        first = static(t)._data
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        again = static(t)._data
+        torch.cuda.synchronize()
+        replay_launches = launch_counts()
+    same = torch.equal(first, eager) and torch.equal(again, eager)
+    prefix = str(Path(tmpdir) / "base_fwd")
+    t0 = time.perf_counter()
+    nbytes = paddle.jit.save(model, prefix,
+                             input_spec=[paddle.static.InputSpec([B, S], "int32")])
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    pred = paddle.inference.create_predictor(paddle.inference.Config(prefix))
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    handle = pred.get_input_handle(pred.get_input_names()[0])
+    handle.copy_from_cpu(ids)
+    pred.run()                                   # the first run: allocations
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    pred.run()
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    pred_launches = launch_counts()
+    out = pred.get_output_handle(pred.get_output_names()[0])._value
+    pred_same = torch.equal(out, eager)
+    L = model.config.num_hidden_layers
+    want = dict.fromkeys(launch_counts(), 0)
+    want.update(flash_attention_fwd=L, rms_norm=2 * L + 1)
+    log(f"static_graph leg 2 ({card}): to_static logits {'the same bits as' if same else 'NOT'} "
+        f"eager's (launches a replay {json.dumps(replay_launches)}); jit.save {save_ms:.1f} ms, "
+        f"{nbytes} bytes; Predictor load {load_ms:.1f} ms, run {run_ms:.3f} ms, output "
+        f"{'the same bits as' if pred_same else 'NOT'} eager's (max |diff| "
+        f"{float((out.float() - eager.float()).abs().max())!r}); launches "
+        f"{json.dumps(pred_launches)}")
+    check(same, "static_graph: to_static's logits are not eager's bits")
+    check(replay_launches == want, f"static_graph: a to_static replay launched "
+          f"{replay_launches}, expected {want}")
+    check(pred_same, "static_graph: the Predictor's logits are not eager's bits")
+    check(pred_launches == want, f"static_graph: the Predictor launched {pred_launches}, "
+          f"expected {want}")
+    del pred, static
+    # fragments: the same report on two calls (the repeat records every
+    # call from the shape cache: no miss), another fragment for the other
+    # branch
+    fn = paddle.jit.to_static(_branchy)
+    reports = []
+    for sign in (1.0, 1.0, -1.0):
+        x = paddle.to_tensor(torch.full((4, 8), sign, device="cuda"))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            out = fn(x)
+        rec = fn._last_capture
+        check(torch.equal(out._data, _branchy(x)._data), "static_graph: fragment output")
+        reports.append(dict(fragments=len(rec.fragments), breaks=len(rec.breaks),
+                            site=rec.breaks[0]["site"], eager_ops=rec.eager_ops,
+                            cache_hits=rec.cache_hits, cache_misses=rec.cache_misses))
+    log(f"static_graph leg 2: to_static(_branchy) by call (positive, positive, negative): "
+        f"{json.dumps(reports)}")
+    check(reports[0]["site"] == reports[1]["site"] == reports[2]["site"]
+          and "chip_smoke.py" in reports[0]["site"], f"static_graph: break sites {reports}")
+    check(reports[1]["cache_misses"] == 0, f"static_graph: a repeated call missed: {reports}")
+    return {"same_bits": same, "predictor_same_bits": pred_same, "save_ms": save_ms,
+            "save_bytes": nbytes, "load_ms": load_ms, "predictor_run_ms": run_ms,
+            "launches_replay": replay_launches, "launches": pred_launches,
+            "fragments": reports}
+
+
+def phase_static_graph(seed, card):
+    """The compiled-graph layer at `base`: a static Program trained by an
+    Executor (leg 1), to_static, jit.save and a Predictor (leg 2), and
+    amp.debugging over a static step (leg 3).  See the module docstring."""
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    import torch
+
+    paddle.set_device("gpu")
+    try:
+        train, (model, main, exe, loss, ids) = _static_base_leg(seed, card)
+        with tempfile.TemporaryDirectory() as tmp:
+            export = _static_export_leg(model, ids, card, tmp)
+        # leg 3: operator statistics over one more static step; numerics
+        with paddle.amp.debugging.collect_operator_stats(print_table=False):
+            exe.run(main, feed={"ids": ids}, fetch_list=[loss])
+            stats = paddle.amp.debugging.operator_stats()
+        log(f"static_graph leg 3: operator stats of one static base step "
+            f"{json.dumps({f'{k[0]}/{k[1]}': n for k, n in sorted(stats.items())})}")
+        L = model.config.num_hidden_layers
+        check(stats.get(("scaled_dot_product_attention", "bfloat16")) == L
+              and stats.get(("rms_norm", "bfloat16")) == 2 * L + 1,
+              f"static_graph: operator stats {stats}")
+        bad = paddle.to_tensor(torch.tensor([1.0, float("nan"), 2.0], device="cuda"))
+        try:
+            paddle.amp.debugging.check_numerics(bad, "static_graph", "probe")
+            raised = False
+        except FloatingPointError:
+            raised = True
+        check(raised, "static_graph: check_numerics did not raise on a NaN in abort mode")
+        del model, main, exe
+        torch.cuda.empty_cache()
+    finally:
+        paddle.set_device(None)
+    return {"launches": dict(train["launches"]), "launches_per_step": train["launches_per_step"],
+            "train": train, "export": export, "op_stats": {f"{k[0]}/{k[1]}": n
+                                                           for k, n in stats.items()}}
 
 
 def phase_longctx_train(profile):
@@ -5891,6 +6134,9 @@ def main(argv=None) -> int:
         if "eager_train" in phases:
             paths["eager_train"] = phase_eager_train(args.seed, paths.get("train"))
             laps.append(("eager_train", time.perf_counter()))
+        if "static_graph" in phases:
+            paths["static_graph"] = phase_static_graph(args.seed, card)
+            laps.append(("static_graph", time.perf_counter()))
         if "longctx_train" in phases:
             paths["longctx_train"] = phase_longctx_train("profile" in phases)
             laps.append(("longctx_train", time.perf_counter()))

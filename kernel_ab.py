@@ -62,6 +62,24 @@ Sets:
   ms, and the three fp32 kernels' registers, spill bytes and shared
   memory at D 64.
 
+- ``seam``: the host cost of the eager path's entries, where the recording
+  seam sits (``call_unwrapped``, ``ops.common.apply``, ``dispatch.checked``,
+  the kernel wrappers): µs a call of ``rms_norm`` at a decode step [8, 4096]
+  bf16, of the op namespace's ``add`` and of an ``nn.Linear(4096, 4096)``
+  call on a Tensor of [8, 4096] bf16, each the wall time of 2000 calls
+  ending in a synchronise (the device work is a few µs a call, so the host
+  sets it), and ms a new token of ``generate`` at Llama-3-8B widths cut to 2
+  layers (the dense decode step, host-bound), 64 tokens; each the median of
+  5 repeats; the Python function calls and the Python bytecode
+  instructions a token of that decode, and the instructions a decode step
+  of an Engine drain of the `serve` phase's requests at those 2 layers
+  (cProfile's count and ``sys.monitoring``'s: exact where the times are
+  noisy); and µs a call of
+  ``F.linear`` [8, 1024] x [1024, 1024] with bias over a plain
+  ``nn.Parameter`` and over the port's ``ParamBase`` (a layer's parameter
+  class, a ``Parameter`` subclass, where the checkout has it), in turns
+  (plain, ParamBase, ParamBase, plain) in one process.
+
 ``--geometry NAME=VALUE`` (repeatable) builds with that ``_build.GEOMETRY``
 constant changed, in whichever source has it (the checkout's specs and
 wrappers read the same table); ``--geometry DECODE_SPLIT_KEYS=N``, for
@@ -81,7 +99,7 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-SETS = ("gemm", "serve", "rms_plan", "tokens", "ssd", "norm", "adamw", "flash32")
+SETS = ("gemm", "serve", "rms_plan", "tokens", "ssd", "norm", "adamw", "flash32", "seam")
 SSD_SHAPES = {"ssd_train": (128, 4096, 64, 128, 128), "SSDConfig()": (64, 4096, 128, 64, 64)}
 TABLE_DENSE = [1, 37, 128, 129, 500, 1024, 2047, 2048]
 TABLE_PAGED = [0, 1, 128, 129, 256, 300, 777, 1024]
@@ -448,6 +466,109 @@ def _flash32(smoke):
     return rec
 
 
+def _seam() -> dict:
+    """Host µs a call of the eager entries and ms a decode token (see the
+    module docstring)."""
+    import cProfile
+    import pstats
+    import statistics
+    import time
+
+    import paddle_tpu_torch as paddle
+    import torch
+    from paddle_tpu_torch.kernels.rms_norm import rms_norm
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama3_8b_config
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = _rnd(gen, 8, 4096)
+    w = _rnd(gen, 4096)
+    t = paddle.Tensor(x)
+    lin = paddle.nn.Linear(4096, 4096, device="cuda").to(torch.bfloat16)
+
+    def per_call(fn, n=2000):
+        for _ in range(50):
+            fn()
+        reps = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t0) / n * 1e6)
+        return statistics.median(reps)
+
+    rec = {"us_per_call": {"rms_norm [8, 4096]": per_call(lambda: rms_norm(x, w)),
+                           "paddle.add (apply)": per_call(lambda: paddle.add(t, t)),
+                           "nn.Linear call": per_call(lambda: lin(t))}}
+    model = LlamaForCausalLM(llama3_8b_config(num_hidden_layers=2), device="cuda", seed=0)
+    prompt = torch.randint(0, 1000, (1, 16), generator=gen, device="cuda", dtype=torch.int32)
+    model.generate(prompt, max_new_tokens=8)
+    reps = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.generate(prompt, max_new_tokens=64)
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t0) / 64 * 1e3)
+    rec["decode_ms_per_token_2_layers"] = statistics.median(reps)
+    # the same 64 tokens' Python function calls (cProfile's count, exact)
+    prof = cProfile.Profile()
+    prof.enable()
+    model.generate(prompt, max_new_tokens=64)
+    torch.cuda.synchronize()
+    prof.disable()
+    rec["python_calls_per_token_2_layers"] = pstats.Stats(prof).total_calls / 64
+
+    def instructions(fn):
+        """The Python bytecode instructions ``fn()`` executes, and its result."""
+        mon, tool, count = sys.monitoring, 3, [0]
+
+        def instruction(code, offset):
+            count[0] += 1
+
+        mon.use_tool_id(tool, "kernel_ab")
+        mon.register_callback(tool, mon.events.INSTRUCTION, instruction)
+        mon.set_events(tool, mon.events.INSTRUCTION)
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            mon.set_events(tool, 0)
+            mon.free_tool_id(tool)
+        return count[0], out
+
+    n, _ = instructions(lambda: model.generate(prompt, max_new_tokens=64))
+    rec["python_instructions_per_token_2_layers"] = n / 64
+    # the Engine drain of the `serve` phase's 16 requests at these 2 layers
+    smoke = _smoke()
+    kw = dict(max_batch=8, block_size=128, prefill_buckets=(128, 256, 512), num_blocks=512)
+
+    def drain():     # new requests each time: a drain consumes its requests
+        return smoke._serve(model, smoke._serve_requests(model.config.vocab_size, 0)[0],
+                            "cuda", **kw)
+
+    drain()
+    n, (eng, _) = instructions(drain)
+    rec["python_instructions_per_engine_decode_step_2_layers"] = n / eng.stats["decode_steps"]
+    # a parameter's class alone: the same linear over a plain Parameter and
+    # over a ParamBase of the same values (grad enabled, as in a forward)
+    from paddle_tpu_torch.framework import tensor as ft
+
+    xs = _rnd(gen, 8, 1024)
+    plain = [torch.nn.Parameter(_rnd(gen, 1024, 1024)), torch.nn.Parameter(_rnd(gen, 1024))]
+    lin_plain = lambda: torch.nn.functional.linear(xs, *plain)  # noqa: E731
+    if hasattr(ft, "ParamBase"):
+        based = [ft.as_param_base(torch.nn.Parameter(p.detach().clone())) for p in plain]
+        lin_based = lambda: torch.nn.functional.linear(xs, *based)  # noqa: E731
+        rec["linear_us_plain_parameter"] = [per_call(lin_plain)]
+        rec["linear_us_param_base"] = [per_call(lin_based), per_call(lin_based)]
+        rec["linear_us_plain_parameter"].append(per_call(lin_plain))
+    else:
+        rec["linear_us_plain_parameter"] = [per_call(lin_plain), per_call(lin_plain)]
+    return rec
+
+
 def _run_tree(which: str, tree: str, geometry: dict) -> dict:
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
@@ -460,6 +581,8 @@ def _run_tree(which: str, tree: str, geometry: dict) -> dict:
         if not src:
             raise SystemExit(f"kernel_ab: no geometry constant {name} in this checkout")
         src[0][name] = value
+    if which == "seam":
+        return _seam()
     smoke = _smoke()
     if which == "flash32":
         return _flash32(smoke)

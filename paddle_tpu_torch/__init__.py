@@ -24,7 +24,11 @@ ERNIE and PP-OCR recipes; the high-level API (``Model`` fit / evaluate /
 predict, ``callbacks``, ``metric``, ``summary``, ``flops``) and
 ``vision`` (models, transforms, datasets; not yet ``vision.ops``); the
 whole of ``nn`` (``functional``, the layers, ``initializer``, ``utils``,
-``ParamAttr``) with ``regularizer``, ``fft`` and ``signal``.
+``ParamAttr``) with ``regularizer``, ``fft`` and ``signal``; the
+compiled-graph layer: ``static`` (``Program``, ``Executor``, ``static.nn``),
+``jit.to_static`` with fragment capture (``jit.capture``), ``jit.save`` /
+``jit.load``, ``inference`` (``Config``, ``Predictor``) and
+``amp.debugging``.
 
 Device policy: entry points take an explicit ``device``; when none is given
 it is the one ``set_device`` chose, else ``"cuda"``, and a missing card
@@ -83,9 +87,13 @@ from . import callbacks  # noqa: F401
 from . import hapi  # noqa: F401
 from .hapi import Model, flops, summary  # noqa: F401
 from .framework.io import load, save  # noqa: F401
+from . import static  # noqa: F401
+from . import inference  # noqa: F401
+from .static import disable_static, enable_static  # noqa: F401
 
 dtype = type(float32)
 
 
 def in_dynamic_mode() -> bool:
-    return True
+    """True outside static mode (``enable_static``)."""
+    return not static.in_static_mode()

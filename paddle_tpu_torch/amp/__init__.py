@@ -21,6 +21,7 @@ import torch
 from ..framework import dispatch
 from ..framework.dtype import convert_dtype, dtype_name
 from ..framework.tensor import Tensor
+from . import debugging  # noqa: F401
 
 __all__ = ["auto_cast", "amp_guard", "decorate", "GradScaler", "is_auto_cast_enabled",
            "is_bfloat16_supported", "is_float16_supported", "get_amp_dtype",

@@ -9,9 +9,11 @@ layer's default); the standalone :func:`create_parameter` takes its
 ``default_initializer`` first, as the JAX one does.  As in the JAX package
 the optimizers take weight decay from their own ``weight_decay``; a
 parameter's ``regularizer`` and ``optimize_attr`` are recorded on it.
-:class:`WeightNormParamAttr` reparameterises through recorded graph ops in
-static mode only, which the port does not have: in dynamic mode it
-raises, as the JAX one does, and ``nn.utils.weight_norm`` is the way.
+:class:`WeightNormParamAttr` reparameterises a layer's weight in static mode
+only (``nn.Layer.create_parameter`` makes it a torch parametrization,
+recomputed at every run); in dynamic mode, and through the standalone
+:func:`create_parameter`, it raises, and ``nn.utils.weight_norm`` is the
+way.
 """
 
 from __future__ import annotations

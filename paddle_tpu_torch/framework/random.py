@@ -32,6 +32,8 @@ def default_generator(device: Union[str, torch.device]) -> torch.Generator:
     the op namespace draw from it.  Made seeded with the last :func:`seed`
     value (0 before any); :func:`seed` resets it."""
     dev = torch.device(device)
+    if dev.type == "meta":
+        return torch.Generator()     # a recording's shape inference draws nothing
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     g = _DEFAULT_GENERATORS.get(dev)

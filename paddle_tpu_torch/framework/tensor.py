@@ -19,6 +19,14 @@ The JAX conversion policy holds (``to_tensor`` of Python or numpy data with
 no dtype): float64 becomes float32, int64 becomes int32.  Data goes to the
 device :func:`~.device.set_device` chose (the card by default).  Op
 methods and dunders are installed by ``paddle_tpu_torch.ops``.
+
+While a recorder is active (a fragment capture or a static Program, see
+``framework/dispatch.py``), ``_data`` may be a
+:class:`~.lazy.LazyArray`: shape and dtype known, value pending; reading
+the value breaks the graph.  A layer's parameters are :class:`ParamBase` s,
+``torch.nn.Parameter`` s with Paddle's members (``stop_gradient``,
+``trainable``, ``name``, ``persistable``, ``optimize_attr``, ``numpy()``,
+``set_value``).
 """
 
 from __future__ import annotations
@@ -33,9 +41,11 @@ import torch
 
 from . import dtype as dtype_mod
 from .device import default_device
+from .dispatch import tls
+from .lazy import EAGER, LazyArray
 
-__all__ = ["Tensor", "Parameter", "to_tensor", "unwrap", "wrap", "boundary", "call_unwrapped",
-           "create_parameter"]
+__all__ = ["Tensor", "Parameter", "ParamBase", "as_param_base", "to_tensor", "unwrap", "wrap",
+           "boundary", "call_unwrapped", "create_parameter"]
 
 
 def _to_torch(data, dtype=None, place=None) -> torch.Tensor:
@@ -79,9 +89,10 @@ def unwrap(x):
 
 
 def wrap(x):
-    """``torch.Tensor`` -> Tensor (through lists, tuples and dicts); a
-    ``nn.Parameter`` is wrapped too, sharing its storage and graph."""
-    if isinstance(x, torch.Tensor):
+    """``torch.Tensor`` (or a pending :class:`~.lazy.LazyArray`) -> Tensor
+    (through lists, tuples and dicts); a ``nn.Parameter`` is wrapped too,
+    sharing its storage and graph."""
+    if isinstance(x, (torch.Tensor, LazyArray)):
         return Tensor._wrap(x)
     if isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
         return type(x)(wrap(v) for v in x)
@@ -98,21 +109,33 @@ def _holds_tensor(args, kwargs) -> bool:
     return False
 
 
-def call_unwrapped(fn, args, kwargs):
+def call_unwrapped(fn, args, kwargs, name=None):
     """``fn(*args, **kwargs)`` over plain torch tensors: when a Tensor is
     among the arguments, each is unwrapped and tensor results are wrapped
-    back; otherwise the call is untouched."""
+    back; otherwise the call is untouched.  This is one of the recording
+    seam's two entries: while a recorder is active a call holding a Tensor
+    is recorded (as op ``name``, or the layer's class or the function's
+    name) instead of run."""
     if not _holds_tensor(args, kwargs):
         return fn(*args, **kwargs)
+    rec = tls.recorder
+    if rec is not None:
+        out = rec.record_call(fn, args, kwargs, name)
+        if out is not EAGER:
+            return out
     return wrap(fn(*unwrap(args), **unwrap(kwargs)))
 
 
-def boundary(fn):
+def boundary(fn=None, *, name=None):
     """``fn`` taking Tensors as well as torch tensors (see
-    :func:`call_unwrapped`): the port's entry points wear it."""
+    :func:`call_unwrapped`): the port's entry points wear it; ``name`` is
+    the op name a recording gives its calls."""
+    if fn is None:
+        return functools.partial(boundary, name=name)
+
     @functools.wraps(fn)
     def entry(*args, **kwargs):
-        return call_unwrapped(fn, args, kwargs)
+        return call_unwrapped(fn, args, kwargs, name)
 
     return entry
 
@@ -140,11 +163,15 @@ class Tensor:
 
     @classmethod
     def _wrap(cls, data: torch.Tensor) -> "Tensor":
-        """A Tensor over ``data`` itself (no copy, graph kept)."""
+        """A Tensor over ``data`` itself (no copy, graph kept); over a
+        pending value, the recorder substitutes the value in when it
+        flushes."""
         t = cls.__new__(cls)
         t._data = data
         t.name = ""
         t.persistable = False
+        if type(data) is LazyArray:
+            data._tensors.append(weakref.ref(t))
         return t
 
     # -- basic properties ---------------------------------------------------
@@ -256,13 +283,15 @@ class Tensor:
     def numpy(self) -> np.ndarray:
         """A writable host copy (bfloat16 widens to float32: numpy has no
         bfloat16)."""
+        if isinstance(self._data, LazyArray):
+            return Tensor._wrap(self._data._concrete("host read (numpy)")).numpy()
         d = self._data.detach().resolve_conj()
         if d.dtype in (torch.bfloat16, dtype_mod.float8_e4m3fn, dtype_mod.float8_e5m2):
             d = d.to(torch.float32)
         return np.array(d.cpu().numpy(), copy=True)
 
     def item(self, *args):
-        if args:
+        if args or isinstance(self._data, LazyArray):
             return self.numpy().item(*args)
         return self._data.detach().item()
 
@@ -318,21 +347,28 @@ class Tensor:
         return self._data.shape[0]
 
     def __repr__(self):
+        value = "(pending)" if isinstance(self._data, LazyArray) else self.numpy()
         return (f"Tensor(shape={self.shape}, dtype={dtype_mod.dtype_name(self.dtype)}, "
                 f"place={self.place}, stop_gradient={self.stop_gradient},\n       "
-                f"{self.numpy()})")
+                f"{value})")
+
+    def _scalar(self):
+        """The storage a Python scalar is read from (a pending value reads
+        itself: a graph break)."""
+        d = self._data
+        return d if isinstance(d, LazyArray) else d.detach()
 
     def __bool__(self):
-        return bool(self._data.detach())
+        return bool(self._scalar())
 
     def __int__(self):
-        return int(self._data.detach())
+        return int(self._scalar())
 
     def __float__(self):
-        return float(self._data.detach())
+        return float(self._scalar())
 
     def __index__(self):
-        return int(self._data.detach())
+        return int(self._scalar())
 
     def __hash__(self):
         return id(self)
@@ -402,17 +438,78 @@ def _unwrap_index(idx, device):
     return idx
 
 
+class ParamBase(torch.nn.Parameter):
+    """A layer's parameter: a ``torch.nn.Parameter`` (the optimizers,
+    ``TrainStep`` and autograd take it as they take any) with the Paddle
+    members a program reads on it (the JAX ``Parameter``'s):
+    ``stop_gradient`` (get and set, ``not requires_grad``), ``trainable``
+    (its opposite), ``name``, ``persistable``, ``optimize_attr``,
+    ``numpy()`` (a host copy, also of a parameter that needs grad) and
+    ``set_value``.  ``nn.Layer`` makes every parameter registered on it one
+    (the class of a plain ``nn.Parameter`` is switched, nothing copied)."""
+
+    persistable = True
+
+    def __init__(self, data=None, requires_grad: bool = True):
+        self.__dict__.setdefault("optimize_attr", {"learning_rate": 1.0})
+
+    @property
+    def stop_gradient(self) -> bool:
+        return not self.requires_grad
+
+    @stop_gradient.setter
+    def stop_gradient(self, value: bool):
+        self.requires_grad_(not value)
+
+    @property
+    def trainable(self) -> bool:
+        return self.requires_grad
+
+    @trainable.setter
+    def trainable(self, value: bool):
+        self.requires_grad_(bool(value))
+
+    @property
+    def name(self) -> str:
+        return self.__dict__.get("_paddle_name", "")
+
+    @name.setter
+    def name(self, value):
+        self.__dict__["_paddle_name"] = value or ""
+
+    def numpy(self) -> np.ndarray:
+        return Tensor._wrap(self.detach()).numpy()
+
+    @torch.no_grad()
+    def set_value(self, value):
+        """Copy ``value`` in (same shape, cast to this dtype), in place."""
+        arr = _to_torch(value, self.dtype, self.device)
+        if tuple(arr.shape) != tuple(self.shape):
+            raise ValueError(f"set_value shape mismatch: {tuple(arr.shape)} vs "
+                             f"{tuple(self.shape)}")
+        self.copy_(arr)
+        return self
+
+
+def as_param_base(p: torch.nn.Parameter) -> torch.nn.Parameter:
+    """``p`` with the Paddle members (:class:`ParamBase`), in place."""
+    if type(p) is torch.nn.Parameter:
+        p.__class__ = ParamBase
+        p.__dict__.setdefault("optimize_attr", {"learning_rate": 1.0})
+    return p
+
+
 class Parameter(Tensor):
     """Trainable tensor (reference ``EagerParamBase``): ``stop_gradient``
-    defaults to False.  Its storage is a ``torch.nn.Parameter``, so the
-    port's optimizers take it as they take a layer's."""
+    defaults to False.  Its storage is a :class:`ParamBase`, so the port's
+    optimizers take it as they take a layer's."""
 
     __slots__ = ("trainable", "optimize_attr", "regularizer", "is_distributed",
                  "no_weight_decay")
 
     def __init__(self, data, dtype=None, name=None, trainable: bool = True):
         super().__init__(data, dtype=dtype, name=name)
-        self._data = torch.nn.Parameter(self._data, requires_grad=trainable and (
+        self._data = ParamBase(self._data, requires_grad=trainable and (
             self._data.is_floating_point() or self._data.is_complex()))
         self.trainable = trainable
         self.optimize_attr = {"learning_rate": 1.0}

@@ -10,6 +10,8 @@ sites' prologues and epilogues, and the residual add + RMSNorm) train when
 a table of sites is activated.  :mod:`.injected` holds the kernel gate's
 seeded defects, launched only by the gate.  :mod:`.registry` is the
 admission-gated registry every wrapper checks in with first.
+:mod:`.export_ops` registers the forward entries an exported program calls
+(``torch.export``, ``jit.save``) as custom ops.
 
 Every wrapper carries a plain integer ``launches`` attribute, raised by one
 exactly where its kernel is launched; the flash wrappers also raise
@@ -23,10 +25,10 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import (adamw, add_rms_norm, decode_attention, emit, flash_attention, fused_gemm,
-               injected, registry, rms_norm, rope, ssd_scan, swiglu)
+from . import (adamw, add_rms_norm, decode_attention, emit, export_ops, flash_attention,
+               fused_gemm, injected, registry, rms_norm, rope, ssd_scan, swiglu)
 
-__all__ = ["adamw", "add_rms_norm", "decode_attention", "emit", "flash_attention",
+__all__ = ["adamw", "add_rms_norm", "decode_attention", "emit", "export_ops", "flash_attention",
            "fused_gemm", "injected", "registry", "rms_norm", "rope", "ssd_scan", "swiglu",
            "launch_counts", "reset_launch_counts", "GATE_WRAPPERS", "WRAPPERS"]
 

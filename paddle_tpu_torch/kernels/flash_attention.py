@@ -40,7 +40,8 @@ from typing import Optional, Tuple
 import torch
 
 from ..analysis.kernel_lint import BlockUse, KernelSpec, ScratchUse, cuda_semantics, tabulated
-from . import _build, registry
+from ..framework.dispatch import shape_inference, tls
+from . import _build, export_ops, registry
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd"]
 
@@ -199,12 +200,13 @@ def _strides(*xs):
 def flash_attention_fwd(q, k, v, causal: bool, sm_scale: float
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(o [B, Sq, H, D] in q's dtype, lse [B, H, Sq] fp32)``: the CUDA
-    kernel for CUDA tensors, :func:`_flash_fwd_reference` for CPU ones."""
+    kernel for CUDA tensors, :func:`_flash_fwd_reference` for CPU ones (and
+    for the meta ones of a recording's shape inference: it moves no data)."""
     registry.ensure_admitted("flash_fwd_resident", q.device, q.dtype)
     registry.ensure_admitted("flash_fwd_stream", q.device, q.dtype)
-    if q.device.type == "cpu":
-        return _flash_fwd_reference(q, k, v, causal, sm_scale)
     if q.device.type != "cuda":
+        if q.device.type == "cpu" or shape_inference(q):
+            return _flash_fwd_reference(q, k, v, causal, sm_scale)
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v)
     q, k, v = (_aligned_rows(x) for x in (q, k, v))
@@ -290,7 +292,8 @@ def flash_attention(q, k, v, causal: bool = False, mask=None,
     """Memory-efficient attention over ``[B, S, H, D]`` (K/V with ``Hk``
     heads, ``H % Hk == 0``), differentiable.  A ``mask`` is taken only on
     the CPU, through the plain :func:`_attention_reference`; the CUDA
-    kernels raise for one."""
+    kernels raise for one.  Under ``export_ops.export_trace`` the call is the
+    custom op ``paddle_tpu_torch::flash_attention``."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if mask is not None:
@@ -299,6 +302,8 @@ def flash_attention(q, k, v, causal: bool = False, mask=None,
         rep = q.shape[2] // k.shape[2]
         return _attention_reference(q, k.repeat_interleave(rep, dim=2),
                                     v.repeat_interleave(rep, dim=2), causal, mask, sm_scale)
+    if tls.exporting:
+        return export_ops.flash_attention_op(q, k, v, bool(causal), float(sm_scale))
     return _FlashAttention.apply(q, k, v, bool(causal), float(sm_scale))
 
 

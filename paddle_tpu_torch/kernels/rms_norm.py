@@ -28,7 +28,8 @@ import torch
 
 from ..analysis.kernel_lint import (BlockUse, KernelSpec, ScratchUse, cuda_semantics, itemsize,
                                     tabulated)
-from . import _build, registry
+from ..framework.dispatch import shape_inference, tls
+from . import _build, export_ops, registry
 
 __all__ = ["rms_norm", "rms_norm_reference", "rms_norm_backward", "rms_norm_backward_reference"]
 
@@ -154,7 +155,7 @@ class _RMSNorm(torch.autograd.Function):
     def forward(ctx, x, weight, epsilon):
         ctx.save_for_backward(x, weight)
         ctx.epsilon = epsilon
-        if x.device.type == "cpu":
+        if x.device.type != "cuda":     # the CPU, or a recording's shape inference
             return rms_norm_reference(x, weight, epsilon)
         return _launch(x, weight, epsilon)
 
@@ -169,13 +170,18 @@ class _RMSNorm(torch.autograd.Function):
 def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
              epsilon: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last dim, differentiable in ``x`` and ``weight``: the
-    CUDA kernel for a CUDA ``x``, the plain version for a CPU ``x``."""
+    CUDA kernel for a CUDA ``x``, the plain version for a CPU ``x`` (and for
+    the meta ``x`` of a recording's shape inference: it moves no data).  Under
+    ``export_ops.export_trace`` the call is the custom op
+    ``paddle_tpu_torch::rms_norm``."""
     registry.ensure_admitted("rms_norm", x.device, registry.dtype_key(
         x.dtype, x.dtype if weight is None else weight.dtype))
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda") and not shape_inference(x):
         raise ValueError(f"rms_norm: unsupported device {x.device}")
     if weight is None:
         weight = torch.ones(x.shape[-1], dtype=x.dtype, device=x.device)
+    if tls.exporting:
+        return export_ops.rms_norm_op(x, weight, float(epsilon))
     return _RMSNorm.apply(x, weight, float(epsilon))
 
 

@@ -8,6 +8,14 @@ and ``_variance``): the exchanged names are the port's ``state_dict()``
 keys, the JAX side's ``state_dict()`` keys.  Rope tables are
 non-persistent buffers recomputed from the config, never copied.
 
+The compiled-graph layer's state goes by the same names:
+:func:`load_paddle_tpu_artifact` loads the weights file of a ``jit.save``
+artifact of either package (``<prefix>.pdiparams``, the JAX layout
+``{"params", "buffers"}``) into a model, and a static Program's state
+(its recorded layers' parameters and buffers, by their names) goes to and
+from numpy with :func:`to_paddle_tpu_program_state` /
+:func:`load_paddle_tpu_program_state`.
+
 The optimizer state of a training step goes the same way: ``{"step": n,
 "slots": {param name: {"m": array, "v": array, ...}}}``, the layout of the
 JAX ``TrainStep``'s ``_step`` and ``_opt_state`` as numpy, so two trainers
@@ -27,7 +35,9 @@ from torch import nn
 
 __all__ = ["load_paddle_tpu_params", "to_paddle_tpu_params",
            "load_paddle_tpu_opt_state", "to_paddle_tpu_opt_state",
-           "load_paddle_tpu_train_state", "to_paddle_tpu_train_state"]
+           "load_paddle_tpu_train_state", "to_paddle_tpu_train_state",
+           "load_paddle_tpu_artifact", "to_paddle_tpu_program_state",
+           "load_paddle_tpu_program_state"]
 
 
 def _exchanged(model: nn.Module) -> Tuple[Dict[str, torch.Tensor], Set[str]]:
@@ -116,3 +126,34 @@ def to_paddle_tpu_train_state(train_step) -> Dict[str, np.ndarray]:
     widened exactly to float32)."""
     return {k: (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).cpu().numpy()
             for k, t in train_step.state_dict().items()}
+
+
+def load_paddle_tpu_artifact(model: nn.Module, prefix: str) -> None:
+    """Load the weights of a ``jit.save`` artifact (``prefix.pdiparams``,
+    written by either package) into ``model``, by name
+    (:func:`load_paddle_tpu_params`)."""
+    from ..framework.io import load
+
+    state = load(prefix + ".pdiparams", return_numpy=True)
+    load_paddle_tpu_params(model, {**state.get("params", {}), **state.get("buffers", {})})
+
+
+def to_paddle_tpu_program_state(program) -> Dict[str, np.ndarray]:
+    """A static Program's state (``Program.state_dict``: its recorded
+    layers' parameters and buffers by name) as float32 numpy arrays."""
+    return {k: np.asarray(v, np.float32) if np.asarray(v).dtype.kind == "f" else np.asarray(v)
+            for k, v in program.state_dict().items()}
+
+
+def load_paddle_tpu_program_state(program, state: Dict[str, np.ndarray]) -> None:
+    """Copy ``state`` (name -> array, e.g. a JAX layer's ``state_dict()``
+    under the names of the port layer it was carried into) into a static
+    Program's state; names must match exactly."""
+    own = program.state_dict()
+    if set(own) != set(state):
+        raise KeyError(f"state names differ: missing {sorted(set(own) - set(state))}, "
+                       f"unexpected {sorted(set(state) - set(own))}")
+    for k, v in state.items():
+        if tuple(np.shape(v)) != tuple(np.shape(own[k])):
+            raise ValueError(f"{k}: shape {tuple(np.shape(v))} != {tuple(np.shape(own[k]))}")
+    program.set_state_dict(state)

@@ -1259,5 +1259,5 @@ for _name in __all__:
     if _name not in _fx.INPLACE:
         _op = _OP_NAMES.get(_name, _name)
         _fn = globals()[_name] if _name == "batch_norm" else _amp_op(_op, globals()[_name])
-        globals()[_name] = boundary(checked_op(_op, _fn))
+        globals()[_name] = boundary(checked_op(_op, _fn), name=_op)
 del _name, _op, _fn

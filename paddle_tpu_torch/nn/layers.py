@@ -32,7 +32,7 @@ from torch.utils.hooks import RemovableHandle
 
 from .. import default_device, default_generator, to_dtype
 from ..framework.param_attr import WeightNormParamAttr, apply_attr, refuse_weight_norm_attr
-from ..framework.tensor import Tensor, call_unwrapped
+from ..framework.tensor import Tensor, as_param_base, call_unwrapped
 from .initializer import Constant, Initializer, XavierUniform, global_initializer
 
 __all__ = ["Layer", "Sequential", "LayerList", "ParameterList", "HookRemoveHelper",
@@ -57,6 +57,31 @@ class Layer(nn.Module):
         the layer everything is plain torch."""
         return call_unwrapped(super().__call__, args, kwargs)
 
+    def register_parameter(self, name: str, param) -> None:
+        """torch's registration, the parameter given Paddle's members
+        (``framework.tensor.ParamBase``).  A parameter made under a
+        ``WeightNormParamAttr`` (static mode) becomes ``w = g v / ||v||``:
+        a torch parametrization whose ``original0`` is g (one value a slice
+        along ``dim``) and ``original1`` v, both trained; the weight is
+        recomputed at each use, so a Program run sees the trained g and v."""
+        if param is not None and hasattr(param, "weight_norm_dim"):
+            from torch.nn.utils import parametrize
+
+            super().register_parameter(name, param)
+            parametrize.register_parametrization(self, name, _WeightNorm(param.weight_norm_dim,
+                                                                         param.dim()))
+            return
+        super().register_parameter(name, None if param is None else as_param_base(param))
+
+    def _apply(self, fn, recurse=True):
+        """torch's ``_apply`` (``to``, ``cuda``, ...), the parameters it
+        replaces given Paddle's members again."""
+        out = super()._apply(fn, recurse)
+        for p in self._parameters.values():
+            if p is not None:
+                as_param_base(p)
+        return out
+
     @property
     def generator(self) -> torch.Generator:
         """The generator this layer's parameters are drawn from: the one it
@@ -80,8 +105,13 @@ class Layer(nn.Module):
         if init is None:
             init = Constant(0.0) if is_bias else XavierUniform()
         if isinstance(attr, WeightNormParamAttr):
-            refuse_weight_norm_attr()
+            from ..static.graph import in_static_mode
+
+            if not in_static_mode():
+                refuse_weight_norm_attr()
         p = nn.Parameter(init(shape, to_dtype(dtype or self._dtype), self.generator))
+        if isinstance(attr, WeightNormParamAttr):
+            p.weight_norm_dim = attr.dim      # reparameterised when it is registered
         return apply_attr(p, attr)
 
     def register_forward_post_hook(self, hook) -> HookRemoveHelper:
@@ -113,6 +143,34 @@ class Layer(nn.Module):
                                  f"{tuple(target.shape)}")
             target.copy_(src.to(device=target.device, dtype=target.dtype))
         return missing, unexpected
+
+
+class _WeightNorm(nn.Module):
+    """``w = g v / max(||v||, 1e-12)``, the norm over every axis but ``dim``
+    (all of them for None), as the JAX ``WeightNormParamAttr``."""
+
+    def __init__(self, dim, ndim: int):
+        super().__init__()
+        self.dim = None if dim is None else dim % ndim
+        self.axes = None if dim is None else tuple(i for i in range(ndim) if i != self.dim)
+
+    def _norm(self, v):
+        v32 = v.to(torch.float32)
+        if self.dim is None:
+            return torch.sqrt(torch.sum(v32 * v32))
+        return torch.sqrt(torch.sum(v32 * v32, dim=self.axes, keepdim=True))
+
+    def forward(self, g, v):
+        n = torch.clamp_min(self._norm(v), 1e-12)
+        if self.dim is not None:
+            shape = [1] * v.dim()
+            shape[self.dim] = v.shape[self.dim]
+            g = g.reshape(shape)
+        return (v / n * g).to(v.dtype)
+
+    def right_inverse(self, w):
+        n = self._norm(w)
+        return (n if self.dim is None else n.reshape(-1)).to(w.dtype), w
 
 
 def option_layer(name: str, fn, *options):

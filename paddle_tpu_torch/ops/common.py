@@ -6,6 +6,8 @@ name.  :func:`apply` unwraps Tensors (and takes plain ``torch.Tensor`` s
 and numpy arrays), casts under ``amp.auto_cast`` by that name
 (``framework.dispatch.amp_cast``), runs the expression (autograd is
 torch's), checks the outputs under ``FLAGS_check_nan_inf`` and wraps them.
+It is one of the recording seam's two entries: while a recorder is active
+a call holding a Tensor is recorded instead of run (``jit.subgraph``).
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..framework.dispatch import amp_cast, checked
+from ..framework.dispatch import amp_cast, checked, tls
+from ..framework.lazy import EAGER
 from ..framework.tensor import Tensor, _to_torch
 
 __all__ = ["apply", "data_of", "ensure_tensor", "binary_op", "unary_op", "axis_or_none",
@@ -56,6 +59,13 @@ def apply(name: str, fn, *tensors):
     """``fn(*datas)`` over the storages of ``tensors``, cast for op
     ``name`` under AMP; returns Tensors (a tuple for a tuple)."""
     ref = next((t for t in tensors if isinstance(t, (Tensor, torch.Tensor))), None)
+    rec = tls.recorder
+    if rec is not None and any(isinstance(t, Tensor) for t in tensors):
+        r = data_of(ref)
+        out = rec.record_op(name, fn, tuple(t if isinstance(t, (Tensor, torch.Tensor))
+                                            else data_of(t, r) for t in tensors))
+        if out is not EAGER:
+            return out
     ref = None if ref is None else data_of(ref)
     datas = amp_cast(name, tuple(data_of(t, ref) for t in tensors))
     return _wrap_out(name, fn(*datas))

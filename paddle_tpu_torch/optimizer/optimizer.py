@@ -63,7 +63,12 @@ class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None, weight_decay=None,
                  grad_clip=None, multi_precision=True, name=None):
         if parameters is None:
-            raise ValueError("parameters must be provided")
+            from ..static.graph import current_builder
+
+            if current_builder() is None:
+                raise ValueError("parameters must be provided (eager mode, like the reference)")
+            # static mode: minimize(loss) trains the Program's parameters
+            parameters = []
         self._param_names, self._parameter_list = _named(parameters)
         self._lr = learning_rate
         self._grad_clip = grad_clip
@@ -214,6 +219,14 @@ class Optimizer:
     clear_gradients = clear_grad
 
     def minimize(self, loss, startup_program=None, parameters=None, no_grad_set=None):
+        from ..static.graph import current_builder
+
+        builder = current_builder()
+        if builder is not None:
+            # static mode: attach the training directive to the Program;
+            # Executor.run then takes the step over its parameters
+            builder.set_optimizer(self, loss)
+            return None, None
         loss.backward()
         self.step()
         self.clear_grad()

@@ -1550,3 +1550,119 @@ def test_flash_attn_unpadded_with_query_boundaries_apart(cuda, causal):
     torch.testing.assert_close(o.float(), o_ref, **tol)
     for a, b in zip(grads, g_ref):
         torch.testing.assert_close(a.float(), b, **tol)
+
+
+# ---------------------------------------------------------------------------
+# the compiled-graph layer: static Programs, to_static, jit.save / Predictor
+# ---------------------------------------------------------------------------
+
+def _tiny_llama(cuda, dtype="float32"):
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+
+    return LlamaForCausalLM(llama_tiny_config(dtype=dtype), device=cuda, seed=0)
+
+
+def _launched(fn):
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n for k, n in launch_counts().items() if n}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_replayed_tape_launches_what_eager_launches(cuda, dtype):
+    """to_static's replay and a static Program's forward run launch the
+    eager forward's kernels, no more and no fewer, with its bits."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+
+    model = _tiny_llama(cuda, dtype)
+    ids_np = np.random.default_rng(0).integers(0, 512, size=(2, 64)).astype(np.int32)
+    ids = torch.from_numpy(ids_np).to(cuda)
+    with torch.no_grad():
+        eager, want = _launched(lambda: model(ids))
+        static = paddle.jit.to_static(model)
+        first, first_n = _launched(lambda: static(ids)._data)
+        again, again_n = _launched(lambda: static(ids)._data)
+    L = model.config.num_hidden_layers
+    assert want == {"rms_norm": 2 * L + 1, "flash_attention_fwd": L}
+    assert first_n == want and again_n == want
+    assert torch.equal(first, eager) and torch.equal(again, eager)
+    paddle.set_device("gpu")
+    try:
+        paddle.enable_static()
+        try:
+            main = paddle.static.Program()
+            with paddle.static.program_guard(main):
+                x = paddle.static.data("ids", [None, 64], "int32")
+                logits = model(x)
+        finally:
+            paddle.disable_static()
+        exe = paddle.static.Executor()
+        (got,), got_n = _launched(lambda: exe.run(main, feed={"ids": ids_np},
+                                                  fetch_list=[logits], return_numpy=False))
+    finally:
+        paddle.set_device(None)
+    assert got_n == want
+    assert torch.equal(got._data, eager)
+
+
+def test_static_step_one_is_train_steps_bits(cuda):
+    """A static Program's training run from the same weights and batch is
+    TrainStep's step: the same loss bits, the same launches."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+
+    ids_np = np.random.default_rng(1).integers(0, 512, size=(2, 64)).astype(np.int32)
+    model = _tiny_llama(cuda)
+    step = paddle.jit.TrainStep(
+        model, lambda m, i: m.compute_loss(m(i), i),
+        paddle.optimizer.AdamW(learning_rate=1e-3, parameters=model.parameters()))
+    ts = [_launched(lambda: float(step(torch.from_numpy(ids_np).to(cuda)))) for _ in range(2)]
+
+    model = _tiny_llama(cuda)
+    paddle.set_device("gpu")
+    try:
+        paddle.enable_static()
+        try:
+            main = paddle.static.Program()
+            with paddle.static.program_guard(main):
+                x = paddle.static.data("ids", [None, 64], "int32")
+                loss = model.compute_loss(model(x), x)
+                paddle.optimizer.AdamW(learning_rate=1e-3).minimize(loss)
+        finally:
+            paddle.disable_static()
+        exe = paddle.static.Executor()
+        st = [_launched(lambda: float(exe.run(main, feed={"ids": ids_np}, fetch_list=[loss])[0]))
+              for _ in range(2)]
+    finally:
+        paddle.set_device(None)
+    L = model.config.num_hidden_layers
+    want = {"rms_norm": 2 * L + 1, "rms_norm_bwd": 2 * L + 1, "flash_attention_fwd": L,
+            "flash_attention_bwd": L, "adamw": 1}
+    assert st[0][0] == ts[0][0]
+    assert abs(st[1][0] - ts[1][0]) <= 1e-5 * abs(ts[1][0])
+    assert [n for _, n in st] == [want, want] == [n for _, n in ts]
+
+
+def test_predictor_output_is_eager_bits(cuda, tmp_path):
+    """jit.save, then a Predictor from the artifact alone: the eager
+    forward's bits and launches."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+
+    model = _tiny_llama(cuda, "bfloat16")
+    ids_np = np.random.default_rng(2).integers(0, 512, size=(2, 64)).astype(np.int32)
+    with torch.no_grad():
+        eager, want = _launched(lambda: model(torch.from_numpy(ids_np).to(cuda)))
+    prefix = str(tmp_path / "tiny")
+    paddle.jit.save(model, prefix, input_spec=[paddle.static.InputSpec([2, 64], "int32")])
+    pred = paddle.inference.create_predictor(paddle.inference.Config(prefix))
+    pred.get_input_handle("input_0").copy_from_cpu(ids_np)
+    _, got_n = _launched(pred.run)
+    out = pred.get_output_handle("output_0")._value
+    assert out.is_cuda and got_n == want
+    assert torch.equal(out, eager)
