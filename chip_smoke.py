@@ -24,7 +24,8 @@ serve Llama-3-8B-shaped, MoE and SSD-8B requests through the port's Engine.
 
 Phases:
   1 card     name and power limit (nvidia-smi), torch device name
-  2 build    nvcc of kernels/csrc/*.cu for sm_90a, all in parallel
+  2 build    nvcc of kernels/csrc/*.cu for sm_90a, all in parallel, and
+             g++ of core/csrc/*.cc (the host runtime's library) beside them
   3 kernels  each kernel against its plain version at its path's shapes
              (RMSNorm at a decode step, a serving prefill and a `base`
              step; decode attention dense and paged at the kernel table's
@@ -204,18 +205,23 @@ Phases:
              for eval, over vision.datasets.FakeData (384 + 128 HWC float
              images of 256 x 256 x 3 from --seed), through
              hapi.Model(net).prepare(opt, nn.CrossEntropyLoss(),
-             metric.Accuracy(topk=(1, 5))).fit(num_iters=6, num_workers=2)
-             after one forward and backward of a copy at these shapes (so
-             that cuDNN's first calls stay out of fit's steps), evaluate
-             over 2 batches and predict over 1.  Counters read per
+             metric.Accuracy(topk=(1, 5))).fit(num_iters=6) over a
+             DataLoader of 2 worker processes (io.shm_loader, a 39.6 MB
+             shared-memory slot: one batch) after one forward and backward
+             of a copy at these shapes (so that cuDNN's first calls stay
+             out of fit's steps), the same fit again with the batches
+             made on a thread (use_shared_memory=False), evaluate over 2
+             batches (workers) and predict over 1.  Counters read per
              fit step (a hapi callback): no kernel of the port; losses
              finite; step 1's loss the same bits as a jit.TrainStep's over a
              copy of the starting weights, with the model's loss function,
              on the batch fit's step 1 ran; BatchNorm statistics moved;
              evaluate gives finite `loss` and `acc` in [0, 1] (top-1, the
              metric's one name; top-5 from its accumulate()); predict a
-             [64, 1000] array.  Printed: fit's images/s with the loader, each
-             step's wait for the loader and its own ms, the loader alone,
+             [64, 1000] array.  Printed, for the workers' fit and the
+             thread's: images/s with the loader, each step's wait for the
+             loader and its own ms, the share spent waiting; the loader
+             alone,
              train_batch's steady ms on a batch on the card beside the same
              TrainStep queued without the loss read (the sync a step costs),
              evaluate's images/s, peak memory, the card's name and power
@@ -291,6 +297,30 @@ Phases:
              4-5: the resumed losses and every param and slot after step 5
              bit-equal to the uninterrupted run's (save and load ms and the
              checkpoint's bytes logged, the directory removed)
+  6d launch_train  the host runtime at `base` (the `train` phase's preset,
+             a new batch of 3 x 2048 token rows from --seed a step, an
+             io.TensorDataset of CPU Tensors), 5 steps in three legs, each
+             a fresh build, freed before the next: (1) DataLoader(
+             num_workers=0); (2) 2 persistent worker processes (io.
+             shm_loader) with a worker_init_fn: every batch leg 1's bytes,
+             the losses leg 1's bits, `train`'s launches each step, each
+             worker's get_worker_info() right, its pid not the trainer's
+             and CUDA never initialised in it (a probe module written into
+             the phase's directory records it); (3) python -m
+             paddle_tpu_torch.distributed.launch --max_restarts 1 --rank
+             -1 (the native TCPStore's rendezvous) on this script's hidden
+             child mode under FLAGS_ft_inject_crash_step=4 and
+             FLAGS_ft_inject_crash_signal=9: the child joins the store, runs
+             an ElasticManager heartbeat, resumes from CheckpointManager,
+             calls get_injector().crash_point(step) before each step and
+             saves after step 3; the launcher must exit 0 after exactly
+             one restart, and steps 1-3 of the killed incarnation and 4-5
+             of the relaunched one give leg 1's losses (held to the
+             spread resume_train measured when two runs are not
+             bit-equal).  Logged: each leg's wait for the loader a step,
+             the time to recover from the SIGKILL to the relaunched first
+             step and its parts, and the workers and /dev/shm segments the
+             killed trainer left (counted, then cleared)
   6b optimizers  each of the 14 optimizers through TrainStep for 3 steps on
              the tiny Llama in fp32, on the card and on the CPU from the same
              weights: losses and params within their limits (OPT_PARITY);
@@ -347,10 +377,12 @@ import json
 import random
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
 
+_T_IMPORT = time.time()      # a launched child's time to recover counts from here
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory bandwidth (data sheet)
 FP32_FLOPS_PER_S = 67e12     # H100 SXM fp32 rate outside the tensor cores
 BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor-core rate
@@ -530,7 +562,8 @@ ALL_PHASES = ("card", "build", "kernels", "kernel_gate", "parity", "incubate", "
               "eager_train", "static_graph", "longctx_train", "fuse_train", "moe_train",
               "ernie_train",
               "ocr_train", "hapi_train", "nn_tail",
-              "ssd_train", "resume_train", "optimizers", "serve", "moe_serve", "ssd_serve",
+              "ssd_train", "resume_train", "launch_train", "optimizers", "serve", "moe_serve",
+              "ssd_serve",
               "profile")
 REPO = Path(__file__).resolve().parent
 
@@ -649,11 +682,22 @@ def phase_card():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
+    from paddle_tpu_torch.core import native
     from paddle_tpu_torch.kernels import _build
 
+    def build_host():
+        """The host runtime's library (g++; launch_train's), beside nvcc."""
+        native.load()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    libs = _build.load_all()
-    log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(build_host)
+        libs = _build.load_all()
+        log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+        log(f"build: {native.lib_path().name} in {host.result():.1f} s")
 
 
 def _rms_case(rows, d, gen, w_dtype):
@@ -1181,6 +1225,25 @@ def _flash_case(gen, B, S, H, Hk, D, heads=None, causal=True):
                                                    causal)
     del o_ref, lse_ref, refs
     iters = 20 if heads is None else 3
+
+    def plain_fwd():
+        """The plain forward over every head: at once, or ``hq`` heads at a
+        time where all of the scores would not fit (``heads``)."""
+        if heads is None:
+            return fa._flash_fwd_reference(q, k, v, causal, sm)
+        for h in range(0, H, hq):
+            kv = slice(h * Hk // H, h * Hk // H + hk)
+            fa._flash_fwd_reference(q[:, :, h:h + hq], k[:, :, kv], v[:, :, kv], causal, sm)
+
+    def plain_bwd():
+        if heads is None:
+            return fa._flash_bwd_reference(q, k, v, o_in, lse_in, do, causal, sm)
+        for h in range(0, H, hq):
+            kv = slice(h * Hk // H, h * Hk // H + hk)
+            fa._flash_bwd_reference(q[:, :, h:h + hq], k[:, :, kv], v[:, :, kv],
+                                    o_in[:, :, h:h + hq], lse_in[:, h:h + hq],
+                                    do[:, :, h:h + hq], causal, sm)
+
     attrs = _flash_attributes(D)
     (f_ms, f_by), (b_ms, b_by) = _flash_bounds(B, S, H, Hk, D, causal=causal)
     tol = {"atol": FLASH_TOL[0], "rtol": FLASH_TOL[1], "atol_scaled_by_max_abs": True,
@@ -1188,8 +1251,7 @@ def _flash_case(gen, B, S, H, Hk, D, heads=None, causal=True):
     fwd = {"shape": shape, "dtype": "bfloat16", "max_abs_err": err_o,
            "max_abs_err_lse": err_lse, "tol": tol,
            "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal, sm), iters),
-           "plain_ms": None if heads else time_ms(
-               lambda: fa._flash_fwd_reference(q, k, v, causal, sm), iters),
+           "plain_ms": time_ms(plain_fwd, iters), "plain_heads_a_call": hq,
            "library_ms": _sdpa_train_ms(q, k, v, do, "fwd", iters, causal),
            "library": f"scaled_dot_product_attention(is_causal={causal}, enable_gqa) forward",
            "attributes": {"flash_fwd_tc_kernel": attrs["flash_fwd_tc_kernel"]},
@@ -1199,8 +1261,7 @@ def _flash_case(gen, B, S, H, Hk, D, heads=None, causal=True):
            "planted_faults": faults, "tol": tol,
            "ms": time_ms(lambda: fa.flash_attention_bwd(q, k, v, o_in, lse_in, do, causal, sm),
                          iters),
-           "plain_ms": None if heads else time_ms(
-               lambda: fa._flash_bwd_reference(q, k, v, o_in, lse_in, do, causal, sm), iters),
+           "plain_ms": time_ms(plain_bwd, iters), "plain_heads_a_call": hq,
            "library_ms": _sdpa_train_ms(q, k, v, do, "bwd", iters, causal),
            "library": "scaled_dot_product_attention's backward alone (torch.autograd.grad "
                       "over a kept forward)",
@@ -2471,19 +2532,25 @@ def _refusal_before_launch():
 
 
 def _emit_race_bound():
-    """The bound of the emit-race variant's work at the gate's example: the
+    """The emit-race variant's work at the gate's example: the
     fuse_swiglu_mlp forward (gate_up, SwiGLU, down) on emit.SITES' example
-    shapes, fp32: bytes each operand read once and the output written once,
-    operations over the fp32 rate."""
-    from paddle_tpu_torch.kernels import emit
+    shapes, fp32.  Its bound (bytes each operand read once and the output
+    written once, operations over the fp32 rate) and the times of the
+    variant's launch and of the site's plain version on the same inputs
+    (no one PyTorch call computes the site: library none)."""
+    from paddle_tpu_torch.kernels import emit, injected
 
     site = emit.SITES["fuse_swiglu_mlp"]
     (x, _), (wgu, _), (wd, _) = site.example_shapes
     (M, H), I = x, site.example_static["intermediate_size"]
     nbytes = 4 * (M * H + wgu[0] * wgu[1] + wd[0] * wd[1] + M * H)
     b_ms, b_by = bound(nbytes, 3 * 2 * M * H * I)
+    _, fn, plain, make = injected.emit_race_entry("float32")
+    args = make("cuda")
     return {"shape": {"M": M, "H": H, "I": I, "dtype": "float32"}, "bytes": nbytes,
-            "flops": 6 * M * H * I, "bound_ms": b_ms, "bound_by": b_by}
+            "flops": 6 * M * H * I, "bound_ms": b_ms, "bound_by": b_by,
+            "ms": time_ms(lambda: fn(*args)), "plain_ms": time_ms(lambda: plain(*args)),
+            "library_ms": None}
 
 
 def phase_kernel_gate(seed):
@@ -3265,9 +3332,7 @@ def _train_leg(label, fused, fp32_loss=False, preset="base", steps=TRAIN_STEPS):
         f"{sum(p.numel() for p in model.parameters())} params (dtype {cfg.dtype}, params "
         f"{cfg.pdtype}), batch {B} x seq {S}, built in {time.perf_counter() - t0:.1f} s")
     L = cfg.num_hidden_layers
-    passes = 2 if cfg.recompute else 1       # a layer's forward, again in the backward
-    want = dict.fromkeys(launch_counts(), 0)
-    want.update(flash_attention_fwd=passes * L, flash_attention_bwd=L, adamw=1)
+    want = _stock_launches(cfg)
     scope = contextlib.nullcontext({})
     if fused:
         table = emit.verified_activation("cuda")
@@ -3277,9 +3342,6 @@ def _train_leg(label, fused, fp32_loss=False, preset="base", steps=TRAIN_STEPS):
         want.update(rms_norm=L, rms_norm_bwd=L, fuse_swiglu_mlp=L, fuse_swiglu_mlp_bwd=L,
                     fuse_add_rms_norm=L, fuse_add_rms_norm_bwd=L, fuse_rms_norm_head=1,
                     fuse_rms_norm_head_bwd=1)
-    else:
-        # a recomputed layer's norms run forward twice, backward once
-        want.update(rms_norm=2 * passes * L + 1, rms_norm_bwd=2 * L + 1)
     want_update = dict.fromkeys(launch_counts(), 0)
     want_update["adamw"] = steps         # one launch over every leaf a step
     loss32 = None
@@ -3354,6 +3416,9 @@ HAPI_FIT_STEPS = 6           # fit's num_iters: one pass over the samples
 HAPI_DRIVE_STEPS = 5         # train_batch on one batch already on the card
 HAPI_EVAL_SAMPLES = 128      # evaluate: 2 batches; predict: 1
 HAPI_ERNIE_STEPS = 3
+# a worker's shared-memory slot: one batch of 224 x 224 x 3 fp32 images and
+# its labels, with room for the frame's pickle
+HAPI_SLOT_BYTES = HAPI_BATCH * (3 * 224 * 224 * 4 + 8) + (1 << 20)
 IMAGENET_MEAN, IMAGENET_STD = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
 
 
@@ -3537,8 +3602,11 @@ def _hapi_resnet_leg(seed, card):
     first = _first_batch_recorder(model)
     probe = _fit_probe()
     torch.cuda.reset_peak_memory_stats()
-    rec = _hapi_fit("hapi_train resnet50", model, train_ds, HAPI_FIT_STEPS, probe,
-                    batch_size=HAPI_BATCH, num_workers=2)
+    # the workers ship a batch through one shared-memory slot: 38.5 MB of
+    # images, past the 8 MiB default
+    rec = _hapi_fit("hapi_train resnet50", model, io.DataLoader(
+        train_ds, batch_size=HAPI_BATCH, shuffle=True, num_workers=2,
+        shm_slot_bytes=HAPI_SLOT_BYTES), HAPI_FIT_STEPS, probe)
     rec["fit_peak_bytes"] = torch.cuda.max_memory_allocated()
     del model.train_batch                                  # the recorder
     none = dict.fromkeys(launch_counts(), 0)
@@ -3546,6 +3614,12 @@ def _hapi_resnet_leg(seed, card):
         check(got == none, f"hapi_train resnet50: fit step {i + 1} launched {got}")
     check(not torch.equal(net.bn1._mean, bn), "hapi_train resnet50: BatchNorm statistics "
           "did not move")
+    # the same fit with the batches made on a thread of this process
+    thread = _hapi_fit("hapi_train resnet50 thread", model, io.DataLoader(
+        train_ds, batch_size=HAPI_BATCH, shuffle=True, num_workers=2,
+        use_shared_memory=False), HAPI_FIT_STEPS, _fit_probe())
+    for i, got in enumerate(thread["launches_per_step"]):
+        check(got == none, f"hapi_train resnet50 thread: fit step {i + 1} launched {got}")
     loader = io.DataLoader(train_ds, batch_size=HAPI_BATCH, shuffle=True)
     t0 = time.perf_counter()
     for i, _ in enumerate(loader):
@@ -3553,19 +3627,23 @@ def _hapi_resnet_leg(seed, card):
             break
     torch.cuda.synchronize()
     rec["loader_ms_per_batch"] = (time.perf_counter() - t0) / 3 * 1e3
-    wait, step = rec["wait_ms"], rec["step_ms"]
     n = HAPI_FIT_STEPS
-    rec.update(
-        warm_up_ms=warm_ms,
-        images_per_s=n * HAPI_BATCH / rec["fit_s"],
-        steady_images_per_s=(n - 1) * HAPI_BATCH / (sum(wait[1:]) + sum(step[1:])) * 1e3,
-        loader_share=sum(wait[1:]) / (sum(wait[1:]) + sum(step[1:])))
+    rec["warm_up_ms"] = warm_ms
     log(f"hapi_train resnet50: a forward and backward at these shapes first (the copy's): "
         f"{warm_ms:.1f} ms")
-    log(f"hapi_train resnet50: fit losses {rec['losses']}; wait ms {wait}; step ms {step}; "
-        f"{rec['images_per_s']:.2f} images/s over the fit ({rec['fit_s']:.2f} s, loader "
-        f"included), {rec['steady_images_per_s']:.2f} images/s over steps 2-{n}, of which "
-        f"{rec['loader_share']:.3f} waited on the loader; the loader alone, in this thread, "
+    for label, r in (("2 worker processes", rec), ("a thread", thread)):
+        wait, step = r["wait_ms"], r["step_ms"]
+        r.update(images_per_s=n * HAPI_BATCH / r["fit_s"],
+                 steady_images_per_s=(n - 1) * HAPI_BATCH / (sum(wait[1:]) + sum(step[1:]))
+                 * 1e3, loader_share=sum(wait[1:]) / (sum(wait[1:]) + sum(step[1:])))
+        log(f"hapi_train resnet50: fit, batches from {label}: losses {r['losses']}; wait ms "
+            f"{wait}; step ms {step}; {r['images_per_s']:.2f} images/s over the fit "
+            f"({r['fit_s']:.2f} s, loader included), {r['steady_images_per_s']:.2f} images/s "
+            f"over steps 2-{n}, of which {r['loader_share']:.3f} waited on the loader; {card}")
+    rec["thread"] = {k: thread[k] for k in ("losses", "wait_ms", "step_ms", "fit_s",
+                                            "images_per_s", "steady_images_per_s",
+                                            "loader_share")}
+    log(f"hapi_train resnet50: the loader alone, in this thread, "
         f"{rec['loader_ms_per_batch']:.3f} ms a batch; peak memory "
         f"{rec['fit_peak_bytes'] / 2**30:.2f} GiB; {card}")
     rec["step1_fit_loss"] = rec["losses"][0]
@@ -3579,7 +3657,8 @@ def _hapi_resnet_leg(seed, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    logs = model.evaluate(eval_ds, batch_size=HAPI_BATCH, verbose=0, num_workers=2)
+    logs = model.evaluate(io.DataLoader(eval_ds, batch_size=HAPI_BATCH, num_workers=2,
+                                        shm_slot_bytes=HAPI_SLOT_BYTES), verbose=0)
     eval_s = time.perf_counter() - t0
     top1, top5 = model._metrics[0].accumulate()
     rec.update(eval_logs=logs, eval_top5=top5, eval_images_per_s=HAPI_EVAL_SAMPLES / eval_s,
@@ -4839,6 +4918,528 @@ def phase_resume_train():
     return rec
 
 
+# ---------------------------------------------------------------------------
+# launch_train: the host runtime (DataLoader workers, TCPStore, launcher)
+# ---------------------------------------------------------------------------
+
+LAUNCH_STEPS = 5             # steps of each `launch_train` leg, a new batch each
+LAUNCH_SAVE_STEP = 3         # the launched child saves its checkpoint after this step
+LAUNCH_CRASH_STEP = 4        # FLAGS_ft_inject_crash_step: the child is SIGKILLed before it
+LAUNCH_TIMEOUT = 900         # seconds the launcher may take for both incarnations
+LAUNCH_HEARTBEAT = 0.5       # the child's ElasticManager interval (s)
+
+# Written into the phase's directory as `launch_probe.py`: spawned workers
+# import it, and so never this script's `__main__`, whose objects the
+# DataLoader keeps on its thread.
+_PROBE_SOURCE = '''"""DataLoader probes of chip_smoke.py's launch_train phase: what a
+spawned worker sees, one JSON file a worker process in OUT."""
+import json
+import os
+import time
+
+OUT = {out!r}
+
+
+def exec_time():
+    """When this process started (epoch seconds, from /proc), or None."""
+    try:
+        with open("/proc/self/stat") as f:
+            ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as f:
+            up = float(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return None
+    return time.time() - up + ticks / os.sysconf("SC_CLK_TCK")
+
+
+class Probed:
+    """``ds`` as it is, recording its reader's worker info after each read."""
+
+    def __init__(self, ds, tag):
+        self.ds, self.tag = ds, tag
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        out = self.ds[i]
+        record(self.tag, read=True)
+        return out
+
+
+def init(worker_id):
+    """The DataLoader's worker_init_fn."""
+    record(None, init=worker_id)
+
+
+def record(tag, read=False, init=None):
+    import torch
+    from paddle_tpu_torch.io import get_worker_info
+
+    info = get_worker_info()
+    if info is None:
+        return                                  # the trainer's own reads
+    path = os.path.join(OUT, f"worker_{{os.getpid()}}.json")
+    rec = {{}}
+    if os.path.exists(path):
+        with open(path) as f:
+            rec = json.load(f)
+    rec.update(pid=os.getpid(), ppid=os.getppid(), id=info.id,
+               num_workers=info.num_workers, seed=info.seed,
+               reads=rec.get("reads", 0) + int(read),
+               cuda_initialized=bool(torch.cuda.is_initialized()))
+    if tag is not None:
+        rec["tag"] = tag
+    if init is not None:
+        rec.update(init_worker_id=init, t_init=time.time(), t_exec=exec_time())
+    with open(path + ".tmp", "w") as f:
+        json.dump(rec, f)
+    os.replace(path + ".tmp", path)
+'''
+
+
+def _launch_probe(workdir):
+    """Write the probe module into ``workdir``, put ``workdir`` on the path
+    (spawned workers inherit it) and import it."""
+    import importlib
+
+    Path(workdir, "launch_probe.py").write_text(_PROBE_SOURCE.format(out=str(workdir)))
+    if str(workdir) not in sys.path:
+        sys.path.insert(0, str(workdir))
+    importlib.invalidate_caches()
+    return importlib.import_module("launch_probe")
+
+
+def _launch_tokens(seed, vocab, batch, seq):
+    """``LAUNCH_STEPS`` batches of token rows from ``seed``, as an
+    io.TensorDataset over CPU Tensors (rows of int32)."""
+    import numpy as np
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.framework.tensor import Tensor
+
+    rows = np.random.default_rng(seed).integers(
+        0, vocab, size=(LAUNCH_STEPS * batch, seq)).astype(np.int32)
+    return io.TensorDataset([Tensor(rows, place="cpu")])
+
+
+def _stock_launches(cfg):
+    """A stock `base`-family TrainStep's launches a step (a recomputed layer
+    runs its forward's kernels twice, its norms forward twice and backward
+    once)."""
+    from paddle_tpu_torch.kernels import launch_counts
+
+    L = cfg.num_hidden_layers
+    passes = 2 if cfg.recompute else 1
+    want = dict.fromkeys(launch_counts(), 0)
+    want.update(flash_attention_fwd=passes * L, flash_attention_bwd=L, adamw=1,
+                rms_norm=2 * passes * L + 1, rms_norm_bwd=2 * L + 1)
+    return want
+
+
+def _launch_steps(step_fn, loader, start=0, before_step=None, after_step=None):
+    """Steps ``start + 1 ..`` over ``loader``'s batches (the first ``start``
+    skipped): each step's loss, its batch's sha256 prefix, the wait for the
+    batch and the step's own time (ms, host clock, ending in the loss's
+    read) and its launches.  ``before_step(step)`` runs before a step,
+    ``after_step(record)`` after, with the step's record."""
+    import hashlib
+
+    import torch
+    from paddle_tpu_torch.kernels import launch_counts
+
+    out = []
+    mark = time.perf_counter()
+    for step, batch in enumerate(loader, 1):
+        got = time.perf_counter()
+        if step <= start:
+            mark = got
+            continue
+        ids = batch[0]._data
+        sha = hashlib.sha256(ids.cpu().numpy().tobytes()).hexdigest()[:16]
+        if before_step is not None:
+            before_step(step)
+        before = launch_counts()
+        t0 = time.perf_counter()
+        loss = float(step_fn(ids.to("cuda")))
+        torch.cuda.synchronize()
+        done = time.perf_counter()
+        out.append({"step": step, "loss": loss, "sha": sha, "dtype": str(ids.dtype),
+                    "device": ids.device.type, "wait_ms": (got - mark) * 1e3,
+                    "step_ms": (done - t0) * 1e3, "t_end": time.time(),
+                    "t_wait": time.time() - (time.perf_counter() - mark),
+                    "launches": {n: c - before[n] for n, c in launch_counts().items()}})
+        if after_step is not None:
+            after_step(out[-1])
+        mark = time.perf_counter()
+    return out
+
+
+def _launch_leg(label, seed, workdir, workers):
+    """One fresh `base` build from ``seed``, ``LAUNCH_STEPS`` steps fed by a
+    DataLoader over the phase's token rows: on this thread (``workers``
+    False) or from 2 persistent worker processes with the probe's
+    ``worker_init_fn``.  Returns the steps' records and the launches a step
+    must make.  Nothing of the build outlives the call."""
+    import gc
+
+    import torch
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.models.presets import build_pretrain_step
+
+    probe = _launch_probe(workdir)
+    step_fn, _, model, cfg, (B, S, _) = build_pretrain_step("base", "cuda", seed=seed)
+    ds = probe.Probed(_launch_tokens(seed, cfg.vocab_size, B, S), label)
+    kw = dict(num_workers=2, persistent_workers=True, worker_init_fn=probe.init) \
+        if workers else dict(num_workers=0)
+    loader = io.DataLoader(ds, batch_size=B, **kw)
+    try:
+        steps = _launch_steps(step_fn, loader)
+    finally:
+        if loader._shm_pool is not None:
+            loader._shm_pool.shutdown()
+    want = _stock_launches(cfg)
+    for s in steps:
+        check(s["launches"] == want,
+              f"launch_train {label}: step {s['step']} launched {s['launches']}, expected {want}")
+    log(f"launch_train {label}: losses {[s['loss'] for s in steps]}; batches "
+        f"{[s['sha'] for s in steps]} ({steps[0]['dtype']} on {steps[0]['device']}); wait ms "
+        f"{[round(s['wait_ms'], 3) for s in steps]}; step ms "
+        f"{[round(s['step_ms'], 3) for s in steps]}")
+    del step_fn, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return steps, want
+
+
+def _worker_records(workdir, tag):
+    out = []
+    for p in sorted(Path(workdir).glob("worker_*.json")):
+        rec = json.loads(p.read_text())
+        if rec.get("tag") == tag:
+            out.append(rec)
+    return out
+
+
+def _spawn_split(recs, first):
+    """Each worker's start, from the trainer's first wait (``first``, a step
+    record) to its batch: until its process exists, its interpreter,
+    imports and unpickled dataset (to ``worker_init_fn``), then making and
+    shipping the first batches (ms)."""
+    got = first["t_wait"] + first["wait_ms"] / 1e3
+    out = {}
+    for r in recs:
+        if r.get("t_exec") is None:
+            continue
+        out[r["id"]] = {"process": round((r["t_exec"] - first["t_wait"]) * 1e3, 1),
+                        "imports_and_spec": round((r["t_init"] - r["t_exec"]) * 1e3, 1),
+                        "to_the_first_batch": round((got - r["t_init"]) * 1e3, 1)}
+    return out
+
+
+def _check_workers(label, recs, trainer_pid):
+    """Two workers, each with its id, one seed less its id (the loader's),
+    its init hook run, reads done, a pid not the trainer's and CUDA never
+    initialised."""
+    ids = sorted(r["id"] for r in recs)
+    check(ids == [0, 1], f"{label}: worker records {recs}")
+    check(len({r["seed"] - r["id"] for r in recs}) == 1, f"{label}: worker seeds {recs}")
+    for r in recs:
+        check(r["num_workers"] == 2 and r.get("init_worker_id") == r["id"] and r["reads"] > 0,
+              f"{label}: worker info {r}")
+        check(r["pid"] != trainer_pid, f"{label}: a worker is the trainer ({r})")
+        check(not r["cuda_initialized"], f"{label}: CUDA initialised in worker {r}")
+
+
+def _same_losses(label, got, want, spread):
+    """``got`` the bits of ``want``, or, where two runs of the same steps
+    are not bit-equal (``spread`` not None, from resume_train), within
+    that spread."""
+    if spread is None:
+        check(got == want, f"{label}: losses {got} are not {want}")
+    else:
+        check(all(abs(a - b) <= spread for a, b in zip(got, want)),
+              f"{label}: losses {got} outside the spread {spread} of {want}")
+
+
+def _watch_exit(events, proc, out):
+    """While the launcher ``proc`` runs: find the first incarnation's pid
+    (its start event in ``events``), then set ``out["t"]`` to the time its
+    process stops running (a zombie waiting for the launcher, or gone)."""
+    pid = None
+    while proc.poll() is None:
+        if pid is None:
+            with contextlib.suppress(OSError, ValueError):
+                for line in events.read_text().splitlines():
+                    e = json.loads(line)
+                    if e["inc"] == 0 and e["ev"] == "start":
+                        pid = e["pid"]
+            time.sleep(0.05)
+            continue
+        try:
+            state = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()[0]
+        except OSError:
+            state = "gone"
+        if state in ("Z", "X", "gone"):
+            out.update(t=time.time(), state=state)
+            return
+        time.sleep(0.01)
+
+
+def _orphans(pids, trainer_pid):
+    """Of ``pids`` (workers), those alive; and the shared-memory segments
+    named after ``trainer_pid`` (the rings of its pools)."""
+    alive = []
+    for pid in pids:
+        try:
+            cmd = Path(f"/proc/{pid}/cmdline").read_bytes()
+        except OSError:
+            continue
+        if b"multiprocessing" in cmd:
+            alive.append(pid)
+    segs = sorted(str(p) for p in Path("/dev/shm").glob(f"pt_dl*_{trainer_pid}_*"))
+    return alive, segs
+
+
+def _launch_checks(rc, err, by, pids, workdir, leg1, leg2, want, spread, exited):
+    """Leg 3's checks (see ``phase_launch_train``) over the launcher's exit
+    code and stderr and the incarnations' events ``by``; returns the
+    record, with the time to recover and its parts."""
+    check(rc == 0, f"launch_train: the launcher exited {rc}")
+    restarts = [ln for ln in err.splitlines() if "restart " in ln and "exited rc=" in ln]
+    check(len(restarts) == 1 and "rc=-9; restart 1/1" in restarts[0],
+          f"launch_train: restarts {restarts}, expected one after a SIGKILL")
+    steps0 = [e for e in by[0] if e["ev"] == "step"]
+    steps1 = [e for e in by[1] if e["ev"] == "step"]
+    check([e["step"] for e in steps0] == [1, 2, 3] and [e["step"] for e in steps1] == [4, 5],
+          f"launch_train: incarnation steps {[e['step'] for e in steps0]}, "
+          f"{[e['step'] for e in steps1]}")
+    resumed = [e for e in by[1] if e["ev"] == "resumed"]
+    check(resumed and resumed[0]["at"] == LAUNCH_SAVE_STEP,
+          f"launch_train: the relaunch resumed at {resumed}")
+    launched = [e["loss"] for e in steps0 + steps1]
+    check([e["sha"] for e in steps0 + steps1] == [s["sha"] for s in leg1],
+          "launch_train: the launched child's batches are not leg 1's bytes")
+    losses = [s["loss"] for s in leg1]
+    _same_losses("launch_train launched", launched, losses, spread)
+    for e in steps0 + steps1:
+        check(e["launches"] == want, f"launch_train launched: step {e['step']} launched "
+                                     f"{e['launches']}, expected {want}")
+    for k in (0, 1):
+        _check_workers(f"launch_train incarnation {k}",
+                       _worker_records(workdir, f"launch{k}"), pids[k])
+    # the time to recover, from the SIGKILL to the relaunched first step
+    kill = next(e["t"] for e in by[0] if e["ev"] == "crash_point" and
+                e["step"] == LAUNCH_CRASH_STEP)
+    t = next(e for e in by[1] if e["ev"] == "timeline")
+    marks = [("the killed trainer's exit (its CUDA context freed)", exited.get("t")),
+             ("the launcher's notice and a new process", t["t_exec"]),
+             ("interpreter and this script's imports", t["t_import"]),
+             ("torch, the port and a CUDA context", t["t_cuda"]),
+             ("store client and heartbeat", t["t_control"]),
+             ("kernel-library load", t["t_kernels"]),
+             ("model build", t["t_build"]),
+             ("checkpoint load", t["t_resume"]),
+             ("loader's first batch (worker spawn)", t["t_batch"]),
+             ("first step", steps1[0]["t_end"])]
+    parts, prev = {}, kill
+    for name, at in marks:
+        if at is not None:
+            parts[name] = round((at - prev) * 1e3, 1)
+            prev = at
+    return {"losses": losses, "losses_workers": [s["loss"] for s in leg2],
+            "losses_launched": launched, "restarts": 1,
+            "wait_ms_no_workers": [s["wait_ms"] for s in leg1],
+            "wait_ms_workers": [s["wait_ms"] for s in leg2],
+            "wait_ms_launched": [e["wait_ms"] for e in steps0 + steps1],
+            "step_ms_no_workers": [s["step_ms"] for s in leg1],
+            "step_ms_workers": [s["step_ms"] for s in leg2],
+            "recover_ms": (steps1[0]["t_end"] - kill) * 1e3, "recover_parts_ms": parts,
+            "worker_start_relaunched_ms": _spawn_split(_worker_records(workdir, "launch1"),
+                                                       steps1[0]),
+            "save_ms": next(e["ms"] for e in by[0] if e["ev"] == "saved")}
+
+
+def phase_launch_train(seed, card, resume=None):
+    """`base` training through the host runtime in three legs: no workers;
+    2 worker processes; under ``python -m paddle_tpu_torch.distributed.
+    launch`` with a crash and one restart.  See the module docstring."""
+    import os
+    import shutil
+    import signal
+    import socket
+    import tempfile
+
+    spread = None
+    if resume is not None and not resume["two_runs_bit_equal"]:
+        spread = max(abs(a - b) for a, b in zip(resume["losses_uninterrupted"],
+                                                resume["losses_first_three_again"]))
+    workdir = Path(tempfile.mkdtemp(prefix="launch_train_"))
+    try:
+        leg1, want = _launch_leg("no workers", seed, workdir, False)
+        leg2, _ = _launch_leg("workers", seed, workdir, True)
+        losses = [s["loss"] for s in leg1]
+        check(all(s["device"] == "cpu" for s in leg1)
+              and all(s["device"] == "cuda" for s in leg2),
+              "launch_train: leg 1's batches must come on the host, leg 2's on the card")
+        check([s["sha"] for s in leg2] == [s["sha"] for s in leg1],
+              "launch_train: the workers' batches are not leg 1's bytes")
+        _same_losses("launch_train workers", [s["loss"] for s in leg2], losses, spread)
+        _check_workers("launch_train workers", _worker_records(workdir, "workers"), os.getpid())
+        spawn = _spawn_split(_worker_records(workdir, "workers"), leg2[0])
+        log(f"launch_train workers: each worker's start, ms from the first wait: "
+            f"{json.dumps(spawn)}")
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        logs = workdir / "logs"
+        cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+               "--max_restarts", "1", "--log_dir", str(logs), "--job_id", "launch_train",
+               "--rank", "-1", "--nnodes", "1", "--master", f"127.0.0.1:{port}",
+               str(REPO / "chip_smoke.py"), "--launch_child", str(workdir),
+               "--launch_store", f"127.0.0.1:{port}", "--seed", str(seed)]
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+                   [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
+               "FLAGS_ft_inject_crash_step": str(LAUNCH_CRASH_STEP),
+               "FLAGS_ft_inject_crash_signal": str(int(signal.SIGKILL))}
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, env=env, cwd=str(REPO), stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, start_new_session=True)
+        exited = {}
+        watcher = threading.Thread(target=_watch_exit, daemon=True,
+                                   args=(workdir / "events.jsonl", proc, exited))
+        watcher.start()
+        try:
+            err = proc.communicate(timeout=LAUNCH_TIMEOUT)[1]
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)         # the launcher, its child, the workers
+            proc.communicate()
+            raise PhaseError(f"launch_train: the launcher ran past {LAUNCH_TIMEOUT} s")
+        watcher.join(timeout=5)
+        launch_s = time.perf_counter() - t0
+        child_log = next(iter(logs.glob("launch_train.*.log")), None)
+        tail = child_log.read_text().splitlines()[-25:] if child_log else []
+        log(f"launch_train launcher: rc {proc.returncode} in {launch_s:.1f} s; its stderr:\n"
+            + err.strip() + "\nlaunch_train child log (tail):\n" + "\n".join(tail))
+        events = [json.loads(ln) for ln in (workdir / "events.jsonl").read_text().splitlines()]
+        by = {k: [e for e in events if e["inc"] == k] for k in (0, 1)}
+        pids = {k: next((e["pid"] for e in by[k] if e["ev"] == "start"), None) for k in (0, 1)}
+        # what each incarnation left (its workers and rings), counted now and
+        # cleared whatever the checks below find
+        left = {k: _orphans([r["pid"] for r in _worker_records(workdir, f"launch{k}")], pids[k])
+                for k in (0, 1)}
+        try:
+            rec = _launch_checks(proc.returncode, err, by, pids, workdir, leg1, leg2, want,
+                                 spread, exited)
+        finally:
+            with contextlib.suppress(OSError):
+                os.killpg(proc.pid, signal.SIGKILL)     # the launcher's group: the orphans
+            for k in (0, 1):
+                for pid in left[k][0]:
+                    with contextlib.suppress(OSError):
+                        os.kill(pid, signal.SIGKILL)
+                for seg in left[k][1]:
+                    with contextlib.suppress(OSError):
+                        os.unlink(seg)
+        (orphans, segs), (left1, segs1) = left[0], left[1]
+        rec.update(launch_s=launch_s, spread=spread, worker_start_ms=spawn,
+                   orphan_workers=len(orphans), orphan_segments=len(segs),
+                   left_by_clean_exit=len(left1) + len(segs1))
+        log(f"launch_train: {json.dumps(rec)}; {card}")
+        log(f"launch_train: time to recover {rec['recover_ms']:.1f} ms from the SIGKILL to the "
+            f"relaunched first step: {json.dumps(rec['recover_parts_ms'])}")
+        if orphans or segs:
+            log(f"launch_train: FINDING: the SIGKILLed trainer left {len(orphans)} worker "
+                f"processes and {len(segs)} shared-memory segments (workers do not watch for "
+                f"their trainer's death); cleared")
+        check(not left1 and not segs1, f"launch_train: the relaunched incarnation's clean exit "
+                                       f"left workers {left1} and segments {segs1}")
+        return rec
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def launch_child(workdir, store, seed):
+    """The training program that `launch_train` hands the launcher: its rank
+    from the launcher's rendezvous, an ElasticManager heartbeat on the
+    launcher's store, leg 2's loop (2 persistent workers) resumed from the
+    newest checkpoint, ``crash_point`` before each step and a save after
+    step ``LAUNCH_SAVE_STEP``.  Every event goes to ``events.jsonl``."""
+    import os
+
+    t = {"t_exec": _launch_probe(workdir).exec_time(), "t_import": _T_IMPORT}
+    import torch
+    torch.zeros(1, device="cuda")
+    t["t_cuda"] = time.time()
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.distributed.fault_tolerance import get_injector
+    from paddle_tpu_torch.distributed.fleet import CheckpointManager, ElasticManager
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch.kernels import _build, reset_launch_counts
+    from paddle_tpu_torch.models.presets import build_pretrain_step
+
+    inc = int(os.environ["PADDLE_RESTART_COUNT"])
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    events = open(Path(workdir, "events.jsonl"), "a")
+
+    def emit(ev, **kw):
+        events.write(json.dumps({"inc": inc, "ev": ev, **kw}) + "\n")
+        events.flush()
+
+    emit("start", pid=os.getpid(), rank=rank)
+    host, port = store.rsplit(":", 1)
+    kv = TCPStore(host, int(port), world_size=1, timeout=60.0)
+    check(kv.native, "launch_train child: the store client is not the native one")
+    kv.add("launch_train/incarnations", 1)
+    elastic = ElasticManager(kv, rank, 1, job_id="launch_train",
+                             interval=LAUNCH_HEARTBEAT).start()
+    t["t_control"] = time.time()
+    _build.load_all()
+    t["t_kernels"] = time.time()
+    step_fn, _, _, cfg, (B, S, _) = build_pretrain_step("base", "cuda", seed=seed)
+    torch.cuda.synchronize()
+    t["t_build"] = time.time()
+    ckpt = CheckpointManager(str(Path(workdir, "ckpt")), keep=1)
+    start = ckpt.resume(step_fn)
+    torch.cuda.synchronize()
+    t["t_resume"] = time.time()
+    emit("resumed", at=start)
+    probe = _launch_probe(workdir)
+    loader = io.DataLoader(probe.Probed(_launch_tokens(seed, cfg.vocab_size, B, S),
+                                        f"launch{inc}"),
+                           batch_size=B, num_workers=2, persistent_workers=True,
+                           worker_init_fn=probe.init)
+    injector = get_injector()
+    check(injector is not None and injector.crash_step == LAUNCH_CRASH_STEP,
+          f"launch_train child: the injector from the flags is {injector}")
+
+    def before(step):
+        t.setdefault("t_batch", time.time())
+        emit("crash_point", step=step, t=time.time())
+        injector.crash_point(step, rank=rank)
+
+    def after(rec):
+        emit("step", **rec)
+        if rec["step"] == LAUNCH_SAVE_STEP:
+            t0 = time.perf_counter()
+            ckpt.save(rec["step"], step_fn)
+            emit("saved", step=rec["step"], ms=(time.perf_counter() - t0) * 1e3)
+
+    reset_launch_counts()
+    try:
+        _launch_steps(step_fn, loader, start, before, after)
+    finally:
+        if loader._shm_pool is not None:
+            loader._shm_pool.shutdown()
+    beats = elastic.counters()
+    elastic.stop()
+    kv.close()
+    check(beats.get(rank, 0) > 0, f"launch_train child: heartbeat counters {beats}")
+    emit("timeline", **t)
+    events.close()
+    return 0
+
+
 def phase_optimizers(seed):
     """Each optimizer of OPT_PARITY through TrainStep for OPT_STEPS steps on
     the tiny Llama in fp32, on the card and on the CPU from the same
@@ -5210,9 +5811,10 @@ def _varlen_times(q, k, v, cu, lengths, causal, scale, o):
     """A ``flash_attn_unpadded`` forward's host time (its python, the
     ``cu_seqlens`` read, the launches enqueued, with the device idle;
     ``cu_seqlens`` on the card and on the host), its device time, its
-    bound, and the device time of torch's one-call varlen flash attention
-    (``aten::_flash_attention_forward`` with ``cu_seqlens``) on the same
-    inputs, with its largest difference from ``o``."""
+    bound, the plain version's device time, and the device time of
+    torch's one-call varlen flash attention (``aten::_flash_attention_forward``
+    with ``cu_seqlens``) on the same inputs, with its largest difference
+    from ``o``."""
     import torch
     from paddle_tpu_torch.nn import functional as F
 
@@ -5230,6 +5832,11 @@ def _varlen_times(q, k, v, cu, lengths, causal, scale, o):
     dev_ms = time_ms(lambda: F.flash_attn_unpadded(q, k, v, cu_host, cu_host, 512, 512, scale,
                                                    causal=causal), 10,
                      sleep_cycles=20_000_000)
+    # the plain version (the port's CPU path): one masked attention over the
+    # packed length
+    cu_list = cu_host.tolist()
+    plain_ms = time_ms(lambda: F._varlen_reference(q, k, v, cu_list, cu_list, causal, scale),
+                       3, sleep_cycles=20_000_000)
     T, H, D = q.shape
     pairs = sum(n * (n + 1) // 2 if causal else n * n for n in lengths) * H
     bnd, by = bound(4 * T * H * D * 2 + T * H * 4, 4 * D * pairs, BF16_FLOPS_PER_S)
@@ -5245,7 +5852,7 @@ def _varlen_times(q, k, v, cu, lengths, causal, scale, o):
         lib_err, lib_ms = None, None
         log(f"nn_tail varlen: no library varlen attention: {e}")
     return {"fwd_device_ms": dev_ms, "fwd_host_ms": host_ms, "fwd_bound_ms": bnd,
-            "bound_by": by, "library_ms": lib_ms,
+            "bound_by": by, "plain_ms": plain_ms, "library_ms": lib_ms,
             "library": "aten::_flash_attention_forward with cu_seqlens",
             "library_max_abs_diff": lib_err}
 
@@ -6089,6 +6696,9 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=32,
                     help="decoder depth of the Llama 8B serving phase (width is never cut)")
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
+    # launch_train's training program, run under the launcher
+    ap.add_argument("--launch_child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--launch_store", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     unknown = set(phases) - set(ALL_PHASES)
@@ -6106,6 +6716,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    if args.launch_child:
+        return launch_child(args.launch_child, args.launch_store, args.seed)
 
     t_start = time.perf_counter()
     laps = [("start", t_start)]             # (phase, time it ended)
@@ -6161,9 +6773,13 @@ def main(argv=None) -> int:
         if "ssd_train" in phases:
             paths["ssd_train"] = phase_ssd_train("profile" in phases)
             laps.append(("ssd_train", time.perf_counter()))
+        resume = None
         if "resume_train" in phases:
-            phase_resume_train()
+            resume = phase_resume_train()
             laps.append(("resume_train", time.perf_counter()))
+        if "launch_train" in phases:
+            phase_launch_train(args.seed, card, resume)
+            laps.append(("launch_train", time.perf_counter()))
         if "optimizers" in phases:
             phase_optimizers(args.seed)
             laps.append(("optimizers", time.perf_counter()))

@@ -1,5 +1,5 @@
-"""Checkpoint-based auto-resume (port of the single-process path of
-``paddle_tpu/distributed/fleet/elastic.py``'s ``CheckpointManager``).
+"""Elastic training (port of ``paddle_tpu/distributed/fleet/elastic.py``):
+checkpoint-based auto-resume and the store-backed node heartbeat.
 
 Usage (the loop a relaunched process can re-enter at any point)::
 
@@ -11,10 +11,18 @@ Usage (the loop a relaunched process can re-enter at any point)::
         if (i + 1) % save_every == 0:
             mgr.save(i + 1, step_fn)
 
-One process: the JAX module's rank checks and barriers have nothing to
-do here, and the reshard-on-resume after an elastic shrink (``peers``,
-``prev_rank``), ``ElasticManager`` and ``migrate_to_mesh`` come with the
-distributed slice.
+The launcher (``python -m paddle_tpu_torch.distributed.launch``) relaunches
+a dead training process (reference ``fleet/elastic/manager.py:125``
+watch->relaunch, ``ELASTIC_EXIT_CODE=101``) and this module makes the
+relaunch RESUME instead of restart.  :class:`ElasticManager` is the
+failure-detection half: a heartbeat on the control store and a watch over
+the peers' leases.
+
+``CheckpointManager`` saves and resumes one process's state: the JAX
+module's rank checks and barriers, and the reshard-on-resume after an
+elastic shrink (``peers``, ``prev_rank``), come with meshes and
+resharding, as does ``migrate_to_mesh``, which raises
+``NotImplementedError`` until then.
 """
 
 from __future__ import annotations
@@ -29,7 +37,10 @@ import torch
 
 from ..checkpoint import CheckpointCorruptionError, load_state_dict, save_state_dict
 
-__all__ = ["CheckpointManager"]
+__all__ = ["CheckpointManager", "ElasticManager", "ELASTIC_EXIT_CODE", "migrate_to_mesh"]
+
+# reference fleet/elastic/__init__.py:33
+ELASTIC_EXIT_CODE = 101
 
 _STEP_DIR = re.compile(r"^step_(\d+)$")
 _MANIFEST = "metadata.pkl"
@@ -167,3 +178,95 @@ class CheckpointManager:
                 target.set_state_dict(work)
             return step
         return 0
+
+
+def migrate_to_mesh(target, dst_mesh):
+    """Live-state migration onto another device mesh after a graceful
+    shrink: needs the port's meshes and resharding, which it does not have
+    yet."""
+    raise NotImplementedError(
+        "migrate_to_mesh needs device meshes and the resharding planner, which the "
+        "port does not have yet; resume from a checkpoint instead")
+
+
+class ElasticManager:
+    """Store-backed node heartbeat + membership watch — the failure-DETECTION
+    half of elastic training (reference ``fleet/elastic/manager.py:125``:
+    etcd node registry + heartbeats + membership watch; here the native
+    ``TCPStore`` plays etcd's role).
+
+    Detection is delegated to the fault-tolerance
+    :class:`~paddle_tpu_torch.distributed.fault_tolerance.HeartbeatFailureDetector`:
+    lease counters are MONOTONIC, not timestamps — a counter that did not
+    advance is a dead (or wedged) peer; no cross-host clock comparison
+    anywhere.  On rank 0 the detector's monitor also publishes membership
+    epochs that the rendezvous layer consumes for graceful mesh shrink.
+
+    Usage on every node::
+
+        mgr = ElasticManager(store, rank, nnodes)   # store from rendezvous
+        mgr.start()
+        ...
+        if mgr.dead_peers():          # or mgr.watch(on_dead=...) in a thread
+            sys.exit(ELASTIC_EXIT_CODE)   # relauncher re-rendezvous + resume
+    """
+
+    def __init__(self, store, rank: int, nnodes: int, job_id: str = "default",
+                 interval: Optional[float] = None):
+        from ..fault_tolerance.detector import HeartbeatFailureDetector
+
+        self.store = store
+        self.rank = int(rank)
+        self.nnodes = int(nnodes)
+        self.job_id = job_id
+        # None defers to the validated FLAGS_ft_heartbeat_interval surface
+        # (fault_tolerance.policy.heartbeat_config)
+        self.detector = HeartbeatFailureDetector(
+            store, self.rank, self.nnodes, job_id=job_id, interval=interval)
+        self.interval = self.detector.interval
+        self._stop = None
+
+    #: pseudo-rank reported when the STORE itself (the coordinator node) is
+    #: unreachable — also a membership loss, needing re-rendezvous
+    STORE_LOST = -1
+
+    def start(self):
+        """Begin renewing this node's lease (daemon thread; rank 0 also runs
+        the membership monitor)."""
+        self._stop = self.detector.start()._stop
+        return self
+
+    def counters(self):
+        """Current heartbeat counter per rank (0 = never beat)."""
+        return self.detector.counters()
+
+    def membership(self):
+        """Latest published ``(epoch, alive_ranks)`` from the rank-0
+        monitor (epoch 0 = nothing declared yet)."""
+        return self.detector.membership()
+
+    def dead_peers(self, wait_factor: float = 2.5, _retries: int = 3):
+        """Ranks whose counter did not advance across ``wait_factor *
+        interval`` seconds (a beat interval plus slack).  Blocking.
+        ``[STORE_LOST]`` when the store itself is persistently unreachable
+        (the coordinator node died — the membership is lost wholesale)."""
+        return self.detector.sample_dead(wait_factor, retries=_retries)
+
+    def watch(self, on_dead, poll_factor: float = 2.5):
+        """Loop until dead peers appear (or the store is lost —
+        ``[STORE_LOST]``), then call ``on_dead(ranks)`` and return them (run
+        in a thread for background monitoring).  Never raises out of a
+        monitoring thread."""
+        while not (self._stop and self._stop.is_set()):
+            try:
+                dead = self.dead_peers(poll_factor)
+            except Exception:
+                dead = [self.STORE_LOST]
+            if dead:
+                on_dead(dead)
+                return dead
+        return []
+
+    def stop(self):
+        self.detector.stop()
+        self._stop = self.detector._stop

@@ -6,11 +6,20 @@ the ``paddle_tpu_torch.seed`` value, and ``RandomSampler`` from the
 sampler's identity as there), so a seeded ``DistributedBatchSampler`` or
 ``random_split`` gives the JAX package's order.  ``default_collate_fn``
 stacks Tensor samples on their device and numpy ones on the host (then the
-JAX conversion policy).  With ``num_workers > 0`` batches are made by a
-background thread; the JAX package's shared-memory worker processes
-(``io/shm_loader.py``) wait for a later slice, and the options that only
-they honour (``worker_init_fn``, ``timeout``, ``shm_slot_bytes``) raise
-``NotImplementedError`` with ``num_workers > 0``.
+JAX conversion policy).
+
+With ``num_workers > 0`` and ``use_shared_memory`` (the default) a map-style
+dataset is loaded by spawned worker processes over the native
+shared-memory channel (``io/shm_loader.py``): workers collate to numpy and
+never initialise CUDA, the trainer wraps the leaves as Tensors on the
+default device (a custom ``collate_fn`` runs on the trainer, over the
+workers' sample lists).  ``worker_init_fn``, ``timeout`` (0: no stall
+limit), ``shm_slot_bytes`` (the largest batch a worker may ship, 8 MiB by
+default) and ``persistent_workers`` are the workers' options, and
+``get_worker_info()`` answers inside a worker.  A dataset, collate or init
+function that a spawned worker cannot import (defined inside a function
+or in ``__main__``) falls back, with a warning, to a background thread, as
+does ``use_shared_memory=False`` or an ``IterableDataset``.
 """
 
 from __future__ import annotations
@@ -18,8 +27,10 @@ from __future__ import annotations
 import bisect
 import itertools
 import math
+import pickle
 import queue
 import threading
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
@@ -284,10 +295,31 @@ class DistributedBatchSampler(BatchSampler):
         return (self.num_samples + self.batch_size - 1) // self.batch_size
 
 
+class _WorkerInfo:
+    def __init__(self, id, num_workers, seed, dataset):
+        self.id = id
+        self.num_workers = num_workers
+        self.seed = seed
+        self.dataset = dataset
+
+    def __repr__(self):
+        return (f"WorkerInfo(id={self.id}, num_workers={self.num_workers}, "
+                f"seed={self.seed})")
+
+
+_worker_info: Optional[_WorkerInfo] = None
+
+
+def _set_worker_info(id, num_workers, seed, dataset) -> None:
+    global _worker_info
+    _worker_info = _WorkerInfo(id, num_workers, seed, dataset)
+
+
 def get_worker_info():
-    """None: the port makes every batch in this process (on one thread with
-    ``num_workers > 0``), never in a worker process."""
-    return None
+    """Inside a DataLoader worker process: its id, the number of workers,
+    its seed (the loader's seed plus the id) and its copy of the dataset.
+    None in the trainer."""
+    return _worker_info
 
 
 def default_collate_fn(batch):
@@ -313,6 +345,58 @@ def default_collate_fn(batch):
     return batch
 
 
+def _np_collate(batch):
+    """``default_collate_fn`` with NUMPY leaves: what the workers ship (a
+    worker never makes a device tensor)."""
+    sample = batch[0]
+    if isinstance(sample, Tensor):
+        return np.stack([np.asarray(s._data) for s in batch])
+    if isinstance(sample, torch.Tensor):
+        return np.stack([np.asarray(s) for s in batch])
+    if isinstance(sample, np.ndarray):
+        return np.stack(batch)
+    if isinstance(sample, (int, float, np.integer, np.floating)):
+        return np.asarray(batch)
+    if isinstance(sample, (str, bytes)):
+        return list(batch)
+    if isinstance(sample, dict):
+        return {k: _np_collate([b[k] for b in batch]) for k in sample}
+    if isinstance(sample, (tuple, list)):
+        return [_np_collate([b[i] for b in batch]) for i in range(len(sample))]
+    return batch
+
+
+def _tensorize(obj):
+    """numpy leaves -> Tensors on the default device, dicts and lists kept
+    (the trainer side of the worker path)."""
+    if isinstance(obj, np.ndarray):
+        return Tensor(obj)
+    if isinstance(obj, dict):
+        return {k: _tensorize(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_tensorize(v) for v in obj]
+    return obj
+
+
+def _check_spawnable(objs) -> None:
+    """Raise ``PicklingError`` for an object a spawned worker cannot import:
+    one defined inside a function, or in ``__main__`` (which a spawned
+    worker re-runs)."""
+    for obj in objs:
+        if obj is None:
+            continue
+        names = type(obj).__qualname__ + getattr(obj, "__qualname__", "")
+        modules = (type(obj).__module__, getattr(obj, "__module__", ""))
+        if "<locals>" in names:
+            raise pickle.PicklingError(
+                f"{obj!r} is defined inside a function; spawn workers cannot import it")
+        if "__main__" in modules:
+            raise pickle.PicklingError(
+                f"{obj!r} is defined in __main__; spawn workers re-run the main module, "
+                "which is unsafe without a __name__ == '__main__' guard — define it in "
+                "an importable module to use worker processes")
+
+
 class DataLoader:
     """Batches of ``dataset`` through ``batch_sampler`` (else a
     ``BatchSampler`` of ``batch_size``, ``shuffle``, ``drop_last``) and
@@ -322,17 +406,18 @@ class DataLoader:
                  batch_sampler=None, batch_size=1, shuffle=False, drop_last=False,
                  collate_fn=None, num_workers=0, use_buffer_reader=True, prefetch_factor=2,
                  use_shared_memory=True, timeout=0, worker_init_fn=None,
-                 persistent_workers=False, shm_slot_bytes: Optional[int] = None):
-        if num_workers > 0 and (worker_init_fn is not None or timeout
-                                or shm_slot_bytes is not None):
-            raise NotImplementedError(
-                "DataLoader: worker processes are not ported (num_workers > 0 prefetches "
-                "on one thread), so worker_init_fn, timeout and shm_slot_bytes are not "
-                "taken")
+                 persistent_workers=False, shm_slot_bytes: int = 8 << 20):
         self.dataset = dataset
+        self._custom_collate = collate_fn
         self.collate_fn = collate_fn or default_collate_fn
         self.num_workers = num_workers
         self.prefetch_factor = prefetch_factor
+        self.use_shared_memory = use_shared_memory
+        self.timeout = timeout
+        self.worker_init_fn = worker_init_fn
+        self.shm_slot_bytes = shm_slot_bytes
+        self.persistent_workers = bool(persistent_workers)
+        self._shm_pool = None
         self._iterable = isinstance(dataset, IterableDataset)
         if self._iterable:
             self.batch_size = batch_size
@@ -365,10 +450,75 @@ class DataLoader:
             for idx_batch in self.batch_sampler:
                 yield self.collate_fn([self.dataset[i] for i in idx_batch])
 
+    def _iter_shm_workers(self):
+        """Batches from spawned worker processes over the shared-memory
+        channel, in batch order.  Pool construction runs eagerly (it raises
+        ``PicklingError`` for what a worker cannot import, which
+        ``__iter__`` turns into the thread fallback); consumption is lazy."""
+        from .shm_loader import ShmWorkerPool
+
+        _check_spawnable((self.dataset, self._custom_collate, self.worker_init_fn))
+        batches = list(self.batch_sampler)      # the order is fixed before the spawn
+        custom = self._custom_collate
+        persistent = self.persistent_workers
+
+        def build_pool(plan):
+            return ShmWorkerPool(
+                self.dataset, plan, collate=None if custom is not None else _np_collate,
+                num_workers=self.num_workers, slots=max(self.prefetch_factor, 2),
+                slot_bytes=self.shm_slot_bytes, worker_init_fn=self.worker_init_fn,
+                timeout=self.timeout, persistent=persistent, seed=rnd.initial_seed())
+
+        if persistent:
+            # spawned once; each epoch's plan goes over the control channel
+            if self._shm_pool is None:
+                self._shm_pool = build_pool(None)
+            pool = self._shm_pool
+            pool.submit_epoch(batches)
+        else:
+            pool = build_pool(batches)
+
+        def consume():
+            try:
+                for obj in pool:
+                    yield _tensorize(obj) if custom is None else custom(obj)
+            except GeneratorExit:
+                # the consumer left the epoch early: a persistent pool stays
+                # (the next submit_epoch drains what the workers made since)
+                raise
+            except BaseException:
+                if persistent:
+                    # a dead or stalled pool is not reused next epoch
+                    self._shm_pool = None
+                    pool.shutdown()
+                raise
+            finally:
+                if not persistent:
+                    pool.shutdown()
+
+        return consume()
+
+    def __del__(self):
+        pool = getattr(self, "_shm_pool", None)
+        if pool is not None:
+            try:
+                pool.shutdown()
+            except Exception:
+                pass
+
     def __iter__(self):
         if self.num_workers == 0:
             yield from self._iter_batches()
             return
+        if self.use_shared_memory and not self._iterable:
+            try:
+                gen = self._iter_shm_workers()
+            except pickle.PicklingError as e:
+                warnings.warn(f"DataLoader: falling back to thread prefetch — the dataset "
+                              f"is not picklable for spawn workers ({e})")
+            else:
+                yield from gen
+                return
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch_factor * max(self.num_workers, 1))
         sentinel = object()
         failure = []

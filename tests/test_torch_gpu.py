@@ -1666,3 +1666,40 @@ def test_predictor_output_is_eager_bits(cuda, tmp_path):
     out = pred.get_output_handle("output_0")._value
     assert out.is_cuda and got_n == want
     assert torch.equal(out, eager)
+
+
+def test_loader_workers_feed_a_cuda_step_without_initialising_cuda(cuda):
+    """Spawned DataLoader workers (``torch_worker_data.InfoDS``) feed a step
+    on the card: every batch arrives as a CUDA Tensor, the AdamW kernel
+    launches each step, and each worker reports CUDA never initialised in
+    it."""
+    import os
+
+    import numpy as np
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch.kernels import adamw
+    from torch_worker_data import InfoDS, mark_init
+
+    tp.set_device("gpu")
+    try:
+        net = tp.nn.Linear(7, 1, device="cpu").to(cuda)
+        opt = tp.optimizer.AdamW(learning_rate=1e-3, parameters=net.parameters())
+        before = adamw.adamw_update_leaves.launches
+        rows = []
+        loader = tp.io.DataLoader(InfoDS(), batch_size=3, num_workers=2,
+                                  worker_init_fn=mark_init)
+        for batch in loader:
+            assert batch._data.is_cuda
+            rows.append(batch.numpy())
+            loss = net(batch.astype("float32") * 1e-6).mean()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            assert np.isfinite(float(loss))
+    finally:
+        tp.set_device(None)
+    rows = np.concatenate(rows)
+    np.testing.assert_array_equal(rows[:, 0], np.arange(12))
+    assert not rows[:, 6].any()                           # CUDA never initialised in a worker
+    assert os.getpid() not in set(rows[:, 4].tolist())
+    assert adamw.adamw_update_leaves.launches == before + 4
