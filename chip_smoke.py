@@ -6,7 +6,9 @@ the `moe` preset and the SSD family at `ssd_8b` widths for a few steps
 through TrainStep, train the ERNIE text classifier at ERNIE-1.0-base
 widths and the PP-OCR detector and recognizer at bench scale, train
 ResNet-50 and ERNIE-base through the high-level API (`hapi.Model`), and
-serve Llama-3-8B-shaped, MoE and SSD-8B requests through the port's Engine.
+serve Llama-3-8B-shaped, MoE and SSD-8B requests through the port's Engine,
+Llama-3-8B-shaped traces through the Router over two replicas, and an
+exported generate program through a Predictor.
 
     python3 chip_smoke.py                  # every phase, full depth
     python3 chip_smoke.py --layers 8       # cut Llama serving depth (never width)
@@ -17,6 +19,7 @@ serve Llama-3-8B-shaped, MoE and SSD-8B requests through the port's Engine.
     python3 chip_smoke.py --phases card,build,hapi_train
     python3 chip_smoke.py --phases card,build,nn_tail
     python3 chip_smoke.py --phases card,build,static_graph
+    python3 chip_smoke.py --phases card,build,serve,router_serve
     python3 chip_smoke.py --phases card,build,kernels,longctx_train
     python3 chip_smoke.py --phases card,build,kernels,kernel_gate,parity,fuse_train
     python3 chip_smoke.py --phases card,build,kernels,parity,ssd_train,ssd_serve
@@ -291,15 +294,60 @@ Phases:
              each path must launch its decode kernel once a layer and
              RMSNorm twice a layer plus once; generate's and the Engine's
              first-token logits must agree within a bf16 limit
-  6a resume_train  `base` at full width and depth: 5 steps uninterrupted;
+  6e router_serve  the serving front end and the measuring surface on
+             `serve`'s model (built here when `serve` did not run), two legs.
+             Leg 1: serving.loadgen traces of 16 requests at 50 requests/s
+             (seed 0) replayed by serving.router.Router over fresh Engines
+             (8 slots, blocks of 128, 256 blocks, buckets 128-1024, each
+             warmed up): `shared_prefix` (a 1024-token prefix, 8-token
+             tails, 32 new tokens) on one replica with the prefix cache on,
+             then off, then on two replicas under profiler.Profiler with
+             PADDLE_TPU_PROFILE_DIR set and a RecordEvent("router.step")
+             around each round; `long_prompt` (1024- and 16-token prompts,
+             32 and 128 new tokens) on one replica with prefill_chunk 128,
+             then without, then on two replicas with chunking and
+             FLAGS_ft_inject_serve_kill_round a third of the way through
+             one replica's rounds, killing replica 0.  Each run's replicas
+             are built and warmed up before its counters are set to 0, so
+             a run's counts are its replay's: every decode forward RMSNorm
+             twice a layer plus once and paged decode once a layer,
+             nothing else.  Every run completes
+             each request exactly once with its new tokens; on two replicas
+             every request placed after the prefix's first prefill goes to
+             a replica holding it, the hit rate is above 0 and the prefill
+             tokens below the cache-off run's; the kill run shows one kill,
+             re-routes and a flight dump naming replica 0 and the re-routed
+             ids; the profiled run's host spans number its rounds and its
+             device trace holds as many RMSNorm kernels as the counters
+             and two decode kernels a paged decode launch.  Each run's
+             tokens against the one-replica run of its trace: where a
+             request differs, the logits both runs' Engines computed at the
+             first differing position (kept on the card during the replay)
+             must choose their run's token and lie within LOGIT_TOL x the
+             bf16 error of generate's dense prefill of that context, from
+             that prefill in bf16 and with fp32 activations.  Printed: goodput, latency and decode-gap
+             percentiles, hit rate and prefill tokens of every run, the
+             cache on/off goodput ratio and the chunk on/off decode-gap p99
+             ratio, the device's busy share of the profiled replay, one
+             replay timed by device.Event, and the peak of
+             device.cuda.max_memory_allocated (torch.cuda's the same).
+             Leg 2: llama3_8b_config() width at 4 layers (seed as above):
+             export_generate(batch 2, prompt 128, 32 new tokens), a
+             Predictor from inference.Config over the artifact alone: its
+             ids generate's, token for token, and its run launching
+             RMSNorm (2L + 1) x 32 and dense decode L x 31 times, as
+             generate does; export, load and run times printed
+  6a resume_train  `base` at full width, cut to 2 of its 12 layers (as
+             in `launch_train`): 5 steps uninterrupted;
              a fresh build, 3 steps and CheckpointManager.save(3) into a
              temporary directory; a build from another seed, resume, steps
              4-5: the resumed losses and every param and slot after step 5
              bit-equal to the uninterrupted run's (save and load ms and the
              checkpoint's bytes logged, the directory removed)
-  6d launch_train  the host runtime at `base` (the `train` phase's preset,
-             a new batch of 3 x 2048 token rows from --seed a step, an
-             io.TensorDataset of CPU Tensors), 5 steps in three legs, each
+  6d launch_train  the host runtime at `base` cut to 2 of its 12 layers
+             (the `train` phase's preset at full width, a new batch of 3 x
+             2048 token rows from --seed a step, an io.TensorDataset of
+             CPU Tensors), 5 steps in three legs, each
              a fresh build, freed before the next: (1) DataLoader(
              num_workers=0); (2) 2 persistent worker processes (io.
              shm_loader) with a worker_init_fn: every batch leg 1's bytes,
@@ -562,7 +610,8 @@ ALL_PHASES = ("card", "build", "kernels", "kernel_gate", "parity", "incubate", "
               "eager_train", "static_graph", "longctx_train", "fuse_train", "moe_train",
               "ernie_train",
               "ocr_train", "hapi_train", "nn_tail",
-              "ssd_train", "resume_train", "launch_train", "optimizers", "serve", "moe_serve",
+              "ssd_train", "resume_train", "launch_train", "optimizers", "serve", "router_serve",
+              "moe_serve",
               "ssd_serve",
               "profile")
 REPO = Path(__file__).resolve().parent
@@ -4512,6 +4561,504 @@ def phase_serve(seed, layers):
     return paths, model
 
 
+# ---------------------------------------------------------------------------
+# router_serve: the serving front end and the measuring surface at 8B width
+# ---------------------------------------------------------------------------
+
+ROUTER_REQUESTS = 16         # requests of each loadgen trace
+ROUTER_BLOCKS = 256          # pool blocks of each replica (4.3 GB of KV at 8B width)
+# serve's buckets and the 1024 one: a 1024-token prompt plus its new tokens
+# must fit a slot (twice the largest bucket)
+ROUTER_BUCKETS = (128, 256, 512, 1024)
+EXPORT_LAYERS = 4            # depth of leg 2's exported generate program (width unchanged)
+EXPORT_BATCH, EXPORT_PROMPT, EXPORT_NEW = 2, 128, 32
+
+
+class _Watch:
+    """Wraps a router's ``step`` and ``_route``: a ``RecordEvent(
+    "router.step")`` around each round and every output it returns kept in
+    order (a request emitted twice would show); for each placement the
+    replica chosen, the prefix blocks each replica held then, and the
+    rounds run so far."""
+
+    def __init__(self, router):
+        from paddle_tpu_torch.profiler import RecordEvent
+
+        self.emitted, self.placed = [], {}
+        step, route = router.step, router._route
+
+        def stepped():
+            with RecordEvent("router.step"):
+                outs = step()
+            self.emitted += [o.request_id for o in outs]
+            return outs
+
+        def routed(t):
+            hold = {i: router._affinity(e, t.prompt_ids) for i, e in router._replicas.items()}
+            rid = route(t)
+            self.placed.setdefault(t.rid, []).append((rid, hold, router.rounds))
+            return rid
+
+        router.step, router._route = stepped, routed
+
+
+class _LogitsKeeper:
+    """Stands in for ``model.head`` over a phase: while a router run
+    replays, every vocab projection an Engine samples from is kept on the
+    card (no sync), and each row is filed in ``rows`` under the request and
+    output position whose token it chose.  A request rerouted or requeued
+    files its positions again; the last filing is the one its output came
+    from."""
+
+    def __init__(self, model):
+        self.model, self.head = model, model.head
+        self.sink, self.rows = None, {}
+        model.head = self
+
+    def __call__(self, hidden):
+        out = self.head(hidden)
+        if self.sink is not None:
+            self.sink.append(out)
+        return out
+
+    def restore(self):
+        del self.model.head
+
+    def _collect(self, fn, *a):
+        self.sink = []
+        try:
+            return fn(*a), self.sink
+        finally:
+            self.sink = None
+
+    def _file(self, req, pos, lg, row):
+        self.rows[(req.request_id, len(req.prior_output) + pos)] = (lg, row)
+
+    def watch(self, eng):
+        """File the rows of ``eng``'s prefills (the first token) and decode
+        sub-steps (slot row; position = tokens the slot had + sub-step)."""
+        run_prefill, run_chunk, run_decode = (eng._run_prefill, eng._run_chunk_prefill,
+                                              eng._run_decode)
+
+        def prefill(group, Pb, fidx0):
+            _, (lg,) = self._collect(run_prefill, group, Pb, fidx0)
+            for j, e in enumerate(group):
+                self._file(e[1], 0, lg, j)
+
+        def chunk(sidx, ids_row, tbl_row, ctx, n_valid, req, fidx0):
+            _, sink = self._collect(run_chunk, sidx, ids_row, tbl_row, ctx, n_valid, req, fidx0)
+            if fidx0 is not None:
+                self._file(req, 0, sink[0], 0)
+
+        def decode(k, *a):
+            live = [(s.idx, s.req, s.out_count) for s in eng._slots
+                    if s.req is not None and s.prefill_left is None]
+            lengths, sink = self._collect(run_decode, k, *a)
+            for i, lg in enumerate(sink):
+                for idx, req, n in live:
+                    if n + i < req.max_new_tokens:
+                        self._file(req, n + i, lg, idx)
+            return lengths
+
+        eng._run_prefill, eng._run_chunk_prefill, eng._run_decode = prefill, chunk, decode
+
+    def take(self):
+        """This run's filed rows (and their bytes held on the card); the
+        keeper starts empty for the next run."""
+        rows, self.rows = self.rows, {}
+        held = {id(lg): lg.nbytes for lg, _ in rows.values()}
+        return rows, sum(held.values())
+
+
+def _router(model, replicas, engine_kw, keeper):
+    """A Router over ``replicas`` fresh Engines, each warmed up and watched
+    by ``keeper``; built outside any counted window."""
+    from paddle_tpu_torch.serving import Engine
+    from paddle_tpu_torch.serving.router import Router
+
+    router = Router()
+    for _ in range(replicas):
+        eng = Engine(model, device="cuda", num_blocks=ROUTER_BLOCKS, max_batch=8,
+                     block_size=128, prefill_buckets=ROUTER_BUCKETS, **engine_kw)
+        eng.warmup()
+        keeper.watch(eng)
+        router.add_replica(eng)
+    return router
+
+
+def _replay(router, trace, around):
+    """``run_trace`` of ``trace`` through ``router`` inside ``around()``:
+    returns ``(metrics, wall ms of the replay)``."""
+    import torch
+    from paddle_tpu_torch.serving.loadgen import run_trace
+
+    with around():
+        t0 = time.perf_counter()
+        m = run_trace(router, trace)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return m, wall_ms
+
+
+def _check_replay(label, trace, m, watch):
+    """Every request of ``trace`` completed and was emitted exactly once,
+    each with its ``max_new_tokens``."""
+    want = {f"rtr-{i + 1}": r.max_new_tokens for i, r in enumerate(
+        sorted(trace, key=lambda r: r.arrival_s))}
+    check(m["completed"] == m["submitted"] == len(trace),
+          f"router_serve: {label}: {m['completed']} of {len(trace)} requests completed")
+    check(sorted(watch.emitted) == sorted(want),
+          f"router_serve: {label}: requests not emitted exactly once: {watch.emitted}")
+    for rid, n in want.items():
+        check(len(m["outputs"][rid]) == n,
+              f"router_serve: {label}: {rid} gave {len(m['outputs'][rid])} of {n} tokens")
+
+
+def _logits_at(model, ids, dtype):
+    """Next-token logits after ``ids`` from one dense prefill (generate's),
+    in ``dtype`` activations (the config's own mode: bf16 params)."""
+    import torch
+
+    cfg = model.config
+    saved = cfg.param_dtype, cfg.dtype
+    if dtype == "float32":
+        cfg.param_dtype, cfg.dtype = cfg.pdtype, "float32"
+    try:
+        x = torch.from_numpy(ids[None]).to(model.device, torch.int32)
+        cache = model.init_cache(1, len(ids) + 16, dtype=dtype)
+        hidden, _ = model.decoder(x, cache=cache)
+        return model.head(hidden[:, -1]).float()[0]
+    finally:
+        cfg.param_dtype, cfg.dtype = saved
+
+
+def _same_tokens(label, model, trace, got, ref):
+    """``got``'s greedy tokens against the one-replica run ``ref`` of the
+    same trace, request by request; each is ``(outputs, rows filed by
+    _LogitsKeeper)``.  Where a request differs, the logits each run's
+    Engine computed at the first differing position are held as
+    ``_first_token_check`` holds the Engine's first token: generate's dense
+    prefill of the common context is rebuilt in bf16 and with fp32
+    activations, and each Engine row must lie within LOGIT_TOL x that
+    prefill's own bf16 error of both (and choose the token its run gave)."""
+    import numpy as np
+    import torch
+
+    prompts = {f"rtr-{i + 1}": r.prompt_ids
+               for i, r in enumerate(sorted(trace, key=lambda r: r.arrival_s))}
+    (got_out, got_rows), (ref_out, ref_rows) = got, ref
+    differ = sorted(rid for rid in ref_out if got_out[rid] != ref_out[rid])
+    log(f"router_serve: {label}: {len(ref_out) - len(differ)} of {len(ref_out)} requests give "
+        f"the one-replica run's tokens in full")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        for rid in differ:
+            a, b = ref_out[rid], got_out[rid]
+            j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            ctx = np.concatenate([prompts[rid], np.asarray(a[:j], np.int32)])
+            dense = _logits_at(model, ctx, "bfloat16")
+            exact = _logits_at(model, ctx, "float32")
+            err = float((dense - exact).abs().max())
+            for run, rows, tok in (("reference", ref_rows, a[j]), ("compared", got_rows, b[j])):
+                check((rid, j) in rows, f"router_serve: {label}: {rid}'s logits at token {j} "
+                                        f"in the {run} run were not kept")
+                lg_rows, row = rows[(rid, j)]
+                lg = lg_rows[row].float()
+                diff = float((lg - dense).abs().max())
+                err_eng = float((lg - exact).abs().max())
+                log(f"router_serve: {label}: {rid} first differs at token {j} ({a[j]} against "
+                    f"{b[j]}); the {run} run's Engine logits there: max |Engine - generate| "
+                    f"{diff:.6g}, max |Engine - fp32| {err_eng:.6g}; generate's bf16 error "
+                    f"{err:.6g} (limit {LOGIT_TOL} x it); the two tokens' logits "
+                    f"{abs(float(dense[a[j]] - dense[b[j]])):.6g} apart in generate's")
+                check(int(lg.argmax()) == tok,
+                      f"router_serve: {label}: {rid}: the {run} run's kept logits at token {j} "
+                      f"choose {int(lg.argmax())}, its output {tok}")
+                check(diff <= LOGIT_TOL * err and err_eng <= LOGIT_TOL * err,
+                      f"router_serve: {label}: {rid} at token {j}: the {run} run's Engine "
+                      f"logits are {diff} from generate's and {err_eng} from fp32, past "
+                      f"{LOGIT_TOL} x generate's own bf16 error {err}")
+    return len(ref_out) - len(differ)
+
+
+def _device_trace_counts(path):
+    """Kernel events of a torch.profiler chrome trace: RMSNorm forwards,
+    decode kernels (a decode launch is a partial and a combine kernel), and
+    the kernels' summed device ms."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return {"rms_norm": sum(1 for e in kernels if "rms_norm" in e["name"]
+                            and "bwd" not in e["name"]),
+            "decode": sum(1 for e in kernels if "decode_partial_kernel" in e["name"]
+                          or "decode_combine_kernel" in e["name"]),
+            "kernels": len(kernels),
+            "kernel_ms": sum(e.get("dur", 0.0) for e in kernels) / 1e3}
+
+
+def phase_router_serve(seed, layers, model=None):
+    """Two legs at `llama3_8b_config()` width; see the module docstring."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch import device as pdevice
+    from paddle_tpu_torch import obs, profiler
+    from paddle_tpu_torch.distributed.fault_tolerance.injection import (FaultInjector,
+                                                                        set_injector)
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama3_8b_config
+    from paddle_tpu_torch.serving.loadgen import make_trace
+
+    if model is None:
+        model = LlamaForCausalLM(llama3_8b_config(num_hidden_layers=layers), device="cuda",
+                                 seed=seed)
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    torch.cuda.reset_peak_memory_stats()
+    traces = {
+        "shared_prefix": make_trace("shared_prefix", cfg.vocab_size, seed=0,
+                                    n_requests=ROUTER_REQUESTS, rate_rps=50.0, shared_len=1024,
+                                    tail_len=8, max_new_tokens=32),
+        "long_prompt": make_trace("long_prompt", cfg.vocab_size, seed=0,
+                                  n_requests=ROUTER_REQUESTS, rate_rps=50.0, long_len=1024,
+                                  short_len=16, max_new_tokens=32)}
+    work = Path(tempfile.mkdtemp(prefix="router_serve_"))
+    paths, runs, out = {}, {}, {}
+    # the first run of each trace: its outputs and kept Engine logits, which
+    # the trace's later runs are held against
+    refs = {}
+    compare_s = 0.0
+    keeper = _LogitsKeeper(model)
+
+    def drive(name, trace, replicas, engine_kw, around=contextlib.nullcontext):
+        """Build and warm the replicas, then count only the replay."""
+        nonlocal compare_s
+        t0 = time.perf_counter()
+        router = _router(model, replicas, engine_kw, keeper)
+        watch = _Watch(router)
+        (m, wall_ms), rec = _drive_path(model, lambda: _replay(router, traces[trace], around))
+        _check_replay(name, traces[trace], m, watch)
+        _check_path(name, rec, 2 * L + 1, "decode_attention_paged", L)
+        rows, held = keeper.take()
+        runs[name] = (m, router, watch, wall_ms, rec)
+        paths[f"router_{name}"] = rec
+        out[name] = {k: m[k] for k in (
+            "goodput_tps", "p50_ms", "p99_ms", "decode_gap_p50_ms", "decode_gap_p99_ms",
+            "hit_rate", "prefill_tokens", "wall_s")}
+        out[name].update(rounds=router.rounds, stats=dict(router.stats),
+                         run_s=time.perf_counter() - t0, logits_kept_bytes=held)
+        log(f"router_serve: {name}: {json.dumps(out[name])}")
+        if trace not in refs:
+            refs[trace] = name, (m["outputs"], rows)
+        else:
+            t1 = time.perf_counter()
+            ref_name, ref = refs[trace]
+            out[name]["same_tokens"] = _same_tokens(
+                f"{name} against {ref_name}", model, traces[trace], (m["outputs"], rows), ref)
+            compare_s += time.perf_counter() - t1
+        return runs[name]
+
+    try:
+        # -- leg 1: the router under loadgen traces --------------------------
+        start, end = pdevice.Event(), pdevice.Event()
+
+        @contextlib.contextmanager
+        def timed():
+            start.record()
+            yield
+            end.record()
+            end.synchronize()
+
+        wall_ms = drive("shared_prefix_1_cache", "shared_prefix", 1, {}, timed)[3]
+        out["event_ms"], out["event_wall_ms"] = start.elapsed_time(end), wall_ms
+        log(f"router_serve: shared_prefix_1_cache's replay timed by device.Event: "
+            f"{out['event_ms']:.3f} ms on the card's clock, {wall_ms:.3f} ms on the host's")
+        drive("shared_prefix_1_nocache", "shared_prefix", 1, {"prefix_cache": False})
+
+        os.environ["PADDLE_TPU_PROFILE_DIR"] = str(work / "device")
+        prof = profiler.Profiler(on_trace_ready=profiler.export_chrome_tracing(
+            str(work / "host"), "router"))
+        try:
+            m2, r2, watch2, prof_wall_ms, rec2 = drive(
+                "shared_prefix_2_cache", "shared_prefix", 2, {}, lambda: prof)
+        finally:
+            del os.environ["PADDLE_TPU_PROFILE_DIR"]
+        launches = rec2["launches"]
+        (host_file,) = (work / "host").iterdir()
+        with open(host_file) as f:
+            spans = [e for e in json.load(f)["traceEvents"] if e["name"] == "router.step"]
+        t0 = time.perf_counter()
+        dev = _device_trace_counts(prof.device_trace_path)
+        log(f"router_serve: profiled replay: {len(spans)} router.step host spans over "
+            f"{r2.rounds} rounds; device trace {json.dumps(dev)} (read in "
+            f"{time.perf_counter() - t0:.1f} s); the path's launch counters rms_norm "
+            f"{launches['rms_norm']}, decode_attention_paged "
+            f"{launches['decode_attention_paged']}")
+        check(len(spans) == r2.rounds,
+              f"router_serve: {len(spans)} router.step spans, {r2.rounds} rounds")
+        check(dev["rms_norm"] == launches["rms_norm"],
+              f"router_serve: the device trace holds {dev['rms_norm']} RMSNorm kernels, the "
+              f"counters {launches['rms_norm']}")
+        check(dev["decode"] == 2 * launches["decode_attention_paged"],
+              f"router_serve: the device trace holds {dev['decode']} decode kernels, the "
+              f"counters {launches['decode_attention_paged']} launches of two")
+        out["profiled"] = dict(dev, host_spans=len(spans), wall_ms=prof_wall_ms,
+                               busy_share=dev["kernel_ms"] / prof_wall_ms)
+        log(f"router_serve: device busy share of the profiled replay "
+            f"{out['profiled']['busy_share']:.4f} (kernels {dev['kernel_ms']:.3f} ms of "
+            f"{prof_wall_ms:.3f} ms wall, the profiler's cost inside)")
+
+        # affinity: a request placed before any replica held the prefix was
+        # placed before round 1 (whose prefill registers it); every other
+        # went to a replica holding the most of it
+        cold = []
+        for rid, placements in watch2.placed.items():
+            for replica, hold, rounds_before in placements:
+                if max(hold.values()) == 0:
+                    cold.append(rid)
+                    check(rounds_before == 0, f"router_serve: {rid} placed cold after round "
+                                              f"{rounds_before}")
+                else:
+                    check(hold[replica] == max(hold.values()),
+                          f"router_serve: {rid} went to replica {replica} holding "
+                          f"{hold[replica]} prefix blocks while another held "
+                          f"{max(hold.values())}")
+        log(f"router_serve: shared_prefix_2_cache: {len(cold)} request(s) placed before any "
+            f"replica held the prefix ({cold}), the other {len(watch2.placed) - len(cold)} "
+            f"to a replica holding it; hit blocks by replica "
+            f"{json.dumps({i: e.stats['prefix_hit_blocks'] for i, e in r2._replicas.items()})}")
+        check(m2["hit_rate"] > 0, "router_serve: the shared prefix never hit")
+        check(m2["prefill_tokens"] < runs["shared_prefix_1_nocache"][0]["prefill_tokens"],
+              "router_serve: the prefix cache saved no prefill tokens")
+        del refs["shared_prefix"]
+
+        drive("long_prompt_1_chunk", "long_prompt", 1, {"prefill_chunk": 128})
+        drive("long_prompt_1_mono", "long_prompt", 1, {})
+        # two replicas take about half the rounds of one: a third of one's
+        # is mid-drain
+        kill_round = max(2, runs["long_prompt_1_chunk"][1].rounds // 3)
+        os.environ["PADDLE_FLIGHT_DIR"] = str(work / "flight")
+        saved = flags.get_flags(["ft_inject_serve_kill_round", "ft_inject_serve_kill_replica"])
+        flags.set_flags({"ft_inject_serve_kill_round": kill_round,
+                         "ft_inject_serve_kill_replica": 0})
+        obs.flight().clear()
+        try:
+            set_injector(FaultInjector.from_flags())
+            _, rk, *_ = drive("long_prompt_2_kill", "long_prompt", 2, {"prefill_chunk": 128})
+        finally:
+            flags.set_flags(saved)
+            set_injector(None)
+            del os.environ["PADDLE_FLIGHT_DIR"]
+        dump = obs.last_flight_dump()
+        check(dump is not None and dump.startswith(str(work)),
+              f"router_serve: the kill left no flight dump ({dump})")
+        with open(dump) as f:
+            doc = json.load(f)
+        log(f"router_serve: kill at round {kill_round}: stats {json.dumps(rk.stats)}; flight "
+            f"dump {doc['reason']!r} victim {doc['victim']!r} rerouted {doc['rerouted']}")
+        check(rk.stats["kills"] == 1 and rk.stats["rerouted"] >= 1,
+              f"router_serve: the kill run's stats {rk.stats}")
+        check(doc["victim"] == "replica 0" and doc["rerouted"]
+              and len(doc["rerouted"]) == rk.stats["rerouted"],
+              f"router_serve: the flight dump names {doc['victim']!r}, rerouted "
+              f"{doc['rerouted']}")
+        check(rk.replica_ids == [1], f"router_serve: replicas left {rk.replica_ids}")
+
+        refs.clear()
+        log(f"router_serve: token comparisons in {compare_s:.1f} s")
+        ratios = {
+            "goodput_ratio_cache_on_off": out["shared_prefix_1_cache"]["goodput_tps"]
+            / out["shared_prefix_1_nocache"]["goodput_tps"],
+            "decode_gap_p99_ratio_chunk_on_off": out["long_prompt_1_chunk"]["decode_gap_p99_ms"]
+            / out["long_prompt_1_mono"]["decode_gap_p99_ms"]}
+        out.update(ratios)
+        log(f"router_serve: {json.dumps(ratios)}")
+        peak = pdevice.cuda.max_memory_allocated()
+        check(peak == torch.cuda.max_memory_allocated(),
+              "router_serve: device.cuda.max_memory_allocated is not torch.cuda's")
+        out["peak_gib"] = peak / 2 ** 30
+        log(f"router_serve: peak device memory {peak} B ({peak / 2 ** 30:.3f} GiB; "
+            f"device.cuda.max_memory_allocated, torch.cuda's the same; the Engine logits "
+            f"kept for the token checks inside, at most "
+            f"{max(out[n]['logits_kept_bytes'] for n in runs)} B a run)")
+        runs.clear()
+        del r2, rk, watch2, prof
+        torch.cuda.empty_cache()
+
+        # -- leg 2: the exported greedy-generate program ----------------------
+        paths.update(_export_leg(seed, work, out))
+    finally:
+        keeper.restore()
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"router_serve: {json.dumps(out)}")
+    return paths
+
+
+def _export_leg(seed, work, out):
+    """``llama3_8b_config()`` at EXPORT_LAYERS layers: ``export_generate``,
+    a Predictor from the artifact alone, its ids against ``generate``'s and
+    its launches counted."""
+    import gc
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama3_8b_config
+
+    L = EXPORT_LAYERS
+    log(f"router_serve: leg 2: llama3_8b_config() width, depth cut to {L} of 32 layers")
+    m4 = LlamaForCausalLM(llama3_8b_config(num_hidden_layers=L), device="cuda", seed=seed)
+    rng = np.random.default_rng(seed + 3)
+    ids = rng.integers(1, m4.config.vocab_size,
+                       size=(EXPORT_BATCH, EXPORT_PROMPT)).astype(np.int32)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return res, {k: n for k, n in launch_counts().items() if n}, ms
+
+    m4.generate(ids, max_new_tokens=EXPORT_NEW)      # first calls out of the timed run
+    want, gen_n, gen_ms = counted(lambda: m4.generate(ids, max_new_tokens=EXPORT_NEW))
+    prefix = str(work / "generate")
+    t0 = time.perf_counter()
+    nbytes = m4.export_generate(prefix, EXPORT_BATCH, EXPORT_PROMPT, EXPORT_NEW)
+    export_s = time.perf_counter() - t0
+    del m4
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pred = inference.create_predictor(inference.Config(prefix))
+    load_s = time.perf_counter() - t0
+    pred.get_input_handle("input_0").copy_from_cpu(ids)
+    pred.run()                                       # first calls out of the timed run
+    _, got_n, run_ms = counted(pred.run)
+    got = pred.get_output_handle("output_0").copy_to_cpu()
+    expect = {"rms_norm": (2 * L + 1) * EXPORT_NEW, "decode_attention_dense": L * (EXPORT_NEW - 1)}
+    rec = dict(export_s=export_s, artifact_bytes=nbytes, load_s=load_s, run_ms=run_ms,
+               generate_ms=gen_ms, launches=got_n, generate_launches=gen_n)
+    log(f"router_serve: export_generate {json.dumps(rec)}")
+    check(tuple(got.shape) == (EXPORT_BATCH, EXPORT_PROMPT + EXPORT_NEW) and got.dtype == np.int32,
+          f"router_serve: the Predictor gave {got.shape} {got.dtype}")
+    check(np.array_equal(got, want.cpu().numpy()),
+          "router_serve: the exported program's ids are not generate's")
+    check(gen_n == expect and got_n == expect,
+          f"router_serve: launches: exported {got_n}, generate {gen_n}, expected {expect}")
+    out["export"] = rec
+    del pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = dict.fromkeys(launch_counts(), 0)
+    counts.update(got_n)
+    return {"export_generate": {"launches": counts}}
+
+
 def phase_moe_serve(seed):
     """The `moe` preset's model, random bf16 weights from ``seed``: 16 greedy
     requests through an Engine of 8 slots, then generate on two prompts,
@@ -4834,8 +5381,15 @@ def phase_ssd_train(profile):
     return rec
 
 
+# the depth of `base` in the two checkpoint phases, `resume_train` and
+# `launch_train` (of its 12 layers; widths unchanged), which save and load
+# its whole training state
+CHECKPOINT_LAYERS = 2
+
+
 def phase_resume_train():
-    """`base` through a checkpoint: 5 steps uninterrupted (run A); a fresh
+    """`base` cut to CHECKPOINT_LAYERS layers through a checkpoint: 5 steps
+    uninterrupted (run A); a fresh
     build (the same seed), 3 steps and ``CheckpointManager.save(3)`` (run
     B); a build from another seed, ``resume`` and steps 4-5 (run C).  C's
     losses and its every param and slot after step 5 must be A's bits.  A's
@@ -4857,7 +5411,8 @@ def phase_resume_train():
         manager) first, ``steps`` steps, saved into ``save`` (a manager)
         after; returns the losses, the end state as host tensors and the
         timings.  Nothing of the build outlives the call."""
-        step_fn, ids = build_pretrain_step("base", "cuda", seed=seed)[:2]
+        step_fn, ids = build_pretrain_step("base", "cuda", seed=seed,
+                                           layers=CHECKPOINT_LAYERS)[:2]
         info = {}
         if resume is not None:
             torch.cuda.synchronize()
@@ -4878,6 +5433,7 @@ def phase_resume_train():
         gc.collect()
         torch.cuda.empty_cache()
 
+    log(f"resume_train: `base` depth cut to {CHECKPOINT_LAYERS} of 12 layers (widths unchanged)")
     losses_a, end_a, _ = leg(0, 5)
     free()
     root = tempfile.mkdtemp(prefix="resume_train_")
@@ -5087,7 +5643,8 @@ def _launch_leg(label, seed, workdir, workers):
     from paddle_tpu_torch.models.presets import build_pretrain_step
 
     probe = _launch_probe(workdir)
-    step_fn, _, model, cfg, (B, S, _) = build_pretrain_step("base", "cuda", seed=seed)
+    step_fn, _, model, cfg, (B, S, _) = build_pretrain_step("base", "cuda", seed=seed,
+                                                            layers=CHECKPOINT_LAYERS)
     ds = probe.Probed(_launch_tokens(seed, cfg.vocab_size, B, S), label)
     kw = dict(num_workers=2, persistent_workers=True, worker_init_fn=probe.init) \
         if workers else dict(num_workers=0)
@@ -5260,7 +5817,8 @@ def _launch_checks(rc, err, by, pids, workdir, leg1, leg2, want, spread, exited)
 
 
 def phase_launch_train(seed, card, resume=None):
-    """`base` training through the host runtime in three legs: no workers;
+    """`base` (cut to CHECKPOINT_LAYERS layers) training through the host
+    runtime in three legs: no workers;
     2 worker processes; under ``python -m paddle_tpu_torch.distributed.
     launch`` with a crash and one restart.  See the module docstring."""
     import os
@@ -5273,6 +5831,7 @@ def phase_launch_train(seed, card, resume=None):
     if resume is not None and not resume["two_runs_bit_equal"]:
         spread = max(abs(a - b) for a, b in zip(resume["losses_uninterrupted"],
                                                 resume["losses_first_three_again"]))
+    log(f"launch_train: `base` depth cut to {CHECKPOINT_LAYERS} of 12 layers (widths unchanged)")
     workdir = Path(tempfile.mkdtemp(prefix="launch_train_"))
     try:
         leg1, want = _launch_leg("no workers", seed, workdir, False)
@@ -5396,7 +5955,8 @@ def launch_child(workdir, store, seed):
     t["t_control"] = time.time()
     _build.load_all()
     t["t_kernels"] = time.time()
-    step_fn, _, _, cfg, (B, S, _) = build_pretrain_step("base", "cuda", seed=seed)
+    step_fn, _, _, cfg, (B, S, _) = build_pretrain_step("base", "cuda", seed=seed,
+                                                        layers=CHECKPOINT_LAYERS)
     torch.cuda.synchronize()
     t["t_build"] = time.time()
     ckpt = CheckpointManager(str(Path(workdir, "ckpt")), keep=1)
@@ -6721,82 +7281,90 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     laps = [("start", t_start)]             # (phase, time it ended)
+
+    def lap(phase):
+        laps.append((phase, time.perf_counter()))
+        log(f"chip_smoke: {phase} done in {laps[-1][1] - laps[-2][1]:.1f} s")
     cases, paths = {}, {}
     try:
         card = phase_card()
-        laps.append(("card", time.perf_counter()))
+        lap("card")
         if "build" in phases or "kernels" in phases or "kernel_gate" in phases:
             phase_build()
-            laps.append(("build", time.perf_counter()))
+            lap("build")
         if "kernels" in phases:
             cases = phase_kernels()
-            laps.append(("kernels", time.perf_counter()))
+            lap("kernels")
         if "kernel_gate" in phases:
             paths["kernel_gate"] = phase_kernel_gate(args.seed)
-            laps.append(("kernel_gate", time.perf_counter()))
+            lap("kernel_gate")
         if "parity" in phases:
             phase_parity(args.seed)
-            laps.append(("parity", time.perf_counter()))
+            lap("parity")
         if "incubate" in phases:
             paths["incubate"] = phase_incubate(args.seed)
-            laps.append(("incubate", time.perf_counter()))
+            lap("incubate")
         if "train" in phases:
             paths["train"] = phase_train("profile" in phases)
-            laps.append(("train", time.perf_counter()))
+            lap("train")
         if "eager_train" in phases:
             paths["eager_train"] = phase_eager_train(args.seed, paths.get("train"))
-            laps.append(("eager_train", time.perf_counter()))
+            lap("eager_train")
         if "static_graph" in phases:
             paths["static_graph"] = phase_static_graph(args.seed, card)
-            laps.append(("static_graph", time.perf_counter()))
+            lap("static_graph")
         if "longctx_train" in phases:
             paths["longctx_train"] = phase_longctx_train("profile" in phases)
-            laps.append(("longctx_train", time.perf_counter()))
+            lap("longctx_train")
         if "fuse_train" in phases:
             paths["fuse_train"] = phase_fuse_train("profile" in phases, paths.get("train"))
-            laps.append(("fuse_train", time.perf_counter()))
+            lap("fuse_train")
         if "moe_train" in phases:
             paths["moe_train"] = phase_moe_train("profile" in phases)
-            laps.append(("moe_train", time.perf_counter()))
+            lap("moe_train")
         if "ernie_train" in phases:
             paths["ernie_train"] = phase_ernie_train(args.seed, "profile" in phases)
-            laps.append(("ernie_train", time.perf_counter()))
+            lap("ernie_train")
         if "ocr_train" in phases:
             paths["ocr_train"] = phase_ocr_train(args.seed, "profile" in phases)
-            laps.append(("ocr_train", time.perf_counter()))
+            lap("ocr_train")
         if "hapi_train" in phases:
             paths["hapi_train"] = phase_hapi_train(args.seed, card, paths.get("ernie_train"))
-            laps.append(("hapi_train", time.perf_counter()))
+            lap("hapi_train")
         if "nn_tail" in phases:
             paths["nn_tail"] = phase_nn_tail(args.seed)
-            laps.append(("nn_tail", time.perf_counter()))
+            lap("nn_tail")
         if "ssd_train" in phases:
             paths["ssd_train"] = phase_ssd_train("profile" in phases)
-            laps.append(("ssd_train", time.perf_counter()))
+            lap("ssd_train")
         resume = None
         if "resume_train" in phases:
             resume = phase_resume_train()
-            laps.append(("resume_train", time.perf_counter()))
+            lap("resume_train")
         if "launch_train" in phases:
             phase_launch_train(args.seed, card, resume)
-            laps.append(("launch_train", time.perf_counter()))
+            lap("launch_train")
         if "optimizers" in phases:
             phase_optimizers(args.seed)
-            laps.append(("optimizers", time.perf_counter()))
+            lap("optimizers")
+        model = None
         if "serve" in phases:
             serve_paths, model = phase_serve(args.seed, args.layers)
             paths.update(serve_paths)
             if "profile" in phases:
                 phase_profile(model, args.seed)
-            del model
-            torch.cuda.empty_cache()
-            laps.append(("serve", time.perf_counter()))
+            lap("serve")
+        if "router_serve" in phases:
+            paths.update(phase_router_serve(args.seed, args.layers, model))
+            lap("router_serve")
+        del model
+        torch.cuda.empty_cache()
         if "moe_serve" in phases:
             paths.update(phase_moe_serve(args.seed))
-            laps.append(("moe_serve", time.perf_counter()))
+            lap("moe_serve")
         if "ssd_serve" in phases:
             paths.update(phase_ssd_serve(args.seed, "profile" in phases))
-            laps.append(("ssd_serve", time.perf_counter()))
+            lap("ssd_serve")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

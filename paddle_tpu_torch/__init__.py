@@ -28,7 +28,10 @@ whole of ``nn`` (``functional``, the layers, ``initializer``, ``utils``,
 compiled-graph layer: ``static`` (``Program``, ``Executor``, ``static.nn``),
 ``jit.to_static`` with fragment capture (``jit.capture``), ``jit.save`` /
 ``jit.load``, ``inference`` (``Config``, ``Predictor``) and
-``amp.debugging``.
+``amp.debugging``; the serving front end (``serving.router.Router``,
+``serving.loadgen``) and ``LlamaForCausalLM.export_generate``; the
+measuring surface: ``profiler``, ``device`` (with ``device.cuda``),
+``version`` and ``sysconfig``.
 
 Device policy: entry points take an explicit ``device``; when none is given
 it is the one ``set_device`` chose, else ``"cuda"``, and a missing card
@@ -44,8 +47,6 @@ layers, models, kernels, optimizers and ``TrainStep`` work on plain
 
 from __future__ import annotations
 
-__version__ = "0.1.0"
-
 # framework core: these names come first (the submodules import them from
 # the package)
 from .framework.dtype import DTYPES, to_dtype  # noqa: F401
@@ -55,7 +56,7 @@ from .framework.dtype import (  # noqa: F401
     uint8, get_default_dtype, set_default_dtype,
 )
 from .framework.device import (  # noqa: F401
-    default_device, device_count, get_device, set_device,
+    default_device, device_count, get_device, is_compiled_with_tpu, set_device, synchronize,
 )
 from .framework.random import default_generator, make_generator, seed  # noqa: F401
 from .framework.tensor import Parameter, Tensor, create_parameter, to_tensor  # noqa: F401
@@ -89,6 +90,12 @@ from .hapi import Model, flops, summary  # noqa: F401
 from .framework.io import load, save  # noqa: F401
 from . import static  # noqa: F401
 from . import inference  # noqa: F401
+from . import device  # noqa: F401
+from . import profiler  # noqa: F401
+from . import sysconfig  # noqa: F401
+from . import version  # noqa: F401
+from .version import full_version as __version__  # noqa: F401,E402
+from .device import is_compiled_with_cuda  # noqa: F401
 from .static import disable_static, enable_static  # noqa: F401
 
 dtype = type(float32)

@@ -529,15 +529,34 @@ def _keystr(name: str, slot: str) -> str:
 # save / load: the torch.export artifact
 # ---------------------------------------------------------------------------
 
-class _Pure(torch.nn.Module):
-    """``module``'s forward as a function of its weights and inputs."""
+class _Bound(torch.nn.Module):
+    """``call(module, *inputs)`` as a module's forward (``module`` is its
+    one submodule, so its weights are this module's under ``module.``)."""
 
-    def __init__(self, module):
+    def __init__(self, module, call):
         super().__init__()
-        self._held = [module]      # not a submodule: its tensors are inputs
+        self.module = module
+        self._call = call
+
+    def forward(self, *inputs):
+        return self._call(self.module, *inputs)
+
+
+class _Pure(torch.nn.Module):
+    """``module``'s forward, or ``call(module, *inputs)``, as a function of
+    its weights and inputs."""
+
+    def __init__(self, module, call=None):
+        super().__init__()
+        # not a submodule: its tensors are inputs
+        self._held = [module if call is None else _Bound(module, call)]
+        self._prefix = "" if call is None else "module."
 
     def forward(self, params, buffers, *inputs):
-        return torch.func.functional_call(self._held[0], (params, buffers), inputs)
+        p = self._prefix
+        return torch.func.functional_call(
+            self._held[0], ({p + k: v for k, v in params.items()},
+                            {p + k: v for k, v in buffers.items()}), inputs)
 
 
 def _state(module):
@@ -546,11 +565,13 @@ def _state(module):
     return params, buffers
 
 
-def export_artifact(module, specs, path, feed_names=None, fetch_count=None, device=None):
-    """Export ``module``'s forward over inputs of ``specs`` (``(shape,
-    dtype)``, a None or -1 dim dynamic) and write ``path.pt2``,
-    ``path.pdiparams`` and ``path.pdmodel.json``; returns the bytes
-    written."""
+def export_artifact(module, specs, path, feed_names=None, fetch_count=None, device=None,
+                    call=None, meta=None):
+    """Export ``module``'s forward (or ``call(module, *inputs)``) over
+    inputs of ``specs`` (``(shape, dtype)``, a None or -1 dim dynamic) and
+    write ``path.pt2``, ``path.pdiparams`` (``module``'s weights by their
+    own names) and ``path.pdmodel.json`` (with ``meta``'s items); returns
+    the bytes written."""
     from ..framework.io import save as _save
     from ..kernels import export_ops
 
@@ -568,7 +589,7 @@ def export_artifact(module, specs, path, feed_names=None, fetch_count=None, devi
     try:
         with torch.no_grad(), export_ops.export_trace():
             ep = torch.export.export(
-                _Pure(module), (params, buffers, *examples),
+                _Pure(module, call), (params, buffers, *examples),
                 dynamic_shapes=({n: None for n in params}, {n: None for n in buffers},
                                 tuple(dynamic)), strict=False)
     finally:
@@ -579,15 +600,16 @@ def export_artifact(module, specs, path, feed_names=None, fetch_count=None, devi
         os.makedirs(d, exist_ok=True)
     torch.export.save(ep, path + ".pt2")
     _save({"params": params, "buffers": buffers}, path + ".pdiparams")
-    meta = {"inputs": [{"shape": [None if (s is None or s == -1) else int(s) for s in shape],
+    info = {"inputs": [{"shape": [None if (s is None or s == -1) else int(s) for s in shape],
                         "dtype": str(to_dtype(dtype)).replace("torch.", "")}
                        for shape, dtype in specs],
             "format": "torch.export",
             "feed_names": list(feed_names or [f"input_{i}" for i in range(len(specs))])}
     if fetch_count is not None:
-        meta["fetch_count"] = int(fetch_count)
+        info["fetch_count"] = int(fetch_count)
+    info.update(meta or {})
     with open(path + ".pdmodel.json", "w") as f:
-        json.dump(meta, f)
+        json.dump(info, f)
     return sum(os.path.getsize(path + ext) for ext in (".pt2", ".pdiparams", ".pdmodel.json"))
 
 

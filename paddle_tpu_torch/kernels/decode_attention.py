@@ -31,7 +31,8 @@ from typing import Optional
 import torch
 
 from ..analysis.kernel_lint import BlockUse, KernelSpec, ScratchUse, cuda_semantics, itemsize
-from . import _build, registry
+from ..framework.dispatch import tls
+from . import _build, export_ops, registry
 
 __all__ = ["cached_attention_reference", "masked_multihead_attention",
            "paged_decode_attention", "paged_chunk_attention",
@@ -156,6 +157,9 @@ def _launch(q, k, v, lengths, table, cap: int, maxb: int, paged: bool,
 
 
 def _lengths_vector(lengths, B: int, device) -> torch.Tensor:
+    if isinstance(lengths, int):
+        # an op, not a tensor made from host data: torch.export traces it
+        return torch.full((B,), lengths, dtype=torch.int32, device=device)
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=device)
     if lengths.ndim == 0:
         lengths = lengths.expand(B)
@@ -168,13 +172,18 @@ def masked_multihead_attention(q, k_cache, v_cache, lengths,
 
     q: ``[B, 1, H, D]``; caches ``[B, C, Hk, D]``; ``lengths`` ``[B]`` int32
     or a scalar (valid cache slots per sequence, INCLUDING the current
-    token, which must already be in the cache)."""
+    token, which must already be in the cache).  Under
+    ``export_ops.export_trace`` the call is the custom op
+    ``paddle_tpu_torch::masked_multihead_attention``."""
     registry.ensure_admitted("decode_mmha", q.device, q.dtype)
     registry.ensure_admitted("decode_mmha_fused", q.device, q.dtype)
     B, S, h, d = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     lengths = _lengths_vector(lengths, B, q.device)
+    if tls.exporting:
+        return export_ops.masked_multihead_attention_op(q, k_cache, v_cache, lengths,
+                                                        float(sm_scale))
     if q.device.type == "cpu":
         return _decode_reference(q, k_cache, v_cache, lengths, sm_scale)
     if q.device.type != "cuda":

@@ -5,7 +5,9 @@
 no storage: a wrapper that launches its kernel through a raw pointer cannot
 run on them.  While ``framework.dispatch.tls.exporting`` is set in a thread
 (by the exporter, around its trace), the wrappers called in that thread on an exported path (``rms_norm.rms_norm``,
-``flash_attention.flash_attention``) hand their call to the custom op
+``flash_attention.flash_attention``, and the dense decode entry
+``decode_attention.masked_multihead_attention`` of an exported greedy
+generate) hand their call to the custom op
 instead, so the exported graph holds one ``paddle_tpu_torch::<entry>`` node
 a call.  Each op's fake rule gives the output's shape and dtype; its
 implementation is the wrapper itself, so a loaded program launches exactly
@@ -24,7 +26,8 @@ import torch
 
 from ..framework.dispatch import tls
 
-__all__ = ["export_trace", "rms_norm_op", "flash_attention_op"]
+__all__ = ["export_trace", "rms_norm_op", "flash_attention_op",
+           "masked_multihead_attention_op"]
 
 
 @contextlib.contextmanager
@@ -62,4 +65,19 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal
 
 @flash_attention_op.register_fake
 def _flash_attention_fake(q, k, v, causal, sm_scale):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("paddle_tpu_torch::masked_multihead_attention", mutates_args=())
+def masked_multihead_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
+                                  v_cache: torch.Tensor, lengths: torch.Tensor,
+                                  sm_scale: float) -> torch.Tensor:
+    from .decode_attention import masked_multihead_attention
+
+    with torch.no_grad():
+        return masked_multihead_attention(q, k_cache, v_cache, lengths, sm_scale)
+
+
+@masked_multihead_attention_op.register_fake
+def _masked_multihead_attention_fake(q, k_cache, v_cache, lengths, sm_scale):
     return torch.empty_like(q)

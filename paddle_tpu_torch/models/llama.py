@@ -582,19 +582,49 @@ class LlamaForCausalLM(nn.Module):
         if isinstance(input_ids, np.ndarray):
             input_ids = torch.from_numpy(input_ids)
         ids = input_ids.to(device=self.device, dtype=torch.int32)
-        B, P = ids.shape
         gen = generator if generator is not None else self.generator
-        sample = dict(do_sample=do_sample, temperature=temperature, top_k=top_k,
-                      top_p=top_p, eos=eos_token_id, generator=gen)
+        return self._generate_loop(ids, max_new_tokens, dict(
+            do_sample=do_sample, temperature=temperature, top_k=top_k, top_p=top_p,
+            eos=eos_token_id, generator=gen))
+
+    def _generate_loop(self, ids, max_new_tokens: int, sample: dict):
+        """``generate``'s loop over int32 ``ids`` ``[B, P]`` on the model's
+        device; ``export_generate`` traces it greedy."""
+        B, P = ids.shape
+        eos = sample["eos"]
         cache = self.init_cache(B, P + max_new_tokens)
         hidden, cache = self.decoder(ids, cache=cache)
-        done = torch.zeros(B, dtype=torch.bool, device=self.device)
+        done = torch.zeros(B, dtype=torch.bool, device=ids.device)
         tok = self._sample_next(self.head(hidden[:, -1]).float(), done, **sample)
         toks = [tok]
         for _ in range(max_new_tokens - 1):
-            if eos_token_id is not None:
-                done = done | (tok == eos_token_id)
+            if eos is not None:
+                done = done | (tok == eos)
             hidden, cache = self.decoder(tok[:, None], cache=cache)
             tok = self._sample_next(self.head(hidden[:, -1]).float(), done, **sample)
             toks.append(tok)
         return torch.cat([ids, torch.stack(toks, dim=1)], dim=1)
+
+    def export_generate(self, path: str, batch_size: int, prompt_len: int,
+                        max_new_tokens: int, eos_token_id: Optional[int] = None) -> int:
+        """Export greedy decoding as a ``jit.save`` artifact (``.pt2`` +
+        ``.pdiparams`` + ``.pdmodel.json``, format ``"torch.export"``; the
+        JAX package writes StableHLO) that ``jit.load`` and
+        ``inference.Predictor`` run: int32 ids ``[batch_size, prompt_len]``
+        in, ``[batch_size, prompt_len + max_new_tokens]`` out.  The program
+        is ``generate``'s loop, unrolled at these fixed shapes (a dense-cache
+        prefill, then one-token steps); its kernel entries are the custom
+        ops of ``kernels.export_ops``, so the loaded program launches the
+        RMSNorm and dense decode kernels as ``generate`` does.  Returns the
+        bytes written."""
+        from ..jit import export_artifact
+
+        sample = dict(do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
+                      eos=eos_token_id, generator=None)
+
+        def greedy(model, ids):
+            return model._generate_loop(ids, int(max_new_tokens), sample)
+
+        return export_artifact(self, [((batch_size, prompt_len), "int32")], path, call=greedy,
+                               meta={"generate": {"max_new_tokens": int(max_new_tokens),
+                                                  "eos_token_id": eos_token_id}})

@@ -19,6 +19,8 @@ Weights come from the port's own seeded generator.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -100,18 +102,21 @@ def build_config(preset: str, dtype: str) -> LlamaConfig:
 
 
 def build_pretrain_step(preset: str, device=None, batch=None, seq=None, steps=None,
-                        accum: int = 1, grad_dtype=None, seed: int = 0):
+                        accum: int = 1, grad_dtype=None, seed: int = 0, layers=None):
     """The pretrain ``TrainStep`` of a tiny/small/base/longctx preset.
 
     ``device`` defaults to CUDA (raising without a card).  Compute is bf16
     on a card and fp32 on the CPU, as ``bench.py`` picks it; ``seed`` seeds
-    the weights (the batch is always ``bench.py``'s).  Returns
+    the weights (the batch is always ``bench.py``'s); ``layers`` cuts the
+    decoder's depth (widths unchanged).  Returns
     ``(step_fn, ids, model, cfg, (batch, seq, steps))``; ``ids`` lie on the
     device, shaped ``[accum, batch, seq]`` when ``accum > 1``."""
     if preset not in DEFAULTS:
         raise ValueError(f"not a pretrain preset: {preset!r} (choose from {sorted(DEFAULTS)})")
     dev = default_device(device)
     cfg = build_config(preset, "bfloat16" if dev.type == "cuda" else "float32")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_hidden_layers=int(layers))
     d_batch, d_seq, d_steps = DEFAULTS[preset]
     batch = batch or d_batch
     seq = min(seq or d_seq, cfg.max_position_embeddings)

@@ -518,6 +518,7 @@ class SSDForCausalLM(nn.Module):
     forward = LlamaForCausalLM.forward
     compute_loss = LlamaForCausalLM.compute_loss
     _sample_next = LlamaForCausalLM._sample_next
+    _generate_loop = LlamaForCausalLM._generate_loop
     generate = LlamaForCausalLM.generate
 
 

@@ -1703,3 +1703,94 @@ def test_loader_workers_feed_a_cuda_step_without_initialising_cuda(cuda):
     assert not rows[:, 6].any()                           # CUDA never initialised in a worker
     assert os.getpid() not in set(rows[:, 4].tolist())
     assert adamw.adamw_update_leaves.launches == before + 4
+
+
+def test_device_cuda_counters_are_torch_cuda_s(cuda):
+    """paddle_tpu_torch.device.cuda answers from torch.cuda on the card."""
+    from paddle_tpu_torch.device import cuda as pcuda
+
+    x = torch.empty(1 << 20, device=cuda)
+    for name in ("max_memory_allocated", "max_memory_reserved", "memory_allocated",
+                 "memory_reserved"):
+        assert getattr(pcuda, name)() == getattr(torch.cuda, name)() > 0, name
+        assert getattr(pcuda, name)("gpu:0") == getattr(torch.cuda, name)(0)
+    assert pcuda.device_count() == torch.cuda.device_count()
+    assert pcuda.get_device_name() == torch.cuda.get_device_name(0)
+    assert pcuda.get_device_capability(0) == torch.cuda.get_device_capability(0)
+    assert pcuda.get_device_properties().total_memory == \
+        torch.cuda.get_device_properties(0).total_memory
+    pcuda.synchronize()
+    del x
+
+
+def test_event_pair_times_a_sleep_kernel(cuda):
+    """device.Event on the card is a CUDA event: a pair around a device
+    sleep reads its time, which the host did not wait for."""
+    import time
+
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("gpu")
+    try:
+        start, end = paddle.device.Event(), paddle.device.Event()
+        stream = paddle.device.current_stream()
+        torch.cuda.synchronize()
+        start.record(stream)
+        t0 = time.perf_counter()
+        torch.cuda._sleep(50_000_000)            # ~25 ms at ~2 GHz
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record(stream)
+        end.synchronize()
+        dev_ms = start.elapsed_time(end)
+        assert dev_ms > 5.0 and host_ms < dev_ms
+        side = paddle.device.Stream()
+        with paddle.device.stream_guard(side):
+            assert torch.cuda.current_stream() == side._cuda
+        side.wait_stream(stream)
+        side.synchronize()
+    finally:
+        paddle.set_device(None)
+
+
+def test_profiler_device_trace_holds_the_kernel(cuda, tmp_path, monkeypatch):
+    """Profiler with PADDLE_TPU_PROFILE_DIR: the torch.profiler trace holds
+    the RMSNorm kernel the span launched, the host spans its RecordEvent."""
+    import json
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.kernels.rms_norm import rms_norm
+
+    monkeypatch.setenv("PADDLE_TPU_PROFILE_DIR", str(tmp_path))
+    x = torch.randn(64, 4096, device=cuda, dtype=torch.bfloat16)
+    w = torch.ones(4096, device=cuda, dtype=torch.bfloat16)
+    rms_norm(x, w)
+    torch.cuda.synchronize()
+    prof = profiler.Profiler()
+    with prof:
+        with profiler.RecordEvent("norm"):
+            rms_norm(x, w)
+            torch.cuda.synchronize()
+    events = json.load(open(prof.device_trace_path))["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert sum("rms_norm" in k for k in kernels) == 1, kernels
+    assert "norm" in prof.summary()
+
+
+def test_exported_generate_launches_the_dense_decode_kernel(cuda, tmp_path):
+    """export_generate then a Predictor on the card: generate's ids, and
+    the dense decode kernel L x (new - 1) times, RMSNorm (2L + 1) x new."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+
+    model = _tiny_llama(cuda, "bfloat16")
+    L = model.config.num_hidden_layers
+    ids = np.random.default_rng(3).integers(1, 512, size=(2, 16)).astype(np.int32)
+    want, _ = _launched(lambda: model.generate(ids, max_new_tokens=8))
+    prefix = str(tmp_path / "gen")
+    model.export_generate(prefix, 2, 16, 8)
+    pred = paddle.inference.create_predictor(paddle.inference.Config(prefix))
+    pred.get_input_handle("input_0").copy_from_cpu(ids)
+    _, got_n = _launched(pred.run)
+    assert got_n == {"rms_norm": 8 * (2 * L + 1), "decode_attention_dense": 7 * L}
+    out = pred.get_output_handle("output_0").copy_to_cpu()
+    np.testing.assert_array_equal(out, want.cpu().numpy())

@@ -12,6 +12,8 @@ entries as often as the eager forward does (on the card those calls are
 the launches: ``tests/test_torch_gpu.py``).
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -186,3 +188,47 @@ def test_jax_artifact_weights_load_into_the_port(tiny_pair, tmp_path):
     tp.jit.save(fresh, prefix, input_spec=[tp.static.InputSpec([2, 16], "int32")])
     got = tp.jit.load(prefix)(tp.to_tensor(ids)).numpy()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_export_generate_predictor_matches_generate(tiny_pair, tmp_path, monkeypatch):
+    """``export_generate`` (B 2, P 16, 8 new tokens) run by a Predictor:
+    the ids of the port's ``generate`` and of the JAX ``generate`` on the
+    same weights; the program holds one custom op node a kernel entry call
+    (the dense decode entry L x 7, RMSNorm (2L + 1) x 8) and the loaded
+    program makes those calls."""
+    from paddle_tpu_torch.kernels import decode_attention as kdecode
+
+    tm, ids, _ = tiny_pair
+    jp.seed(7)
+    jm = JLlama(j_tiny(use_flash_attention=False))
+    want = np.asarray(jm.generate(jp.to_tensor(ids), max_new_tokens=8)._data)
+    eager = tm.generate(ids, max_new_tokens=8).numpy()
+    np.testing.assert_array_equal(eager, want)
+    path = str(tmp_path / "llama_gen")
+    assert tm.export_generate(path, 2, 16, 8) > 0
+    with open(path + ".pdmodel.json") as f:
+        meta = json.load(f)
+    assert meta["format"] == "torch.export" and meta["inputs"] == [
+        {"shape": [2, 16], "dtype": "int32"}]
+    assert meta["generate"] == {"max_new_tokens": 8, "eos_token_id": None}
+    L = tm.config.num_hidden_layers
+    targets = [str(n.target) for n in torch.export.load(path + ".pt2").graph.nodes
+               if n.op == "call_function"]
+    assert sum("paddle_tpu_torch.masked_multihead_attention" in t for t in targets) == 7 * L
+    assert sum("paddle_tpu_torch.rms_norm" in t for t in targets) == 8 * (2 * L + 1)
+
+    config = tp.inference.Config(path)
+    config.disable_gpu()
+    pred = tp.inference.create_predictor(config)
+    calls = _Calls(monkeypatch)
+    mmha = kdecode.masked_multihead_attention
+    n_decode = []
+    monkeypatch.setattr(kdecode, "masked_multihead_attention",
+                        lambda *a, **k: (n_decode.append(1), mmha(*a, **k))[1])
+    pred.get_input_handle("input_0").copy_from_cpu(ids)
+    assert pred.run()
+    out = pred.get_output_handle(pred.get_output_names()[0]).copy_to_cpu()
+    assert out.dtype == np.int32 and out.shape == (2, 16 + 8)
+    np.testing.assert_array_equal(out, want)
+    assert calls.take() == {"rms_norm": 8 * (2 * L + 1), "flash_attention": 0}
+    assert len(n_decode) == 7 * L

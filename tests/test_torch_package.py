@@ -32,7 +32,10 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.framework.tensor, paddle_tpu_torch.framework.autograd, "
             "paddle_tpu_torch.framework.dispatch, paddle_tpu_torch.framework.io, "
             "paddle_tpu_torch.framework.device, paddle_tpu_torch.framework.dtype, "
-            "paddle_tpu_torch.framework.random\n"
+            "paddle_tpu_torch.framework.random, paddle_tpu_torch.profiler, "
+            "paddle_tpu_torch.device, paddle_tpu_torch.device.cuda, paddle_tpu_torch.version, "
+            "paddle_tpu_torch.sysconfig, paddle_tpu_torch.serving.router, "
+            "paddle_tpu_torch.serving.loadgen\n"
             "import paddle_tpu_torch as paddle\n"
             "paddle.set_device('cpu')\n"
             "x = paddle.to_tensor([1.0, 2.0], stop_gradient=False)\n"
